@@ -1,0 +1,1 @@
+"""Port subpackage; see the package docstring."""

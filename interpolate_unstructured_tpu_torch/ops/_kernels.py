@@ -1,0 +1,124 @@
+"""Build and load the port's CUDA kernels.
+
+Every ``csrc/*.cu`` file is compiled by ``nvcc`` into one shared
+library with a plain C interface, bound with ``ctypes``:
+
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
+         --fmad=false -shared -Xcompiler -fPIC -o <lib> csrc/*.cu
+
+The library lands in ``build/kernels/`` at the repository root, named
+by a hash of the sources and flags, so a changed source rebuilds and an
+unchanged one loads at once.  ``--fmad=false`` keeps the kernels'
+rounding order equal to their plain PyTorch versions'.  The build runs
+on first use, never at import; a failed build raises with nvcc's
+output.  ``nvcc -Xptxas -v`` output (registers, shared memory, spills)
+is kept beside the library as ``<lib>.log``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "--fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+# name -> (restype, argtypes) of every C entry point
+_SIGNATURES = {
+    "iu_interp_bruteforce": (
+        _I, [_P, _P, _P, _I, _I, _I, _I, _F, _P, _P, _P, _P],
+    ),
+    "iu_cand_rows": (
+        _I,
+        [_P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _F, _I, _P, _P,
+         _P, _P, _P],
+    ),
+    "iu_error_string": (ctypes.c_char_p, [_I]),
+}
+
+_lib = None
+_lock = threading.Lock()
+
+
+def _nvcc() -> str:
+    for cand in (
+        os.path.join(os.environ.get("CUDA_HOME", ""), "bin", "nvcc"),
+        "/usr/local/cuda/bin/nvcc",
+    ):
+        if cand and os.path.isfile(cand):
+            return cand
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError(
+            "nvcc not found (looked in $CUDA_HOME/bin, /usr/local/cuda/bin "
+            "and PATH): the CUDA kernels cannot be built"
+        )
+    return found
+
+
+def _sources() -> list[Path]:
+    return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
+
+
+def library_path() -> Path:
+    """Where the library for the current sources and flags lives."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in _sources():
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return BUILD_DIR / f"libiu_kernels_{h.hexdigest()[:16]}.so"
+
+
+def build() -> Path:
+    """Compile the library if it is not built yet; return its path."""
+    out = library_path()
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+           *(str(s) for s in sorted(CSRC.glob("*.cu")))]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    log = out.with_name(out.name + ".log")
+    log.write_text(proc.stdout + proc.stderr)
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(
+            f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
+            f"{proc.stdout}{proc.stderr}"
+        )
+    os.replace(tmp, out)
+    return out
+
+
+def lib() -> ctypes.CDLL:
+    """The loaded kernel library (built on first use)."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            dll = ctypes.CDLL(str(build()))
+            for name, (res, args) in _SIGNATURES.items():
+                fn = getattr(dll, name)
+                fn.restype = res
+                fn.argtypes = args
+            _lib = dll
+    return _lib
+
+
+def check(code: int, what: str) -> None:
+    """Raise if a C entry point returned a CUDA error."""
+    if code != 0:
+        msg = lib().iu_error_string(code).decode()
+        raise RuntimeError(f"{what} launch failed: CUDA error {code} ({msg})")

@@ -1,0 +1,254 @@
+"""Kernel B2: the candidate-row probe of the cold locate.
+
+Counterpart of the JAX package's ``ops/pallas_cand.py``.  Each query
+reads the packed row of its bin (``table[idx]``): K candidate cells,
+role-major, column ``j*K + k`` for role j of candidate k.  The probe
+returns, per query, the first-occurrence argmax winner ``id_best`` of
+the face margins, the verdict ``aux`` (-2 found, >= 0 overflow-bin miss
+carrying the extension slot, -1 exact miss) and the winner's fused
+values (m_interp_unstructured.f90:766-786 containment, :529-641
+weights).  Three row layouts (see ``RowLayout.kind`` and the packers in
+``models/grid.py``).
+
+:func:`cand_rows_query` launches the CUDA kernel (``csrc/cand_rows.cu``)
+on CUDA tensors and runs :func:`probe_rows_plain`, the plain PyTorch
+version, on CPU tensors.  ``launches`` counts kernel launches.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from . import _kernels, wkern
+
+launches = 0
+
+_KIND_CODE = {"quantized": 0, "simplex": 1, "quad": 2}
+# 1/32767 rounded to float32, as the JAX kernel's jnp.float32(1/32767)
+QINV = float(np.float32(1.0 / 32767.0))
+
+
+@dataclasses.dataclass(frozen=True)
+class RowLayout:
+    """Where a probe finds things in a packed candidate row.
+
+    kind: "quantized" (int16 probe geometry + f32 value planes, queries
+      in the bin's local frame), "simplex" (unit planes + premultiplied
+      vertex data) or "quad" (planes + vertices + raw vertex data).
+    nf: faces (== vertices) per cell; k: candidates per row;
+    id_role: role of the cell ids; count_col: column of the count (the
+      quantized layout's dscale follows it);
+    var_roles: first role of each requested fused variable.
+    """
+
+    kind: str
+    nf: int
+    k: int
+    id_role: int
+    count_col: int
+    var_roles: tuple
+
+
+def _gather_rows(table, idx):
+    """``table[idx]``, moving float32 rows as int32 bits (packed int16
+    words are often NaN patterns, which a float copy may not keep)."""
+    if table.dtype == torch.float32:
+        return table.view(torch.int32)[idx.long()].view(torch.float32)
+    return table[idx.long()]
+
+
+def _margins_plain(g, rq, lay):
+    """(b, W) rows, (b, 3) queries -> per-face margins [(b, K)] * nf and
+    the masked cell margins (b, K), in the kernel's rounding order."""
+    K, nf = lay.k, lay.nf
+    rx, ry, rz = rq[:, 0:1], rq[:, 1:2], rq[:, 2:3]
+
+    def role(j):
+        return g[:, j * K:(j + 1) * K]
+
+    m_faces = []
+    if lay.kind == "quantized":
+        gi = g.view(torch.int32)
+        s_n = -(-3 * nf // 2)
+        inv = torch.tensor(QINV, dtype=torch.float32, device=g.device)
+        ds = g[:, lay.count_col + 1: lay.count_col + 2]
+
+        def unpack(j):  # slot j -> (even, odd) int16 components as f32
+            w = gi[:, j * K:(j + 1) * K]
+            return ((w << 16) >> 16).to(torch.float32), (w >> 16).to(
+                torch.float32
+            )
+
+        comps = []
+        for s in range(s_n):
+            comps.extend(unpack(s))
+        dcomps = []
+        for s in range(-(-nf // 2)):
+            dcomps.extend(unpack(s_n + s))
+        for f in range(nf):
+            proj = (
+                (comps[3 * f] * rx + comps[3 * f + 1] * ry)
+                + comps[3 * f + 2] * rz
+            ) * inv
+            m_faces.append(dcomps[f] * ds - proj)
+    else:
+        for f in range(nf):
+            proj = (role(f) * rx + role(nf + f) * ry) + role(2 * nf + f) * rz
+            m_faces.append(role(3 * nf + f) - proj)
+    margins = m_faces[0]
+    for mf in m_faces[1:]:
+        margins = torch.minimum(margins, mf)
+    if lay.kind == "quantized":
+        # padding slots carry no huge-offset sentinel (int16 can't hold
+        # one): mask them by the id sign
+        margins = torch.where(
+            role(lay.id_role) < 0, torch.full_like(margins, -1e30), margins
+        )
+    return m_faces, margins
+
+
+def _probe_plain(g, rq, lay, eps, ovf_base):
+    """Probe of gathered rows g (b, W); see :func:`probe_rows_plain`."""
+    K, nf = lay.k, lay.nf
+    npc = nf
+    rx, ry, rz = rq[:, 0], rq[:, 1], rq[:, 2]
+    m_faces, margins = _margins_plain(g, rq, lay)
+    k_best = torch.argmax(margins, dim=1)[:, None]  # first occurrence
+    m_best = margins.gather(1, k_best)[:, 0]
+
+    def pick(j):  # role j of the winner, (b,)
+        return g[:, j * K:(j + 1) * K].gather(1, k_best)[:, 0]
+
+    id_best = pick(lay.id_role).to(torch.int32)
+    cnt = g[:, lay.count_col].to(torch.int32)
+    neg_eps = torch.tensor(-eps, dtype=g.dtype, device=g.device)
+    found = (m_best >= neg_eps) & (id_best >= 0)
+    ovf_miss = (~found) & (cnt > ovf_base) & (id_best >= 0)
+    aux = torch.where(
+        found, -2, torch.where(ovf_miss, cnt - (ovf_base + 1), -1)
+    ).to(torch.int32)
+
+    vals = []
+    if lay.kind == "quantized":
+        # exact per-cell value planes: value = g . r_local + c
+        for pr in lay.var_roles:
+            vals.append(
+                ((pick(pr) * rx + pick(pr + 1) * ry) + pick(pr + 2) * rz)
+                + pick(pr + 3)
+            )
+    elif lay.kind == "quad":
+        v0 = 4 * nf
+        p = [[pick(v0 + v * 3 + d) for d in range(3)] for v in range(npc)]
+        w = wkern.quad_weights_generic(p, (rx, ry, rz), wkern.Plain(g.dtype))
+        for dr in lay.var_roles:
+            acc = w[0] * pick(dr)
+            for v in range(1, npc):
+                acc = acc + w[v] * pick(dr + v)
+            vals.append(acc)
+    else:
+        # barycentric straight from margins: the packed data of vertex v
+        # is premultiplied by its inverse height, so the weight of
+        # vertex v is the margin of face (v+1) % npc
+        mw = [mf.gather(1, k_best)[:, 0] for mf in m_faces]
+        for dr in lay.var_roles:
+            acc = mw[1 % npc] * pick(dr)
+            for v in range(1, npc):
+                acc = acc + mw[(v + 1) % npc] * pick(dr + v)
+            vals.append(acc)
+    if vals:
+        values = torch.stack(vals, dim=1)
+    else:
+        values = g.new_zeros((g.shape[0], 0))
+    return id_best, aux, values
+
+
+def probe_rows_plain(table, idx, rq, lay, eps, ovf_base, chunk):
+    """Plain PyTorch version of B2 (model: the JAX package's
+    ``ops/locate._probe_rows_xla``), on any device and float dtype.
+    Rows are gathered ``chunk`` queries at a time so the gathered
+    (chunk, W) block stays bounded.
+
+    Args:
+      table: (n_rows, W) packed rows (main or extension table).
+      idx: (B,) row of each query.
+      rq: (B, 3) queries — r_local (query minus bin center) for the
+        quantized layout, r otherwise.
+      lay: the table's :class:`RowLayout`.
+      eps: inside tolerance (plus the grid's cand_qeps when quantized).
+      ovf_base: count above which a miss is an overflow-bin miss
+        (main table: K; extension table: K + k_ext).
+    Returns (id_best (B,) int32, aux (B,) int32, values (B, V)).
+    """
+    outs = [
+        _probe_plain(
+            _gather_rows(table, idx[lo: lo + chunk]), rq[lo: lo + chunk],
+            lay, eps, ovf_base,
+        )
+        for lo in range(0, idx.shape[0], chunk)
+    ]
+    if not outs:
+        z = torch.zeros(0, dtype=torch.int32, device=idx.device)
+        return z, z, rq.new_zeros((0, len(lay.var_roles)))
+    return tuple(torch.cat([o[i] for o in outs]) for i in range(3))
+
+
+def cand_rows_cuda(table, idx, rq, lay, eps, ovf_base):
+    """Launch B2 on CUDA tensors: float32 table, int32 idx, float32 rq.
+    The kernel reads each query's row from the table itself."""
+    global launches
+    if table.dtype != torch.float32 or rq.dtype != torch.float32:
+        raise TypeError(
+            "the CUDA candidate kernel takes float32 tables and queries, "
+            f"got {table.dtype} / {rq.dtype}"
+        )
+    if idx.dtype != torch.int32:
+        raise TypeError(f"idx must be int32, got {idx.dtype}")
+    if not (table.device == idx.device == rq.device):
+        raise ValueError("table, idx and queries must share one device")
+    if table.ndim != 2 or not table.is_contiguous():
+        raise ValueError("table must be a contiguous (n_rows, W) tensor")
+    b = idx.shape[0]
+    if idx.ndim != 1 or rq.shape != (b, 3):
+        raise ValueError(
+            f"idx must be (B,), queries (B, 3): got {tuple(idx.shape)}, "
+            f"{tuple(rq.shape)}"
+        )
+    tail = 2 if lay.kind == "quantized" else 1
+    if lay.count_col + tail > table.shape[1] or lay.k < 1:
+        raise ValueError(f"row layout {lay} does not fit width {table.shape[1]}")
+    idx = idx.contiguous()
+    rq = rq.contiguous()
+    dev = table.device
+    vroles = torch.tensor(lay.var_roles, dtype=torch.int32, device=dev)
+    out_id = torch.empty(b, dtype=torch.int32, device=dev)
+    out_aux = torch.empty(b, dtype=torch.int32, device=dev)
+    vals = torch.empty((b, len(lay.var_roles)), dtype=torch.float32,
+                       device=dev)
+    if b == 0:
+        return out_id, out_aux, vals
+    with torch.cuda.device(dev):
+        code = _kernels.lib().iu_cand_rows(
+            table.data_ptr(), table.shape[1], idx.data_ptr(), rq.data_ptr(),
+            b, lay.k, lay.nf, _KIND_CODE[lay.kind], lay.id_role,
+            lay.count_col, float(eps), int(ovf_base), QINV,
+            len(lay.var_roles), vroles.data_ptr(), out_id.data_ptr(),
+            out_aux.data_ptr(), vals.data_ptr(),
+            torch.cuda.current_stream().cuda_stream,
+        )
+    _kernels.check(code, "iu_cand_rows")
+    launches += 1
+    return out_id, out_aux, vals
+
+
+def cand_rows_query(table, idx, rq, lay, eps, ovf_base, chunk):
+    """Candidate-row probe: the CUDA kernel for CUDA tensors, the plain
+    version (gathering ``chunk`` rows at a time) for CPU tensors.
+    Returns (id_best (B,) int32, aux (B,) int32, values (B, V))."""
+    if table.device.type == "cuda":
+        return cand_rows_cuda(table, idx, rq, lay, eps, ovf_base)
+    if table.device.type == "cpu":
+        return probe_rows_plain(table, idx, rq, lay, eps, ovf_base, chunk)
+    raise ValueError(f"no candidate probe for device {table.device}")

@@ -1,0 +1,127 @@
+"""Kernel B1: brute-force fused locate + interpolate for small meshes.
+
+Counterpart of the JAX package's ``ops/pallas_interp.py``.  For each
+query: the margin ``min_f (d_f - n_f . r)`` against every cell, the
+most interior cell by first-occurrence argmax, ``found = max >= -eps``,
+then the winner's tri/tet/quad weights contracted with its vertex
+values (m_interp_unstructured.f90:412-527).
+
+:func:`interpolate_bruteforce` launches the CUDA kernel
+(``csrc/interp_bruteforce.cu``) on CUDA tensors and runs
+:func:`interpolate_bruteforce_plain`, the plain PyTorch version, on CPU
+tensors.  ``launches`` counts kernel launches.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from . import _kernels, locate
+from .interp import _weights_from_geometry
+
+launches = 0
+
+_CELL_TYPE_CODE = {"triangle": 0, "quad": 1, "tetra": 2}
+
+
+def _payload(grid, i_vars):
+    """(C, npc*3 + 1 + npc*V) winner payload per cell: vertex coords |
+    volume | vertex values (vertex-major, ``k*V + v``)."""
+    n_cells = grid.n_cells
+    npc = grid.n_points_per_cell
+    pd_cell = grid.point_data[:, i_vars][grid.cells.long()]  # (C, npc, V)
+    return torch.cat(
+        [
+            grid.cell_points.reshape(n_cells, npc * 3),
+            grid.cell_volume[:, None],
+            pd_cell.reshape(n_cells, npc * i_vars.shape[0]),
+        ],
+        dim=1,
+    ).contiguous()
+
+
+def interpolate_bruteforce_plain(grid, r, i_vars):
+    """Plain PyTorch version of B1 (model: the JAX package's
+    ``ops/interp._interpolate_bruteforce``), on any device and float
+    dtype.  Tiled over the batch so the (tile, C, nf) margins stay
+    bounded.  Returns (values (B, V), i_cell (B,) int32, found (B,))."""
+    i_vars = torch.as_tensor(i_vars, dtype=torch.long, device=grid.device)
+    payload = _payload(grid, i_vars)
+    npc = grid.n_points_per_cell
+    n_vars = i_vars.shape[0]
+    neg_eps = torch.tensor(-grid.config.eps_inside, dtype=grid.dtype,
+                           device=grid.device)
+    b = r.shape[0]
+    tile = max(1024, (1 << 26) // max(grid.face_offsets.numel(), 1))
+    vals, ics, founds = [], [], []
+    for lo in range(0, b, tile):
+        rt = r[lo: lo + tile]
+        m = locate._containment_margins(grid, rt)  # (tile, C)
+        best = torch.argmax(m, dim=1)  # first occurrence of the max
+        found = m.gather(1, best[:, None])[:, 0] >= neg_eps
+        g = payload[best]
+        cp = g[:, : npc * 3].reshape(-1, npc, 3)
+        vol = g[:, npc * 3]
+        vv = g[:, npc * 3 + 1:].reshape(-1, npc, n_vars)
+        w = _weights_from_geometry(grid.cell_type, cp, vol, rt)
+        acc = w[:, 0, None] * vv[:, 0]
+        for k in range(1, npc):
+            acc = acc + w[:, k, None] * vv[:, k]
+        vals.append(acc)
+        ics.append(torch.where(found, best, -1).to(torch.int32))
+        founds.append(found)
+    if not vals:
+        return (
+            r.new_zeros((0, n_vars)),
+            torch.zeros(0, dtype=torch.int32, device=r.device),
+            torch.zeros(0, dtype=torch.bool, device=r.device),
+        )
+    return torch.cat(vals), torch.cat(ics), torch.cat(founds)
+
+
+def interpolate_bruteforce_cuda(grid, r, i_vars):
+    """Launch B1 on CUDA tensors (float32 grid and queries)."""
+    global launches
+    if grid.dtype != torch.float32 or r.dtype != torch.float32:
+        raise TypeError(
+            "the CUDA brute-force kernel takes float32 grids and queries, "
+            f"got {grid.dtype} / {r.dtype}"
+        )
+    if r.device != grid.device:
+        raise ValueError(f"queries on {r.device}, grid on {grid.device}")
+    if r.ndim != 2 or r.shape[1] != 3:
+        raise ValueError(f"queries must be (B, 3), got {tuple(r.shape)}")
+    r = r.contiguous()
+    i_vars = torch.as_tensor(i_vars, dtype=torch.long, device=grid.device)
+    payload = _payload(grid, i_vars)
+    # (C, nf, 4) face planes [nx ny nz d], staged by the kernel in tiles
+    planes = torch.cat(
+        [grid.face_normals, grid.face_offsets[..., None]], dim=2
+    ).contiguous()
+    b, n_vars = r.shape[0], i_vars.shape[0]
+    vals = torch.empty((b, n_vars), dtype=torch.float32, device=r.device)
+    ic = torch.empty(b, dtype=torch.int32, device=r.device)
+    found = torch.empty(b, dtype=torch.bool, device=r.device)
+    if b == 0:
+        return vals, ic, found
+    with torch.cuda.device(r.device):
+        code = _kernels.lib().iu_interp_bruteforce(
+            planes.data_ptr(), payload.data_ptr(), r.data_ptr(), b,
+            grid.n_cells, _CELL_TYPE_CODE[grid.cell_type], n_vars,
+            float(grid.config.eps_inside), vals.data_ptr(), ic.data_ptr(),
+            found.data_ptr(), torch.cuda.current_stream().cuda_stream,
+        )
+    _kernels.check(code, "iu_interp_bruteforce")
+    launches += 1
+    return vals, ic, found
+
+
+def interpolate_bruteforce(grid, r, i_vars):
+    """Fused locate + interpolate on a brute-force grid: the CUDA kernel
+    for CUDA tensors, the plain version for CPU tensors.  Returns
+    (values (B, V), i_cell (B,) int32 with -1 on a miss, found (B,))."""
+    if r.device.type == "cuda":
+        return interpolate_bruteforce_cuda(grid, r, i_vars)
+    if r.device.type == "cpu":
+        return interpolate_bruteforce_plain(grid, r, i_vars)
+    raise ValueError(f"no brute-force path for device {r.device}")

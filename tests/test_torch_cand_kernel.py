@@ -1,0 +1,244 @@
+"""Kernel B2 (candidate-row probe) against the JAX package.
+
+The JAX package's Pallas kernel runs in interpret mode
+(``pallas_cand.cand_rows_query(..., interpret=True)``), driven as
+``tests/test_pallas_cand.py`` drives it, on the float32 tables of a
+walk grid; the same tables are carried into the port with
+``grid_from_numpy`` and the port's plain version probes them with the
+same row indices and queries.  All three float32 row layouts are
+covered, on the main and on the extension table.  ``aux`` must be
+identical, and so must ``id_best``, except for a miss (exact or
+overflow) whose two best
+margins lie within 4 eps of each other: XLA contracts the JAX kernel's
+margin arithmetic into FMAs, torch rounds every operation, so an exact
+tie on one side may be broken by an ulp on the other.  A miss's
+``id_best`` is never used (an overflow miss reads only its slot).  Values agree to 1e-6 absolute plus 1e-6
+relative: the f32-simplex layout forms values as sums of margin x
+premultiplied-data products, where the FMA-versus-rounded difference
+reaches a few ulp of values near 5.
+
+The CUDA kernel is held against the plain version where a card exists;
+those tests use the port alone, so that on a machine without jax they
+run with ``python -m pytest --noconftest -m cuda tests/test_torch_*.py``.
+"""
+
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+import interpolate_unstructured_tpu_torch as tiu
+from interpolate_unstructured_tpu_torch.models.grid import (
+    DATA_FIELDS,
+    META_FIELDS,
+)
+from interpolate_unstructured_tpu_torch.ops import cand_kernel, locate
+from interpolate_unstructured_tpu_torch.utils import meshgen
+
+HOST = tiu.IUConfig(cand_build="host")
+CASES = {
+    # kind of row layout, cell type, mesh, config
+    "quantized-tetra": (
+        "quantized", "tetra", lambda: meshgen.tet_box_mesh(6, 6, 6), HOST,
+    ),
+    "quantized-triangle": (
+        "quantized", "triangle", lambda: meshgen.triangle_rect_mesh(24, 20),
+        HOST,
+    ),
+    "simplex-tetra": (
+        "simplex", "tetra", lambda: meshgen.tet_box_mesh(6, 6, 6),
+        dataclasses.replace(HOST, cand_quantized=False),
+    ),
+    "quad": ("quad", "quad", lambda: meshgen.quad_rect_mesh(24, 20), HOST),
+    "extension-tetra": (
+        "quantized", "tetra", lambda: meshgen.tet_box_mesh(12, 12, 12),
+        dataclasses.replace(HOST, cand_bins_per_cell=0.3, cand_ext_max_k=256,
+                            cand_cover_row_bytes=0),
+    ),
+}
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _warm_cpu_sqrt():
+    """Run torch.sqrt once on every intra-op thread before the tests.
+
+    On some virtualized x86 hosts the first float32 torch.sqrt that a worker
+    thread runs in a process returns values off by ~1e-4 relative for
+    that thread's chunk; every later call is exact.  The plain versions
+    under test call torch.sqrt (triangle and quad weights), so the
+    first, discarded call is made here."""
+    x = torch.rand(1 << 20) + 0.5
+    for _ in range(2):
+        torch.sqrt(x)
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+def _jax():
+    """The JAX package's modules (the reference side of a parity test)."""
+    pytest.importorskip("jax")
+    import jax.numpy as jnp
+
+    import interpolate_unstructured_tpu as jiu
+    from interpolate_unstructured_tpu.ops import locate as jlocate
+    from interpolate_unstructured_tpu.ops import pallas_cand
+
+    return jnp, jiu, jlocate, pallas_cand
+
+
+def carry(ug, device="cpu"):
+    """The JAX grid's state as a port grid (bit-identical tables)."""
+    leaves = {
+        f: None if getattr(ug, f) is None else np.asarray(getattr(ug, f))
+        for f in DATA_FIELDS
+    }
+    return tiu.grid_from_numpy(
+        leaves, {f: getattr(ug, f) for f in META_FIELDS}, device
+    )
+
+
+def _point_data(pts):
+    return {"Polynomial": pts.sum(1) + 1.0, "XY": pts[:, 0] * pts[:, 1]}
+
+
+def _queries(pts, cell_type, n):
+    rng = np.random.default_rng(5)
+    lo, hi = pts.min(0), pts.max(0)
+    span = hi - lo
+    r = (lo - 0.1 * span + rng.random((n, 3)) * 1.2 * span).astype(np.float32)
+    if cell_type != "tetra":
+        r[:, 2] = 0.0
+    return r
+
+
+def _setup(case, n=3000):
+    jnp, jiu, jlocate, _ = _jax()
+    kind, cell_type, mesh, cfg = CASES[case]
+    pts, cells, nbrs = mesh()
+    ug = jiu.build_grid(
+        pts, cells, nbrs, cell_type, dtype=jnp.float32, locate_mode="walk",
+        config=jiu.IUConfig(**dataclasses.asdict(cfg)),
+        point_data=_point_data(pts),
+    )
+    r = _queries(pts, cell_type, n)
+    # bin index and probe frame from the JAX package, handed to both
+    r_t = jnp.asarray(r).T
+    ijk = jlocate._cand_bin_ijk_t(ug, r_t)
+    nby, nbz = ug.cand_shape[1], ug.cand_shape[2]
+    idx = (ijk[0] * nby + ijk[1]) * nbz + ijk[2]
+    rq_t = jlocate._cand_local_t(ug, r_t, ijk) if kind == "quantized" else r_t
+    return ug, np.array(idx, np.int32), np.array(rq_t).T.copy()
+
+
+def _jax_probe(ug, table, idx, rq, k, lay, eps, ovf_base):
+    jnp, _, _, pallas_cand = _jax()
+    nv = ug.cand_nv
+    return pallas_cand.cand_rows_query(
+        ug, table, jnp.asarray(idx), jnp.asarray(rq).T, tuple(range(nv)),
+        lay.count_col, eps, ovf_base, k_max=k, interpret=True,
+        quantized=lay.kind == "quantized", nv_fused=nv,
+    )
+
+
+def _check_same(jout, tout, table, idx, rq, lay, eps):
+    jid, jaux, jvals = (np.asarray(x) for x in jout)
+    tid, taux, tvals = (x.numpy() for x in tout)
+    np.testing.assert_array_equal(taux, jaux)
+    differ = np.flatnonzero(tid != jid)
+    if len(differ):
+        assert (taux[differ] != -2).all()
+        g = table[torch.from_numpy(idx[differ]).long()]
+        _, m = cand_kernel._margins_plain(g, torch.from_numpy(rq[differ]), lay)
+        top2 = torch.topk(m, 2, dim=1).values
+        assert ((top2[:, 0] - top2[:, 1]) <= 4 * eps).all()
+        assert len(differ) <= 0.01 * len(tid)
+    found = taux == -2
+    np.testing.assert_allclose(tvals[found], jvals.T[found], rtol=1e-6,
+                               atol=1e-6)
+    return taux
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_plain_matches_pallas_interpret(case):
+    ug, idx, rq = _setup(case)
+    tg = carry(ug)
+    k = ug.cand_ids.shape[1]
+    slots = tuple(range(tg.cand_nv))
+    lay = locate._row_layout(tg, k, slots)
+    assert lay.kind == CASES[case][0]
+    eps = locate._cand_eps(tg)
+    tout = cand_kernel.probe_rows_plain(
+        tg.cand_table, torch.from_numpy(idx), torch.from_numpy(rq), lay,
+        eps, k, chunk=1024,
+    )
+    aux = _check_same(
+        _jax_probe(ug, ug.cand_table, idx, rq, k, lay, eps, k), tout,
+        tg.cand_table, idx, rq, lay, eps,
+    )
+    assert (aux == -2).any() and (aux == -1).any()
+
+    if ug.cand_ext_table is None:
+        return
+    # extension rows: every overflow-bin miss probes its bin's row
+    sel = np.flatnonzero(aux >= 0)
+    assert len(sel)
+    k_ext = ug.cand_ext_ids.shape[1]
+    lay_e = locate._row_layout(tg, k_ext, slots)
+    tout_e = cand_kernel.probe_rows_plain(
+        tg.cand_ext_table, torch.from_numpy(aux[sel]),
+        torch.from_numpy(rq[sel]), lay_e, eps, k + k_ext, chunk=1024,
+    )
+    aux_e = _check_same(
+        _jax_probe(ug, ug.cand_ext_table, aux[sel], rq[sel], k_ext, lay_e,
+                   eps, k + k_ext),
+        tout_e, tg.cand_ext_table, aux[sel], rq[sel], lay_e, eps,
+    )
+    assert (aux_e == -2).any()
+
+
+def test_port_probe_inputs_match_jax():
+    jnp, _, jlocate, _ = _jax()
+    ug, idx, rq = _setup("quantized-tetra")
+    tg = carry(ug)
+    r_t = torch.from_numpy(rq)  # any (B, 3) queries will do
+    jr_t = jnp.asarray(rq).T
+    jijk = jlocate._cand_bin_ijk_t(ug, jr_t)
+    tidx, trq = locate._cand_probe_inputs(tg, r_t)
+    nby, nbz = ug.cand_shape[1], ug.cand_shape[2]
+    np.testing.assert_array_equal(
+        tidx.numpy(), np.asarray((jijk[0] * nby + jijk[1]) * nbz + jijk[2])
+    )
+    np.testing.assert_array_equal(
+        trq.numpy(), np.asarray(jlocate._cand_local_t(ug, jr_t, jijk)).T
+    )
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(CASES))
+def test_cuda_kernel_matches_plain(cuda, case):
+    kind, cell_type, mesh, cfg = CASES[case]
+    pts, cells, nbrs = mesh()
+    tg = tiu.build_grid(pts, cells, nbrs, cell_type, dtype=torch.float32,
+                        locate_mode="walk", config=cfg,
+                        point_data=_point_data(pts), device=cuda)
+    r = torch.from_numpy(_queries(pts, cell_type, 100_000)).to(cuda)
+    idx, rq = locate._cand_probe_inputs(tg, r)
+    k = tg.cand_ids.shape[1]
+    lay = locate._row_layout(tg, k, tuple(range(tg.cand_nv)))
+    assert lay.kind == kind
+    eps = locate._cand_eps(tg)
+    args = (tg.cand_table, idx, rq, lay, eps, k)
+    before = cand_kernel.launches
+    kid, kaux, kvals = cand_kernel.cand_rows_query(*args, chunk=8192)
+    torch.cuda.synchronize()
+    assert cand_kernel.launches == before + 1
+    pid, paux, pvals = cand_kernel.probe_rows_plain(*args, chunk=8192)
+    assert torch.equal(kid, pid) and torch.equal(kaux, paux)
+    found = paux == -2
+    assert (kvals[found] - pvals[found]).abs().max().item() <= 2e-6
