@@ -3,32 +3,42 @@
 
     python3 chip_smoke.py
 
-Drives the cold interpolation path of ``interpolate_unstructured_tpu_torch``
+Drives the cold and warm paths of ``interpolate_unstructured_tpu_torch``
 on the card through its public entry points (``build_grid``, then
-``interpolate_scalar_at``):
+``interpolate_scalar_at`` with and without a guess):
 
 1. builds the CUDA kernels from ``interpolate_unstructured_tpu_torch/csrc``
-   into ``build/kernels/`` (set-up time);
+   into ``build/kernels/`` (set-up time; one nvcc call);
 2. brute-force phase: the 8-triangle mesh of the reference's
    benchmark.f90, an 8x8 quad mesh and a 750-tet box, 1M cold queries
    inside the bounding box plus 1% outside it (kernel B1);
 3. candidate phase: the 998,250-tet box of ``bench.py``, 10M uniform cold
-   queries (kernel B2), and a 10,368-tet box whose bins overflow into
-   an extension table;
-4. holds each kernel against its plain PyTorch version on the same CUDA
+   queries (kernel B2), then 10M warm queries guessed by the cold cells
+   plus 1% outside the box (B2, then B3 on the misses), and a
+   10,368-tet box whose bins overflow into an extension table;
+4. walk phase, ``bench.py``'s warm protocol on the same box built
+   without candidate tables: ``build_grid`` (its refine walks every seed
+   bin center, B3), 10M cold queries (bin-seeded walks), the same
+   points advected by 0.01 * velocity with the cold cells as guesses,
+   and 100k warm queries pushed out of the box (kernel B3);
+5. holds each kernel against its plain PyTorch version on the same CUDA
    tensors, checks linear exactness and found masks, and times kernel
    and plain version with CUDA events.
 
 Launch counters are zeroed right before each main-path call and read
 right after it; comparison and timing launches are not counted.  The
 last three lines are the card (nvidia-smi name, power limit), a JSON
-line of per-kernel results, and ``{"ok": true, "device": ...}``.  Any
-failed check raises before them, with a non-zero exit; without a CUDA
-device the script exits non-zero at once.
+line of per-kernel results, and ``{"ok": true, "device": ...}``.  Each
+kernel's ``bound_ms`` is the least time for its bytes at 3.35 TB/s or
+its float32 operations at 67 TFLOP/s (H100 SXM data sheet), whichever
+is larger, counted from this run's inputs.  Any failed check raises
+before them, with a non-zero exit; without a CUDA device the script
+exits non-zero at once.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -40,10 +50,25 @@ import torch
 N_BF = 1_000_000  # brute-force queries per mesh (benchmark.f90 protocol)
 N_CAND = 10_000_000  # cold queries on the 998k-tet mesh (bench.py)
 N_CMP = 1_000_000  # queries of the kernel-vs-plain comparison
-LIN_TOL = 2e-6  # float32 linear-exactness bound, both phases
+LIN_TOL = 2e-6  # float32 linear-exactness bound of B1 and the fused rows
+# interpolate_at_icell (every warm query, every walk-grid query) takes the
+# reference's tetra weights: f32 triple products over 6 * the f64 volume
+# cast to f32.  The triple products see the f32-rounded vertices, so the
+# weights sum to 1 only within ~(vertex rounding) / h, and the linear
+# error grows with the cell count (the walk phase prints it beside the
+# error of the same products over their own sum).  The bound stays far
+# below a wrong cell's error (h * |grad f| ~ 3e-2), and it is the JAX
+# package's own float32 gate on this mesh (bench.py:346);
+# tools/icell_error_witness.py measures the JAX package's error on the
+# walk phase's warm queries on the CPU.
+LIN_TOL_ICELL = 5e-5
 VAL_TOL = 2e-6  # kernel vs plain values where the cell ids agree
 AGREE = 0.99999  # share of queries whose ic/found/aux must be identical
 FILL = -7.0
+N_OFF = 100_000  # warm queries pushed out of the box, walk phase
+RP_TOL = 4e-6  # B3 vs plain final positions where the walks agree
+HBM_BYTES_S = 3.35e12  # H100 SXM memory rate
+F32_FLOPS_S = 67e12  # H100 SXM float32 rate outside the tensor cores
 
 
 def check(cond, msg):
@@ -72,6 +97,62 @@ def cuda_ms(fn, reps):
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def bound(n_bytes, n_ops):
+    """(bound_ms, bound_by): the larger of the bytes' time at the memory
+    rate and the float32 operations' time at the peak rate."""
+    t_bytes = n_bytes / HBM_BYTES_S * 1e3
+    t_ops = n_ops / F32_FLOPS_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def steady_s(fn, reps):
+    """Host seconds per call of ``fn`` (ending in a synchronize), after
+    the first call."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / reps
+
+
+@contextlib.contextmanager
+def plain_walks(walk_kernel):
+    """Inside the block every walk of the port runs the plain version."""
+    real = walk_kernel.walk_rows
+    walk_kernel.walk_rows = walk_kernel.walk_plain
+    try:
+        yield
+    finally:
+        walk_kernel.walk_rows = real
+
+
+@contextlib.contextmanager
+def timed_walks(walk_kernel, out):
+    """Inside the block every walk records CUDA events around its
+    ``walk_rows`` call; after it, ``out`` holds (lanes, ms) per walk."""
+    real = walk_kernel.walk_rows
+    events = []
+
+    def timed(table, r0, *rest):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        res = real(table, r0, *rest)
+        end.record()
+        events.append((r0.shape[0], start, end))
+        return res
+
+    walk_kernel.walk_rows = timed
+    try:
+        yield
+    finally:
+        walk_kernel.walk_rows = real
+    torch.cuda.synchronize()
+    out.extend((n, s.elapsed_time(e)) for n, s, e in events)
 
 
 def main_path(fn, counters):
@@ -110,7 +191,8 @@ def compare(name, k_ic, p_ic, k_vals, p_vals, margins_of, tol_band,
     return n_bad, err
 
 
-def bruteforce_phase(dev, tiu, meshgen, interp_kernel, locate, cand_kernel):
+def bruteforce_phase(dev, tiu, meshgen, interp_kernel, locate, cand_kernel,
+                     walk_kernel):
     rng = np.random.default_rng(1)
     meshes = [
         ("triangle", "triangle_rect_mesh(2,2)", meshgen.triangle_rect_mesh(2, 2)),
@@ -136,7 +218,7 @@ def bruteforce_phase(dev, tiu, meshgen, interp_kernel, locate, cand_kernel):
 
         (vals, ic, found), counts = main_path(
             lambda: tiu.interpolate_scalar_at(grid, r, 0, fill_value=FILL),
-            (interp_kernel, cand_kernel),
+            (interp_kernel, cand_kernel, walk_kernel),
         )
         n_b1 = counts[interp_kernel.__name__]
         check(n_b1 >= 1, f"{label}: B1 was not launched on the main path")
@@ -179,7 +261,18 @@ def bruteforce_phase(dev, tiu, meshgen, interp_kernel, locate, cand_kernel):
               f"{e2e * 1e3:.4f} ms = {N_BF / e2e:.4e} queries/s; "
               f"linear error {lin:.3e}")
         res["rows"].append((label, grid.n_cells, ms_k, ms_p, e2e, lin))
+        # B1 at 1M queries: C * nf plane evaluations of 7 flops per query
+        # (3 mul, 2 add, 1 sub, 1 min); bytes: queries in, values, ids
+        # and flags out, planes and payload once
+        nc, nf = grid.n_cells, grid.n_faces_per_cell
+        res["bound"] = bound(
+            N_BF * (12 + 4 + 4 + 1) + nc * nf * 16
+            + nc * (grid.n_points_per_cell * 4 + 1) * 4,
+            N_BF * nc * nf * 7,
+        )
     res["ms"], res["plain_ms"] = res["rows"][-1][2], res["rows"][-1][3]
+    print(f"B1 bound at 1M queries on {res['rows'][-1][0]}: "
+          f"{res['bound'][0]:.4f} ms ({res['bound'][1]})")
     return res
 
 
@@ -200,7 +293,9 @@ def probe_compare(name, grid, table, idx, rq, k, ovf_base, cand_kernel, locate):
     return n_bad, err, lay, eps, kaux
 
 
-def candidate_phase(dev, tiu, meshgen, interp_kernel, locate, cand_kernel):
+def candidate_phase(dev, tiu, meshgen, interp_kernel, locate, cand_kernel,
+                    walk_kernel):
+    counters = (interp_kernel, cand_kernel, walk_kernel)
     res = {}
     n = 55
     t0 = time.perf_counter()
@@ -229,7 +324,7 @@ def candidate_phase(dev, tiu, meshgen, interp_kernel, locate, cand_kernel):
     t0 = time.perf_counter()
     (vals, ic, found), counts = main_path(
         lambda: tiu.interpolate_scalar_at(grid, r, 0, fill_value=0.0),
-        (interp_kernel, cand_kernel),
+        counters,
     )
     first_s = time.perf_counter() - t0
     res["launches"] = counts[cand_kernel.__name__]
@@ -264,7 +359,58 @@ def candidate_phase(dev, tiu, meshgen, interp_kernel, locate, cand_kernel):
           f"({ms_k / 10:.4f} ms per 1M), plain {ms_p:.4f} ms; bin index + "
           f"local frame {ms_prep:.4f} ms; row {grid.cand_table.shape[1] * 4} B")
     res["ms"], res["plain_ms"], res["e2e_s"] = ms_k, ms_p, e2e
-    del idx, rq, vals, ic, found, r, grid
+    # B2 bytes per query: the probe roles of K candidates (int16 normal
+    # and offset words, ids), count and dscale, the winner's value plane;
+    # the query, its bin index; id, aux and one value out
+    n_roles = -(-3 * lay.nf // 2) + -(-lay.nf // 2) + 1
+    per_query = n_roles * k * 4 + 8 + 16 + 12 + 4 + 12
+    res["bound"] = bound(N_CAND * per_query, N_CAND * k * lay.nf * 9)
+    n_rows = int(torch.unique(idx).numel())
+    print(f"B2 bound at 10M queries: {res['bound'][0]:.4f} ms "
+          f"({res['bound'][1]}; {per_query} B per query); the {n_rows} "
+          f"distinct rows read once would take "
+          f"{n_rows * n_roles * k * 4 / HBM_BYTES_S * 1e3:.4f} ms")
+    del idx, rq, vals, found
+
+    # Warm on the candidate grid: the points moved, guessed by the cold
+    # cells, plus 1% pushed out of the box with in-mesh guesses.  Every
+    # query takes the candidate probe (B2); the misses walk from their
+    # guess (B3) and report the walk's boundary code.
+    rng = np.random.default_rng(5)
+    vel = torch.from_numpy(rng.random((N_CAND, 3)).astype(np.float32)).to(dev)
+    r_in = 0.005 + 0.98 * r + 0.01 * vel
+    n_out = N_CAND // 100
+    r_out = r_in[:n_out].clone()
+    r_out[:, 1] = 1.01 + 0.5 * torch.from_numpy(
+        rng.random(n_out).astype(np.float32)).to(dev)
+    rq_all = torch.cat([r_in, r_out])
+    guess = torch.cat([ic, ic[:n_out]])
+    del vel, r_out
+    (vals, ic_w, found), counts = main_path(
+        lambda: tiu.interpolate_scalar_at(grid, rq_all, 0, guess=guess,
+                                          fill_value=FILL),
+        counters,
+    )
+    n_b2, n_b3 = counts[cand_kernel.__name__], counts[walk_kernel.__name__]
+    check(n_b2 >= 1 and n_b3 >= 1,
+          f"candidate warm path launched B2 {n_b2}, B3 {n_b3} times")
+    res["launches"] += n_b2
+    res["walk_launches"] = n_b3
+    check(bool(found[:N_CAND].all()), "candidate warm: an inside query was lost")
+    check(not bool(found[N_CAND:].any()), "candidate warm: outside query found")
+    check(bool((ic_w[N_CAND:] < 0).all() and (vals[N_CAND:] == FILL).all()),
+          "candidate warm: outside queries lack a boundary code or the fill")
+    lin = float((vals[:N_CAND].double() - (r_in.double().sum(1) + 1.0))
+                .abs().max())
+    check(lin <= LIN_TOL_ICELL,
+          f"candidate warm linear-exactness error {lin}")
+    e2e_w = steady_s(lambda: tiu.interpolate_scalar_at(
+        grid, rq_all, 0, guess=guess, fill_value=FILL), 3)
+    print(f"B2+B3 candidate grid, {rq_all.shape[0]} warm queries (1% "
+          f"outside): steady {e2e_w * 1e3:.4f} ms = "
+          f"{rq_all.shape[0] / e2e_w:.4e} queries/s; B2 launches {n_b2}, "
+          f"B3 launches {n_b3}; linear error {lin:.3e}")
+    del vals, ic, ic_w, found, r, r_in, rq_all, guess, grid
     torch.cuda.empty_cache()
 
     # Extension table: bins overflow K and spill into extension rows
@@ -307,6 +453,194 @@ def candidate_phase(dev, tiu, meshgen, interp_kernel, locate, cand_kernel):
     return res
 
 
+def near_face(grid, r, ic, band):
+    """Whether each position lies within ``band`` of a face plane of its
+    cell (negative cells never qualify)."""
+    c = ic.clamp_min(0).long()
+    n = grid.face_normals[c]
+    m = grid.face_offsets[c] - (
+        (n[..., 0] * r[:, 0, None] + n[..., 1] * r[:, 1, None])
+        + n[..., 2] * r[:, 2, None]
+    )
+    return (ic >= 0) & (m.abs().amin(dim=1) <= band)
+
+
+def walk_compare(name, grid, kout, pout):
+    """B3 vs plain: ic, status and steps identical on >= AGREE of the
+    lanes, every disagreement a near-tie (the final position within
+    4 eps_inside of a face of either final cell), positions within
+    RP_TOL where the walks agree.  Returns max |r_p diff| there."""
+    kic, krp, ksteps, kst = kout
+    pic, prp, psteps, pst = pout
+    same = (kic == pic) & (kst == pst) & (ksteps == psteps)
+    bad = torch.nonzero(~same).squeeze(1)
+    n_bad = int(bad.numel())
+    check(n_bad <= (1 - AGREE) * same.numel(),
+          f"{name}: {n_bad} of {same.numel()} walks differ")
+    if n_bad:
+        band = 4 * grid.config.eps_inside
+        near = near_face(grid, krp[bad], kic[bad], band) | near_face(
+            grid, prp[bad], pic[bad], band)
+        check(bool(near.all()), f"{name}: a disagreement is not a near-tie")
+    err = float((krp[same] - prp[same]).abs().max()) if same.any() else 0.0
+    check(err <= RP_TOL, f"{name}: final positions differ by {err}")
+    print(f"{name}: kernel vs plain: {n_bad} of {same.numel()} walks differ; "
+          f"max |r_p diff| {err:.3e}")
+    return err
+
+
+def walk_phase(dev, tiu, meshgen, interp_kernel, locate, cand_kernel,
+               walk_kernel):
+    """bench.py's warm protocol on the 998,250-tet box without candidate
+    tables: every query walks (kernel B3)."""
+    from interpolate_unstructured_tpu_torch.ops import wkern
+
+    counters = (interp_kernel, cand_kernel, walk_kernel)
+    res = {"launches": {}}
+    n = 55
+    pts, cells, nbrs = meshgen.tet_box_mesh(n, n, n)
+    timings = {}
+    t0 = time.perf_counter()
+    grid, counts = main_path(lambda: tiu.build_grid(
+        pts, cells, nbrs, "tetra", point_data={"Polynomial": pts.sum(1) + 1.0},
+        dtype=torch.float32, locate_mode="walk",
+        config=tiu.IUConfig(use_candidate_bins=False), device=dev,
+        timings=timings), counters)
+    build_s = time.perf_counter() - t0
+    del pts, cells, nbrs
+    check(grid.cand_table is None, "walk grid has candidate tables")
+    res["launches"]["refine"] = counts[walk_kernel.__name__]
+    check(res["launches"]["refine"] >= 1,
+          "B3 was not launched by build_grid's refine")
+    n_bins = int(np.prod(grid.bin_shape))
+    res["build_s"], res["timings"] = build_s, timings
+    print(f"B3 walk grid tet_box_mesh({n},{n},{n}), no candidate tables: "
+          f"build_grid {build_s:.3f} s split "
+          + json.dumps({kk: round(v, 4) for kk, v in timings.items()})
+          + f"; {n_bins} seed bins {grid.bin_shape} self-located by the "
+          f"refine ({res['launches']['refine']} B3 launches)")
+
+    rng = np.random.default_rng(4)
+    r = torch.from_numpy(
+        (0.1 + 0.8 * rng.random((N_CAND, 3))).astype(np.float32)).to(dev)
+    vel = torch.from_numpy(rng.random((N_CAND, 3)).astype(np.float32)).to(dev)
+    r_warm = r + 0.01 * vel
+    del vel
+
+    def truth(q):
+        return q.double().sum(1) + 1.0
+
+    (vals, ic, found), counts = main_path(
+        lambda: tiu.interpolate_scalar_at(grid, r, 0, fill_value=FILL),
+        counters)
+    res["launches"]["cold"] = counts[walk_kernel.__name__]
+    check(res["launches"]["cold"] >= 1, "B3 was not launched on the cold walk")
+    check(bool(found.all()), f"{int((~found).sum())} cold queries not found")
+    lin_c = float((vals.double() - truth(r)).abs().max())
+    check(lin_c <= LIN_TOL_ICELL, f"cold walk linear-exactness error {lin_c}")
+    cold_s = steady_s(lambda: tiu.interpolate_scalar_at(grid, r, 0), 3)
+
+    (vals, ic_w, found), counts = main_path(
+        lambda: tiu.interpolate_scalar_at(grid, r_warm, 0, guess=ic,
+                                          fill_value=FILL),
+        counters)
+    res["launches"]["warm"] = counts[walk_kernel.__name__]
+    check(res["launches"]["warm"] >= 1, "B3 was not launched on the warm walk")
+    check(bool(found.all()), f"{int((~found).sum())} warm queries not found")
+    lin_w = float((vals.double() - truth(r_warm)).abs().max())
+    check(lin_w <= LIN_TOL_ICELL, f"warm walk linear-exactness error {lin_w}")
+    warm_s = steady_s(
+        lambda: tiu.interpolate_scalar_at(grid, r_warm, 0, guess=ic), 3)
+    res["cold_s"], res["warm_s"] = cold_s, warm_s
+    # The reference's tetra weights (triple products over 6 * volume)
+    # against the same triple products over their own sum: the share of
+    # the linear error that the volume normalization causes
+    cp = grid.cell_points[ic_w.long()]
+    v = [[cp[:, k, d] for d in range(3)] for k in range(4)]
+    t = wkern.tetra_triples(v, [r_warm[:, d] for d in range(3)],
+                            wkern.Plain(torch.float32))
+    vv = grid.point_data[:, 0][grid.cells[ic_w.long()].long()]
+    t_sum = (t[0] + t[1]) + (t[2] + t[3])
+    acc = t[0] / t_sum * vv[:, 0]
+    for k in range(1, 4):
+        acc = acc + t[k] / t_sum * vv[:, k]
+    lin_sum = float((acc.double() - truth(r_warm)).abs().max())
+    del cp, v, t, vv, t_sum, acc
+    print(f"B3 warm linear error {lin_w:.3e} with the reference's tetra "
+          f"weights, {lin_sum:.3e} with the triple products over their sum")
+    # split: locate (seed + B3 walks) and interpolate_at_icell (torch)
+    loc_c = steady_s(lambda: tiu.get_cell(grid, r), 3)
+    loc_w = steady_s(lambda: tiu.get_cell(grid, r_warm, ic), 3)
+    icell = steady_s(lambda: tiu.interpolate_at_icell(grid, r_warm, [0], ic_w),
+                     3)
+    # B3's share of get_cell: event pairs around each walk of one call
+    for label, call, loc_s in (
+        ("cold", lambda: tiu.get_cell(grid, r), loc_c),
+        ("warm", lambda: tiu.get_cell(grid, r_warm, ic), loc_w),
+    ):
+        walks = []
+        with timed_walks(walk_kernel, walks):
+            call()
+        b3_ms = sum(ms for _, ms in walks)
+        print(f"B3 walks of one 10M {label} get_cell (CUDA events): "
+              + ", ".join(f"{n} lanes {ms:.4f} ms" for n, ms in walks)
+              + f"; {b3_ms:.4f} ms of {loc_s * 1e3:.4f} ms")
+    print(f"B3 10M cold interpolate_scalar_at (bin-seeded walks): steady "
+          f"{cold_s * 1e3:.4f} ms = {N_CAND / cold_s:.4e} queries/s "
+          f"(get_cell {loc_c * 1e3:.4f} ms); linear error {lin_c:.3e}")
+    print(f"B3 10M warm interpolate_scalar_at (guess = cold cells, moved "
+          f"by 0.01 * velocity): steady {warm_s * 1e3:.4f} ms = "
+          f"{N_CAND / warm_s:.4e} queries/s (get_cell {loc_w * 1e3:.4f} ms, "
+          f"interpolate_at_icell {icell * 1e3:.4f} ms); linear error "
+          f"{lin_w:.3e}")
+
+    # Off-domain: warm queries pushed out of the box, in-mesh guesses
+    r_off = r_warm[:N_OFF].clone()
+    r_off[:, 0] = 1.01 + 0.5 * torch.from_numpy(
+        rng.random(N_OFF).astype(np.float32)).to(dev)
+    g_off = ic_w[:N_OFF]
+    (v_off, ic_off, f_off), counts = main_path(
+        lambda: tiu.interpolate_scalar_at(grid, r_off, 0, guess=g_off,
+                                          fill_value=FILL),
+        counters)
+    res["launches"]["off_domain"] = counts[walk_kernel.__name__]
+    check(not bool(f_off.any()), "an off-domain query was found")
+    check(bool((ic_off < 0).all() and (v_off == FILL).all()),
+          "off-domain queries lack a boundary code or the fill")
+    with plain_walks(walk_kernel):
+        ic_off_p, f_off_p = tiu.get_cell(grid, r_off, g_off)
+    check(torch.equal(ic_off, ic_off_p) and not bool(f_off_p.any()),
+          "off-domain boundary codes differ from the plain walk's")
+    print(f"B3 {N_OFF} off-domain warm queries: none found, boundary codes "
+          f"{torch.unique(ic_off).tolist()} equal the plain walk's")
+
+    # B3 against its plain version on the first 1M warm lanes, then
+    # both timed on all 10M warm lanes (one walk each, to the end)
+    start = ic[:N_CMP]
+    args = locate._walk_args(grid, locate._walk_origin(grid, start),
+                             r_warm[:N_CMP], start)
+    res["max_abs_err"] = walk_compare(
+        "B3 998k-tet warm walks, first 1M", grid,
+        walk_kernel.walk_cuda(*args), walk_kernel.walk_plain(*args))
+    args = locate._walk_args(grid, locate._walk_origin(grid, ic), r_warm, ic)
+    steps = walk_kernel.walk_cuda(*args)[2]
+    sum_steps = int(steps.sum())
+    ms_k = cuda_ms(lambda: walk_kernel.walk_cuda(*args), 10)
+    ms_p = cuda_ms(lambda: walk_kernel.walk_plain(*args), 2)
+    nf = grid.n_faces_per_cell
+    # bytes: per lane r0, u, total, active, ic0 in and ic, r_p, steps,
+    # status out (57 B), plus the nf*5 leading floats of the row of
+    # every step; ~12 flops per face and step
+    res["bound"] = bound(N_CAND * 57 + sum_steps * nf * 5 * 4,
+                         sum_steps * nf * 12)
+    res["ms"], res["plain_ms"] = ms_k, ms_p
+    print(f"B3 998k-tet, 10M warm walks ({sum_steps / N_CAND:.4f} steps per "
+          f"walk, max {int(steps.max())}): kernel {ms_k:.4f} ms, plain "
+          f"{ms_p:.4f} ms; bound {res['bound'][0]:.4f} ms "
+          f"({res['bound'][1]})")
+    return res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
@@ -318,6 +652,7 @@ def main() -> int:
         cand_kernel,
         interp_kernel,
         locate,
+        walk_kernel,
     )
     from interpolate_unstructured_tpu_torch.utils import meshgen
 
@@ -337,9 +672,14 @@ def main() -> int:
             if "registers" in line or "Compiling entry" in line or "spill" in line:
                 print(line.strip())
 
-    args = (dev, tiu, meshgen, interp_kernel, locate, cand_kernel)
+    args = (dev, tiu, meshgen, interp_kernel, locate, cand_kernel,
+            walk_kernel)
     b1 = bruteforce_phase(*args)
     b2 = candidate_phase(*args)
+    b3 = walk_phase(*args)
+    b3_launches = sum(b3["launches"].values()) + b2["walk_launches"]
+    print("B3 launches on the main path: " + json.dumps(
+        {**b3["launches"], "candidate_warm": b2["walk_launches"]}))
 
     pkg = "interpolate_unstructured_tpu_torch"
     kernels = [
@@ -347,12 +687,23 @@ def main() -> int:
          "source": f"{pkg}/csrc/interp_bruteforce.cu",
          "replaces": "interpolate_unstructured_tpu/ops/pallas_interp.py:93",
          "launches": b1["launches"], "max_abs_err": b1["max_abs_err"],
-         "ms": b1["ms"], "plain_ms": b1["plain_ms"]},
+         "ms": b1["ms"], "plain_ms": b1["plain_ms"],
+         "bound_ms": b1["bound"][0], "bound_by": b1["bound"][1],
+         "library_ms": None},
         {"name": "B2 cand_rows", "route": "cuda",
          "source": f"{pkg}/csrc/cand_rows.cu",
          "replaces": "interpolate_unstructured_tpu/ops/pallas_cand.py:64",
          "launches": b2["launches"], "max_abs_err": b2["max_abs_err"],
-         "ms": b2["ms"], "plain_ms": b2["plain_ms"]},
+         "ms": b2["ms"], "plain_ms": b2["plain_ms"],
+         "bound_ms": b2["bound"][0], "bound_by": b2["bound"][1],
+         "library_ms": None},
+        {"name": "B3 walk", "route": "cuda",
+         "source": f"{pkg}/csrc/walk.cu",
+         "replaces": "interpolate_unstructured_tpu/ops/pallas_walk.py:84",
+         "launches": b3_launches, "max_abs_err": b3["max_abs_err"],
+         "ms": b3["ms"], "plain_ms": b3["plain_ms"],
+         "bound_ms": b3["bound"][0], "bound_by": b3["bound"][1],
+         "library_ms": None},
     ]
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -1,15 +1,16 @@
 """``Grid`` — the unstructured grid as a frozen dataclass of torch tensors.
 
-The port of the JAX package's ``models/grid.py`` (``UGrid``) for the
-cold interpolation slice: the same SoA schema (0-based, batch-first
-``(n_cells, npc, 3)`` layouts), the same per-face ``face_offsets`` and
-the same packed candidate-row tables, bit for bit, so that the CUDA
-probe (``ops/cand_kernel.py``) reads exactly the rows the TPU kernel
-read.  Every tensor of a grid lies on one device (``Grid.device``).
+The port of the JAX package's ``models/grid.py`` (``UGrid``): the same
+SoA schema (0-based, batch-first ``(n_cells, npc, 3)`` layouts), the
+same per-face ``face_offsets``, the same seed, walk and packed
+candidate-row tables, bit for bit, so that the CUDA kernels
+(``ops/cand_kernel.py``, ``ops/walk_kernel.py``) read exactly the rows
+the TPU kernels read.  Every tensor of a grid lies on one device
+(``Grid.device``).
 
-Leaves of later slices (seed and walk tables, kd-tree, accurate mode)
-exist and are ``None``.  Host preprocessing runs in float64 numpy, then
-the tensors move to the device, where the candidate rows are packed.
+Leaves of later slices (accurate mode) exist and are ``None``.  Host
+preprocessing runs in float64 numpy, then the tensors move to the
+device, where the walk and candidate rows are assembled.
 """
 
 from __future__ import annotations
@@ -64,14 +65,14 @@ class Grid:
     icell_data: Any  # (n_cells, >= n_icell_data) int32
     rmin: Any  # (3,) bounding box min
     rmax: Any  # (3,) bounding box max
-    # --- warm-path seed and walk tables (later slice) -----------------------
-    bin_table: Any = None
-    bin_rmin: Any = None
-    bin_inv_h: Any = None
-    bin_pack: Any = None
-    walk_table: Any = None
-    kd_node_points: Any = None
-    kd_node_ids: Any = None
+    # --- seed and walk tables ------------------------------------------------
+    bin_table: Any = None  # (n_bins,) int32 seed cell per bin
+    bin_rmin: Any = None  # (3,)
+    bin_inv_h: Any = None  # (3,), 0 for unused dims
+    bin_pack: Any = None  # (n_bins, 4): seed id as float | seed center xyz
+    walk_table: Any = None  # (n_cells, 512 bytes) packed walk rows
+    kd_node_points: Any = None  # (n_cells, 3) kd-tree nodes (seed_mode="kdtree")
+    kd_node_ids: Any = None  # (n_cells,) int32
     # --- per-bin candidate tables (ops.geometry.build_candidate_bins) -------
     cand_ids: Any = None  # (n_cand_bins, K) int32, -1 padded
     cand_count: Any = None  # (n_cand_bins,) int32 exact intersection count
@@ -160,16 +161,19 @@ def build_grid(
     dtype: torch.dtype | None = None,
     config: IUConfig = DEFAULT_CONFIG,
     locate_mode: str = "auto",
-    device: str | torch.device = "cpu",
+    device: str | torch.device | None = None,
     timings: dict | None = None,
 ) -> Grid:
     """Build a grid on ``device`` from host arrays.
 
     Preprocessing (cell point gather, outward unit normals, volumes,
-    boundary flags, bbox, candidate lists) runs on the host in float64
-    — the batch equivalent of iu_read_grid's preprocessing chain
-    (:916-925) — then the tensors move to ``device`` in ``dtype`` and
-    the candidate rows are packed there.
+    boundary flags, bbox, seed table, kd-tree, candidate lists) runs on
+    the host in float64 — the batch equivalent of iu_read_grid's
+    preprocessing chain (:916-925) — then the tensors move to
+    ``device`` in ``dtype``, and the walk and candidate rows are
+    assembled there.  Walk grids without candidate tables then reseed
+    their bin table with the cell containing each bin center
+    (``config.refine_bin_seeds``), a walk of every bin center.
 
     Args:
       points: (n_points, >=2) coordinates; padded to 3D.
@@ -181,13 +185,24 @@ def build_grid(
       dtype: float dtype of the grid; defaults to
         ``torch.get_default_dtype()``.  CUDA kernels take float32 grids.
       locate_mode: "auto" picks brute force for meshes of at most
-        ``config.bruteforce_max_cells`` cells, candidate rows above.
-      device: where the grid's tensors live.
+        ``config.bruteforce_max_cells`` cells, walks (seeded by candidate
+        rows, bins or the kd-tree) above.
+      device: where the grid's tensors live; by default the CUDA device,
+        and a process without one raises (pass ``"cpu"`` for the host).
       timings: optional dict, filled with the build's phase split —
-        ``host_geometry_s``, ``transfer_s`` (host arrays -> device),
-        ``cand_build_s`` (host candidate lists), ``cand_pack_s``
-        (row packing on the device).
+        ``host_geometry_s``, ``seed_table_s`` (bin seed table and
+        kd-tree), ``transfer_s`` (host arrays -> device, walk rows),
+        ``cand_build_s`` (host candidate lists), ``cand_pack_s`` (row
+        packing on the device), ``refine_s`` (the bin-seed refine).
     """
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "build_grid puts the grid on the CUDA device by default, "
+                "and torch.cuda.is_available() is false; pass device='cpu' "
+                "to build on the host"
+            )
+        device = "cuda"
     device = torch.device(device)
     want_timings = timings is not None
     if timings is None:
@@ -243,8 +258,8 @@ def build_grid(
     # (float32 mantissa); guard so the tables are never silently lossy.
     if n_cells >= (1 << 24) and dtype == torch.float32:
         raise ValueError(
-            "float32 grids support up to 2^24 cells (packed candidate "
-            "rows); build with dtype=torch.float64"
+            "float32 grids support up to 2^24 cells (packed walk and "
+            "candidate rows); build with dtype=torch.float64"
         )
 
     rmin = points.min(axis=0)
@@ -258,11 +273,39 @@ def build_grid(
         raise ValueError(f"Unknown locate_mode {locate_mode!r}")
     if config.seed_mode not in ("bins", "kdtree"):
         raise ValueError(f"Unknown seed_mode {config.seed_mode!r}")
-    if locate_mode == "walk" and config.seed_mode == "kdtree":
-        raise NotImplementedError(
-            "seed_mode='kdtree' comes with the warm-path slice of the port"
-        )
-    will_use_cand = config.use_candidate_bins and locate_mode == "walk"
+    # Candidate bins take over the whole cold path; an explicit
+    # seed_mode="kdtree" opts into kd-seeded cold walks instead
+    # (kdtree2 parity, m_interp_unstructured.f90:272-288)
+    will_use_cand = (
+        config.use_candidate_bins
+        and locate_mode == "walk"
+        and config.seed_mode != "kdtree"
+    )
+
+    ndim = geometry.NDIM_OF_CELL_TYPE[cell_type]
+    centers = cell_points.mean(axis=1)
+    # When candidate tables own the cold path the nearest-center seed
+    # table is only a fallback: keep it coarse there (one cKDTree query
+    # per bin).
+    bin_table, bin_shape, bin_rmin, bin_inv_h = geometry.build_bin_seed_table(
+        centers, rmin, rmax, ndim,
+        bins_per_cell=(
+            min(config.bins_per_cell, 0.05) if will_use_cand
+            else config.bins_per_cell
+        ),
+        max_bins=config.max_bins,
+    )
+    # Packed seed rows: [cell id as float | cell center xyz] — a cold
+    # start reads one 4-value row instead of id + center
+    bin_pack = np.concatenate(
+        [bin_table[:, None].astype(np.float64), centers[bin_table]], axis=1
+    )
+    kd = None
+    if config.seed_mode == "kdtree":
+        from ..ops import kdtree
+
+        kd = kdtree.build_kdtree(centers, dtype=dtype, device=device)
+    mark("seed_table_s")
 
     # Dtype/domain-scaled inside tolerance (repo invariant: scale every
     # epsilon to the dtype)
@@ -296,23 +339,51 @@ def build_grid(
         icell_data=icd,
         rmin=_to(rmin, dtype, device),
         rmax=_to(rmax, dtype, device),
+        bin_table=_to(bin_table, torch.int32, device),
+        bin_rmin=_to(bin_rmin, dtype, device),
+        bin_inv_h=_to(bin_inv_h, dtype, device),
+        bin_pack=_to(bin_pack, dtype, device),
+        kd_node_points=None if kd is None else kd.node_points,
+        kd_node_ids=None if kd is None else kd.node_ids,
         cell_type=cell_type,
+        bin_shape=bin_shape,
+        kd_max_depth=0 if kd is None else kd.max_depth,
         point_data_names=pd_names,
         cell_data_names=cd_names,
         icell_data_names=icd_names,
         locate_mode=locate_mode,
         config=config,
     )
+    grid = dataclasses.replace(grid, walk_table=_build_walk_table(grid))
     mark("transfer_s")
 
-    if not will_use_cand:
-        return grid
+    if will_use_cand:
+        grid = _add_cand_tables(grid, cell_points, normals, face_offsets,
+                                rmin, rmax, ndim, mark)
+    if (
+        config.refine_bin_seeds
+        and locate_mode == "walk"
+        and grid.cand_table is None
+    ):
+        # Bin seeds only matter when cold starts walk (kd-tree mode or
+        # candidates off); the refine is one batched self-locate of
+        # every bin center
+        grid = _refine_bin_seeds(grid, centers)
+        mark("refine_s")
+    return grid
+
+
+def _add_cand_tables(grid, cell_points, normals, face_offsets, rmin, rmax,
+                     ndim, mark):
+    """The grid with its candidate lists (host) and packed rows (device),
+    unless the row budget holds no candidate."""
+    config, dtype, device = grid.config, grid.dtype, grid.device
+    cell_type = grid.cell_type
     k_max, nv = candidate_row_capacity(
-        cell_type, dtype, config, n_point_data=len(pd_names)
+        cell_type, dtype, config, n_point_data=grid.n_point_data
     )
     if k_max < 1:
         return grid
-    ndim = geometry.NDIM_OF_CELL_TYPE[cell_type]
     (
         cand_ids, cand_count, cand_shape, cand_rmin, cand_inv_h,
         ext_ids, ext_slot,
@@ -344,6 +415,66 @@ def build_grid(
     return grid
 
 
+def _build_walk_table(grid: Grid) -> torch.Tensor:
+    """Packed per-cell walk rows, assembled on the grid's device from the
+    tensors already there: face normals (nf*3) | face offsets (nf) |
+    neighbor ids as floats (nf) | cell vertex coords (npc*3) | volume,
+    zero-padded to a 512-byte row — the JAX package's layout, unchanged,
+    so both packages walk bit-identical rows.  Ids are exact as floats
+    while n_cells < 2^24 (checked by build_grid)."""
+    n_cells, nf = grid.face_offsets.shape
+    npc = grid.n_points_per_cell
+    cols = torch.cat(
+        [
+            grid.face_normals.reshape(n_cells, nf * 3),
+            grid.face_offsets,
+            grid.neighbors.to(grid.dtype),
+            grid.cell_points.reshape(n_cells, npc * 3),
+            grid.cell_volume[:, None],
+        ],
+        dim=1,
+    )
+    row_width = 512 // grid.dtype.itemsize
+    pad = max(row_width, cols.shape[1]) - cols.shape[1]
+    return torch.nn.functional.pad(cols, (0, pad)).contiguous()
+
+
+def _refine_bin_seeds(grid: Grid, centers: np.ndarray) -> Grid:
+    """Reseed the bin table with the cell *containing* each bin center.
+
+    The nearest-center seed (geometry.build_bin_seed_table) can sit a
+    few face hops from the bin itself; one batched self-locate of all
+    bin centers (``get_cell`` guessed by the current seeds, so walks of
+    kernel B3) replaces it with the containing cell, so cold walks start
+    at most a bin radius from their target.  Bin centers in holes or
+    outside the domain keep their nearest-center seed.  The bin centers
+    are computed in float64 from the grid-dtype origin and sizes, as
+    the JAX package computes them.
+    """
+    from ..ops import locate
+
+    nbx, nby, nbz = grid.bin_shape
+    inv_h = grid.bin_inv_h.cpu().numpy()
+    h = np.divide(1.0, inv_h, out=np.zeros(3), where=inv_h > 0)
+    rmin = grid.bin_rmin.cpu().numpy()
+    ax = rmin[0] + (np.arange(nbx) + 0.5) * h[0]
+    ay = rmin[1] + (np.arange(nby) + 0.5) * h[1]
+    az = rmin[2] + (np.arange(nbz) + 0.5) * h[2]
+    gx, gy, gz = np.meshgrid(ax, ay, az, indexing="ij")
+    bc = np.stack([gx.ravel(), gy.ravel(), gz.ravel()], axis=1)
+    if h[2] == 0:  # 2D grids: probe in the mesh plane
+        bc[:, 2] = centers[:, 2].mean() if len(centers) else 0.0
+
+    ic, found = locate.get_cell(grid, _to(bc, grid.dtype, grid.device),
+                                grid.bin_table)
+    new_table = torch.where(found, ic, grid.bin_table).to(torch.int32)
+    new_centers = _to(centers, grid.dtype, grid.device)[new_table.long()]
+    new_pack = torch.cat(
+        [new_table[:, None].to(grid.dtype), new_centers], dim=1
+    )
+    return dataclasses.replace(grid, bin_table=new_table, bin_pack=new_pack)
+
+
 def _to(a: np.ndarray, dtype: torch.dtype, device) -> torch.Tensor:
     """Host array -> tensor of ``dtype`` on ``device`` (one transfer)."""
     return torch.from_numpy(np.ascontiguousarray(a)).to(
@@ -364,6 +495,8 @@ def grid_from_numpy(leaves: dict, meta: dict, device) -> Grid:
     unknown = set(leaves) - set(DATA_FIELDS) | set(meta) - set(META_FIELDS)
     if unknown:
         raise ValueError(f"unknown grid fields: {sorted(unknown)}")
+    if leaves.get("walk_table") is None:
+        raise ValueError("grid_from_numpy needs the walk table")
     device = torch.device(device)
     kw = {}
     for name, a in leaves.items():
@@ -937,5 +1070,21 @@ def get_point_data_index(grid: Grid, name: str) -> int:
     """Index of a point-data variable, -1 if absent (:106-116)."""
     try:
         return grid.point_data_names.index(name)
+    except ValueError:
+        return -1
+
+
+def get_cell_data_index(grid: Grid, name: str) -> int:
+    """Index of a cell-data variable, -1 if absent."""
+    try:
+        return grid.cell_data_names.index(name)
+    except ValueError:
+        return -1
+
+
+def get_icell_data_index(grid: Grid, name: str) -> int:
+    """Index of an integer cell-data variable, -1 if absent."""
+    try:
+        return grid.icell_data_names.index(name)
     except ValueError:
         return -1

@@ -45,6 +45,11 @@ _SIGNATURES = {
         [_P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _F, _I, _P, _P,
          _P, _P, _P],
     ),
+    "iu_walk": (
+        _I,
+        [_P, _I, _I, _I, _P, _P, _P, _P, _P, _I, _F, _F, _F, _I, _P, _P, _P,
+         _P, _P],
+    ),
     "iu_error_string": (ctypes.c_char_p, [_I]),
 }
 

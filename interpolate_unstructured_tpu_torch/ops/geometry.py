@@ -17,7 +17,7 @@ of a cell consists of vertices ``(k, k+1)`` for tri/quad and
 The port's copy of the JAX package's ``ops/geometry.py``: the host
 builders stay numpy so that their candidate lists are bit-identical to
 the JAX package's, and only :func:`cand_bin_center_cols` works on torch
-tensors.  The bin seed table comes with the warm-path slice.
+tensors.
 """
 
 from __future__ import annotations
@@ -108,6 +108,59 @@ def cell_volumes(cell_points: np.ndarray, cell_type: str) -> np.ndarray:
         v14 = p[:, 3] - p[:, 0]
         return np.einsum("ci,ci->c", v12, np.cross(v13, v14)) / 6.0
     raise ValueError(f"Unsupported cell type {cell_type!r}")
+
+
+def build_bin_seed_table(
+    cell_centers: np.ndarray,
+    rmin: np.ndarray,
+    rmax: np.ndarray,
+    ndim: int,
+    bins_per_cell: float = 2.0,
+    max_bins: int = 1 << 22,
+):
+    """Uniform-grid cold-start seed table: for every bin of a regular grid
+    over the bounding box, the cell whose center is nearest the bin center.
+
+    This replaces the reference's kd-tree cold start
+    (find_nearby_cell_kdtree, m_interp_unstructured.f90:272-288) with an
+    O(1) lookup: ``seed = table[bin_of(r)]``.  The contract only requires
+    a *nearby* cell (README.md:5-6) since the neighbor walk corrects the
+    rest.  The nearest centers come from scipy's ``cKDTree`` on all host
+    cores.
+
+    Returns (table, bin_shape, bin_rmin, bin_inv_h):
+      table: (prod(bin_shape),) int32 seed cell per bin (C-order flat)
+      bin_shape: tuple of 3 ints (1 for unused dims)
+      bin_rmin: (3,) float64 grid origin
+      bin_inv_h: (3,) float64 inverse bin size (0 for unused dims)
+    """
+    from scipy.spatial import cKDTree
+
+    n_cells = len(cell_centers)
+    n_bins_target = min(max(int(bins_per_cell * n_cells), 1), max_bins)
+    bin_shape, h, inv_h, active = _bin_grid_shape(
+        rmin, rmax, ndim, n_bins_target
+    )
+    rmin = np.asarray(rmin, dtype=np.float64)
+
+    # Bin centers (flat, C-order)
+    axes = [
+        (np.arange(bin_shape[d]) + 0.5) * h[d] + rmin[d]
+        if active[d]
+        else np.array([0.5 * (rmin[d] + rmax[d])])
+        for d in range(3)
+    ]
+    gx, gy, gz = np.meshgrid(*axes, indexing="ij")
+    bin_centers = np.stack([gx.ravel(), gy.ravel(), gz.ravel()], axis=1)
+
+    tree = cKDTree(cell_centers)
+    _, seed = tree.query(bin_centers, k=1, workers=-1)
+    return (
+        seed.astype(np.int32),
+        tuple(int(s) for s in bin_shape),
+        np.asarray(rmin, dtype=np.float64),
+        inv_h,
+    )
 
 
 def cand_bin_center_cols(rmin, inv_h, i, j, k):

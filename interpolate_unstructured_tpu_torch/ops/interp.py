@@ -1,14 +1,18 @@
 """Batched interpolation weights and the public query API (torch).
 
-The port of the JAX package's ``ops/interp.py`` for the cold path:
-barycentric triangle, scalar-triple tetrahedron and inverse-bilinear
-quad weights (m_interp_unstructured.f90:529-641, math in
-``ops/wkern.py``), and ``interpolate_at`` / ``interpolate_scalar_at``,
-which send a call down one of two routes:
+The port of the JAX package's ``ops/interp.py``: barycentric
+triangle, scalar-triple tetrahedron and inverse-bilinear quad weights
+(m_interp_unstructured.f90:529-641, math in ``ops/wkern.py``),
+``interpolate_at_icell`` and the cell-data lookups, and
+``interpolate_at`` / ``interpolate_scalar_at``, which send a call down
+one of three routes:
 
 * brute-force grids -> kernel B1 (``ops/interp_kernel.py``);
-* walk grids with candidate tables and fused variables -> the
-  candidate-row probe, kernel B2 (``ops/locate._candidates_query``).
+* cold calls on walk grids with candidate tables, every variable fused
+  -> the candidate-row probe, kernel B2 (``ops/locate._candidates_query``);
+* everything else (a warm guess, an unfused variable, a grid without
+  candidate tables) -> ``ops/locate.get_cell`` (walks run kernel B3),
+  then ``interpolate_at_icell``.
 
 Values are (B, V), as at the public API of the JAX package; the (V, B)
 layout its internals used for the TPU is not carried over.  Every
@@ -75,6 +79,70 @@ def _weights_from_geometry(cell_type, cp, vol, r):
     raise ValueError(f"Unsupported cell type {cell_type!r}")
 
 
+def cell_weights(grid, r, i_cell):
+    """Interpolation weights of each query in its (assumed) cell.
+
+    Returns (B, npc) weights; dispatch on the grid's cell type
+    (iu_interpolate_at_icell, :497-527)."""
+    ic = torch.as_tensor(i_cell, device=grid.device).long().clamp_min(0)
+    r = torch.as_tensor(r, dtype=grid.dtype, device=grid.device)
+    return _weights_from_geometry(
+        grid.cell_type, grid.cell_points[ic], grid.cell_volume[ic], r
+    )
+
+
+def interpolate_at_icell(grid, r, i_vars, i_cell):
+    """Interpolate point-data variables inside known cells (:497-527).
+
+    Two gather routes, as in the JAX package: a batch of at least a
+    quarter as many queries as cells assembles a per-call row table
+    (vertex coords | volume | vertex data) and reads one row per query;
+    a smaller one reads the geometry from the walk rows and the vertex
+    data through the connectivity.  Both give the same values.
+
+    Args:
+      r: (B, 3) positions.
+      i_vars: (V,) point-data variable indices.
+      i_cell: (B,) containing cell per position (not validated).
+    Returns:
+      (B, V) interpolated values.
+    """
+    r = torch.as_tensor(r, dtype=grid.dtype, device=grid.device)
+    i_vars = torch.as_tensor(_static_slots(i_vars), dtype=torch.long,
+                             device=grid.device)
+    ic = torch.as_tensor(i_cell, device=grid.device).long().clamp_min(0)
+    b = r.shape[0]
+    n_cells = grid.n_cells
+    npc = grid.n_points_per_cell
+    nf = grid.n_faces_per_cell
+    v = i_vars.shape[0]
+    pd_sel = grid.point_data[:, i_vars]  # (P, V)
+
+    k_cols = npc * 3 + 1 + npc * v
+    if b * 4 >= n_cells and k_cols <= 512 // grid.dtype.itemsize:
+        ftab = torch.cat(
+            [
+                grid.cell_points.reshape(n_cells, npc * 3),
+                grid.cell_volume[:, None],
+                pd_sel[grid.cells.long()].reshape(n_cells, npc * v),
+            ],
+            dim=1,
+        )
+        g = ftab[ic]
+        cp = g[:, : npc * 3].reshape(-1, npc, 3)
+        w = _weights_from_geometry(grid.cell_type, cp, g[:, npc * 3], r)
+        vertex_vals = g[:, npc * 3 + 1:].reshape(-1, npc, v)
+    else:
+        g = grid.walk_table[ic, nf * 5: nf * 5 + npc * 3 + 1]
+        cp = g[:, : npc * 3].reshape(-1, npc, 3)
+        w = _weights_from_geometry(grid.cell_type, cp, g[:, npc * 3], r)
+        vertex_vals = pd_sel[grid.cells[ic].long()]  # (B, npc, V)
+    acc = w[:, 0, None] * vertex_vals[:, 0]
+    for k in range(1, npc):
+        acc = acc + w[:, k, None] * vertex_vals[:, k]
+    return acc
+
+
 def _static_slots(i_vars):
     """Variable indices as a tuple of ints."""
     if isinstance(i_vars, torch.Tensor):
@@ -94,15 +162,15 @@ def interpolate_at(grid, r, i_vars, guess=None, fill_value=math.nan):
     """Locate + interpolate (iu_interpolate_at, :480-495), batched.
 
     The route is the JAX package's ``_interpolate_at_T``
-    (ops/interp.py:254-314): brute force, or the candidate rows when
-    every requested variable is fused into them.
+    (ops/interp.py:254-314): brute force; the candidate rows for a cold
+    call whose variables are all fused into them; else ``get_cell``
+    then ``interpolate_at_icell``.
 
     Args:
       r: (B, 3) positions (tensor or array; moved to the grid's device
         and dtype).
       i_vars: (V,) point-data variable indices.
-      guess: optional (B,) warm-start cells; only brute-force grids
-        take one so far (and ignore it).
+      guess: optional (B,) warm-start cells (negative = cold).
       fill_value: value for queries outside the mesh: a scalar, or an
         array that broadcasts to (B, V).
     Returns:
@@ -134,11 +202,9 @@ def interpolate_at(grid, r, i_vars, guess=None, fill_value=math.nan):
         i_cell, found, values = locate._candidates_query(grid, r, slots)
         return _fill(values, found, fill_value), i_cell, found
 
-    raise NotImplementedError(
-        "this walk-grid query needs get_cell + interpolate_at_icell "
-        "(a warm guess, an unfused variable, or a grid without candidate "
-        "tables); they come with the warm-path slice of the port"
-    )
+    i_cell, found = locate.get_cell(grid, r, guess)
+    values = interpolate_at_icell(grid, r, slots, i_cell)
+    return _fill(values, found, fill_value), i_cell, found
 
 
 def interpolate_scalar_at(grid, r, i_var, guess=None, fill_value=math.nan):
@@ -151,3 +217,29 @@ def interpolate_scalar_at(grid, r, i_var, guess=None, fill_value=math.nan):
         fv = torch.as_tensor(fv)[:, None]
     vals, i_cell, found = interpolate_at(grid, r, [i_var], guess, fv)
     return vals[:, 0], i_cell, found
+
+
+def _fill_1d(vals, found, fill_value):
+    fill = torch.as_tensor(fill_value, dtype=vals.dtype, device=vals.device)
+    return torch.where(found, vals, fill.broadcast_to(vals.shape))
+
+
+def get_cell_scalar_at(grid, r, i_var, guess=None, fill_value=math.nan):
+    """Piecewise-constant cell-data lookup (iu_get_cell_scalar_at,
+    :436-448): locate, then read cell_data directly — no interpolation.
+    Returns (values (B,), i_cell (B,), found (B,))."""
+    from . import locate
+
+    i_cell, found = locate.get_cell(grid, r, guess)
+    vals = grid.cell_data[i_cell.clamp_min(0).long(), i_var]
+    return _fill_1d(vals, found, fill_value), i_cell, found
+
+
+def get_icell_scalar_at(grid, r, i_var, guess=None, fill_value=-1):
+    """Integer cell-data lookup (iu_get_icell_scalar_at, :450-462).
+    Returns (values (B,) int32, i_cell (B,), found (B,))."""
+    from . import locate
+
+    i_cell, found = locate.get_cell(grid, r, guess)
+    vals = grid.icell_data[i_cell.clamp_min(0).long(), i_var]
+    return _fill_1d(vals, found, fill_value), i_cell, found

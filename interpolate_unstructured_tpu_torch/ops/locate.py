@@ -1,24 +1,97 @@
-"""Batched cold point location (torch).
+"""Batched point location: which cell contains each query point? (torch)
 
-The port of the JAX package's ``ops/locate.py`` for the cold path:
+The port of the JAX package's ``ops/locate.py``
+(m_interp_unstructured.f90:272-288, :412-434, :664-786):
 
-* ``_containment_margins`` — margins of every query against every cell,
-  the brute-force inside test (m_interp_unstructured.f90:766-786);
+* ``bin_seed`` / ``kd_seed`` — cold-start seed cells: one lookup in the
+  per-bin seed table, or the exact nearest cell center (kd-tree);
+* ``locate_bruteforce`` — exact containment against every cell (small
+  meshes);
+* ``walk`` — the face-to-face neighbor walk (kernel B3,
+  ``ops/walk_kernel.py``);
 * ``_candidates_query`` — the per-bin candidate rows: one row per query
   answers "which cell contains r" and, for fused variables, the
-  interpolated values (kernel B2, ``ops/cand_kernel.py``); overflow
-  bins probe their extension row.
+  interpolated values (kernel B2, ``ops/cand_kernel.py``); overflow bins
+  probe their extension row, and bins whose candidates exceed even that
+  resume with a walk;
+* ``get_cell`` — the warm/cold dispatch (:412-434).
 
-The warm path (``get_cell`` with a guess, the neighbor walk) and the
-residual walk of grids whose extension rows do not cover every bin come
-with a later slice and raise ``NotImplementedError`` here.
+Cells are 0-based; "no cell" is a negative index.  Status codes follow
+the reference: 0 arrived, -1 left the domain, 1 icell-mask value changed
+(:664-667), plus 2 for a walk stopped by the step cap.  Subsets of a
+batch (stragglers, misses) are picked with ``torch.nonzero``; the JAX
+package's top-k compaction was a TPU workaround.
 """
 
 from __future__ import annotations
 
 import torch
 
-from . import cand_kernel, geometry
+from . import cand_kernel, geometry, walk_kernel
+from ..utils.config import huge_distance, tiny_distance, walk_tolerances
+
+STATUS_ARRIVED = walk_kernel.STATUS_ARRIVED
+STATUS_MASK_CHANGED = 1
+STATUS_BOUNDARY = walk_kernel.STATUS_BOUNDARY
+STATUS_STEP_CAP = walk_kernel.STATUS_STEP_CAP
+
+
+def _queries(grid, r):
+    """Queries as a (B, 3) tensor on the grid's device, in its dtype."""
+    r = torch.as_tensor(r, dtype=grid.dtype, device=grid.device)
+    if r.ndim != 2 or r.shape[1] != 3:
+        raise ValueError(f"queries must be (B, 3), got {tuple(r.shape)}")
+    return r
+
+
+def _cells(grid, ic):
+    """Cell indices as an int32 tensor on the grid's device."""
+    return torch.as_tensor(ic, device=grid.device).to(torch.int32)
+
+
+def _bin_index(grid, r):
+    """Flat seed-bin index of each query: floor((r - rmin) * inv_h) per
+    axis, clipped to the bin grid."""
+    ij = [
+        torch.clamp(
+            torch.floor((r[:, d] - grid.bin_rmin[d]) * grid.bin_inv_h[d]),
+            0, grid.bin_shape[d] - 1,
+        ).to(torch.int64)
+        for d in range(3)
+    ]
+    _, nby, nbz = grid.bin_shape
+    return (ij[0] * nby + ij[1]) * nbz + ij[2]
+
+
+def bin_seed(grid, r):
+    """Cold-start seed cell for each query: one lookup in the per-bin
+    nearest-cell table built with the grid.
+
+    Args:
+      r: (B, 3) query positions.
+    Returns:
+      (B,) int32 seed cell indices (always valid cells).
+    """
+    return grid.bin_table[_bin_index(grid, _queries(grid, r))]
+
+
+def _bin_seed_pack(grid, r):
+    """Seed cell AND its center from one packed row (id | center xyz)."""
+    g = grid.bin_pack[_bin_index(grid, r)]  # (B, 4)
+    return g[:, 0].to(torch.int32), g[:, 1:4]
+
+
+def kd_seed(grid, r):
+    """Cold-start seed via the exact nearest cell center — the kd-tree
+    backend (seed_mode="kdtree"), find_nearby_cell_kdtree (:272-288).
+
+    Returns (B,) int32 seed cell indices."""
+    from . import kdtree
+
+    tree = kdtree.KdTree(grid.kd_node_points, grid.kd_node_ids,
+                         grid.n_cells, grid.kd_max_depth)
+    idx, _ = kdtree.nearest(tree, r)
+    return idx
 
 
 def _containment_margins(grid, r):
@@ -31,6 +104,117 @@ def _containment_margins(grid, r):
         (n[None, :, :, 0] * rx + n[None, :, :, 1] * ry) + n[None, :, :, 2] * rz
     )
     return m.amin(dim=2)
+
+
+def locate_bruteforce(grid, r):
+    """Exact containment over all cells (small meshes).
+
+    Returns (i_cell, found): the most-interior containing cell per query
+    (first-occurrence argmax of the margins), -1 where no cell contains
+    the point.  Tiled so the (tile, C, nf) margins stay bounded."""
+    r = _queries(grid, r)
+    neg_eps = -grid.config.eps_inside
+    tile = max(1024, (1 << 26) // max(grid.face_offsets.numel(), 1))
+    ics, founds = [], []
+    for lo in range(0, r.shape[0], tile):
+        m = _containment_margins(grid, r[lo: lo + tile])
+        best = torch.argmax(m, dim=1)
+        found = m.gather(1, best[:, None])[:, 0] >= neg_eps
+        ics.append(torch.where(found, best, -1).to(torch.int32))
+        founds.append(found)
+    if not ics:
+        z = torch.zeros(0, dtype=torch.int32, device=grid.device)
+        return z, z.bool()
+    return torch.cat(ics), torch.cat(founds)
+
+
+def point_is_inside_cell(grid, r, i_cell):
+    """Batched inside test (iu_point_is_inside_cell, :766-786)."""
+    r = _queries(grid, r)
+    i_cell = _cells(grid, i_cell)
+    ic = i_cell.clamp_min(0).long()
+    n = grid.face_normals[ic]  # (B, nf, 3)
+    rx, ry, rz = (r[:, d, None] for d in range(3))
+    margin = (
+        grid.face_offsets[ic]
+        - ((n[..., 0] * rx + n[..., 1] * ry) + n[..., 2] * rz)
+    ).amin(dim=1)
+    return (margin >= -grid.config.eps_inside) & (i_cell >= 0)
+
+
+def walk(grid, r0, r1, ic0, max_steps=None, i_icell_mask=None):
+    """Batched neighbor walk from r0 (inside cell ic0) towards r1.
+
+    The reference's iu_get_cell_through_neighbors +
+    get_cell_intersection (:664-764): per step, the exit face is the
+    least positive ray-plane distance over faces whose outward normal
+    has a positive dot with the direction; the walk hops across it and
+    stops per query on arrival or at the domain boundary.  The rounds
+    run in kernel B3 (``ops/walk_kernel.walk_rows``).
+
+    Args:
+      r0, r1: (B, 3) start/end positions.
+      ic0: (B,) int32 start cells (must contain r0 for exact parity).
+      max_steps: step cap (the reference walks unbounded, :431); default
+        ``config.max_walk_steps``.
+      i_icell_mask: stopping where icell data changes (:712-719) belongs
+        to the tracer slice and raises here.
+
+    Returns:
+      ic1: (B,) final cell (negative if walked out of the domain)
+      r_p: (B, 3) final position — the last face intersection when the
+        walk stopped early
+      n_steps: (B,) int32 steps taken
+      status: (B,) int32 status code
+    """
+    if i_icell_mask is not None:
+        raise NotImplementedError(
+            "walk(..., i_icell_mask=...) comes with the tracer slice of the "
+            "port (its only user)"
+        )
+    return walk_kernel.walk_rows(*_walk_args(grid, r0, r1, ic0, max_steps))
+
+
+def _walk_args(grid, r0, r1, ic0, max_steps=None):
+    """The arguments of ``walk_kernel.walk_rows`` for a walk from r0 to
+    r1: unit directions, lengths (degenerate walks, shorter than the
+    dtype's tiny distance, stay put), start cells and the dtype-scaled
+    tolerances."""
+    if max_steps is None:
+        max_steps = grid.config.max_walk_steps
+    r0 = _queries(grid, r0)
+    r1 = _queries(grid, r1)
+    dtype = torch.empty((), dtype=r0.dtype).numpy().dtype
+    nudge, eps_arrive = walk_tolerances(dtype, grid.rmin, grid.rmax)
+    delta = r1 - r0
+    total = torch.sqrt(
+        (delta[:, 0] * delta[:, 0] + delta[:, 1] * delta[:, 1])
+        + delta[:, 2] * delta[:, 2]
+    )
+    degenerate = total < tiny_distance(dtype)
+    u = delta / torch.where(degenerate, 1.0, total)[:, None]
+    return (grid.walk_table, r0, u, total, ~degenerate, _cells(grid, ic0), nudge,
+            eps_arrive, huge_distance(dtype), max_steps,
+            grid.n_faces_per_cell)
+
+
+def _walk_origin(grid, starts):
+    """Cell centers of ``starts`` (walk origins, :429), from the vertex
+    block of the walk rows (columns [nf*5, nf*5 + npc*3)), summed in
+    vertex order."""
+    nf = grid.n_faces_per_cell
+    npc = grid.n_points_per_cell
+    cp = grid.walk_table[starts.long(), nf * 5: nf * 5 + npc * 3].reshape(
+        -1, npc, 3
+    )
+    acc = cp[:, 0]
+    for k in range(1, npc):
+        acc = acc + cp[:, k]
+    return acc / npc
+
+
+def _found_of(ic, status):
+    return (status == STATUS_ARRIVED) & (ic >= 0)
 
 
 def _cand_bin_ijk(grid, r):
@@ -123,7 +307,7 @@ def _cand_probe_inputs(grid, r):
     return idx, r.contiguous()
 
 
-def _candidates_query(grid, r, var_slots):
+def _candidates_query(grid, r, var_slots, max_steps=None):
     """Cold containment and fused interpolation via per-bin candidate
     rows (the JAX package's ``_candidates_query``, ops/locate.py:769).
 
@@ -131,17 +315,16 @@ def _candidates_query(grid, r, var_slots):
     every cell intersecting the query's bin.  Where the bin's list is
     complete, a miss is exact: the point is outside the mesh.  Queries
     of overflow bins that no stored candidate contains probe the bin's
-    extension row (candidates K..K+k_ext, same layout, same kernel);
-    they are found with ``torch.nonzero``.
+    extension row (candidates K..K+k_ext, same layout, same kernel).
+    Bins whose count exceeds K + k_ext (or grids without extension
+    rows) leave a residual: those misses walk from their best
+    candidate's center (kernel B3) and interpolate in the cell they
+    reach.
 
     Returns (i_cell (B,) int32, found (B,) bool, values (B, V)).
     """
-    if not grid.cand_ext_covers:
-        raise NotImplementedError(
-            "this grid has bins whose candidates exceed K + k_ext and "
-            "needs the residual walk, which comes with the warm-path "
-            "slice of the port (raise cand_ext_max_k to cover them)"
-        )
+    if max_steps is None:
+        max_steps = grid.config.max_walk_steps
     var_slots = tuple(var_slots)
     k_max = grid.cand_ids.shape[1]
     eps = _cand_eps(grid)
@@ -152,20 +335,163 @@ def _candidates_query(grid, r, var_slots):
     )
     found = aux == -2
     ic = torch.where(found, id_best, -1)
-    if grid.cand_ext_table is None:
+    if grid.cand_ext_table is None and grid.cand_ext_covers:
         # every bin's complete list fits its row: a miss is exact
         return ic, found, values
 
+    def walk_and_interp(sel):
+        """Walk the selected misses from their best candidate's center;
+        (ic, found, values) of the cells they reach."""
+        starts = id_best[sel].clamp_min(0)
+        ic_w, _, _, st_w = walk(grid, _walk_origin(grid, starts), r[sel],
+                                starts, max_steps=max_steps)
+        found_w = _found_of(ic_w, st_w)
+        vals_w = None
+        if var_slots:
+            from .interp import interpolate_at_icell
+
+            vals_w = interpolate_at_icell(grid, r[sel], var_slots,
+                                          ic_w.clamp_min(0))
+        return ic_w, found_w, vals_w
+
+    def merge(sel, ic_o, found_o, vals_o):
+        ic[sel] = torch.where(found_o, ic_o, -1)
+        if vals_o is not None:
+            values[sel] = torch.where(found_o[:, None], vals_o, values[sel])
+
     # aux >= 0 marks overflow-bin misses; aux is the extension slot
     sel = torch.nonzero(aux >= 0).squeeze(1)
-    if sel.numel():
-        k_ext = grid.cand_ext_ids.shape[1]
-        id2, aux2, vals2 = cand_kernel.cand_rows_query(
-            grid.cand_ext_table, aux[sel].contiguous(), rq[sel],
-            _row_layout(grid, k_ext, var_slots), eps, k_max + k_ext,
-            _cand_chunk(grid, grid.cand_ext_table),
-        )
-        found2 = aux2 == -2
-        ic[sel] = torch.where(found2, id2, -1)
-        values[sel] = torch.where(found2[:, None], vals2, values[sel])
+    if sel.numel() == 0:
+        return ic, found, values
+    if grid.cand_ext_table is None:
+        merge(sel, *walk_and_interp(sel))
+        return ic, ic >= 0, values
+
+    k_ext = grid.cand_ext_ids.shape[1]
+    id2, aux2, vals2 = cand_kernel.cand_rows_query(
+        grid.cand_ext_table, aux[sel].contiguous(), rq[sel],
+        _row_layout(grid, k_ext, var_slots), eps, k_max + k_ext,
+        _cand_chunk(grid, grid.cand_ext_table),
+    )
+    found2 = aux2 == -2
+    merge(sel, torch.where(found2, id2, -1), found2, vals2)
+    if not grid.cand_ext_covers:
+        # aux2 >= 0: even the extension row did not hold the bin's
+        # complete list
+        resid = sel[aux2 >= 0]
+        if resid.numel():
+            ic_w, found_w, vals_w = walk_and_interp(resid)
+            ic[resid] = torch.where(found_w, ic_w, -1)
+            if vals_w is not None:
+                values[resid] = torch.where(found_w[:, None], vals_w,
+                                            values[resid])
     return ic, ic >= 0, values
+
+
+def locate_candidates(grid, r, max_steps=None):
+    """Cold containment via per-bin candidate rows (see
+    _candidates_query).  Returns (i_cell, found) with get_cell's
+    contract."""
+    ic, found, _ = _candidates_query(grid, _queries(grid, r), (), max_steps)
+    return ic, found
+
+
+def _get_cell_warm(grid, r, guess, max_steps):
+    """Warm-start location on candidate-table grids.
+
+    Every query takes the one-row candidate probe; the guess buys
+    reference parity where it matters: candidate MISSES with a guess
+    replay the reference walk from the guess cell
+    (iu_get_cell_through_neighbors, :664-725), so off-domain queries
+    report the boundary code of the face that walk exits through
+    (:712-719) instead of a bare "not found".
+    """
+    # Out-of-range guesses fall back to a cold start (the reference
+    # error-stops on guess > n_cells, :490)
+    guess = torch.where(guess >= grid.n_cells, -1, guess)
+    ic, found, _ = _candidates_query(grid, r, (), max_steps)
+    sel = torch.nonzero(~found & (guess >= 0)).squeeze(1)
+    if sel.numel():
+        starts = guess[sel]
+        ic_w, _, _, st_w = walk(grid, _walk_origin(grid, starts), r[sel],
+                                starts, max_steps=max_steps)
+        found_w = _found_of(ic_w, st_w)
+        ic[sel] = torch.where(found_w, ic_w, torch.clamp_max(ic_w, -1))
+        found[sel] = found_w
+    return ic, found
+
+
+def _resume_walk(grid, r_p, r1, ic, max_steps):
+    """Continue interrupted walks from their current position (a fresh
+    walk: direction and distance from ``r_p``, no previous cell)."""
+    ic_o, rp_o, _, st_o = walk(grid, r_p, r1, ic, max_steps=max_steps)
+    return ic_o, rp_o, st_o
+
+
+def get_cell(grid, r, guess=None, max_steps=None):
+    """Find the cell containing each query point (iu_get_cell, :412-434).
+
+    Warm start: where ``guess >= 0`` the walk starts from the guess
+    cell's center; otherwise from the cold-start seed.  In
+    ``bruteforce`` mode the guess is irrelevant — containment is
+    computed exactly in one shot.  Grids with candidate tables answer
+    cold queries from the rows, and warm ones too, walking from the
+    guess only where the rows miss.
+
+    Batches of at least ``config.walk_compact_min_batch`` queries walk
+    in two phases: ``config.walk_phase1_steps`` steps on the full batch,
+    then the stragglers resume from where they stopped (which restarts
+    their direction and distance from there, as in the JAX package).
+
+    Returns (i_cell, found): i_cell is -1 (or the off-domain neighbor
+    code) where the point is in no cell.
+    """
+    r = _queries(grid, r)
+    if grid.locate_mode == "bruteforce":
+        return locate_bruteforce(grid, r)
+
+    cfg = grid.config
+    if max_steps is None:
+        max_steps = cfg.max_walk_steps
+    if guess is not None:
+        guess = _cells(grid, guess)
+
+    if guess is None and grid.cand_table is not None:
+        # Pure cold batch: one-row candidate containment
+        return locate_candidates(grid, r, max_steps=max_steps)
+
+    if guess is not None and grid.cand_table is not None:
+        return _get_cell_warm(grid, r, guess, max_steps)
+
+    use_kd = cfg.seed_mode == "kdtree" and grid.kd_node_points is not None
+    if guess is None and not use_kd and grid.bin_pack is not None:
+        # Pure cold start: id + walk origin from one packed row
+        start, r0 = _bin_seed_pack(grid, r)
+    else:
+        cold = kd_seed if use_kd else bin_seed
+        if guess is None:
+            start = cold(grid, r)
+        else:
+            # Out-of-range guesses fall back to a cold start (the
+            # reference error-stops on guess > n_cells, :490)
+            guess = torch.where(guess >= grid.n_cells, -1, guess)
+            start = torch.where(guess >= 0, guess, cold(grid, r))
+        r0 = _walk_origin(grid, start.clamp_min(0))
+
+    b = r.shape[0]
+    p1 = min(cfg.walk_phase1_steps, max_steps)
+    if b < cfg.walk_compact_min_batch or max_steps <= p1:
+        ic, _, _, status = walk(grid, r0, r, start, max_steps=max_steps)
+        found = _found_of(ic, status)
+        return torch.where(found, ic, torch.clamp_max(ic, -1)), found
+
+    # Phase 1: full batch, few rounds; phase 2: the stragglers resume
+    ic, rp, _, status = walk(grid, r0, r, start, max_steps=p1)
+    found = _found_of(ic, status)
+    sel = torch.nonzero(status == STATUS_STEP_CAP).squeeze(1)
+    if sel.numel():
+        ic_o, _, st_o = _resume_walk(grid, rp[sel], r[sel], ic[sel],
+                                     max_steps - p1)
+        ic[sel] = ic_o
+        found[sel] = _found_of(ic_o, st_o)
+    return torch.where(found, ic, torch.clamp_max(ic, -1)), found

@@ -3,10 +3,10 @@
 The reference configures behavior via per-call arguments and compile-time
 flags (SURVEY.md §5.6); here the knobs live in one dataclass that can be
 passed to ``build_grid``.  This is the port's copy of the JAX package's
-``utils/config.py`` (numpy only; ``walk_tolerances`` comes with the warm
-path), so that grids built by both packages resolve the same
-tolerances.  ``dtype`` arguments are numpy dtypes (``models.grid``
-converts).
+``utils/config.py`` (numpy only), so that grids built by both packages
+resolve the same tolerances.  ``dtype`` arguments are numpy dtypes
+(``models.grid`` converts), except :func:`walk_tolerances`, which also
+takes torch dtypes.
 """
 
 from __future__ import annotations
@@ -22,9 +22,8 @@ class IUConfig:
 
     The same fields and defaults as the JAX package's ``IUConfig``, so a
     config converts between the packages with ``dataclasses.asdict``.
-    Fields of slices the port does not have yet (walks, tracer, seed
-    tables, kd-tree, the device candidate builder, the compacted
-    fallback) are carried and not read.
+    Fields of slices the port does not have yet (tracer, the device
+    candidate builder, the compacted fallback) are carried and not read.
     """
 
     # Inside-test tolerance: point is inside a cell iff
@@ -38,7 +37,7 @@ class IUConfig:
     bruteforce_max_cells: int = 1024
 
     # Step caps of the neighbor walk and of the tracer's short walks
-    # (warm-path and tracer slices)
+    # (tracer slice)
     max_walk_steps: int = 1024
     trace_walk_max_steps: int = 128
 
@@ -50,7 +49,8 @@ class IUConfig:
 
     # Cold-start seed backend of walks: "bins" (uniform-grid seed table)
     # or "kdtree" (exact nearest cell center, m_interp_unstructured.f90:
-    # 272-288); and the seed table's sizing (warm-path slice)
+    # 272-288); and the seed table's sizing: bins ~= bins_per_cell *
+    # n_cells, capped by max_bins
     seed_mode: str = "bins"
     bins_per_cell: float = 4.0
     max_bins: int = 1 << 23
@@ -97,7 +97,10 @@ class IUConfig:
     cand_chunk_bytes: int = 64 << 20
     cand_chunk_queries: int | None = None
 
-    # Two-phase walk with straggler compaction (warm-path slice)
+    # Two-phase walk: walk_phase1_steps steps on the full batch, then
+    # the stragglers resume from where they stopped, once the batch has
+    # at least walk_compact_min_batch queries (walk_compact_divisor is
+    # the JAX package's compaction buffer size, not read here)
     walk_phase1_steps: int = 2
     walk_compact_divisor: int = 8
     walk_compact_min_batch: int = 1 << 16
@@ -107,7 +110,7 @@ class IUConfig:
     use_pallas: bool = True
 
     # Relocate every seed-bin center after the build and reseed with the
-    # containing cell (warm-path slice)
+    # containing cell (walk grids without candidate tables)
     refine_bin_seeds: bool = True
 
 
@@ -150,4 +153,37 @@ def huge_distance(dtype) -> float:
     if np.dtype(dtype) == np.float32:
         return 1e30
     return 1e100
+
+
+def walk_tolerances(dtype, rmin, rmax):
+    """(nudge, eps_arrive) shared by every walk consumer.
+
+    ``nudge``: forward overshoot past a crossed face — under batched f32
+    rounding the post-hop position can land on the wrong side of the
+    face it just crossed, producing zero-length A<->B hop cycles.  A
+    few-ulp overshoot guarantees progress and is far below the
+    inside-test tolerance.
+
+    ``eps_arrive``: arrival band absorbing the walk's own rounding so a
+    target exactly ON a face cannot coin-flip between "arrived" and
+    "crossed".  Deliberately a few-ulp band like ``nudge``, not
+    eps_inside (the unsigned-area weights lose linearity outside their
+    cell, m_interp_unstructured.f90:542-549).
+
+    ``16 * eps(dtype) * max|coord|`` and 4x that, the JAX package's
+    values bit for bit: the factors are powers of two, so the products
+    are exact in the grid dtype.  ``dtype`` is a numpy or torch float
+    dtype; ``rmin``/``rmax`` are arrays or tensors.  Returns Python
+    floats, each exactly representable in ``dtype``.
+    """
+    np_dtype = np.dtype(str(dtype).replace("torch.", ""))
+
+    def absmax(a):
+        if hasattr(a, "detach"):
+            a = a.detach().cpu().numpy()
+        return float(np.max(np.abs(np.asarray(a, np.float64))))
+
+    extent = np_dtype.type(max(absmax(rmin), absmax(rmax)))
+    nudge = float(np_dtype.type(16.0 * float(np.finfo(np_dtype).eps)) * extent)
+    return nudge, 4.0 * nudge
 

@@ -62,7 +62,7 @@ def _build_both(case):
     tg = tiu.build_grid(
         pts, cells, nbrs, cell_type, point_data=_point_data(pts),
         dtype=torch.float32, config=tiu.IUConfig(**dataclasses.asdict(cfg)),
-        locate_mode="walk",
+        locate_mode="walk", device="cpu",
     )
     return ug, tg
 
@@ -156,18 +156,72 @@ def test_candidate_tables_match_jax(case):
         assert tg.cand_ext_table is not None and tg.cand_ext_covers
 
 
+SEED_FIELDS = ("bin_table", "bin_pack", "bin_rmin", "bin_inv_h",
+               "walk_table")
+
+
 @pytest.mark.parametrize("case", ["triangle", "quad", "tetra"])
 def test_geometry_leaves_match_jax(case):
     ug, tg = _build_both(case)
     for f in ("points", "cells", "neighbors", "cell_points", "face_normals",
               "face_offsets", "cell_volume", "point_is_at_boundary",
-              "point_data", "rmin", "rmax"):
+              "point_data", "rmin", "rmax") + SEED_FIELDS:
         np.testing.assert_array_equal(
             getattr(tg, f).numpy(), np.asarray(getattr(ug, f)), err_msg=f
         )
+    assert tg.bin_shape == ug.bin_shape
     assert tg.config.eps_inside == ug.config.eps_inside
     assert tg.point_data_names == ug.point_data_names
     assert tg.locate_mode == ug.locate_mode == "walk"
+
+
+@pytest.mark.parametrize("refine", [False, True])
+@pytest.mark.parametrize("case", ["triangle", "quad", "tetra"])
+def test_seed_and_walk_tables_match_jax(case, refine):
+    """Walk grids without candidate tables: the fine bin seed table, its
+    packed rows and the walk rows are bit-identical before the refine;
+    after it (every bin center located by a walk) the seeds agree except
+    for bins whose center lies on a face shared by both chosen cells."""
+    cell_type, mesh, _ = CASES[case]
+    cfg = dataclasses.replace(HOST, use_candidate_bins=False,
+                              refine_bin_seeds=refine)
+    pts, cells, nbrs = mesh()
+    ug = jiu.build_grid(pts, cells, nbrs, cell_type, dtype=jnp.float32,
+                        config=cfg, locate_mode="walk")
+    tg = tiu.build_grid(pts, cells, nbrs, cell_type, dtype=torch.float32,
+                        config=tiu.IUConfig(**dataclasses.asdict(cfg)),
+                        locate_mode="walk", device="cpu")
+    assert tg.cand_table is None and tg.bin_shape == ug.bin_shape
+    assert np.prod(tg.bin_shape) >= 3 * tg.n_cells  # the fine table
+    for f in ("bin_rmin", "bin_inv_h", "walk_table"):
+        np.testing.assert_array_equal(
+            getattr(tg, f).numpy(), np.asarray(getattr(ug, f)), err_msg=f
+        )
+    jt, tt = np.asarray(ug.bin_table), tg.bin_table.numpy()
+    differ = np.flatnonzero(jt != tt)
+    if not refine:
+        assert len(differ) == 0
+    else:
+        assert len(differ) <= 1e-3 * len(tt)
+        # bin centers as the refine computes them
+        nbx, nby, nbz = tg.bin_shape
+        inv_h = tg.bin_inv_h.numpy()
+        h = np.divide(1.0, inv_h, out=np.zeros(3), where=inv_h > 0)
+        rmin = tg.bin_rmin.numpy()
+        ijk = np.stack(np.unravel_index(differ, (nbx, nby, nbz)), axis=1)
+        bc = rmin + (ijk + 0.5) * h
+        if h[2] == 0:
+            bc[:, 2] = 0.0
+        bc = torch.from_numpy(bc.astype(np.float32))
+        for ids in (jt[differ], tt[differ]):
+            assert bool(tiu.point_is_inside_cell(
+                tg, bc, torch.from_numpy(ids)).all())
+    # packed rows: [seed id | seed cell center], the center rows equal
+    # wherever the seeds are
+    jp, tp = np.asarray(ug.bin_pack), tg.bin_pack.numpy()
+    np.testing.assert_array_equal(tp[:, 0], tt.astype(np.float32))
+    same = jt == tt
+    np.testing.assert_array_equal(tp[same], jp[same])
 
 
 def test_build_timings_and_auto_mode():
@@ -175,15 +229,22 @@ def test_build_timings_and_auto_mode():
     timings = {}
     g = tiu.build_grid(pts, cells, nbrs, "tetra",
                        point_data={"P": pts.sum(1)}, dtype=torch.float32,
-                       timings=timings)
+                       timings=timings, device="cpu")
     assert g.locate_mode == "bruteforce" and g.cand_table is None
-    assert {"host_geometry_s", "transfer_s"} <= set(timings)
+    assert {"host_geometry_s", "seed_table_s", "transfer_s"} <= set(timings)
     g = tiu.build_grid(pts, cells, nbrs, "tetra", locate_mode="walk",
                        point_data={"P": pts.sum(1)}, dtype=torch.float32,
-                       timings=timings)
+                       timings=timings, device="cpu")
     assert {"cand_build_s", "cand_pack_s"} <= set(timings)
+    assert "refine_s" not in timings  # candidate tables: no refine
+    g = tiu.build_grid(pts, cells, nbrs, "tetra", locate_mode="walk",
+                       point_data={"P": pts.sum(1)}, dtype=torch.float32,
+                       timings=timings, device="cpu",
+                       config=tiu.IUConfig(use_candidate_bins=False))
+    assert "refine_s" in timings and g.cand_table is None
     assert tiu.get_point_data_index(g, "P") == 0
     assert tiu.get_point_data_index(g, "Q") == -1
     with pytest.raises(NotImplementedError):
         tiu.build_grid(pts, cells, nbrs, "tetra", locate_mode="walk",
-                       config=tiu.IUConfig(cand_build="device"))
+                       config=tiu.IUConfig(cand_build="device"),
+                       device="cpu")

@@ -207,33 +207,61 @@ def test_float64_candidate_rows_match_jax():
 
 
 def test_later_slices_raise():
-    pts, cells, nbrs = meshgen.tet_box_mesh(8, 8, 8)
-    g = tiu.build_grid(pts, cells, nbrs, "tetra", dtype=torch.float32,
-                       point_data=_point_data(pts), locate_mode="walk")
-    r = torch.rand(16, 3)
-    with pytest.raises(NotImplementedError, match="warm-path"):
-        tiu.interpolate_scalar_at(g, r, 0, guess=torch.zeros(16, dtype=torch.int32))
-    qpts, qcells, qnbrs = meshgen.quad_rect_mesh(24, 24)
-    q = tiu.build_grid(qpts, qcells, qnbrs, "quad", dtype=torch.float32,
-                       point_data=_point_data(qpts), locate_mode="walk")
-    assert q.cand_nv == 1 < q.n_point_data  # the second variable is unfused
-    with pytest.raises(NotImplementedError, match="warm-path"):
-        tiu.interpolate_scalar_at(q, r, 1)
+    """The three walk-grid calls that raised NotImplementedError until the
+    warm-path slice — a warm guess, an unfused variable, and a grid whose
+    extension rows do not cover every bin (the residual walk) — now
+    answer as the JAX package does."""
+    jnp, jiu = _jax()
+    r = _queries(meshgen.tet_box_mesh(8, 8, 8)[0], 2000).astype(np.float32)
+    pts, ug, tg = _build_both("tetra", WALK["tetra"][1], torch.float32,
+                              HOST, "walk")
+    guess = np.zeros(len(r), np.int32)
+    jv, jic, jf = jiu.interpolate_scalar_at(ug, jnp.asarray(r), 0,
+                                            guess=jnp.asarray(guess))
+    tv, tic, tf = tiu.interpolate_scalar_at(tg, r, 0,
+                                            guess=torch.from_numpy(guess))
+    outs = [(jv, jic, jf, tv, tic, tf, r)]
+
+    qpts, ug, tg = _build_both("quad", WALK["quad"][1], torch.float32, HOST,
+                               "walk")
+    assert tg.cand_nv == 1 < tg.n_point_data  # the second variable is unfused
+    rq = _queries(qpts, 2000).astype(np.float32)
+    rq[:, 2] = 0.0
+    jv, jic, jf = jiu.interpolate_scalar_at(ug, jnp.asarray(rq), 1)
+    outs.append((jv, jic, jf, *tiu.interpolate_scalar_at(tg, rq, 1), rq))
+
     partial = dataclasses.replace(HOST, cand_bins_per_cell=0.3,
                                   cand_ext_max_k=2, cand_cover_row_bytes=0)
-    g = tiu.build_grid(pts, cells, nbrs, "tetra", dtype=torch.float32,
-                       point_data=_point_data(pts), locate_mode="walk",
-                       config=partial)
-    assert not g.cand_ext_covers
-    with pytest.raises(NotImplementedError, match="residual walk"):
-        tiu.interpolate_scalar_at(g, r, 0)
+    pts, ug, tg = _build_both("tetra", WALK["tetra"][1], torch.float32,
+                              partial, "walk")
+    assert not tg.cand_ext_covers
+    jv, jic, jf = jiu.interpolate_scalar_at(ug, jnp.asarray(r), 0)
+    outs.append((jv, jic, jf, *tiu.interpolate_scalar_at(tg, r, 0), r))
+
+    for jv, jic, jf, tv, tic, tf, rr in outs:
+        jf = np.asarray(jf)
+        assert 0 < jf.sum() < len(rr)
+        np.testing.assert_array_equal(tf.numpy(), jf)
+        np.testing.assert_array_equal(tic.numpy(), np.asarray(jic))
+        np.testing.assert_allclose(tv.numpy()[jf], np.asarray(jv)[jf],
+                                   rtol=0, atol=2e-6)
+
+
+def test_build_grid_defaults_to_cuda():
+    """Without ``device=``, build_grid puts the grid on the card; a
+    process without one gets an error, not a grid on the host."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device works")
+    pts, cells, nbrs = meshgen.tet_box_mesh(2, 2, 2)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tiu.build_grid(pts, cells, nbrs, "tetra", dtype=torch.float32)
 
 
 def test_port_imports_no_jax():
     code = (
         "import sys, interpolate_unstructured_tpu_torch as t; "
         "from interpolate_unstructured_tpu_torch.ops import "
-        "cand_kernel, interp_kernel, locate, _kernels; "
+        "cand_kernel, interp_kernel, kdtree, locate, walk_kernel, _kernels; "
         "assert 'jax' not in sys.modules, 'jax imported'; "
         "assert 'interpolate_unstructured_tpu' not in sys.modules"
     )
