@@ -3,12 +3,14 @@
 
     python3 chip_smoke.py
 
-Drives the cold and warm paths of ``interpolate_unstructured_tpu_torch``
-on the card through its public entry points (``build_grid``, then
-``interpolate_scalar_at`` with and without a guess):
+Drives the cold and warm paths and the tracer of
+``interpolate_unstructured_tpu_torch`` on the card through its public
+entry points (``build_grid``, ``interpolate_scalar_at`` with and without
+a guess, ``add_point_data``, ``integrate_along_field``):
 
 1. builds the CUDA kernels from ``interpolate_unstructured_tpu_torch/csrc``
-   into ``build/kernels/`` (set-up time; one nvcc call);
+   into ``build/kernels/`` (set-up time; one nvcc process per source,
+   started together);
 2. brute-force phase: the 8-triangle mesh of the reference's
    benchmark.f90, an 8x8 quad mesh and a 750-tet box, 1M cold queries
    inside the bounding box plus 1% outside it (kernel B1);
@@ -21,9 +23,19 @@ on the card through its public entry points (``build_grid``, then
    bin center, B3), 10M cold queries (bin-seeded walks), the same
    points advected by 0.01 * velocity with the cold cells as guesses,
    and 100k warm queries pushed out of the box (kernel B3);
-5. holds each kernel against its plain PyTorch version on the same CUDA
+5. trace phase, ``bench.py``'s ``trace_at_scale`` protocol on the walk
+   phase's grid: the helical field (-(y-0.5), x-0.5, 0.25) added with
+   ``add_point_data(..., fuse=False)``, ``build_trace_table`` once, then
+   ``integrate_along_field`` (min_dx 1e-4, max_dx 0.05, 256 steps, rtol =
+   atol = 1e-3) from 0.3 + 0.4 * default_rng(3).random((n, 3)) for n =
+   1024 and 65,536 lines (B3 for the start cells, B4 for every RK
+   iteration), and the 1024 lines again through the generic path (B3
+   walks plus torch);
+6. holds each kernel against its plain PyTorch version on the same CUDA
    tensors, checks linear exactness and found masks, and times kernel
-   and plain version with CUDA events.
+   and plain version with CUDA events (B4, whose launches are about as
+   short as its wrapper's host work, by the profiler's device time where
+   it records one).
 
 Launch counters are zeroed right before each main-path call and read
 right after it; comparison and timing launches are not counted.  The
@@ -638,6 +650,280 @@ def walk_phase(dev, tiu, meshgen, interp_kernel, locate, cand_kernel,
           f"walk, max {int(steps.max())}): kernel {ms_k:.4f} ms, plain "
           f"{ms_p:.4f} ms; bound {res['bound'][0]:.4f} ms "
           f"({res['bound'][1]})")
+    res["grid"] = grid  # the trace phase traces on it
+    return res
+
+
+TRACE_N = (1024, 65_536)  # bench.py's bundle, and one that fills the card
+TRACE_KW = dict(min_dx=1e-4, max_dx=0.05, max_steps=256, rtol=1e-3, atol=1e-3)
+TRACE_TOL = 5e-5  # fused vs generic curves (tests/test_pallas_trace.py:74)
+TRACE_DIFFER = 0.01  # share of lines whose step count or code may differ
+TRACE_REPS = 5  # timed calls per bundle after the main-path call
+B4_REPS = 20  # B4 launches timed on one iteration's stage inputs
+
+
+@contextlib.contextmanager
+def recorded_stages(trace_kernel, keep, out):
+    """Inside the block every call of ``trace_kernel.trace_stages`` is
+    timed with CUDA events; ``out`` gets its ms after the block, and the
+    inputs of the calls numbered in ``keep`` are kept in ``out``."""
+    real = trace_kernel.trace_stages
+    events = []
+
+    def timed(table, *args, **kw):
+        if len(events) in keep:
+            out.setdefault("inputs", {})[len(events)] = (
+                table, [a.clone() for a in args], kw)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        res = real(table, *args, **kw)
+        end.record()
+        events.append((start, end))
+        return res
+
+    trace_kernel.trace_stages = timed
+    try:
+        yield
+    finally:
+        trace_kernel.trace_stages = real
+    torch.cuda.synchronize()
+    out["ms"] = [s.elapsed_time(e) for s, e in events]
+
+
+@contextlib.contextmanager
+def generic_trace(trace_kernel):
+    """Inside the block every trace takes the generic path (B3 + torch)."""
+    real = trace_kernel.supported
+    trace_kernel.supported = lambda *a: False
+    try:
+        yield
+    finally:
+        trace_kernel.supported = real
+
+
+def device_busy(fn, tags):
+    """One call of ``fn`` under ``torch.profiler``: (wall ms, ms of all
+    device activity, {tag: ms of the kernels whose name holds tag}, number
+    of device events), or None where the profiler records no device
+    activity or fails (the share is then not measured).  Everything runs
+    on one stream, so the device events do not overlap and their sum is
+    the time the device was busy."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        ev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    except Exception as err:  # a profiler fault is no fault of the port
+        print(f"profiler: {err!r}")
+        return None
+    if not ev:
+        return None
+    busy = sum(e.time_range.elapsed_us() for e in ev) / 1e3
+    by_tag = {t: sum(e.time_range.elapsed_us() for e in ev if t in e.name)
+              / 1e3 for t in tags}
+    return wall * 1e3, busy, by_tag, len(ev)
+
+
+def trace_compare(name, trace_kernel, inputs):
+    """B4 against its plain version on one iteration's stage inputs, bit
+    for bit.  Returns (kernel result, max |float diff|)."""
+    table, args, kw = inputs
+    k = trace_kernel.trace_cuda(table, *args, **kw)
+    p = trace_kernel.trace_plain(table, *args, **kw)
+    torch.cuda.synchronize()
+    for field, a, b in zip(k._fields, k, p):
+        check(torch.equal(a, b), f"{name}: B4 {field} differs from the plain "
+              f"version on {int((a != b).reshape(len(a), -1).any(1).sum())} "
+              "lanes")
+    err = max(float((a.float() - b.float()).abs().max()) for a, b in zip(k, p))
+    print(f"{name}: B4 vs plain bit-identical on {len(args[0])} lanes "
+          f"({int(args[4].sum())} active); rounds max {int(k.rounds.max())}, "
+          f"mean {float(k.rounds[args[4]].float().mean()):.4f}")
+    return k, err
+
+
+def trace_bound(grid, stages, act):
+    """(bound_ms, bound_by) of one B4 call: 33 B of lane state in and 76 B
+    out per lane, the nf*5 walk floats of every round's row, and the
+    vertex, volume and field floats of each arrival (three for a lane
+    whose stages all arrived; failed lanes are counted without theirs);
+    ~12 flops per face and round, ~100 per arrival."""
+    nf, npc, ndim = grid.n_faces_per_cell, grid.n_points_per_cell, grid.ndim
+    rounds = int(stages.rounds.sum())
+    arrivals = 3 * int((act & ~stages.fail).sum())
+    n = act.numel()
+    n_bytes = (n * (33 + 76) + rounds * nf * 5 * 4
+               + arrivals * (npc * 3 + 1 + npc * ndim) * 4)
+    return bound(n_bytes, rounds * nf * 12 + arrivals * 100)
+
+
+def trace_phase(dev, tiu, grid, counters, walk_kernel, trace_kernel):
+    """bench.py's trace_at_scale protocol on the walk phase's grid."""
+    res = {"launches": 0, "walk_launches": 0}
+    t0 = time.perf_counter()
+    c = grid.points[:, :2] - 0.5
+    fld = (-c[:, 1], c[:, 0], torch.full_like(c[:, 0], 0.25))
+    i_field = []
+    for name, v in zip(("vx", "vy", "vz"), fld):
+        grid, i = tiu.add_point_data(grid, name, v, fuse=False)
+        i_field.append(i)
+    torch.cuda.synchronize()
+    add_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    table = tiu.build_trace_table(grid, i_field)
+    torch.cuda.synchronize()
+    table_s = time.perf_counter() - t0
+    print(f"B4 trace phase on the {grid.n_cells}-tet walk grid: "
+          f"add_point_data x3 (fuse=False) {add_s:.4f} s, build_trace_table "
+          f"{table_s:.4f} s, table {tuple(table.shape)} "
+          f"{table.numel() * table.element_size() / 2**20:.1f} MiB")
+    kw = dict(TRACE_KW, trace_table=table)
+    max_steps = kw["max_steps"]
+
+    def trace(y0):
+        return tiu.integrate_along_field(grid, y0, i_field, **kw)
+
+    runs = {}
+    for n in TRACE_N:
+        y0 = torch.from_numpy(0.3 + 0.4 * np.random.default_rng(3).random(
+            (n, 3))).to(device=dev, dtype=torch.float32)
+        trace(y0)  # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out, counts = main_path(lambda: trace(y0), counters)
+        wall = time.perf_counter() - t0
+        n_b4 = counts[trace_kernel.__name__]
+        n_b3 = counts[walk_kernel.__name__]
+        check(n_b4 >= 1, f"{n} lines: B4 was not launched on the main path")
+        check(n_b3 >= 1, f"{n} lines: B3 was not launched for the start cells")
+        res["launches"] += n_b4
+        res["walk_launches"] += n_b3
+        rec = {}
+        with recorded_stages(trace_kernel, (0, 20), rec):
+            out2 = trace(y0)
+        for a, b in zip(out, out2):
+            check(torch.equal(a, b), f"{n} lines: a second run differs")
+        n_steps = out.n_steps
+        steps = int(n_steps.clamp(max=max_steps).sum())
+        bm = out.boundary_material
+        codes = {int(k): int(v) for k, v in zip(*torch.unique(
+            bm, return_counts=True))}
+        check(tiu.trace.BM_STEP_CAP not in codes,
+              f"{n} lines: {codes.get(tiu.trace.BM_STEP_CAP)} step-cap ends")
+        check(bool(torch.isfinite(out.y).all()), f"{n} lines: non-finite y")
+        # helix radius about the axis (0.5, 0.5) along each line
+        idx = torch.arange(max_steps, device=dev)[None, :]
+        valid = idx < n_steps.clamp(max=max_steps)[:, None]
+        rad = torch.sqrt((out.y[..., 0] - 0.5) ** 2 + (out.y[..., 1] - 0.5) ** 2)
+        drift = float(torch.where(valid, (rad - rad[:, :1]).abs(), 0.0).max())
+        b4_ms = sum(rec["ms"])
+        print(f"B4 {n} lines: {steps} steps in {wall * 1e3:.4f} ms = "
+              f"{steps / wall:.4e} trace steps/s; RK iterations "
+              f"{int(out.n_iterations.max())}, n_rounds {int(out.n_rounds)}, "
+              f"B4 launches {n_b4}, B3 launches {n_b3}; B4 CUDA events "
+              f"{b4_ms:.4f} ms summed over {len(rec['ms'])} launches "
+              f"({b4_ms / (wall * 1e3):.2%} of the wall time); mean steps "
+              f"{steps / n:.2f}; boundary codes {json.dumps(codes)}; largest "
+              f"helix radius drift {drift:.3e}")
+        walls = []
+        for _ in range(TRACE_REPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            trace(y0)
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        med = float(np.median(walls))
+        print(f"B4 {n} lines, {TRACE_REPS} more calls: median {med:.4f} ms "
+              f"(min {min(walls):.4f}, max {max(walls):.4f}) = "
+              f"{steps / med * 1e3:.4e} trace steps/s")
+        prof = device_busy(lambda: trace(y0), ("trace_kernel", "walk_kernel"))
+        if prof is None:
+            print(f"B4 {n} lines, profiled call: no device activity "
+                  "recorded; device busy share not measured")
+        else:
+            p_wall, busy, by_tag, n_ev = prof
+            print(f"B4 {n} lines, profiled call: wall {p_wall:.4f} ms, device "
+                  f"busy {busy:.4f} ms over {n_ev} device events ({busy / p_wall:.2%}"
+                  f" of the profiled wall, {busy / med:.2%} of the median "
+                  f"wall); B4 kernels {by_tag['trace_kernel']:.4f} ms, B3 "
+                  f"kernels {by_tag['walk_kernel']:.4f} ms")
+        runs[n] = dict(out=out, y0=y0, inputs=rec.get("inputs", {}),
+                       wall=wall)
+
+    # B4 against its plain version, and timed, on the 65,536-line stage
+    # inputs of the first iteration and of a later one
+    big = runs[TRACE_N[-1]]
+    res["max_abs_err"] = 0.0
+    for it in sorted(big["inputs"]):
+        k, err = trace_compare(f"B4 {TRACE_N[-1]} lines, iteration {it}",
+                               trace_kernel, big["inputs"][it])
+        res["max_abs_err"] = max(res["max_abs_err"], err)
+        if it == 0:
+            table_, args, kw0 = big["inputs"][it]
+            def b4():
+                return trace_kernel.trace_cuda(table_, *args, **kw0)
+
+            # The wrapper's host work per call is of the order of the
+            # kernel's time, so back-to-back calls between two CUDA events
+            # can time the host; the profiler's device time of the kernel
+            # is the kernel's own, and it is the one reported where the
+            # profiler records it
+            wrapper_ms = cuda_ms(b4, B4_REPS)
+            b4()
+            prof = device_busy(lambda: [b4() for _ in range(B4_REPS)],
+                               ("trace_kernel",))
+            res["ms"] = (wrapper_ms if prof is None
+                         else prof[2]["trace_kernel"] / B4_REPS)
+            res["plain_ms"] = cuda_ms(lambda: trace_kernel.trace_plain(
+                table_, *args, **kw0), 3)
+            res["bound"] = trace_bound(grid, k, args[4])
+            print(f"B4 {TRACE_N[-1]} lines, first iteration: kernel "
+                  f"{res['ms']:.4f} ms ("
+                  f"{'CUDA events' if prof is None else 'profiler'}; CUDA "
+                  f"events around {B4_REPS} wrapper calls {wrapper_ms:.4f} ms "
+                  f"a call), plain {res['plain_ms']:.4f} ms, bound "
+                  f"{res['bound'][0]:.4f} ms ({res['bound'][1]}; "
+                  f"{int(k.rounds.sum())} rounds)")
+    check(0 in big["inputs"] and len(big["inputs"]) == 2,
+          "the 65,536-line bundle ran fewer than 21 iterations")
+
+    # The fused trace against the generic one (B3 walks + torch)
+    small = runs[TRACE_N[0]]
+    with generic_trace(trace_kernel):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        gen = trace(small["y0"])
+        torch.cuda.synchronize()
+        gen_s = time.perf_counter() - t0
+    fu = small["out"]
+    differ = (fu.n_steps != gen.n_steps) | (
+        fu.boundary_material != gen.boundary_material)
+    n_diff = int(differ.sum())
+    check(n_diff <= TRACE_DIFFER * TRACE_N[0],
+          f"fused vs generic: {n_diff} of {TRACE_N[0]} lines differ")
+    err = 0.0
+    for b in torch.nonzero(~differ).squeeze(1).tolist():
+        m = min(int(fu.n_steps[b]), max_steps)
+        err = max(err, float((fu.y[b, :m] - gen.y[b, :m]).abs().max()),
+                  float((fu.y_field[b, :m] - gen.y_field[b, :m]).abs().max()))
+    check(err <= TRACE_TOL, f"fused vs generic: curves differ by {err}")
+    for b in torch.nonzero(differ).squeeze(1).tolist():
+        print(f"  line {b}: fused n_steps {int(fu.n_steps[b])} code "
+              f"{int(fu.boundary_material[b])}, generic "
+              f"{int(gen.n_steps[b])} code {int(gen.boundary_material[b])}")
+    gsteps = int(gen.n_steps.clamp(max=max_steps).sum())
+    print(f"B4 fused vs generic ({TRACE_N[0]} lines): {n_diff} lines differ in "
+          f"n_steps or boundary code; the others agree within {err:.3e}; "
+          f"generic path {gen_s * 1e3:.4f} ms = {gsteps / gen_s:.4e} trace "
+          f"steps/s, fused {small['wall'] * 1e3:.4f} ms")
     return res
 
 
@@ -652,6 +938,7 @@ def main() -> int:
         cand_kernel,
         interp_kernel,
         locate,
+        trace_kernel,
         walk_kernel,
     )
     from interpolate_unstructured_tpu_torch.utils import meshgen
@@ -674,12 +961,26 @@ def main() -> int:
 
     args = (dev, tiu, meshgen, interp_kernel, locate, cand_kernel,
             walk_kernel)
-    b1 = bruteforce_phase(*args)
-    b2 = candidate_phase(*args)
-    b3 = walk_phase(*args)
-    b3_launches = sum(b3["launches"].values()) + b2["walk_launches"]
+    phase_s = {}
+
+    def timed_phase(name, fn, *a):
+        t0 = time.perf_counter()
+        out = fn(*a)
+        phase_s[name] = round(time.perf_counter() - t0, 3)
+        return out
+
+    b1 = timed_phase("bruteforce", bruteforce_phase, *args)
+    b2 = timed_phase("candidate", candidate_phase, *args)
+    b3 = timed_phase("walk", walk_phase, *args)
+    b4 = timed_phase("trace", trace_phase, dev, tiu, b3.pop("grid"),
+                     (interp_kernel, cand_kernel, walk_kernel, trace_kernel),
+                     walk_kernel, trace_kernel)
+    print("phase seconds: " + json.dumps(phase_s))
+    b3_launches = (sum(b3["launches"].values()) + b2["walk_launches"]
+                   + b4["walk_launches"])
     print("B3 launches on the main path: " + json.dumps(
-        {**b3["launches"], "candidate_warm": b2["walk_launches"]}))
+        {**b3["launches"], "candidate_warm": b2["walk_launches"],
+         "trace_start_cells": b4["walk_launches"]}))
 
     pkg = "interpolate_unstructured_tpu_torch"
     kernels = [
@@ -703,6 +1004,13 @@ def main() -> int:
          "launches": b3_launches, "max_abs_err": b3["max_abs_err"],
          "ms": b3["ms"], "plain_ms": b3["plain_ms"],
          "bound_ms": b3["bound"][0], "bound_by": b3["bound"][1],
+         "library_ms": None},
+        {"name": "B4 trace", "route": "cuda",
+         "source": f"{pkg}/csrc/trace.cu",
+         "replaces": "interpolate_unstructured_tpu/ops/pallas_trace.py:103",
+         "launches": b4["launches"], "max_abs_err": b4["max_abs_err"],
+         "ms": b4["ms"], "plain_ms": b4["plain_ms"],
+         "bound_ms": b4["bound"][0], "bound_by": b4["bound"][1],
          "library_ms": None},
     ]
     print(card)

@@ -2,32 +2,43 @@
 
 A port of ``interpolate_unstructured_tpu`` (JAX, TPU) to PyTorch on an
 NVIDIA H100, one slice at a time.  Ported so far: ``build_grid`` with
-its seed, walk and candidate tables; cold and warm point location
-(``get_cell``, the neighbor walk, bin and kd-tree seeds); and
-interpolation and cell-data lookup (``interpolate_at``,
-``interpolate_scalar_at``, ``interpolate_at_icell``,
-``get_cell_scalar_at``, ``get_icell_scalar_at``).  Its kernels are CUDA
-C++ for ``sm_90a`` (``csrc/``), built by ``nvcc`` on first use into
+its seed, walk and candidate tables and the data-mutation API
+(``add_point_data`` and the other adders, ``set_point_data``, the
+``reserve_*`` functions); cold and warm point location (``get_cell``,
+the neighbor walk, bin and kd-tree seeds); interpolation and cell-data
+lookup (``interpolate_at``, ``interpolate_scalar_at``,
+``interpolate_at_icell``, ``get_cell_scalar_at``,
+``get_icell_scalar_at``); and field-line tracing
+(``integrate_along_field``, ``build_trace_table``).  Its kernels are
+CUDA C++ for ``sm_90a`` (``csrc/``), built by ``nvcc`` on first use into
 ``build/kernels/``:
 
 * B1 ``ops/interp_kernel.py`` — brute-force locate + interpolate
   (meshes of at most ``bruteforce_max_cells`` cells);
 * B2 ``ops/cand_kernel.py`` — the candidate-row probe of larger meshes;
-* B3 ``ops/walk_kernel.py`` — the neighbor walk.
+* B3 ``ops/walk_kernel.py`` — the neighbor walk;
+* B4 ``ops/trace_kernel.py`` — the fused stages of a tracer iteration.
 
 On CPU tensors each kernel's plain PyTorch version runs instead.
-``build_grid`` puts a grid on the CUDA device unless it is given
-``device="cpu"``.  The package imports torch, numpy and scipy, never
-jax.
+``build_grid`` and ``build_kdtree`` put their tensors on the CUDA device
+unless they are given ``device="cpu"``.  The package imports torch,
+numpy and scipy, never jax.
 """
 
 from .models.grid import (
     Grid,
+    add_cell_data,
+    add_icell_data,
+    add_point_data,
     build_grid,
     get_cell_data_index,
     get_icell_data_index,
     get_point_data_index,
     grid_from_numpy,
+    reserve_cell_data_storage,
+    reserve_icell_data_storage,
+    reserve_point_data_storage,
+    set_point_data,
 )
 from .ops.interp import (
     get_cell_scalar_at,
@@ -47,18 +58,27 @@ from .ops.locate import (
     point_is_inside_cell,
     walk,
 )
+from .ops.kdtree import KdTree, build_kdtree, nearest as kdtree_nearest
+from .trace import TraceResult, build_trace_table, integrate_along_field
 from .utils.config import DEFAULT_CONFIG, IUConfig
 
 __all__ = [
     "DEFAULT_CONFIG",
     "Grid",
     "IUConfig",
+    "KdTree",
     "STATUS_ARRIVED",
     "STATUS_BOUNDARY",
     "STATUS_MASK_CHANGED",
     "STATUS_STEP_CAP",
+    "TraceResult",
+    "add_cell_data",
+    "add_icell_data",
+    "add_point_data",
     "bin_seed",
     "build_grid",
+    "build_kdtree",
+    "build_trace_table",
     "get_cell",
     "get_cell_data_index",
     "get_cell_scalar_at",
@@ -66,10 +86,16 @@ __all__ = [
     "get_icell_scalar_at",
     "get_point_data_index",
     "grid_from_numpy",
+    "integrate_along_field",
     "interpolate_at",
     "interpolate_at_icell",
     "interpolate_scalar_at",
+    "kdtree_nearest",
     "locate_bruteforce",
     "point_is_inside_cell",
+    "reserve_cell_data_storage",
+    "reserve_icell_data_storage",
+    "reserve_point_data_storage",
+    "set_point_data",
     "walk",
 ]

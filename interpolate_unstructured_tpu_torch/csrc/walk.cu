@@ -43,7 +43,8 @@ __global__ void walk_kernel(const float* __restrict__ table, int n_rows,
                             const float* __restrict__ u,
                             const float* __restrict__ total,
                             const unsigned char* __restrict__ active0,
-                            const int* __restrict__ ic0, int n_queries,
+                            const int* __restrict__ ic0,
+                            const int* __restrict__ mask, int n_queries,
                             float nudge, float eps_arrive, float big,
                             int max_steps, int* __restrict__ out_ic,
                             float* __restrict__ out_rp,
@@ -64,9 +65,10 @@ __global__ void walk_kernel(const float* __restrict__ table, int n_rows,
   s.status = iu::kStatusArrived;
   s.steps = 0;
   s.active = active0[q] != 0;
+  const int mask0 = mask != nullptr ? mask[iu::clamp_row(s.ic, n_rows)] : 0;
   for (int n = 0; n < max_steps && s.active; ++n) {
     iu::walk_round<NF>(table, n_rows, W, ux, uy, uz, nudge, eps_arrive, big,
-                       s);
+                       mask, mask0, s);
   }
   out_ic[q] = s.ic;
   out_rp[3 * q + 0] = s.px;
@@ -79,12 +81,12 @@ __global__ void walk_kernel(const float* __restrict__ table, int n_rows,
 template <int NF>
 void launch(const float* table, int n_rows, int W, const float* r0,
             const float* u, const float* total, const unsigned char* active0,
-            const int* ic0, int n_queries, float nudge, float eps_arrive,
-            float big, int max_steps, int* out_ic, float* out_rp,
-            int* out_steps, int* out_status, cudaStream_t s) {
+            const int* ic0, const int* mask, int n_queries, float nudge,
+            float eps_arrive, float big, int max_steps, int* out_ic,
+            float* out_rp, int* out_steps, int* out_status, cudaStream_t s) {
   const int blocks = (n_queries + kThreads - 1) / kThreads;
   walk_kernel<NF><<<blocks, kThreads, 0, s>>>(
-      table, n_rows, W, r0, u, total, active0, ic0, n_queries, nudge,
+      table, n_rows, W, r0, u, total, active0, ic0, mask, n_queries, nudge,
       eps_arrive, big, max_steps, out_ic, out_rp, out_steps, out_status);
 }
 
@@ -92,24 +94,26 @@ void launch(const float* table, int n_rows, int W, const float* r0,
 
 // Plain C entry point (bound with ctypes).  table: (n_rows, W) float32
 // walk rows; r0, u, out_rp: (B, 3); total: (B,); active0: (B,) bool, the
-// lanes that walk (not degenerate); ic0: (B,) int32; nf: 3 or 4.
-// Returns the cudaError_t of the launch.
+// lanes that walk (not degenerate); ic0: (B,) int32; mask: (n_rows,)
+// int32 per-cell mask values, or null for a walk without a mask; nf: 3
+// or 4.  Returns the cudaError_t of the launch.
 extern "C" int iu_walk(const float* table, int n_rows, int W, int nf,
                        const float* r0, const float* u, const float* total,
                        const unsigned char* active0, const int* ic0,
-                       int n_queries, float nudge, float eps_arrive, float big,
-                       int max_steps, int* out_ic, float* out_rp,
+                       const int* mask, int n_queries, float nudge,
+                       float eps_arrive, float big, int max_steps,
+                       int* out_ic, float* out_rp,
                        int* out_steps, int* out_status, void* stream) {
   if (n_queries <= 0) return (int)cudaSuccess;
   if (n_rows <= 0 || W < 5 * nf) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (nf == 3) {
-    launch<3>(table, n_rows, W, r0, u, total, active0, ic0, n_queries, nudge,
-              eps_arrive, big, max_steps, out_ic, out_rp, out_steps,
+    launch<3>(table, n_rows, W, r0, u, total, active0, ic0, mask, n_queries,
+              nudge, eps_arrive, big, max_steps, out_ic, out_rp, out_steps,
               out_status, s);
   } else if (nf == 4) {
-    launch<4>(table, n_rows, W, r0, u, total, active0, ic0, n_queries, nudge,
-              eps_arrive, big, max_steps, out_ic, out_rp, out_steps,
+    launch<4>(table, n_rows, W, r0, u, total, active0, ic0, mask, n_queries,
+              nudge, eps_arrive, big, max_steps, out_ic, out_rp, out_steps,
               out_status, s);
   } else {
     return (int)cudaErrorInvalidValue;

@@ -15,6 +15,7 @@ namespace iu {
 
 constexpr int kStatusArrived = 0;
 constexpr int kStatusBoundary = -1;
+constexpr int kStatusMaskChanged = 1;
 constexpr int kStatusStepCap = 2;
 
 // Per-query walk state kept in registers across rounds.
@@ -70,17 +71,24 @@ __device__ __forceinline__ float face_round(const float* __restrict__ row,
   return face_dist < 0.0f ? 0.0f : face_dist;  // never step backwards
 }
 
+// Row index clamped into [0, n_rows), as an XLA gather clamps it.
+__device__ __forceinline__ int clamp_row(int ic, int n_rows) {
+  return ic < 0 ? 0 : (ic >= n_rows ? n_rows - 1 : ic);
+}
+
 // One round for an active query: hop across the exit face, or arrive, or
 // leave the domain (status and position as the JAX kernel sets them).
-// The row index is clamped into [0, n_rows), as an XLA gather clamps it.
+// With a per-cell mask column (mask != nullptr), a hop into a cell whose
+// value differs from mask0, the start cell's, stops on the face in that
+// cell with kStatusMaskChanged (the JAX package's ops/locate.py:279-308).
 template <int NF>
 __device__ __forceinline__ void walk_round(const float* __restrict__ table,
                                            int n_rows, int W, float ux,
                                            float uy, float uz, float nudge,
                                            float eps_arrive, float big,
-                                           WalkState& s) {
-  const int irow = s.ic < 0 ? 0 : (s.ic >= n_rows ? n_rows - 1 : s.ic);
-  const float* row = table + (size_t)irow * W;
+                                           const int* __restrict__ mask,
+                                           int mask0, WalkState& s) {
+  const float* row = table + (size_t)clamp_row(s.ic, n_rows) * W;
   int ic_next;
   bool hit;
   const float face_dist = face_round<NF>(row, ux, uy, uz, s.px, s.py, s.pz,
@@ -89,7 +97,9 @@ __device__ __forceinline__ void walk_round(const float* __restrict__ table,
   // face still counts as arrived in the current cell.
   const bool crossing = hit && (s.dist_left - face_dist > eps_arrive);
   const bool out_of_domain = ic_next < 0;
-  const bool continuing = crossing && !out_of_domain;
+  const bool mask_changed = mask != nullptr && crossing && !out_of_domain &&
+                            mask[ic_next] != mask0;
+  const bool continuing = crossing && !out_of_domain && !mask_changed;
   // Continuing hops overshoot the face by `nudge`; terminating hops stay
   // exactly on it.  No face hit: stay put.
   const float advance = face_dist + (continuing ? nudge : 0.0f);
@@ -99,7 +109,9 @@ __device__ __forceinline__ void walk_round(const float* __restrict__ table,
     s.pz = s.pz + advance * uz;
     s.dist_left = s.dist_left - advance;
   }
-  s.status = (crossing && out_of_domain) ? kStatusBoundary : kStatusArrived;
+  s.status = (crossing && out_of_domain)
+                 ? kStatusBoundary
+                 : (mask_changed ? kStatusMaskChanged : kStatusArrived);
   if (continuing) s.prev = s.ic;
   if (crossing) s.ic = ic_next;
   s.steps += 1;

@@ -123,6 +123,11 @@ class Grid:
         return self.cells.shape[1]
 
     @property
+    def ndim(self) -> int:
+        """Spatial dimension of the cells (2 or 3)."""
+        return geometry.NDIM_OF_CELL_TYPE[self.cell_type]
+
+    @property
     def n_point_data(self) -> int:
         return len(self.point_data_names)
 
@@ -976,7 +981,7 @@ def cand_bin_centers(grid: Grid, bin_idx: torch.Tensor) -> torch.Tensor:
     return torch.stack([cx, cy, cz], dim=1)
 
 
-def _build_cand_tables(grid: Grid) -> dict:
+def _build_cand_tables(grid: Grid, nv: int | None = None) -> dict:
     """Main + overflow-extension candidate tables.
 
     The main table's count column encodes overflow redirection: the
@@ -987,9 +992,13 @@ def _build_cand_tables(grid: Grid) -> dict:
 
     The physical row width is the needed floats for this grid's K
     rounded up to a 512-byte multiple, as in the JAX package, so both
-    packages build tables of the same shape."""
+    packages build tables of the same shape.  ``nv`` overrides the
+    fused-variable count (clamped to the capacity); ``set_point_data``
+    passes the pinned count so that a repack never fuses a variable
+    added with ``fuse=False``."""
     k_max = grid.cand_ids.shape[1]
-    nv = _cand_capacity_nv(grid)
+    cap_nv = _cand_capacity_nv(grid)
+    nv = cap_nv if nv is None else min(nv, cap_nv)
     quantized = cand_is_quantized(grid.cell_type, grid.dtype, grid.config)
     step = 512 // grid.dtype.itemsize
     if quantized:
@@ -1088,3 +1097,142 @@ def get_icell_data_index(grid: Grid, name: str) -> int:
         return grid.icell_data_names.index(name)
     except ValueError:
         return -1
+
+
+def _reserve(data, n_extra):
+    pad = torch.zeros((data.shape[0], n_extra), dtype=data.dtype,
+                      device=data.device)
+    return torch.cat([data, pad], dim=1)
+
+
+def reserve_point_data_storage(grid: Grid, n: int) -> Grid:
+    """Grow point-data storage by n zero-initialized columns (:204-221).
+
+    Reserved columns don't change ``n_point_data``; a later ``add`` fills
+    them without reallocating."""
+    return dataclasses.replace(grid, point_data=_reserve(grid.point_data, n))
+
+
+def reserve_cell_data_storage(grid: Grid, n: int) -> Grid:
+    """Grow cell-data storage by n zero-initialized columns."""
+    return dataclasses.replace(grid, cell_data=_reserve(grid.cell_data, n))
+
+
+def reserve_icell_data_storage(grid: Grid, n: int) -> Grid:
+    """Grow integer cell-data storage by n zero-initialized columns."""
+    return dataclasses.replace(grid, icell_data=_reserve(grid.icell_data, n))
+
+
+def _column(values, n_rows, like):
+    """``values`` (None = zeros) as an (n_rows,) tensor of ``like``'s
+    dtype on its device."""
+    if values is None:
+        return torch.zeros(n_rows, dtype=like.dtype, device=like.device)
+    return torch.as_tensor(values).to(
+        dtype=like.dtype, device=like.device).reshape(n_rows)
+
+
+def _add_column(data, names, name, values, n_rows):
+    """Fill the first reserved column, or grow by one.  The grid's old
+    tensor is left as it was (grids are values, as in the JAX package).
+
+    Each family checks its *own* capacity: the reference reuses the
+    point-data count in all three adders (capacity bug, :124/:139; see
+    SURVEY.md §2.2 'known bug — don't replicate')."""
+    i_var = len(names)
+    col = _column(values, n_rows, data)
+    if data.shape[1] > i_var:  # reserved capacity available
+        data = data.clone()
+        data[:, i_var] = col
+    else:
+        data = torch.cat([data, col[:, None]], dim=1)
+    return data, names + (name,), i_var
+
+
+def _no_accurate_mode(grid: Grid) -> None:
+    if grid.point_data_lo is not None or grid.acc_table is not None:
+        raise NotImplementedError(
+            "the accurate-mode registries (point_data_lo, acc_table) are "
+            "kept in step by the accurate-mode slice of the port"
+        )
+
+
+def _refresh_cand_data(grid: Grid, i_var: int | None = None,
+                       extend: bool = True) -> Grid:
+    """Re-pack the candidate rows after a point-data mutation — they
+    carry fused copies of the leading variables' vertex values.
+
+    Pass the mutated column as ``i_var`` to skip the repack when that
+    column would not be fused into the rows.  With ``extend=True``
+    (add_point_data) the comparison uses the CAPACITY nv — appending a
+    variable that fits extends the fusion.  With ``extend=False``
+    (set_point_data) only a column that is CURRENTLY fused triggers a
+    repack, which keeps the pinned nv: updating a variable added with
+    ``fuse=False`` neither pays the repack nor fuses the column."""
+    if grid.cand_ids is None:
+        return grid
+    nv_now = cand_fused_nv(grid)
+    limit = _cand_capacity_nv(grid) if extend else nv_now
+    if i_var is not None and i_var >= limit:
+        return grid
+    return dataclasses.replace(
+        grid, **_build_cand_tables(grid, nv=None if extend else nv_now)
+    )
+
+
+def add_point_data(grid: Grid, name: str, values=None, fuse: bool = True):
+    """Append a named point-data variable (iu_add_point_data, :149-161).
+
+    Returns ``(new_grid, i_var)``.  ``values`` defaults to zeros.
+
+    ``fuse=False`` skips extending the fused candidate rows to the new
+    variable (a repack of every row): the variable still interpolates
+    through the generic path and the tracer, it just does not ride the
+    one-row candidate probe."""
+    _no_accurate_mode(grid)
+    data, names, i_var = _add_column(
+        grid.point_data, grid.point_data_names, name, values, grid.n_points
+    )
+    grid = dataclasses.replace(grid, point_data=data, point_data_names=names)
+    if not fuse:
+        return grid, i_var
+    return _refresh_cand_data(grid, i_var), i_var
+
+
+def add_cell_data(grid: Grid, name: str, values=None):
+    """Append a named cell-data variable; returns ``(new_grid, i_var)``."""
+    data, names, i_var = _add_column(
+        grid.cell_data, grid.cell_data_names, name, values, grid.n_cells
+    )
+    return (
+        dataclasses.replace(grid, cell_data=data, cell_data_names=names),
+        i_var,
+    )
+
+
+def add_icell_data(grid: Grid, name: str, values=None):
+    """Append a named integer cell-data variable; returns
+    ``(new_grid, i_var)``."""
+    data, names, i_var = _add_column(
+        grid.icell_data, grid.icell_data_names, name, values, grid.n_cells
+    )
+    return (
+        dataclasses.replace(grid, icell_data=data, icell_data_names=names),
+        i_var,
+    )
+
+
+def set_point_data(grid: Grid, i_var: int, values) -> Grid:
+    """Overwrite one point-data column (test_tetra.f90:37-40 pattern)."""
+    _no_accurate_mode(grid)
+    nv = grid.n_point_data
+    i_var = int(i_var)
+    if not -nv <= i_var < nv:
+        raise ValueError(f"i_var {i_var} outside the live point-data range")
+    i_var %= nv  # python-style wrap, normalized so the fused-column
+    #              skip below sees a real slot
+    data = grid.point_data.clone()
+    data[:, i_var] = torch.as_tensor(values).to(dtype=data.dtype,
+                                                device=data.device)
+    grid = dataclasses.replace(grid, point_data=data)
+    return _refresh_cand_data(grid, i_var, extend=False)

@@ -1,10 +1,12 @@
 """Build and load the port's CUDA kernels.
 
-Every ``csrc/*.cu`` file is compiled by ``nvcc`` into one shared
-library with a plain C interface, bound with ``ctypes``:
+Every ``csrc/*.cu`` file is compiled by its own ``nvcc`` process, all
+started together, and the objects are linked into one shared library
+with a plain C interface, bound with ``ctypes``:
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
-         --fmad=false -shared -Xcompiler -fPIC -o <lib> csrc/*.cu
+         --fmad=false -Xcompiler -fPIC -Xptxas -v -c -o <src>.o csrc/<src>.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -shared -o <lib> *.o
 
 The library lands in ``build/kernels/`` at the repository root, named
 by a hash of the sources and flags, so a changed source rebuilds and an
@@ -27,9 +29,10 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
+ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "--fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    *ARCH, "-std=c++17", "-O3", "--fmad=false", "-Xcompiler", "-fPIC",
+    "-Xptxas", "-v",
 )
 
 _P = ctypes.c_void_p
@@ -47,8 +50,13 @@ _SIGNATURES = {
     ),
     "iu_walk": (
         _I,
-        [_P, _I, _I, _I, _P, _P, _P, _P, _P, _I, _F, _F, _F, _I, _P, _P, _P,
-         _P, _P],
+        [_P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _I, _F, _F, _F, _I, _P, _P,
+         _P, _P, _P],
+    ),
+    "iu_trace": (
+        _I,
+        [_P, _I, _I, _I, _P, _P, _P, _P, _P, _I, _F, _F, _F, _F, _I, _I, _I,
+         _F, _I, _P, _P, _P],
     ),
     "iu_error_string": (ctypes.c_char_p, [_I]),
 }
@@ -92,18 +100,34 @@ def build() -> Path:
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *(str(s) for s in sorted(CSRC.glob("*.cu")))]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    log = out.with_name(out.name + ".log")
-    log.write_text(proc.stdout + proc.stderr)
-    if proc.returncode != 0:
+    tag = f"{out.stem}.{os.getpid()}"
+    nvcc = _nvcc()
+    jobs = []
+    for src in sorted(CSRC.glob("*.cu")):
+        obj = BUILD_DIR / f"{tag}.{src.stem}.o"
+        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+        jobs.append((cmd, obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    logs, failed = [], []
+    for cmd, _, proc in jobs:
+        text = proc.communicate()[0]
+        logs.append(text)
+        if proc.returncode != 0:
+            failed.append(f"{' '.join(cmd)}\n{text}")
+    objs = [obj for _, obj, _ in jobs]
+    tmp = out.with_name(f"{tag}.tmp")
+    if not failed:
+        cmd = [nvcc, *ARCH, "-shared", "-o", str(tmp), *map(str, objs)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        logs.append(proc.stdout + proc.stderr)
+        if proc.returncode != 0:
+            failed.append(f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
+    for obj in objs:
+        obj.unlink(missing_ok=True)
+    out.with_name(out.name + ".log").write_text("".join(logs))
+    if failed:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
-            f"{proc.stdout}{proc.stderr}"
-        )
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
     os.replace(tmp, out)
     return out
 

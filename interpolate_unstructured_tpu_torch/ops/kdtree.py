@@ -45,10 +45,20 @@ def _left_subtree_size(n: int) -> int:
 
 
 def build_kdtree(points: np.ndarray, dtype=torch.float64,
-                 device="cpu") -> KdTree:
+                 device=None) -> KdTree:
     """Host-side construction (numpy): median splits on cycling dims,
     the JAX package's tree node for node.  The node tensors land on
-    ``device``, the coordinates in ``dtype``."""
+    ``device`` — by default the CUDA device, and a process without one
+    raises (pass ``"cpu"`` for the host) — the coordinates in
+    ``dtype``."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "build_kdtree puts the tree on the CUDA device by default, "
+                "and torch.cuda.is_available() is false; pass device='cpu' "
+                "to build on the host"
+            )
+        device = "cuda"
     points = np.asarray(points, dtype=np.float64)
     n, k = points.shape
     if k != 3:

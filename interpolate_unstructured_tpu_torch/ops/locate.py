@@ -31,7 +31,7 @@ from . import cand_kernel, geometry, walk_kernel
 from ..utils.config import huge_distance, tiny_distance, walk_tolerances
 
 STATUS_ARRIVED = walk_kernel.STATUS_ARRIVED
-STATUS_MASK_CHANGED = 1
+STATUS_MASK_CHANGED = walk_kernel.STATUS_MASK_CHANGED
 STATUS_BOUNDARY = walk_kernel.STATUS_BOUNDARY
 STATUS_STEP_CAP = walk_kernel.STATUS_STEP_CAP
 
@@ -142,23 +142,28 @@ def point_is_inside_cell(grid, r, i_cell):
     return (margin >= -grid.config.eps_inside) & (i_cell >= 0)
 
 
-def walk(grid, r0, r1, ic0, max_steps=None, i_icell_mask=None):
+def walk(grid, r0, r1, ic0, max_steps=None, i_icell_mask=None, table=None):
     """Batched neighbor walk from r0 (inside cell ic0) towards r1.
 
     The reference's iu_get_cell_through_neighbors +
     get_cell_intersection (:664-764): per step, the exit face is the
     least positive ray-plane distance over faces whose outward normal
     has a positive dot with the direction; the walk hops across it and
-    stops per query on arrival or at the domain boundary.  The rounds
-    run in kernel B3 (``ops/walk_kernel.walk_rows``).
+    stops per query on arrival, at the domain boundary or where the
+    icell mask changes.  The rounds run in kernel B3
+    (``ops/walk_kernel.walk_rows``).
 
     Args:
       r0, r1: (B, 3) start/end positions.
       ic0: (B,) int32 start cells (must contain r0 for exact parity).
       max_steps: step cap (the reference walks unbounded, :431); default
         ``config.max_walk_steps``.
-      i_icell_mask: stopping where icell data changes (:712-719) belongs
-        to the tracer slice and raises here.
+      i_icell_mask: optional icell-data column; a hop into a cell whose
+        value there differs from the start cell's stops on the face with
+        ``STATUS_MASK_CHANGED`` (:712-719), in the cell entered.
+      table: optional per-cell row table to walk instead of
+        ``grid.walk_table``, with the same leading ``normals | offsets |
+        neighbors`` columns (the tracer's ``build_trace_table`` rows).
 
     Returns:
       ic1: (B,) final cell (negative if walked out of the domain)
@@ -167,21 +172,23 @@ def walk(grid, r0, r1, ic0, max_steps=None, i_icell_mask=None):
       n_steps: (B,) int32 steps taken
       status: (B,) int32 status code
     """
+    mask = None
     if i_icell_mask is not None:
-        raise NotImplementedError(
-            "walk(..., i_icell_mask=...) comes with the tracer slice of the "
-            "port (its only user)"
-        )
-    return walk_kernel.walk_rows(*_walk_args(grid, r0, r1, ic0, max_steps))
+        mask = grid.icell_data[:, i_icell_mask].to(torch.int32).contiguous()
+    return walk_kernel.walk_rows(
+        *_walk_args(grid, r0, r1, ic0, max_steps, table), mask
+    )
 
 
-def _walk_args(grid, r0, r1, ic0, max_steps=None):
+def _walk_args(grid, r0, r1, ic0, max_steps=None, table=None):
     """The arguments of ``walk_kernel.walk_rows`` for a walk from r0 to
-    r1: unit directions, lengths (degenerate walks, shorter than the
-    dtype's tiny distance, stay put), start cells and the dtype-scaled
-    tolerances."""
+    r1 over ``table`` (default: the walk rows): unit directions, lengths
+    (degenerate walks, shorter than the dtype's tiny distance, stay
+    put), start cells and the dtype-scaled tolerances."""
     if max_steps is None:
         max_steps = grid.config.max_walk_steps
+    if table is None:
+        table = grid.walk_table
     r0 = _queries(grid, r0)
     r1 = _queries(grid, r1)
     dtype = torch.empty((), dtype=r0.dtype).numpy().dtype
@@ -193,7 +200,7 @@ def _walk_args(grid, r0, r1, ic0, max_steps=None):
     )
     degenerate = total < tiny_distance(dtype)
     u = delta / torch.where(degenerate, 1.0, total)[:, None]
-    return (grid.walk_table, r0, u, total, ~degenerate, _cells(grid, ic0), nudge,
+    return (table, r0, u, total, ~degenerate, _cells(grid, ic0), nudge,
             eps_arrive, huge_distance(dtype), max_steps,
             grid.n_faces_per_cell)
 

@@ -7,7 +7,10 @@ among faces with ``u . n > 0``, the runner-up when the best leads
 straight back to the previous cell), then arrives, leaves the domain or
 hops across with a ``nudge`` overshoot (m_interp_unstructured.f90:
 664-764).  A query stops at arrival or at the boundary; one still
-walking after ``max_steps`` rounds gets ``STATUS_STEP_CAP``.
+walking after ``max_steps`` rounds gets ``STATUS_STEP_CAP``.  With a
+per-cell ``mask`` column (the tracer's icell-mask region), a hop into a
+cell whose mask value differs from the start cell's stops on the face
+with ``STATUS_MASK_CHANGED``, in that cell (:706-719).
 
 :func:`walk_rows` launches the CUDA kernel (``csrc/walk.cu``, one thread
 per query walking to its end) on CUDA tensors and runs
@@ -30,6 +33,7 @@ launches = 0
 
 STATUS_ARRIVED = 0
 STATUS_BOUNDARY = -1
+STATUS_MASK_CHANGED = 1
 STATUS_STEP_CAP = 2
 
 
@@ -63,7 +67,7 @@ def _face_round(g, nf, u, p, prev, big):
 
 
 def walk_plain(table, r0, u, total, active, ic0, nudge, eps_arrive, big,
-               max_steps, nf):
+               max_steps, nf, mask=None):
     """Plain PyTorch version of B3 (model: the round body of the JAX
     package's ``ops/pallas_walk._kernel`` looped as ``_walk_pallas``
     loops it), on any device and float dtype.  Each round works on the
@@ -77,6 +81,8 @@ def walk_plain(table, r0, u, total, active, ic0, nudge, eps_arrive, big,
       active: (B,) bool, the lanes that walk (the others keep r0/ic0).
       ic0: (B,) int32 start cells.
       nudge, eps_arrive, big: walk tolerances and the no-hit distance.
+      mask: optional (n_rows,) int32 per-cell mask values; None walks
+        without one.
     Returns (ic (B,) int32, r_p (B, 3), steps (B,) int32, status (B,)
     int32), ``ops.locate.walk``'s contract.
     """
@@ -92,6 +98,8 @@ def walk_plain(table, r0, u, total, active, ic0, nudge, eps_arrive, big,
     zero = torch.zeros((), dtype=r0.dtype, device=dev)
     lanes = torch.nonzero(active).squeeze(1)
     n_rows = table.shape[0]
+    if mask is not None:
+        mask0 = mask[ic.clamp(0, n_rows - 1).long()]
     for _ in range(max_steps):
         if lanes.numel() == 0:
             break
@@ -103,12 +111,17 @@ def walk_plain(table, r0, u, total, active, ic0, nudge, eps_arrive, big,
         crossing = hit & (dl - face_dist > eps_arrive)
         out_of_domain = ic_next < 0
         continuing = crossing & ~out_of_domain
+        st = torch.where(crossing & out_of_domain, STATUS_BOUNDARY,
+                         STATUS_ARRIVED)
+        if mask is not None:
+            changed = continuing & (
+                mask[ic_next.clamp_min(0).long()] != mask0[lanes])
+            continuing = continuing & ~changed
+            st = torch.where(changed, STATUS_MASK_CHANGED, st)
         advance = face_dist + torch.where(continuing, nudge_t, zero)
         rp[lanes] = torch.where(hit[:, None], p + advance[:, None] * ua, p)
         dist_left[lanes] = torch.where(hit, dl - advance, dl)
-        status[lanes] = torch.where(
-            crossing & out_of_domain, STATUS_BOUNDARY, STATUS_ARRIVED
-        ).to(torch.int32)
+        status[lanes] = st.to(torch.int32)
         prev[lanes] = torch.where(continuing, ic_a, prev_a)
         ic[lanes] = torch.where(crossing, ic_next, ic_a)
         steps[lanes] += 1
@@ -118,9 +131,10 @@ def walk_plain(table, r0, u, total, active, ic0, nudge, eps_arrive, big,
 
 
 def walk_cuda(table, r0, u, total, active, ic0, nudge, eps_arrive, big,
-              max_steps, nf):
+              max_steps, nf, mask=None):
     """Launch B3 on CUDA tensors: float32 table and positions, bool
-    ``active``, int32 ``ic0``.  One thread per query walks to its end."""
+    ``active``, int32 ``ic0`` and ``mask`` (None: no mask).  One thread
+    per query walks to its end."""
     global launches
     if table.dtype != torch.float32 or r0.dtype != torch.float32:
         raise TypeError(
@@ -143,6 +157,12 @@ def walk_cuda(table, r0, u, total, active, ic0, nudge, eps_arrive, big,
         raise ValueError("table must be a contiguous, non-empty (n, W) tensor")
     if nf not in (3, 4) or table.shape[1] < 5 * nf:
         raise ValueError(f"rows of width {table.shape[1]} hold no nf={nf} faces")
+    if mask is not None:
+        if (mask.dtype != torch.int32 or mask.shape != (table.shape[0],)
+                or mask.device != table.device):
+            raise ValueError("mask must be an int32 (n_rows,) tensor on the "
+                             "table's device")
+        mask = mask.contiguous()
     r0, u, total = r0.contiguous(), u.contiguous(), total.contiguous()
     active, ic0 = active.contiguous(), ic0.contiguous()
     dev = table.device
@@ -156,7 +176,8 @@ def walk_cuda(table, r0, u, total, active, ic0, nudge, eps_arrive, big,
         code = _kernels.lib().iu_walk(
             table.data_ptr(), table.shape[0], table.shape[1], nf,
             r0.data_ptr(), u.data_ptr(), total.data_ptr(), active.data_ptr(),
-            ic0.data_ptr(), b, float(nudge), float(eps_arrive), float(big),
+            ic0.data_ptr(), None if mask is None else mask.data_ptr(), b,
+            float(nudge), float(eps_arrive), float(big),
             int(max_steps), out_ic.data_ptr(), out_rp.data_ptr(),
             out_steps.data_ptr(), out_status.data_ptr(),
             torch.cuda.current_stream().cuda_stream,
@@ -167,13 +188,13 @@ def walk_cuda(table, r0, u, total, active, ic0, nudge, eps_arrive, big,
 
 
 def walk_rows(table, r0, u, total, active, ic0, nudge, eps_arrive, big,
-              max_steps, nf):
+              max_steps, nf, mask=None):
     """The batched walk: the CUDA kernel for CUDA tensors, the plain
     version for CPU tensors.  Returns (ic, r_p, steps, status)."""
     if table.device.type == "cuda":
         return walk_cuda(table, r0, u, total, active, ic0, nudge, eps_arrive,
-                         big, max_steps, nf)
+                         big, max_steps, nf, mask)
     if table.device.type == "cpu":
         return walk_plain(table, r0, u, total, active, ic0, nudge,
-                          eps_arrive, big, max_steps, nf)
+                          eps_arrive, big, max_steps, nf, mask)
     raise ValueError(f"no walk for device {table.device}")

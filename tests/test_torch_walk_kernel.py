@@ -15,8 +15,12 @@ and sums into FMAs, torch rounds each operation, so a ray through an
 edge may leave by the other face); final positions within 4e-6, the
 tolerance of the JAX package's own kernel-versus-XLA test.
 
-The CUDA kernel is held against the plain version where a card exists;
-that test uses the port alone.
+With an icell mask (``i_icell_mask``, the tracer's region) the port's
+walk is held to the JAX walk's XLA body, over the walk rows and over the
+tracer's trace rows (``table=``).
+
+The CUDA kernel is held against the plain version where a card exists,
+with and without a mask; those tests use the port alone.
 """
 
 import numpy as np
@@ -172,14 +176,63 @@ def test_walk_step_cap_matches_jax():
     assert int(tout[2].max()) == 3
 
 
-def test_walk_mask_raises_for_the_tracer_slice():
-    pts, cells, nbrs = meshgen.tet_box_mesh(5, 5, 5)
-    g = tiu.build_grid(pts, cells, nbrs, "tetra", locate_mode="walk",
-                       dtype=torch.float32, device="cpu",
-                       icell_data={"m": np.zeros(len(cells))})
-    r = torch.full((4, 3), 0.5)
-    with pytest.raises(NotImplementedError, match="tracer"):
-        tiu.walk(g, r, r, torch.zeros(4, dtype=torch.int32), i_icell_mask=0)
+def _bands(cell_points, n_bands=3):
+    """Mask values: bands of cell centers along x (material regions)."""
+    cx = cell_points.mean(axis=1)[:, 0]
+    lo, hi = cx.min(), cx.max()
+    return np.minimum((cx - lo) / (hi - lo) * n_bands, n_bands - 1).astype(
+        np.int32) * 7
+
+
+@pytest.mark.parametrize("table", ["walk", "trace"])
+@pytest.mark.parametrize("mesh", list(MESHES))
+def test_walk_mask_matches_jax(mesh, table):
+    """With ``i_icell_mask``, a hop into a cell of another mask value stops
+    on the face with STATUS_MASK_CHANGED, in the cell entered — the JAX
+    walk's XLA body (the Pallas kernel takes no mask).  ``table=`` walks
+    the tracer's rows instead of the walk rows."""
+    pytest.importorskip("jax")
+    import jax.numpy as jnp
+
+    import interpolate_unstructured_tpu as jiu
+    from interpolate_unstructured_tpu.ops import locate as jlocate
+
+    cell_type, gen = MESHES[mesh]
+    pts, cells, nbrs = gen()
+    cp = pts[cells]
+    ug = jiu.build_grid(pts, cells, nbrs, cell_type,
+                        point_data={"vx": pts[:, 0], "vy": pts[:, 1]},
+                        icell_data={"one": np.ones(len(cells)),
+                                    "band": _bands(cp)},
+                        locate_mode="walk", dtype=jnp.float32)
+    tg = tiu.grid_from_numpy(
+        {f: None if getattr(ug, f) is None else np.asarray(getattr(ug, f))
+         for f in DATA_FIELDS},
+        {f: getattr(ug, f) for f in META_FIELDS}, "cpu",
+    )
+    ic0, r0, r1 = _lanes(np.asarray(ug.cell_points), np.asarray(ug.rmin),
+                         np.asarray(ug.rmax), cell_type, ug.n_cells, seed=13)
+    jtab = ttab = None
+    if table == "trace":
+        jtab = jiu.build_trace_table(ug, jnp.asarray([0, 1]))
+        ttab = tiu.build_trace_table(tg, [0, 1])
+    jout = jlocate.walk(ug, jnp.asarray(r0), jnp.asarray(r1),
+                        jnp.asarray(ic0), i_icell_mask=1, table=jtab)
+    tout = locate.walk(tg, torch.from_numpy(r0), torch.from_numpy(r1),
+                       torch.from_numpy(ic0), i_icell_mask=1, table=ttab)
+    status = _check_walks(tg, jout, tout)
+    for code in (tiu.STATUS_ARRIVED, tiu.STATUS_BOUNDARY,
+                 tiu.STATUS_MASK_CHANGED):
+        assert (status == code).any()
+    band = tg.icell_data[:, 1]
+    changed = status == tiu.STATUS_MASK_CHANGED
+    ic1 = tout[0][changed].long()
+    assert (band[ic1] != band[torch.from_numpy(ic0)[changed].long()]).all()
+    # a mask that never changes walks exactly as no mask
+    plain = locate.walk(tg, r0, r1, ic0, table=ttab)
+    same = locate.walk(tg, r0, r1, ic0, i_icell_mask=0, table=ttab)
+    for a, b in zip(plain, same):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.cuda
@@ -200,6 +253,33 @@ def test_cuda_walk_matches_plain(cuda, mesh):
     assert walk_kernel.launches == before + 1
     pout = walk_kernel.walk_plain(*args)
     for k, p in zip(kout, pout):
+        assert torch.equal(k, p)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mesh", list(MESHES))
+def test_cuda_masked_walk_matches_plain(cuda, mesh):
+    """B3 with a mask column against the masked plain version, bit for
+    bit; a mask that never changes gives the unmasked kernel's walks."""
+    cell_type, gen = MESHES[mesh]
+    pts, cells, nbrs = gen()
+    g = tiu.build_grid(pts, cells, nbrs, cell_type, locate_mode="walk",
+                       dtype=torch.float32, device=cuda,
+                       icell_data={"band": _bands(pts[cells])})
+    ic0, r0, r1 = _lanes(g.cell_points.cpu().numpy(), g.rmin.cpu().numpy(),
+                         g.rmax.cpu().numpy(), cell_type, g.n_cells)
+    args = locate._walk_args(g, torch.from_numpy(r0).to(cuda),
+                             torch.from_numpy(r1).to(cuda),
+                             torch.from_numpy(ic0).to(cuda))
+    mask = g.icell_data[:, 0].contiguous()
+    kout = walk_kernel.walk_rows(*args, mask)
+    pout = walk_kernel.walk_plain(*args, mask)
+    for k, p in zip(kout, pout):
+        assert torch.equal(k, p)
+    assert (kout[3] == tiu.STATUS_MASK_CHANGED).any()
+    flat = torch.zeros_like(mask)
+    for k, p in zip(walk_kernel.walk_rows(*args, flat),
+                    walk_kernel.walk_rows(*args)):
         assert torch.equal(k, p)
 
 

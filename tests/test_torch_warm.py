@@ -324,7 +324,7 @@ def test_kdtree_matches_jax():
     rng = np.random.default_rng(7)
     pts = rng.random((999, 3))
     jt = jkdtree.build_kdtree(pts, dtype=jnp.float64)
-    tt = kdtree.build_kdtree(pts, dtype=torch.float64)
+    tt = kdtree.build_kdtree(pts, dtype=torch.float64, device="cpu")
     np.testing.assert_array_equal(tt.node_ids.numpy(), np.asarray(jt.node_ids))
     np.testing.assert_array_equal(tt.node_points.numpy(),
                                   np.asarray(jt.node_points))
