@@ -3,10 +3,12 @@
 
     python3 chip_smoke.py
 
-Drives the cold and warm paths and the tracer of
+Drives the cold and warm paths, accurate mode and the tracer of
 ``interpolate_unstructured_tpu_torch`` on the card through its public
 entry points (``build_grid``, ``interpolate_scalar_at`` with and without
-a guess, ``add_point_data``, ``integrate_along_field``):
+a guess, ``prepare_accurate``, ``interpolate_at_acc``,
+``interpolate_at_icell_acc``, ``add_point_data``,
+``integrate_along_field``):
 
 1. builds the CUDA kernels from ``interpolate_unstructured_tpu_torch/csrc``
    into ``build/kernels/`` (set-up time; one nvcc process per source,
@@ -18,12 +20,19 @@ a guess, ``add_point_data``, ``integrate_along_field``):
    queries (kernel B2), then 10M warm queries guessed by the cold cells
    plus 1% outside the box (B2, then B3 on the misses), and a
    10,368-tet box whose bins overflow into an extension table;
-4. walk phase, ``bench.py``'s warm protocol on the same box built
+4. accurate phase, ``bench.py``'s accurate protocol on the candidate
+   phase's grid: ``prepare_accurate`` (acc table, float64 plane solve,
+   df-plane rows), 10M float64 queries from default_rng(2) cold (one
+   df-plane row each, kernel B2-df) and the candidate phase's moved
+   points in float64 warm, guessed by the cold cells (B2, B3 on the
+   misses, then B5), gated at 1e-10; then B5 through
+   ``interpolate_at_icell_acc`` on the brute-force meshes;
+5. walk phase, ``bench.py``'s warm protocol on the same box built
    without candidate tables: ``build_grid`` (its refine walks every seed
    bin center, B3), 10M cold queries (bin-seeded walks), the same
    points advected by 0.01 * velocity with the cold cells as guesses,
    and 100k warm queries pushed out of the box (kernel B3);
-5. trace phase, ``bench.py``'s ``trace_at_scale`` protocol on the walk
+6. trace phase, ``bench.py``'s ``trace_at_scale`` protocol on the walk
    phase's grid: the helical field (-(y-0.5), x-0.5, 0.25) added with
    ``add_point_data(..., fuse=False)``, ``build_trace_table`` once, then
    ``integrate_along_field`` (min_dx 1e-4, max_dx 0.05, 256 steps, rtol =
@@ -31,7 +40,7 @@ a guess, ``add_point_data``, ``integrate_along_field``):
    1024 and 65,536 lines (B3 for the start cells, B4 for every RK
    iteration), and the 1024 lines again through the generic path (B3
    walks plus torch);
-6. holds each kernel against its plain PyTorch version on the same CUDA
+7. holds each kernel against its plain PyTorch version on the same CUDA
    tensors, checks linear exactness and found masks, and times kernel
    and plain version with CUDA events (B4, whose launches are about as
    short as its wrapper's host work, by the profiler's device time where
@@ -43,7 +52,8 @@ last three lines are the card (nvidia-smi name, power limit), a JSON
 line of per-kernel results, and ``{"ok": true, "device": ...}``.  Each
 kernel's ``bound_ms`` is the least time for its bytes at 3.35 TB/s or
 its float32 operations at 67 TFLOP/s (H100 SXM data sheet), whichever
-is larger, counted from this run's inputs.  Any failed check raises
+is larger, counted from this run's inputs (df32 operations as the float32
+operations they are made of).  Any failed check raises
 before them, with a non-zero exit; without a CUDA device the script
 exits non-zero at once.
 """
@@ -51,6 +61,7 @@ exits non-zero at once.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import subprocess
 import sys
@@ -169,12 +180,18 @@ def timed_walks(walk_kernel, out):
 
 def main_path(fn, counters):
     """Run one main-path call with every launch counter zeroed first;
-    return its result and the launches it made, per kernel module."""
+    return its result and the launches it made, per kernel module (the
+    candidate module's df-plane launches under ``<name>:df``)."""
     for mod in counters:
         mod.launches = 0
+        if hasattr(mod, "df_launches"):
+            mod.df_launches = 0
     out = fn()
     torch.cuda.synchronize()
-    return out, {mod.__name__: mod.launches for mod in counters}
+    counts = {mod.__name__: mod.launches for mod in counters}
+    counts.update({f"{mod.__name__}:df": mod.df_launches for mod in counters
+                   if hasattr(mod, "df_launches")})
+    return out, counts
 
 
 def compare(name, k_ic, p_ic, k_vals, p_vals, margins_of, tol_band,
@@ -273,6 +290,9 @@ def bruteforce_phase(dev, tiu, meshgen, interp_kernel, locate, cand_kernel,
               f"{e2e * 1e3:.4f} ms = {N_BF / e2e:.4e} queries/s; "
               f"linear error {lin:.3e}")
         res["rows"].append((label, grid.n_cells, ms_k, ms_p, e2e, lin))
+        # the accurate phase runs B5 on these grids, queries and cells
+        res.setdefault("acc_inputs", []).append(
+            (label, grid, r[:N_BF], ic[:N_BF]))
         # B1 at 1M queries: C * nf plane evaluations of 7 flops per query
         # (3 mul, 2 add, 1 sub, 1 min); bytes: queries in, values, ids
         # and flags out, planes and payload once
@@ -422,6 +442,7 @@ def candidate_phase(dev, tiu, meshgen, interp_kernel, locate, cand_kernel,
           f"outside): steady {e2e_w * 1e3:.4f} ms = "
           f"{rq_all.shape[0] / e2e_w:.4e} queries/s; B2 launches {n_b2}, "
           f"B3 launches {n_b3}; linear error {lin:.3e}")
+    res["grid"] = grid  # the accurate phase prepares it
     del vals, ic, ic_w, found, r, r_in, rq_all, guess, grid
     torch.cuda.empty_cache()
 
@@ -927,6 +948,224 @@ def trace_phase(dev, tiu, grid, counters, walk_kernel, trace_kernel):
     return res
 
 
+ACC_TOL = 1e-10  # accurate mode's gate (bench.py:401)
+ACC_VAL_TOL = 1e-13  # kernel vs plain hi + lo where the verdicts agree
+# float32 operations of one df32 operation, as ops/df32.py and
+# csrc/df32.cuh compute it (the mask of a split is an integer op)
+DF_ADD, DF_MUL, DF_DIV, DF_SQRT = 20, 18, 45, 45
+
+
+def acc_flops(cell_type, n_vars):
+    """float32 operations of B5 for one query: the df32 weights, the
+    simplex normalization and the contraction of ``n_vars`` variables."""
+    if cell_type == "tetra":  # 21 differences, 4 triple products
+        w = 21 * DF_ADD + 4 * (9 * DF_MUL + 5 * DF_ADD)
+        w += 3 * DF_ADD + 4 * DF_DIV
+    elif cell_type == "triangle":  # per area: 6 differences, cross, dot, sqrt
+        w = 3 * (6 * DF_ADD + 9 * DF_MUL + 5 * DF_ADD + DF_SQRT)
+        w += 2 * DF_ADD + 3 * DF_DIV
+    else:  # inverse bilinear: about 35 adds, 24 products, 2 divisions, a root
+        w = 35 * DF_ADD + 24 * DF_MUL + 2 * DF_DIV + DF_SQRT
+    npc = 3 if cell_type == "triangle" else 4
+    return w + n_vars * (npc * DF_MUL + (npc - 1) * DF_ADD)
+
+
+def acc_compare(name, k_out, p_out, n_ids):
+    """Kernel vs plain for the accurate kernels: every output identical
+    on >= AGREE of the queries, hi + lo within ACC_VAL_TOL where the
+    first ``n_ids`` outputs (ids, verdicts) agree.  Returns
+    (n_differ, max |hi + lo diff| where the verdicts agree)."""
+    same_ids = torch.ones_like(k_out[-1][:, 0], dtype=torch.bool)
+    for a, b in zip(k_out[:n_ids], p_out[:n_ids]):
+        same_ids &= a == b
+    same = same_ids.clone()
+    for a, b in zip(k_out[n_ids:], p_out[n_ids:]):
+        same &= (a == b).all(1)
+    n_bad = int((~same).sum())
+    check(n_bad <= (1 - AGREE) * same.numel(),
+          f"{name}: {n_bad} of {same.numel()} queries differ")
+    kv = k_out[-2].double() + k_out[-1].double()
+    pv = p_out[-2].double() + p_out[-1].double()
+    err = float((kv - pv)[same_ids].abs().max()) if same_ids.any() else 0.0
+    check(err <= ACC_VAL_TOL, f"{name}: hi + lo differ by {err}")
+    print(f"{name}: kernel vs plain: {n_bad} of {same.numel()} queries not "
+          f"bit-identical; max |hi + lo diff| {err:.3e}")
+    return n_bad, err
+
+
+def accurate_phase(dev, tiu, grid, bf_inputs, counters, cand_kernel,
+                   acc_kernel, walk_kernel, locate):
+    """Accurate mode on the candidate phase's 998,250-tet grid (bench.py's
+    accurate protocol, bench.py:353-402), then B5 on the brute-force
+    phase's meshes."""
+    from interpolate_unstructured_tpu_torch.ops import interp_acc
+
+    res = {"b2_launches": 0, "walk_launches": 0}
+    timings = {}
+    t0 = time.perf_counter()
+    grid = tiu.prepare_accurate(grid, timings=timings)
+    prep_s = time.perf_counter() - t0
+    check(grid.cand_df_table is not None, "no df-plane rows on the 998k grid")
+    mib = {f: getattr(grid, f).numel() * 4 / 2**20
+           for f in ("acc_table", "cand_df_table")}
+    print(f"accurate: prepare_accurate on {grid.n_cells} tets: {prep_s:.3f} "
+          "s split " + json.dumps({k: round(v, 4) for k, v in timings.items()})
+          + f"; acc_table {tuple(grid.acc_table.shape)} "
+          f"{mib['acc_table']:.1f} MiB, cand_df_table "
+          f"{tuple(grid.cand_df_table.shape)} {mib['cand_df_table']:.1f} MiB")
+
+    r64 = torch.from_numpy(np.random.default_rng(2).random((N_CAND, 3))).to(dev)
+
+    def acc_err(vh, vl, q):
+        return float((vh[:, 0].double() + vl[:, 0].double()
+                      - (q.sum(1) + 1.0)).abs().max())
+
+    # Cold: one row of the df-plane table per query (B2-df), no B5
+    (vh, vl, found, ic), counts = main_path(
+        lambda: tiu.interpolate_at_acc(grid, r64, (0,)), counters)
+    n_df = counts[f"{cand_kernel.__name__}:df"]
+    check(n_df >= 1 and counts[acc_kernel.__name__] == 0,
+          f"cold accurate call launched B2-df {n_df}, B5 "
+          f"{counts[acc_kernel.__name__]} times")
+    res["df_launches"] = n_df
+    check(bool(found.all()), f"{int((~found).sum())} cold accurate queries "
+          "not found")
+    err_c = acc_err(vh, vl, r64)
+    check(err_c <= ACC_TOL, f"cold accurate error {err_c}")
+    cold_s = steady_s(lambda: tiu.interpolate_at_acc(grid, r64, (0,)), 3)
+
+    def df_inputs(q):
+        """B2-df's inputs: bin index and the hi/lo local frame."""
+        hi, lo = interp_acc.split_queries(q)
+        ijk = locate._cand_bin_ijk(grid, hi)
+        return (locate._cand_bin_flat(grid, ijk),
+                *locate._cand_local_df(grid, hi, lo, ijk))
+
+    ms_in = cuda_ms(lambda: df_inputs(r64), 10)
+    print(f"accurate: 10M cold interpolate_at_acc (float64 queries): steady "
+          f"{cold_s * 1e3:.4f} ms = {N_CAND / cold_s:.4e} queries/s; B2-df "
+          f"launches {n_df}; all found; max |hi + lo - f| {err_c:.3e}; query "
+          f"split, bin index and hi/lo local frame {ms_in:.4f} ms")
+    # The same call without the df-plane rows (the build_df=False route:
+    # get_cell on the float32 candidate rows, then B5), which finds the
+    # same cells: both tables carry the same probe words
+    no_df = dataclasses.replace(grid, cand_df_table=None)
+    vh2, vl2, found2, ic2 = tiu.interpolate_at_acc(no_df, r64, (0,))
+    check(torch.equal(ic2, ic) and bool(found2.all()),
+          "cold accurate cells differ without the df-plane rows")
+    err_n = acc_err(vh2, vl2, r64)
+    check(err_n <= ACC_TOL, f"cold accurate error without df rows {err_n}")
+    nodf_s = steady_s(lambda: tiu.interpolate_at_acc(no_df, r64, (0,)), 3)
+    print(f"accurate: the same 10M cold queries without the df-plane rows "
+          f"(get_cell + B5): steady {nodf_s * 1e3:.4f} ms = "
+          f"{N_CAND / nodf_s:.4e} queries/s; max |hi + lo - f| {err_n:.3e}")
+    del no_df, vh2, vl2, found2, ic2
+
+    # Warm: the candidate phase's moved points in float64, guessed by the
+    # cold cells: get_cell (B2, B3 on misses), then B5
+    vel = torch.from_numpy(np.random.default_rng(5).random((N_CAND, 3))).to(dev)
+    r_w = 0.005 + 0.98 * r64 + 0.01 * vel
+    del vel, vh, vl, found
+    (vh, vl, found, ic_w), counts = main_path(
+        lambda: tiu.interpolate_at_acc(grid, r_w, (0,), guess=ic), counters)
+    n_b5 = counts[acc_kernel.__name__]
+    check(n_b5 >= 1, "the warm accurate call did not launch B5")
+    res["acc_launches"] = n_b5
+    res["b2_launches"] += counts[cand_kernel.__name__]
+    res["walk_launches"] += counts[walk_kernel.__name__]
+    check(bool(found.all()), f"{int((~found).sum())} warm accurate queries "
+          "not found")
+    err_w = acc_err(vh, vl, r_w)
+    check(err_w <= ACC_TOL, f"warm accurate error {err_w}")
+    warm_s = steady_s(
+        lambda: tiu.interpolate_at_acc(grid, r_w, (0,), guess=ic), 3)
+    print(f"accurate: 10M warm interpolate_at_acc (moved points, guess = cold "
+          f"cells): steady {warm_s * 1e3:.4f} ms = {N_CAND / warm_s:.4e} "
+          f"queries/s; B5 launches {n_b5}, B2 {counts[cand_kernel.__name__]}, "
+          f"B3 {counts[walk_kernel.__name__]}; all found; max |hi + lo - f| "
+          f"{err_w:.3e}")
+    del vh, vl, found
+
+    # B2-df against its plain version on the first 1M cold queries, both
+    # timed on all 10M
+    idx, rq, rq_lo = df_inputs(r64)
+    lay = locate._df_row_layout(grid, (0,))
+    eps = locate._cand_eps(grid)
+    chunk = locate._cand_chunk(grid, grid.cand_df_table)
+    cut = slice(0, N_CMP)
+    _, err_df = acc_compare(
+        "B2-df 998k-tet df-plane rows, first 1M",
+        cand_kernel.cand_rows_df_cuda(grid.cand_df_table, idx[cut], rq[cut],
+                                      rq_lo[cut], lay, eps, lay.k),
+        cand_kernel.probe_rows_df_plain(grid.cand_df_table, idx[cut],
+                                        rq[cut], rq_lo[cut], lay, eps,
+                                        lay.k, chunk), 2)
+    ms_k = cuda_ms(lambda: cand_kernel.cand_rows_df_cuda(
+        grid.cand_df_table, idx, rq, rq_lo, lay, eps, lay.k), 10)
+    ms_p = cuda_ms(lambda: cand_kernel.probe_rows_df_plain(
+        grid.cand_df_table, idx, rq, rq_lo, lay, eps, lay.k, chunk), 2)
+    # bytes per query: the probe roles of K candidates (int16 normal and
+    # offset words, ids), count and dscale, the winner's df plane (8
+    # floats); the hi/lo local query and its bin index; id, aux and a
+    # hi/lo value out
+    n_roles = -(-3 * lay.nf // 2) + -(-lay.nf // 2) + 1
+    per_q = n_roles * lay.k * 4 + 8 + 32 + 24 + 4 + 16
+    bnd = bound(N_CAND * per_q,
+                N_CAND * (lay.k * lay.nf * 9 + 3 * (DF_MUL + DF_ADD)))
+    res["df"] = dict(ms=ms_k, plain_ms=ms_p, bound=bnd, max_abs_err=err_df)
+    print(f"B2-df 998k-tet, 10M queries: kernel {ms_k:.4f} ms, plain "
+          f"{ms_p:.4f} ms; bound {bnd[0]:.4f} ms ({bnd[1]}; {per_q} B per "
+          f"query); row {grid.cand_df_table.shape[1] * 4} B")
+    del idx, rq, rq_lo
+
+    # B5 against its plain version on the warm call's first 1M queries,
+    # both timed on all 10M
+    hi, lo = interp_acc.split_queries(r_w)
+    cells = ic_w.clamp_min(0).to(torch.int32)
+    meta = ("tetra", 4, grid.n_point_data, (0,))
+    b5_args = (grid.acc_table, cells, hi, lo, *meta)
+    b5_first = (grid.acc_table, cells[cut], hi[cut], lo[cut], *meta)
+    _, err_b5 = acc_compare(
+        "B5 998k-tet warm cells, first 1M",
+        acc_kernel.interp_acc_cuda(*b5_first),
+        acc_kernel.interp_acc_plain(*b5_first), 0)
+    ms_k = cuda_ms(lambda: acc_kernel.interp_acc_cuda(*b5_args), 10)
+    ms_p = cuda_ms(lambda: acc_kernel.interp_acc_plain(*b5_args), 2)
+    # bytes per query: cell id, hi/lo position, the used row floats
+    # (vertex hi/lo, one variable's hi/lo data), a hi/lo value out
+    per_q = 4 + 24 + (4 * 6 + 2 * 4) * 4 + 8
+    bnd = bound(N_CAND * per_q, N_CAND * acc_flops("tetra", 1))
+    res["b5"] = dict(ms=ms_k, plain_ms=ms_p, bound=bnd, max_abs_err=err_b5)
+    print(f"B5 998k-tet, 10M warm queries: kernel {ms_k:.4f} ms, plain "
+          f"{ms_p:.4f} ms; bound {bnd[0]:.4f} ms ({bnd[1]}; {per_q} B and "
+          f"{acc_flops('tetra', 1)} flops per query)")
+    del hi, lo, cells, b5_args, r64, r_w, ic, ic_w, grid
+    torch.cuda.empty_cache()
+
+    # B5 through interpolate_at_icell_acc on the brute-force meshes, at
+    # the brute-force phase's 1M inside queries and B1's cells
+    for label, g, r, ic in bf_inputs:
+        g = tiu.prepare_accurate(g)
+        (vh, vl), counts = main_path(
+            lambda: tiu.interpolate_at_icell_acc(g, r, (0,), ic), counters)
+        n_b5 = counts[acc_kernel.__name__]
+        check(n_b5 >= 1, f"{label}: B5 was not launched")
+        res["acc_launches"] += n_b5
+        err = float((vh[:, 0].double() + vl[:, 0].double()
+                     - (r.double().sum(1) + 1.0)).abs().max())
+        check(err <= ACC_TOL, f"{label}: accurate error {err}")
+        z = torch.zeros_like(r)
+        args = (g.acc_table, ic.clamp_min(0), r, z, g.cell_type,
+                g.n_points_per_cell, g.n_point_data, (0,))
+        _, e = acc_compare(f"B5 {label}, 1M", (vh, vl),
+                           acc_kernel.interp_acc_plain(*args), 0)
+        res["b5"]["max_abs_err"] = max(res["b5"]["max_abs_err"], e)
+        ms = cuda_ms(lambda: acc_kernel.interp_acc_cuda(*args), 10)
+        print(f"B5 {label} ({g.n_cells} cells), 1M queries: kernel "
+              f"{ms:.4f} ms; max |hi + lo - f| {err:.3e}")
+    return res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
@@ -935,6 +1174,7 @@ def main() -> int:
     import interpolate_unstructured_tpu_torch as tiu
     from interpolate_unstructured_tpu_torch.ops import (
         _kernels,
+        acc_kernel,
         cand_kernel,
         interp_kernel,
         locate,
@@ -971,15 +1211,20 @@ def main() -> int:
 
     b1 = timed_phase("bruteforce", bruteforce_phase, *args)
     b2 = timed_phase("candidate", candidate_phase, *args)
+    b5 = timed_phase("accurate", accurate_phase, dev, tiu, b2.pop("grid"),
+                     b1.pop("acc_inputs"),
+                     (interp_kernel, cand_kernel, walk_kernel, acc_kernel),
+                     cand_kernel, acc_kernel, walk_kernel, locate)
     b3 = timed_phase("walk", walk_phase, *args)
     b4 = timed_phase("trace", trace_phase, dev, tiu, b3.pop("grid"),
                      (interp_kernel, cand_kernel, walk_kernel, trace_kernel),
                      walk_kernel, trace_kernel)
     print("phase seconds: " + json.dumps(phase_s))
     b3_launches = (sum(b3["launches"].values()) + b2["walk_launches"]
-                   + b4["walk_launches"])
+                   + b5["walk_launches"] + b4["walk_launches"])
     print("B3 launches on the main path: " + json.dumps(
         {**b3["launches"], "candidate_warm": b2["walk_launches"],
+         "accurate_warm": b5["walk_launches"],
          "trace_start_cells": b4["walk_launches"]}))
 
     pkg = "interpolate_unstructured_tpu_torch"
@@ -994,7 +1239,8 @@ def main() -> int:
         {"name": "B2 cand_rows", "route": "cuda",
          "source": f"{pkg}/csrc/cand_rows.cu",
          "replaces": "interpolate_unstructured_tpu/ops/pallas_cand.py:64",
-         "launches": b2["launches"], "max_abs_err": b2["max_abs_err"],
+         "launches": b2["launches"] + b5["b2_launches"],
+         "max_abs_err": b2["max_abs_err"],
          "ms": b2["ms"], "plain_ms": b2["plain_ms"],
          "bound_ms": b2["bound"][0], "bound_by": b2["bound"][1],
          "library_ms": None},
@@ -1011,6 +1257,22 @@ def main() -> int:
          "launches": b4["launches"], "max_abs_err": b4["max_abs_err"],
          "ms": b4["ms"], "plain_ms": b4["plain_ms"],
          "bound_ms": b4["bound"][0], "bound_by": b4["bound"][1],
+         "library_ms": None},
+        {"name": "B2-df cand_rows df planes", "route": "cuda",
+         "source": f"{pkg}/csrc/cand_rows.cu",
+         "replaces": "interpolate_unstructured_tpu/ops/pallas_cand.py:64",
+         "launches": b5["df_launches"],
+         "max_abs_err": b5["df"]["max_abs_err"],
+         "ms": b5["df"]["ms"], "plain_ms": b5["df"]["plain_ms"],
+         "bound_ms": b5["df"]["bound"][0], "bound_by": b5["df"]["bound"][1],
+         "library_ms": None},
+        {"name": "B5 interp_acc", "route": "cuda",
+         "source": f"{pkg}/csrc/interp_acc.cu",
+         "replaces": "interpolate_unstructured_tpu/ops/pallas_acc.py:40",
+         "launches": b5["acc_launches"],
+         "max_abs_err": b5["b5"]["max_abs_err"],
+         "ms": b5["b5"]["ms"], "plain_ms": b5["b5"]["plain_ms"],
+         "bound_ms": b5["b5"]["bound"][0], "bound_by": b5["b5"]["bound"][1],
          "library_ms": None},
     ]
     print(card)

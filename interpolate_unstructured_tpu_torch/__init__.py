@@ -8,16 +8,19 @@ its seed, walk and candidate tables and the data-mutation API
 the neighbor walk, bin and kd-tree seeds); interpolation and cell-data
 lookup (``interpolate_at``, ``interpolate_scalar_at``,
 ``interpolate_at_icell``, ``get_cell_scalar_at``,
-``get_icell_scalar_at``); and field-line tracing
-(``integrate_along_field``, ``build_trace_table``).  Its kernels are
-CUDA C++ for ``sm_90a`` (``csrc/``), built by ``nvcc`` on first use into
-``build/kernels/``:
+``get_icell_scalar_at``); field-line tracing (``integrate_along_field``,
+``build_trace_table``); and accurate mode, float64-grade values from a
+float32 grid (``prepare_accurate``, ``interpolate_at_acc``,
+``interpolate_at_icell_acc``).  Its kernels are CUDA C++ for ``sm_90a``
+(``csrc/``), built by ``nvcc`` on first use into ``build/kernels/``:
 
 * B1 ``ops/interp_kernel.py`` — brute-force locate + interpolate
   (meshes of at most ``bruteforce_max_cells`` cells);
-* B2 ``ops/cand_kernel.py`` — the candidate-row probe of larger meshes;
+* B2 ``ops/cand_kernel.py`` — the candidate-row probe of larger meshes,
+  and its df-plane branch (B2-df), accurate mode's cold query;
 * B3 ``ops/walk_kernel.py`` — the neighbor walk;
-* B4 ``ops/trace_kernel.py`` — the fused stages of a tracer iteration.
+* B4 ``ops/trace_kernel.py`` — the fused stages of a tracer iteration;
+* B5 ``ops/acc_kernel.py`` — df32 interpolation at known cells.
 
 On CPU tensors each kernel's plain PyTorch version runs instead.
 ``build_grid`` and ``build_kdtree`` put their tensors on the CUDA device
@@ -58,6 +61,11 @@ from .ops.locate import (
     point_is_inside_cell,
     walk,
 )
+from .ops.interp_acc import (
+    interpolate_at_acc,
+    interpolate_at_icell_acc,
+    prepare_accurate,
+)
 from .ops.kdtree import KdTree, build_kdtree, nearest as kdtree_nearest
 from .trace import TraceResult, build_trace_table, integrate_along_field
 from .utils.config import DEFAULT_CONFIG, IUConfig
@@ -88,11 +96,14 @@ __all__ = [
     "grid_from_numpy",
     "integrate_along_field",
     "interpolate_at",
+    "interpolate_at_acc",
     "interpolate_at_icell",
+    "interpolate_at_icell_acc",
     "interpolate_scalar_at",
     "kdtree_nearest",
     "locate_bruteforce",
     "point_is_inside_cell",
+    "prepare_accurate",
     "reserve_cell_data_storage",
     "reserve_icell_data_storage",
     "reserve_point_data_storage",

@@ -7,11 +7,16 @@
 // k).  The kernel computes each candidate's face margins, the
 // first-occurrence argmax winner, the verdict `aux` (-2 found, >= 0
 // overflow-bin miss carrying the extension slot, -1 exact miss) and the
-// winner's fused values.  Three row layouts (models/grid.py packers):
+// winner's fused values.  Four row layouts (models/grid.py packers):
 //   0 quantized simplex: int16 normal/offset pairs in the bin's local
 //     frame + f32 value planes (the f32 tri/tet default; rq = r_local)
 //   1 f32 simplex: unit face planes + premultiplied vertex data
 //   2 quad: unit face planes + vertices + raw vertex data
+//   3 accurate-mode df planes (the JAX kernel's df_planes branch,
+//     pallas_cand.py:73-77, :178-200): the probe of layout 0, then the
+//     winner's df32 value plane v = g . r_local + c_loc evaluated in
+//     compensated float32 (df32.cuh) from a hi/lo r_local (rq, rq_lo);
+//     values out as hi (out_vals) and lo (out_vals_lo) pairs
 //
 // What bounds it on an H100: memory.  One random row of about 1.5 KB
 // (K = 24 quantized tets) per query and a few flops per byte, so the
@@ -32,6 +37,7 @@
 
 #include <cuda_runtime.h>
 
+#include "df32.cuh"
 #include "wkern.cuh"
 
 namespace {
@@ -47,13 +53,16 @@ template <int NF, int LAYOUT>
 __global__ void cand_rows_kernel(
     const float* __restrict__ table, int W, const int* __restrict__ idx,
     const float* __restrict__ rq,  // (B, 3): r, or r_local when quantized
+    const float* __restrict__ rq_lo,  // (B, 3) lo of r_local (layout 3)
     int n_queries, int K, int id_role, int count_col, float eps,
     int ovf_base, float qinv, int n_vars, const int* __restrict__ vroles,
     int* __restrict__ out_id, int* __restrict__ out_aux,
-    float* __restrict__ out_vals)  // (B, V)
+    float* __restrict__ out_vals,     // (B, V)
+    float* __restrict__ out_vals_lo)  // (B, V), layout 3
 {
   constexpr int NPC = NF;
   constexpr int SN = (3 * NF + 1) / 2;  // int16-pair slots of normals
+  constexpr bool kQuant = LAYOUT == 0 || LAYOUT == 3;
   const int q = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
   const int lane = threadIdx.x & 31;
   if (q >= n_queries) return;  // warp-uniform
@@ -63,7 +72,7 @@ __global__ void cand_rows_kernel(
   const float rx = rq[3 * q + 0];
   const float ry = rq[3 * q + 1];
   const float rz = rq[3 * q + 2];
-  const float ds = LAYOUT == 0 ? row[count_col + 1] : 0.0f;
+  const float ds = kQuant ? row[count_col + 1] : 0.0f;
 
   float best_m = 0.0f;
   int best_k = -1;
@@ -71,7 +80,7 @@ __global__ void cand_rows_kernel(
   for (int k = lane; k < K; k += 32) {
     float mf[NF];
     float m = 0.0f;
-    if constexpr (LAYOUT == 0) {
+    if constexpr (kQuant) {
       float c[2 * SN];
 #pragma unroll
       for (int s = 0; s < SN; ++s) {
@@ -132,7 +141,26 @@ __global__ void cand_rows_kernel(
   out_aux[q] = found ? -2 : (ovf_miss ? cnt - (ovf_base + 1) : -1);
 
   float* vals = out_vals + (size_t)q * n_vars;
-  if constexpr (LAYOUT == 0) {
+  if constexpr (LAYOUT == 3) {
+    // df32 value planes: the winner's (g hi, g lo, c_loc hi, c_loc lo)
+    // roles, acc = c_loc + sum_d g_d * r_local_d in df32
+    const iu::df rl[3] = {iu::df_make(rx, rq_lo[3 * q + 0]),
+                          iu::df_make(ry, rq_lo[3 * q + 1]),
+                          iu::df_make(rz, rq_lo[3 * q + 2])};
+    float* vals_lo = out_vals_lo + (size_t)q * n_vars;
+    for (int iv = 0; iv < n_vars; ++iv) {
+      const int pr = vroles[iv];
+      iu::df acc = iu::df_make(row[(pr + 6) * K + k], row[(pr + 7) * K + k]);
+#pragma unroll
+      for (int d = 0; d < 3; ++d) {
+        const iu::df g =
+            iu::df_make(row[(pr + d) * K + k], row[(pr + 3 + d) * K + k]);
+        acc = iu::df_add(acc, iu::df_mul(g, rl[d]));
+      }
+      vals[iv] = acc.hi;
+      vals_lo[iv] = acc.lo;
+    }
+  } else if constexpr (LAYOUT == 0) {
     for (int iv = 0; iv < n_vars; ++iv) {
       const int pr = vroles[iv];
       vals[iv] = ((row[pr * K + k] * rx + row[(pr + 1) * K + k] * ry) +
@@ -171,37 +199,44 @@ __global__ void cand_rows_kernel(
 
 template <int NF, int LAYOUT>
 void launch(const float* table, int W, const int* idx, const float* rq,
-            int n_queries, int K, int id_role, int count_col, float eps,
-            int ovf_base, float qinv, int n_vars, const int* vroles,
-            int* out_id, int* out_aux, float* out_vals, cudaStream_t s) {
+            const float* rq_lo, int n_queries, int K, int id_role,
+            int count_col, float eps, int ovf_base, float qinv, int n_vars,
+            const int* vroles, int* out_id, int* out_aux, float* out_vals,
+            float* out_vals_lo, cudaStream_t s) {
   const long long threads = (long long)n_queries * 32;
   const int blocks = (int)((threads + kThreads - 1) / kThreads);
   cand_rows_kernel<NF, LAYOUT><<<blocks, kThreads, 0, s>>>(
-      table, W, idx, rq, n_queries, K, id_role, count_col, eps, ovf_base,
-      qinv, n_vars, vroles, out_id, out_aux, out_vals);
+      table, W, idx, rq, rq_lo, n_queries, K, id_role, count_col, eps,
+      ovf_base, qinv, n_vars, vroles, out_id, out_aux, out_vals, out_vals_lo);
 }
 
 }  // namespace
 
 // Plain C entry point (bound with ctypes).  layout: 0 quantized simplex,
-// 1 f32 simplex, 2 quad; nf 3 or 4.  vroles: (n_vars,) device int32,
-// the first role column of each fused variable.  Returns the
-// cudaError_t of the launch.
+// 1 f32 simplex, 2 quad, 3 accurate-mode df planes; nf 3 or 4.  vroles:
+// (n_vars,) device int32, the first role column of each fused variable.
+// rq_lo and out_vals_lo are used by layout 3 only (null otherwise).
+// Returns the cudaError_t of the launch.
 extern "C" int iu_cand_rows(const float* table, int W, const int* idx,
-                            const float* rq, int n_queries, int K, int nf,
-                            int layout, int id_role, int count_col, float eps,
+                            const float* rq, const float* rq_lo,
+                            int n_queries, int K, int nf, int layout,
+                            int id_role, int count_col, float eps,
                             int ovf_base, float qinv, int n_vars,
                             const int* vroles, int* out_id, int* out_aux,
-                            float* out_vals, void* stream) {
+                            float* out_vals, float* out_vals_lo,
+                            void* stream) {
   if (n_queries <= 0) return (int)cudaSuccess;
   if (K <= 0 || n_vars < 0) {
     return (int)cudaErrorInvalidValue;
   }
+  if (layout == 3 && (rq_lo == nullptr || out_vals_lo == nullptr)) {
+    return (int)cudaErrorInvalidValue;
+  }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define IU_CAND_LAUNCH(NF_, L_)                                            \
-  launch<NF_, L_>(table, W, idx, rq, n_queries, K, id_role, count_col, eps, \
-                  ovf_base, qinv, n_vars, vroles, out_id, out_aux,         \
-                  out_vals, s)
+#define IU_CAND_LAUNCH(NF_, L_)                                             \
+  launch<NF_, L_>(table, W, idx, rq, rq_lo, n_queries, K, id_role, count_col, \
+                  eps, ovf_base, qinv, n_vars, vroles, out_id, out_aux,     \
+                  out_vals, out_vals_lo, s)
   if (layout == 0 && nf == 3) {
     IU_CAND_LAUNCH(3, 0);
   } else if (layout == 0 && nf == 4) {
@@ -212,6 +247,10 @@ extern "C" int iu_cand_rows(const float* table, int W, const int* idx,
     IU_CAND_LAUNCH(4, 1);
   } else if (layout == 2 && nf == 4) {
     IU_CAND_LAUNCH(4, 2);
+  } else if (layout == 3 && nf == 3) {
+    IU_CAND_LAUNCH(3, 3);
+  } else if (layout == 3 && nf == 4) {
+    IU_CAND_LAUNCH(4, 3);
   } else {
     return (int)cudaErrorInvalidValue;
   }

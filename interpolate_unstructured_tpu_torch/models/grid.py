@@ -8,9 +8,13 @@ candidate-row tables, bit for bit, so that the CUDA kernels
 the TPU kernels read.  Every tensor of a grid lies on one device
 (``Grid.device``).
 
-Leaves of later slices (accurate mode) exist and are ``None``.  Host
-preprocessing runs in float64 numpy, then the tensors move to the
-device, where the walk and candidate rows are assembled.
+Float32 grids also keep the accurate-mode residuals ``points_lo`` and
+``point_data_lo``, the exact float64 remainders of the downcast, bit for
+bit as the JAX package stores them; the accurate-mode tables
+(``acc_table``, ``cand_df_table``) are built by
+``ops.interp_acc.prepare_accurate``.  Host preprocessing runs in float64
+numpy, then the tensors move to the device, where the walk and
+candidate rows are assembled.
 """
 
 from __future__ import annotations
@@ -82,11 +86,13 @@ class Grid:
     cand_ext_ids: Any = None  # (n_overflow_bins, k_ext) int32
     cand_ext_slot: Any = None  # (n_cand_bins,) int32, -1 = not overflow
     cand_ext_table: Any = None  # (n_overflow_bins, ext_row_floats)
-    # --- accurate mode (later slice) ----------------------------------------
-    points_lo: Any = None
-    point_data_lo: Any = None
-    acc_table: Any = None
-    cand_df_table: Any = None
+    # --- accurate mode (ops.interp_acc) ---------------------------------------
+    # Exact float64 remainders of the float32 downcast (None on float64
+    # grids), and the tables prepare_accurate builds from them.
+    points_lo: Any = None  # (n_points, 3) f32
+    point_data_lo: Any = None  # (n_points, n_point_data) f32
+    acc_table: Any = None  # (n_cells, acc_row_width) f32 hi/lo cell rows
+    cand_df_table: Any = None  # (n_cand_bins, df row floats) df-plane rows
     # --- static metadata -----------------------------------------------------
     cell_type: str = "triangle"
     bin_shape: tuple = (1, 1, 1)
@@ -316,7 +322,8 @@ def build_grid(
     # epsilon to the dtype)
     config = resolve_config(config, _np_dtype(dtype), rmin, rmax)
 
-    def stack_registry(reg, n_rows, target_dtype):
+    def stack_registry(reg, n_rows):
+        """(names, host array (n_rows, n_names)) of a registry."""
         reg = reg or {}
         names = tuple(reg.keys())
         if names:
@@ -324,11 +331,18 @@ def build_grid(
             data = np.stack(cols, axis=1)
         else:
             data = np.zeros((n_rows, 0))
-        return names, _to(data, target_dtype, device)
+        return names, data
 
-    pd_names, pd = stack_registry(point_data, n_points, dtype)
-    cd_names, cd = stack_registry(cell_data, n_cells, dtype)
-    icd_names, icd = stack_registry(icell_data, n_cells, torch.int32)
+    pd_names, pd_host = stack_registry(point_data, n_points)
+    cd_names, cd_host = stack_registry(cell_data, n_cells)
+    icd_names, icd_host = stack_registry(icell_data, n_cells)
+
+    # Accurate-mode residuals (ops.interp_acc): the exact float64
+    # remainder of downcasting coordinates and point data to float32
+    points_lo = point_data_lo = None
+    if dtype == torch.float32:
+        points_lo = _to(_f32_residual(points), torch.float32, device)
+        point_data_lo = _to(_f32_residual(pd_host), torch.float32, device)
 
     grid = Grid(
         points=_to(points, dtype, device),
@@ -339,9 +353,9 @@ def build_grid(
         face_offsets=_to(face_offsets, dtype, device),
         cell_volume=_to(volume, dtype, device),
         point_is_at_boundary=_to(at_boundary, torch.bool, device),
-        point_data=pd,
-        cell_data=cd,
-        icell_data=icd,
+        point_data=_to(pd_host, dtype, device),
+        cell_data=_to(cd_host, dtype, device),
+        icell_data=_to(icd_host, torch.int32, device),
         rmin=_to(rmin, dtype, device),
         rmax=_to(rmax, dtype, device),
         bin_table=_to(bin_table, torch.int32, device),
@@ -350,6 +364,8 @@ def build_grid(
         bin_pack=_to(bin_pack, dtype, device),
         kd_node_points=None if kd is None else kd.node_points,
         kd_node_ids=None if kd is None else kd.node_ids,
+        points_lo=points_lo,
+        point_data_lo=point_data_lo,
         cell_type=cell_type,
         bin_shape=bin_shape,
         kd_max_depth=0 if kd is None else kd.max_depth,
@@ -605,6 +621,15 @@ def _qcand_floats_per(cell_type: str, nv: int) -> int:
     id.  Rows also carry TWO trailing columns (count, dscale)."""
     nf = geometry.N_POINTS_PER_CELL[cell_type]
     return -(-3 * nf // 2) + -(-nf // 2) + 4 * nv + 1
+
+
+def _qdf_floats_per(cell_type: str, nv: int) -> int:
+    """Floats per candidate in an accurate-mode df-plane row
+    (_pack_qdf_rows): the quantized probe geometry plus an (hi, lo)
+    df32 value plane — (ghx ghy ghz glx gly glz c_hi c_lo) — per fused
+    variable, plus id."""
+    nf = geometry.N_POINTS_PER_CELL[cell_type]
+    return -(-3 * nf // 2) + -(-nf // 2) + 8 * nv + 1
 
 
 def _cand_floats_per(cell_type: str, nv: int) -> int:
@@ -1032,6 +1057,11 @@ def _build_cand_tables(grid: Grid, nv: int | None = None) -> dict:
             centers=centers,
         ),
         "cand_nv": nv,
+        # any repack invalidates the accurate-mode df-plane rows (their
+        # fused values and nv would go stale); prepare_accurate rebuilds
+        # them, and interpolate_at_acc takes the at-known-cell path
+        # meanwhile
+        "cand_df_table": None,
     }
     ds_max = 0.0
     if quantized:
@@ -1067,6 +1097,204 @@ def _build_cand_tables(grid: Grid, nv: int | None = None) -> dict:
         out["cand_qeps"] = 0.5 * ds_max + (0.25 / QCAND_NSCALE) * h_sum
     else:
         out["cand_qeps"] = 0.0
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Accurate-mode df-plane candidate rows
+# ---------------------------------------------------------------------------
+
+
+def _pack_dfsrc_rows(face_normals, face_offsets, plane_hi, plane_lo, nv):
+    """Per-cell accurate-mode pack-source records (f32):
+    [normals nf*3 | offsets nf | plane_hi nv*4 | plane_lo nv*4],
+    padded to a 256-byte-multiple stride."""
+    n_cells, nf = face_offsets.shape
+    rows = torch.cat(
+        [
+            face_normals.to(torch.float32).reshape(n_cells, nf * 3),
+            face_offsets.to(torch.float32),
+            plane_hi.reshape(n_cells, nv * 4),
+            plane_lo.reshape(n_cells, nv * 4),
+        ],
+        dim=1,
+    )
+    pad = _pad_record_stride(rows.shape[1], 4) - rows.shape[1]
+    return torch.nn.functional.pad(rows, (0, pad))
+
+
+def _pack_qdf_rows(src, ids, count_vals, centers, *, cell_type, row_floats,
+                   nv):
+    """Accurate-mode candidate rows: the quantized int16 probe geometry
+    (the same words as _pack_qcand_rows) + df32 value planes.  ``src``
+    is the per-cell df record table (_pack_dfsrc_rows).
+
+    The planes are the (hi, lo) float32 split of the per-cell float64
+    interpolant v(r) = g . r + c (exact for simplices, solved on the host
+    by solve_cell_planes_f64).  The offset is re-anchored at the bin
+    center in df32, c_loc = c + g . c_bin, so the probe evaluates
+    v = g . r_local + c_loc with r_local = r - c_bin carried as an exact
+    (hi, lo) pair.
+
+    Role layout (K-wide roles, column role*K + k; _qdf_floats_per):
+      [qn | qd | (ghx ghy ghz glx gly glz ch cl) per var | id] * K
+      | count | dscale
+    """
+    from ..ops import df32
+
+    n_rows, k_max = ids.shape
+    nf = geometry.N_POINTS_PER_CELL[cell_type]
+    g = src[ids.clamp_min(0).long()]  # (n, K, S) — one record gather
+    normals = g[..., : nf * 3].reshape(n_rows, k_max, nf, 3)
+    offs = g[..., nf * 3: nf * 4]
+    centers, parts, ds = _quantize_probe_geometry(normals, offs, ids, centers)
+    o = nf * 4
+    ph = g[..., o: o + nv * 4].reshape(n_rows, k_max, nv, 4)
+    plo = g[..., o + nv * 4: o + nv * 8].reshape(n_rows, k_max, nv, 4)
+    gd = [(ph[..., d], plo[..., d]) for d in range(3)]  # df pairs (n, K, nv)
+    acc = (ph[..., 3], plo[..., 3])
+    for d in range(3):
+        cb = centers[:, None, None, d].expand(ph.shape[:3]).contiguous()
+        acc = df32.add(acc, df32.mul(gd[d], (cb, torch.zeros_like(cb))))
+    cols = torch.stack(
+        [gd[0][0], gd[1][0], gd[2][0], gd[0][1], gd[1][1], gd[2][1],
+         acc[0], acc[1]],
+        dim=-1,
+    )  # (n, K, nv, 8)
+    parts.append(_bits(_roles(cols.reshape(n_rows, k_max, nv * 8))))
+    parts += [
+        _bits(ids.to(torch.float32)),
+        _bits(count_vals.to(torch.float32)[:, None]),
+        _bits(ds.to(torch.float32)[:, None]),
+    ]
+    return _finish_rows(parts, row_floats)
+
+
+def solve_cell_planes_f64(points64, cells, data64):
+    """Per-cell float64 affine interpolant v(r) = g . r + c (numpy).
+
+    Barycentric interpolation on a simplex is affine, so for tets the
+    plane through the 4 (vertex, value) pairs IS the interpolant; for
+    triangles (a rank-3 system in 3D) the minimum-norm in-plane solution
+    is used.  Solved anchored at the cell centroid, vectorized over all
+    cells; degenerate (zero-volume) tets go through the pseudo-inverse.
+    Returns (g (n, nv, 3), c (n, nv)) float64.
+    """
+    p = points64[cells]  # (n, npc, 3)
+    d = data64[cells]  # (n, npc, nv)
+    npc = p.shape[1]
+    anchor = p.mean(axis=1)  # (n, 3)
+    dp = p - anchor[:, None, :]
+    if npc == 4:
+        a = np.concatenate([dp, np.ones_like(dp[..., :1])], axis=2)
+        # det(a) = 6 * signed volume; relative to the cell scale
+        det = np.linalg.det(a)
+        scale = np.abs(dp).max(axis=(1, 2), initial=0.0) ** 3
+        bad = ~(np.abs(det) > 1e-14 * scale)
+        if bad.any():
+            sol = np.empty(a.shape[:1] + (4, d.shape[2]), np.float64)
+            good = ~bad
+            if good.any():
+                sol[good] = np.linalg.solve(a[good], d[good])
+            sol[bad] = np.einsum(
+                "nij,njv->niv", np.linalg.pinv(a[bad]), d[bad]
+            )
+        else:
+            sol = np.linalg.solve(a, d)  # (n, 4, nv): g rows + c
+        g = sol[:, :3].transpose(0, 2, 1)  # (n, nv, 3)
+        c0 = sol[:, 3]  # (n, nv)
+    elif npc == 3:
+        # minimum-norm least squares via the pseudo-inverse of the
+        # (3, 4) system [dp 1] — exact on the triangle's plane
+        a = np.concatenate([dp, np.ones_like(dp[..., :1])], axis=2)
+        sol = np.einsum("nij,njv->niv", np.linalg.pinv(a), d)  # (n, 4, nv)
+        g = sol[:, :3].transpose(0, 2, 1)
+        c0 = sol[:, 3]
+    else:
+        raise ValueError("df planes are defined for simplices only")
+    # de-anchor: v = g . (r - anchor) + c0 = g . r + (c0 - g . anchor)
+    c = c0 - np.einsum("nvd,nd->nv", g, anchor)
+    return g, c
+
+
+def cand_df_supported(grid: Grid) -> bool:
+    """Gate for the fused accurate rows: float32 simplex cover grids
+    with quantized candidate tables and at least one fused variable."""
+    return (
+        grid.cand_ids is not None
+        and grid.cand_ext_table is None
+        and grid.cand_ext_covers
+        and grid.cell_type in ("triangle", "tetra")
+        and grid.dtype == torch.float32
+        and cand_is_quantized(grid.cell_type, grid.dtype, grid.config)
+        and cand_fused_nv(grid) >= 1
+    )
+
+
+def _host_f64(hi, lo):
+    """hi (+ lo when stored) as a float64 host array."""
+    a = hi.detach().cpu().numpy().astype(np.float64)
+    if lo is not None:
+        a = a + lo.detach().cpu().numpy().astype(np.float64)
+    return a
+
+
+def build_cand_df_table(grid: Grid, timings: dict | None = None):
+    """Assemble the accurate-mode fused candidate rows (see
+    _pack_qdf_rows).  The planes are solved on the host in float64 from
+    the stored (hi, lo) mesh and data split; without stored residuals
+    accuracy is bounded by the float32 representation.  The rows are
+    packed on the grid's device in chunks written straight into one
+    table (as int32 bits: the int16 words are often NaN patterns).
+
+    ``timings``, when given, gets ``plane_solve_s`` (host solve and the
+    transfer of the planes) and ``df_pack_s`` (the device packing)."""
+    t0 = time.perf_counter()
+    nv = cand_fused_nv(grid)
+    dev = grid.device
+    pts64 = _host_f64(grid.points, grid.points_lo)
+    pd64 = _host_f64(
+        grid.point_data[:, :nv],
+        None if grid.point_data_lo is None else grid.point_data_lo[:, :nv],
+    )
+    g64, c64 = solve_cell_planes_f64(
+        pts64, grid.cells.cpu().numpy(), pd64
+    )
+    plane64 = np.concatenate([g64, c64[:, :, None]], axis=2)  # (n, nv, 4)
+    plane_hi = plane64.astype(np.float32)
+    plane_lo = (plane64 - plane_hi.astype(np.float64)).astype(np.float32)
+    src = _pack_dfsrc_rows(
+        grid.face_normals, grid.face_offsets,
+        _to(plane_hi, torch.float32, dev), _to(plane_lo, torch.float32, dev),
+        nv,
+    )
+    del pts64, pd64, g64, c64, plane64, plane_hi, plane_lo
+    if timings is not None:
+        _sync(dev)
+        timings["plane_solve_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+
+    k_max = grid.cand_ids.shape[1]
+    per = _qdf_floats_per(grid.cell_type, nv)
+    step = 512 // 4
+    row_floats = -(-(per * k_max + 2) // step) * step
+    n = grid.cand_ids.shape[0]
+    centers = cand_bin_centers(
+        grid, torch.arange(n, dtype=torch.int32, device=dev)
+    )
+    chunk = _pack_source_chunk(k_max, src.shape[1], 4)
+    out = torch.zeros((n, row_floats), dtype=torch.float32, device=dev)
+    for lo in range(0, n, chunk):
+        hi = min(n, lo + chunk)
+        rows = _pack_qdf_rows(
+            src, grid.cand_ids[lo:hi], grid.cand_count[lo:hi],
+            centers[lo:hi], cell_type=grid.cell_type,
+            row_floats=row_floats, nv=nv,
+        )
+        out.view(torch.int32)[lo:hi] = rows.view(torch.int32)
+    if timings is not None:
+        _sync(dev)
+        timings["df_pack_s"] = time.perf_counter() - t0
     return out
 
 
@@ -1149,12 +1377,33 @@ def _add_column(data, names, name, values, n_rows):
     return data, names + (name,), i_var
 
 
-def _no_accurate_mode(grid: Grid) -> None:
-    if grid.point_data_lo is not None or grid.acc_table is not None:
-        raise NotImplementedError(
-            "the accurate-mode registries (point_data_lo, acc_table) are "
-            "kept in step by the accurate-mode slice of the port"
-        )
+def _f32_residual(a64):
+    """Exact float64 -> float32 downcast remainder, elementwise (numpy,
+    any shape)."""
+    a64 = np.asarray(a64, np.float64)
+    return (a64 - a64.astype(np.float32).astype(np.float64)).astype(np.float32)
+
+
+def _f32_residual_column(values, n_points, device):
+    """Accurate-mode residual of one point-data column: the exact
+    float64 -> float32 remainder as an (n_points,) float32 tensor on
+    ``device``, zeros when the input carries no float64 information
+    (None, or a typed array or tensor of another dtype).  Scalars
+    broadcast.  The one definition that build_grid, add_point_data and
+    set_point_data share, so that their hi + lo sums agree."""
+    zeros = torch.zeros(n_points, dtype=torch.float32, device=device)
+    if values is None:
+        return zeros
+    if isinstance(values, torch.Tensor):
+        if values.dtype != torch.float64:
+            return zeros
+        v = values.to(device).broadcast_to((n_points,))
+        return (v - v.to(torch.float32).to(torch.float64)).to(torch.float32)
+    v = np.asarray(values)
+    if v.dtype != np.float64:
+        return zeros
+    return _to(_f32_residual(np.broadcast_to(v, (n_points,))),
+               torch.float32, device)
 
 
 def _refresh_cand_data(grid: Grid, i_var: int | None = None,
@@ -1188,12 +1437,26 @@ def add_point_data(grid: Grid, name: str, values=None, fuse: bool = True):
     ``fuse=False`` skips extending the fused candidate rows to the new
     variable (a repack of every row): the variable still interpolates
     through the generic path and the tracer, it just does not ride the
-    one-row candidate probe."""
-    _no_accurate_mode(grid)
+    one-row candidate probe.
+
+    On float32 grids the accurate-mode residual registry gets the
+    column's exact float64 remainder (zeros unless float64 values were
+    given), and an ``acc_table`` is rebuilt for the new width."""
     data, names, i_var = _add_column(
         grid.point_data, grid.point_data_names, name, values, grid.n_points
     )
     grid = dataclasses.replace(grid, point_data=data, point_data_names=names)
+    if grid.point_data_lo is not None:
+        lo, _, _ = _add_column(
+            grid.point_data_lo, grid.point_data_names[:-1], name,
+            _f32_residual_column(values, grid.n_points, grid.device),
+            grid.n_points,
+        )
+        grid = dataclasses.replace(grid, point_data_lo=lo)
+    if grid.acc_table is not None:
+        from ..ops.interp_acc import build_acc_table
+
+        grid = dataclasses.replace(grid, acc_table=build_acc_table(grid))
     if not fuse:
         return grid, i_var
     return _refresh_cand_data(grid, i_var), i_var
@@ -1223,8 +1486,11 @@ def add_icell_data(grid: Grid, name: str, values=None):
 
 
 def set_point_data(grid: Grid, i_var: int, values) -> Grid:
-    """Overwrite one point-data column (test_tetra.f90:37-40 pattern)."""
-    _no_accurate_mode(grid)
+    """Overwrite one point-data column (test_tetra.f90:37-40 pattern).
+
+    The accurate-mode residual column and the column's ``acc_table``
+    slots follow (the exact float64 remainder when float64 values were
+    given, zeros otherwise)."""
     nv = grid.n_point_data
     i_var = int(i_var)
     if not -nv <= i_var < nv:
@@ -1235,4 +1501,14 @@ def set_point_data(grid: Grid, i_var: int, values) -> Grid:
     data[:, i_var] = torch.as_tensor(values).to(dtype=data.dtype,
                                                 device=data.device)
     grid = dataclasses.replace(grid, point_data=data)
+    if grid.point_data_lo is not None:
+        lo = grid.point_data_lo.clone()
+        lo[:, i_var] = _f32_residual_column(values, grid.n_points, grid.device)
+        grid = dataclasses.replace(grid, point_data_lo=lo)
+    if grid.acc_table is not None:
+        from ..ops.interp_acc import update_acc_table_column
+
+        grid = dataclasses.replace(
+            grid, acc_table=update_acc_table_column(grid, i_var)
+        )
     return _refresh_cand_data(grid, i_var, extend=False)

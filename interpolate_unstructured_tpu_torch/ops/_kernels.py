@@ -45,8 +45,11 @@ _SIGNATURES = {
     ),
     "iu_cand_rows": (
         _I,
-        [_P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _F, _I, _P, _P,
-         _P, _P, _P],
+        [_P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _F, _I, _P,
+         _P, _P, _P, _P, _P],
+    ),
+    "iu_interp_acc": (
+        _I, [_P, _I, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P],
     ),
     "iu_walk": (
         _I,

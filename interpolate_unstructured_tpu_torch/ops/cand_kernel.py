@@ -7,12 +7,16 @@ returns, per query, the first-occurrence argmax winner ``id_best`` of
 the face margins, the verdict ``aux`` (-2 found, >= 0 overflow-bin miss
 carrying the extension slot, -1 exact miss) and the winner's fused
 values (m_interp_unstructured.f90:766-786 containment, :529-641
-weights).  Three row layouts (see ``RowLayout.kind`` and the packers in
-``models/grid.py``).
+weights).  Four row layouts (see ``RowLayout.kind`` and the packers in
+``models/grid.py``); the fourth, "qdf", is accurate mode's df-plane
+branch (the JAX kernel's ``df_planes=True``), whose values come back as
+hi/lo float32 pairs.
 
-:func:`cand_rows_query` launches the CUDA kernel (``csrc/cand_rows.cu``)
-on CUDA tensors and runs :func:`probe_rows_plain`, the plain PyTorch
-version, on CPU tensors.  ``launches`` counts kernel launches.
+:func:`cand_rows_query` and :func:`cand_rows_df_query` launch the CUDA
+kernel (``csrc/cand_rows.cu``) on CUDA tensors and run the plain PyTorch
+version (:func:`probe_rows_plain`, :func:`probe_rows_df_plain`) on CPU
+tensors.  ``launches`` counts kernel launches on the f32 layouts,
+``df_launches`` those on the df-plane rows.
 """
 
 from __future__ import annotations
@@ -22,11 +26,13 @@ import dataclasses
 import numpy as np
 import torch
 
-from . import _kernels, wkern
+from . import _kernels, df32, wkern
 
-launches = 0
+launches = 0  # launches on the three f32 layouts (B2)
+df_launches = 0  # launches on the df-plane layout (B2-df)
 
-_KIND_CODE = {"quantized": 0, "simplex": 1, "quad": 2}
+_KIND_CODE = {"quantized": 0, "simplex": 1, "quad": 2, "qdf": 3}
+_QUANTIZED_KINDS = ("quantized", "qdf")
 # 1/32767 rounded to float32, as the JAX kernel's jnp.float32(1/32767)
 QINV = float(np.float32(1.0 / 32767.0))
 
@@ -37,7 +43,9 @@ class RowLayout:
 
     kind: "quantized" (int16 probe geometry + f32 value planes, queries
       in the bin's local frame), "simplex" (unit planes + premultiplied
-      vertex data) or "quad" (planes + vertices + raw vertex data).
+      vertex data), "quad" (planes + vertices + raw vertex data) or
+      "qdf" (accurate mode: the quantized probe + df32 value planes,
+      queries as a hi/lo r_local).
     nf: faces (== vertices) per cell; k: candidates per row;
     id_role: role of the cell ids; count_col: column of the count (the
       quantized layout's dscale follows it);
@@ -70,7 +78,7 @@ def _margins_plain(g, rq, lay):
         return g[:, j * K:(j + 1) * K]
 
     m_faces = []
-    if lay.kind == "quantized":
+    if lay.kind in _QUANTIZED_KINDS:
         gi = g.view(torch.int32)
         s_n = -(-3 * nf // 2)
         inv = torch.tensor(QINV, dtype=torch.float32, device=g.device)
@@ -101,7 +109,7 @@ def _margins_plain(g, rq, lay):
     margins = m_faces[0]
     for mf in m_faces[1:]:
         margins = torch.minimum(margins, mf)
-    if lay.kind == "quantized":
+    if lay.kind in _QUANTIZED_KINDS:
         # padding slots carry no huge-offset sentinel (int16 can't hold
         # one): mask them by the id sign
         margins = torch.where(
@@ -110,8 +118,9 @@ def _margins_plain(g, rq, lay):
     return m_faces, margins
 
 
-def _probe_plain(g, rq, lay, eps, ovf_base):
-    """Probe of gathered rows g (b, W); see :func:`probe_rows_plain`."""
+def _probe_plain(g, rq, lay, eps, ovf_base, rq_lo=None):
+    """Probe of gathered rows g (b, W); see :func:`probe_rows_plain`.
+    For the "qdf" kind the values are (b, 2V): hi columns, then lo."""
     K, nf = lay.k, lay.nf
     npc = nf
     rx, ry, rz = rq[:, 0], rq[:, 1], rq[:, 2]
@@ -132,7 +141,20 @@ def _probe_plain(g, rq, lay, eps, ovf_base):
     ).to(torch.int32)
 
     vals = []
-    if lay.kind == "quantized":
+    if lay.kind == "qdf":
+        # df32 value planes: the winner's plane, then v = g . r_local +
+        # c_loc in compensated f32 with the hi/lo r_local
+        rl = [(rq[:, d], rq_lo[:, d]) for d in range(3)]
+        his, los = [], []
+        for pr in lay.var_roles:
+            acc = (pick(pr + 6), pick(pr + 7))  # c_loc
+            for d in range(3):
+                acc = df32.add(acc, df32.mul((pick(pr + d), pick(pr + 3 + d)),
+                                             rl[d]))
+            his.append(acc[0])
+            los.append(acc[1])
+        vals = his + los
+    elif lay.kind == "quantized":
         # exact per-cell value planes: value = g . r_local + c
         for pr in lay.var_roles:
             vals.append(
@@ -165,7 +187,7 @@ def _probe_plain(g, rq, lay, eps, ovf_base):
     return id_best, aux, values
 
 
-def probe_rows_plain(table, idx, rq, lay, eps, ovf_base, chunk):
+def probe_rows_plain(table, idx, rq, lay, eps, ovf_base, chunk, rq_lo=None):
     """Plain PyTorch version of B2 (model: the JAX package's
     ``ops/locate._probe_rows_xla``), on any device and float dtype.
     Rows are gathered ``chunk`` queries at a time so the gathered
@@ -175,72 +197,112 @@ def probe_rows_plain(table, idx, rq, lay, eps, ovf_base, chunk):
       table: (n_rows, W) packed rows (main or extension table).
       idx: (B,) row of each query.
       rq: (B, 3) queries — r_local (query minus bin center) for the
-        quantized layout, r otherwise.
+        quantized layouts, r otherwise.
       lay: the table's :class:`RowLayout`.
       eps: inside tolerance (plus the grid's cand_qeps when quantized).
       ovf_base: count above which a miss is an overflow-bin miss
         (main table: K; extension table: K + k_ext).
-    Returns (id_best (B,) int32, aux (B,) int32, values (B, V)).
+      rq_lo: (B, 3) lo parts of r_local, for the "qdf" kind.
+    Returns (id_best (B,) int32, aux (B,) int32, values (B, V)); for the
+    "qdf" kind values is (B, 2V), hi columns then lo columns.
     """
     outs = [
         _probe_plain(
             _gather_rows(table, idx[lo: lo + chunk]), rq[lo: lo + chunk],
             lay, eps, ovf_base,
+            None if rq_lo is None else rq_lo[lo: lo + chunk],
         )
         for lo in range(0, idx.shape[0], chunk)
     ]
     if not outs:
         z = torch.zeros(0, dtype=torch.int32, device=idx.device)
-        return z, z, rq.new_zeros((0, len(lay.var_roles)))
+        n_out = len(lay.var_roles) * (2 if lay.kind == "qdf" else 1)
+        return z, z, rq.new_zeros((0, n_out))
     return tuple(torch.cat([o[i] for o in outs]) for i in range(3))
 
 
-def cand_rows_cuda(table, idx, rq, lay, eps, ovf_base):
-    """Launch B2 on CUDA tensors: float32 table, int32 idx, float32 rq.
-    The kernel reads each query's row from the table itself."""
-    global launches
-    if table.dtype != torch.float32 or rq.dtype != torch.float32:
+def probe_rows_df_plain(table, idx, rq, rq_lo, lay, eps, ovf_base, chunk):
+    """Plain PyTorch version of B2's df-plane branch ("qdf" rows).
+    Returns (id_best, aux, vals_hi (B, V), vals_lo (B, V))."""
+    id_best, aux, vals = probe_rows_plain(table, idx, rq, lay, eps, ovf_base,
+                                          chunk, rq_lo=rq_lo)
+    n = len(lay.var_roles)
+    return id_best, aux, vals[:, :n], vals[:, n:]
+
+
+def _launch(table, idx, rq, rq_lo, lay, eps, ovf_base):
+    """Check the tensors and launch B2; returns (id_best, aux, values,
+    values_lo or None)."""
+    global launches, df_launches
+    df = lay.kind == "qdf"
+    qs = (rq, rq_lo) if df else (rq,)
+    if table.dtype != torch.float32 or any(
+            x.dtype != torch.float32 for x in qs):
         raise TypeError(
             "the CUDA candidate kernel takes float32 tables and queries, "
-            f"got {table.dtype} / {rq.dtype}"
+            f"got {table.dtype} / {[x.dtype for x in qs]}"
         )
     if idx.dtype != torch.int32:
         raise TypeError(f"idx must be int32, got {idx.dtype}")
-    if not (table.device == idx.device == rq.device):
+    if not all(x.device == table.device for x in (idx, *qs)):
         raise ValueError("table, idx and queries must share one device")
     if table.ndim != 2 or not table.is_contiguous():
         raise ValueError("table must be a contiguous (n_rows, W) tensor")
     b = idx.shape[0]
-    if idx.ndim != 1 or rq.shape != (b, 3):
+    if idx.ndim != 1 or any(x.shape != (b, 3) for x in qs):
         raise ValueError(
             f"idx must be (B,), queries (B, 3): got {tuple(idx.shape)}, "
-            f"{tuple(rq.shape)}"
+            f"{[tuple(x.shape) for x in qs]}"
         )
-    tail = 2 if lay.kind == "quantized" else 1
+    tail = 2 if lay.kind in _QUANTIZED_KINDS else 1
     if lay.count_col + tail > table.shape[1] or lay.k < 1:
         raise ValueError(f"row layout {lay} does not fit width {table.shape[1]}")
     idx = idx.contiguous()
     rq = rq.contiguous()
     dev = table.device
+    n_vars = len(lay.var_roles)
     vroles = torch.tensor(lay.var_roles, dtype=torch.int32, device=dev)
     out_id = torch.empty(b, dtype=torch.int32, device=dev)
     out_aux = torch.empty(b, dtype=torch.int32, device=dev)
-    vals = torch.empty((b, len(lay.var_roles)), dtype=torch.float32,
-                       device=dev)
+    vals = torch.empty((b, n_vars), dtype=torch.float32, device=dev)
+    vals_lo = None
+    if df:
+        rq_lo = rq_lo.contiguous()
+        vals_lo = torch.empty((b, n_vars), dtype=torch.float32, device=dev)
     if b == 0:
-        return out_id, out_aux, vals
+        return out_id, out_aux, vals, vals_lo
     with torch.cuda.device(dev):
         code = _kernels.lib().iu_cand_rows(
             table.data_ptr(), table.shape[1], idx.data_ptr(), rq.data_ptr(),
-            b, lay.k, lay.nf, _KIND_CODE[lay.kind], lay.id_role,
-            lay.count_col, float(eps), int(ovf_base), QINV,
-            len(lay.var_roles), vroles.data_ptr(), out_id.data_ptr(),
-            out_aux.data_ptr(), vals.data_ptr(),
+            rq_lo.data_ptr() if df else None, b, lay.k, lay.nf,
+            _KIND_CODE[lay.kind], lay.id_role, lay.count_col, float(eps),
+            int(ovf_base), QINV, n_vars, vroles.data_ptr(),
+            out_id.data_ptr(), out_aux.data_ptr(), vals.data_ptr(),
+            vals_lo.data_ptr() if df else None,
             torch.cuda.current_stream().cuda_stream,
         )
     _kernels.check(code, "iu_cand_rows")
-    launches += 1
-    return out_id, out_aux, vals
+    if df:
+        df_launches += 1
+    else:
+        launches += 1
+    return out_id, out_aux, vals, vals_lo
+
+
+def cand_rows_cuda(table, idx, rq, lay, eps, ovf_base):
+    """Launch B2 on CUDA tensors: float32 table, int32 idx, float32 rq.
+    The kernel reads each query's row from the table itself."""
+    if lay.kind == "qdf":
+        raise ValueError("df-plane rows are probed by cand_rows_df_cuda")
+    return _launch(table, idx, rq, None, lay, eps, ovf_base)[:3]
+
+
+def cand_rows_df_cuda(table, idx, rq, rq_lo, lay, eps, ovf_base):
+    """Launch B2's df-plane branch on CUDA tensors ("qdf" rows, hi/lo
+    r_local).  Returns (id_best, aux, vals_hi (B, V), vals_lo (B, V))."""
+    if lay.kind != "qdf":
+        raise ValueError(f"{lay.kind!r} rows are probed by cand_rows_cuda")
+    return _launch(table, idx, rq, rq_lo, lay, eps, ovf_base)
 
 
 def cand_rows_query(table, idx, rq, lay, eps, ovf_base, chunk):
@@ -251,4 +313,16 @@ def cand_rows_query(table, idx, rq, lay, eps, ovf_base, chunk):
         return cand_rows_cuda(table, idx, rq, lay, eps, ovf_base)
     if table.device.type == "cpu":
         return probe_rows_plain(table, idx, rq, lay, eps, ovf_base, chunk)
+    raise ValueError(f"no candidate probe for device {table.device}")
+
+
+def cand_rows_df_query(table, idx, rq, rq_lo, lay, eps, ovf_base, chunk):
+    """The df-plane probe of accurate mode: the CUDA kernel for CUDA
+    tensors, the plain version for CPU tensors.  Returns (id_best,
+    aux, vals_hi (B, V), vals_lo (B, V))."""
+    if table.device.type == "cuda":
+        return cand_rows_df_cuda(table, idx, rq, rq_lo, lay, eps, ovf_base)
+    if table.device.type == "cpu":
+        return probe_rows_df_plain(table, idx, rq, rq_lo, lay, eps, ovf_base,
+                                   chunk)
     raise ValueError(f"no candidate probe for device {table.device}")

@@ -14,6 +14,8 @@ The port of the JAX package's ``ops/locate.py``
   interpolated values (kernel B2, ``ops/cand_kernel.py``); overflow bins
   probe their extension row, and bins whose candidates exceed even that
   resume with a walk;
+* ``_candidates_query_df`` — accurate mode's cold query on the df-plane
+  rows: the same probe, values in df32 (B2's df-plane branch);
 * ``get_cell`` — the warm/cold dispatch (:412-434).
 
 Cells are 0-based; "no cell" is a negative index.  Status codes follow
@@ -27,7 +29,7 @@ from __future__ import annotations
 
 import torch
 
-from . import cand_kernel, geometry, walk_kernel
+from . import cand_kernel, df32, geometry, walk_kernel
 from ..utils.config import huge_distance, tiny_distance, walk_tolerances
 
 STATUS_ARRIVED = walk_kernel.STATUS_ARRIVED
@@ -393,6 +395,68 @@ def _candidates_query(grid, r, var_slots, max_steps=None):
                 values[resid] = torch.where(found_w[:, None], vals_w,
                                             values[resid])
     return ic, ic >= 0, values
+
+
+def _df_row_layout(grid, var_slots) -> cand_kernel.RowLayout:
+    """The :class:`cand_kernel.RowLayout` of the df-plane rows
+    (``grid.cand_df_table``, models/grid._pack_qdf_rows)."""
+    from ..models.grid import _qdf_floats_per, cand_fused_nv
+
+    nf = grid.n_faces_per_cell
+    nv = cand_fused_nv(grid)
+    if any(not 0 <= s < nv for s in var_slots):
+        raise ValueError("var_slots outside the fused variable range")
+    k = grid.cand_ids.shape[1]
+    base = -(-3 * nf // 2) + -(-nf // 2)
+    return cand_kernel.RowLayout(
+        kind="qdf", nf=nf, k=k, id_role=base + 8 * nv,
+        count_col=k * _qdf_floats_per(grid.cell_type, nv),
+        var_roles=tuple(base + 8 * s for s in var_slots),
+    )
+
+
+def _cand_local_df(grid, r_hi, r_lo, ijk):
+    """(hi, lo) split of r_local = r - bin_center, each (B, 3): hi =
+    fl(r_hi - c) and lo its error-free residual (two_sum) plus the query's
+    own residual ``r_lo`` — the JAX package's ``_cand_local_df_t``, so
+    the df32 plane evaluation sees r_local to float64-grade precision.
+    hi equals the quantized probe's r_local bit for bit."""
+    cs = geometry.cand_bin_center_cols(
+        grid.cand_rmin, grid.cand_inv_h, ijk[0], ijk[1], ijk[2]
+    )
+    his, los = [], []
+    for d in range(3):
+        hi, err = df32.two_sum(r_hi[:, d], -cs[d])
+        his.append(hi)
+        los.append(err + r_lo[:, d])
+    return torch.stack(his, dim=1), torch.stack(los, dim=1)
+
+
+def _candidates_query_df(grid, r_hi, var_slots, r_lo=None):
+    """Accurate-mode fused cold query: one row of the df-plane candidate
+    table (``grid.cand_df_table``) per query answers containment AND the
+    ~1e-13 interpolation (kernel B2's df-plane branch).
+
+    Only built for simplex grids whose rows cover every bin
+    (``models.grid.cand_df_supported``), so a probe miss is exact.
+
+    Returns (ic (B,) int32, found (B,), vals_hi (B, V), vals_lo (B, V));
+    missed queries carry their best candidate's plane values with found
+    False.
+    """
+    var_slots = tuple(var_slots)
+    lay = _df_row_layout(grid, var_slots)
+    if r_lo is None:
+        r_lo = torch.zeros_like(r_hi)
+    ijk = _cand_bin_ijk(grid, r_hi)
+    idx = _cand_bin_flat(grid, ijk)
+    rq, rq_lo = _cand_local_df(grid, r_hi, r_lo, ijk)
+    id_best, aux, vh, vl = cand_kernel.cand_rows_df_query(
+        grid.cand_df_table, idx, rq, rq_lo, lay, _cand_eps(grid), lay.k,
+        _cand_chunk(grid, grid.cand_df_table),
+    )
+    found = aux == -2
+    return torch.where(found, id_best, -1), found, vh, vl
 
 
 def locate_candidates(grid, r, max_steps=None):

@@ -7,16 +7,19 @@ arithmetic trait ``ar`` and called by every torch path on per-component
 tensors.  The CUDA kernels carry the same formulas, operation for
 operation, in ``csrc/wkern.cuh``; an edit here is an edit there.
 
-Only the :class:`Plain` trait is ported; the df32 trait comes with
-accurate mode.  Every operation keeps the JAX package's order of
-evaluation, so float64 results stay within a few ulp of the reference
-(the 1e-14 linear-exactness invariant) and float32 results match the
-kernels, which are built without FMA contraction.
+Two traits, as in the JAX package: :class:`Plain` (one tensor per
+scalar) and :class:`DF` (df32 ``(hi, lo)`` pairs, accurate mode; its
+CUDA twin is ``csrc/interp_acc.cu``).  Every operation keeps the JAX
+package's order of evaluation, so float64 results stay within a few ulp
+of the reference (the 1e-14 linear-exactness invariant) and float32
+results match the kernels, which are built without FMA contraction.
 """
 
 from __future__ import annotations
 
 import torch
+
+from . import df32
 
 
 class Plain:
@@ -77,6 +80,44 @@ class Plain:
     @staticmethod
     def one_minus(a):
         return 1 - a
+
+
+class DF:
+    """df32 arithmetic: an ``ar`` scalar is an (hi, lo) float32 pair."""
+
+    # df32 working precision ~2^-48
+    rel_eps = 8.0 * 2.0 ** -48
+
+    add = staticmethod(df32.add)
+    sub = staticmethod(df32.sub)
+    mul = staticmethod(df32.mul)
+    div = staticmethod(df32.div)
+    neg = staticmethod(df32.neg)
+    scale = staticmethod(df32.scale)
+    sqrt = staticmethod(df32.sqrt)
+
+    @staticmethod
+    def max0(a):
+        neg = (a[0] + a[1]) < 0
+        z = torch.zeros_like(a[0])
+        return torch.where(neg, z, a[0]), torch.where(neg, z, a[1])
+
+    @staticmethod
+    def hi(a):
+        return a[0] + a[1]
+
+    @staticmethod
+    def select(cond, a, b):
+        return torch.where(cond, a[0], b[0]), torch.where(cond, a[1], b[1])
+
+    @staticmethod
+    def safe_one(cond, a):
+        return (torch.where(cond, torch.ones_like(a[0]), a[0]),
+                torch.where(cond, torch.zeros_like(a[1]), a[1]))
+
+    @staticmethod
+    def one_minus(a):
+        return df32.sub((torch.ones_like(a[0]), torch.zeros_like(a[0])), a)
 
 
 def _cross_c(ar, ax, ay, az, bx, by, bz):

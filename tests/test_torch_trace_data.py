@@ -46,6 +46,9 @@ def _same_registries(ug, tg):
         j = np.asarray(getattr(ug, f"{fam}_data"))
         assert t.dtype == (torch.int32 if fam == "icell" else torch.float32)
         np.testing.assert_array_equal(t.numpy(), j, err_msg=fam)
+    # the accurate-mode residual registry follows the point data
+    np.testing.assert_array_equal(tg.point_data_lo.numpy(),
+                                  np.asarray(ug.point_data_lo))
 
 
 def _apply(mod, g, pts, n_cells):
@@ -143,15 +146,25 @@ def test_fuse_repacks_the_candidate_rows_as_jax():
 
 
 def test_accurate_mode_registries_raise():
-    """point_data_lo and acc_table belong to the accurate-mode slice."""
+    """The mutation API keeps the accurate-mode registries in step
+    (tests/test_torch_acc.py holds them to the JAX package's); what
+    raises is an accurate call on a grid without its acc table."""
     pts, cells, nbrs = meshgen.triangle_rect_mesh(3, 3)
     tg = tiu.build_grid(pts, cells, nbrs, "triangle", device="cpu",
                         point_data={"P": pts.sum(1)})
-    lo = dataclasses.replace(tg, point_data_lo=torch.zeros_like(tg.point_data))
-    with pytest.raises(NotImplementedError, match="accurate"):
-        tiu.add_point_data(lo, "Q")
-    with pytest.raises(NotImplementedError, match="accurate"):
-        tiu.set_point_data(lo, 0, 1.0)
+    assert tg.point_data_lo.shape == tg.point_data.shape
+    tg2, iq = tiu.add_point_data(tg, "Q", pts[:, 0] / 3.0)
+    assert tg2.point_data_lo.shape == (len(pts), 2) and tg2.acc_table is None
+    np.testing.assert_array_equal(
+        tg2.point_data_lo[:, iq].numpy(),
+        (pts[:, 0] / 3.0 - (pts[:, 0] / 3.0).astype(np.float32)).astype(
+            np.float32))
+    tg3 = tiu.set_point_data(tiu.prepare_accurate(tg2), 0, 1.0)
+    assert not tg3.point_data_lo[:, 0].any()
+    assert (tg3.acc_table[:, 18:21] == 1.0).all()
+    r = torch.tensor([[0.5, 0.5, 0.0]], dtype=torch.float64)
+    with pytest.raises(ValueError, match="prepare_accurate"):
+        tiu.interpolate_at_acc(tg2, r, (0,))
 
 
 def test_build_kdtree_defaults_to_the_card(monkeypatch):
