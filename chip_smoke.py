@@ -17,29 +17,37 @@ a guess, ``prepare_accurate``, ``interpolate_at_acc``,
    benchmark.f90, an 8x8 quad mesh and a 750-tet box, 1M cold queries
    inside the bounding box plus 1% outside it (kernel B1);
 3. candidate phase: the 998,250-tet box of ``bench.py``, 10M uniform cold
-   queries (kernel B2), then 10M warm queries guessed by the cold cells
-   plus 1% outside the box (B2, then B3 on the misses), and a
-   10,368-tet box whose bins overflow into an extension table;
+   queries (kernel B2 in bin order: bin pass, scatter, probe, unsort),
+   then 10M warm queries guessed by the cold cells plus 1% outside the
+   box (B2, then B3's get_cell walk on the misses), and a 10,368-tet box
+   whose bins overflow into an extension table (B2's direct kernel);
+   B2's direct design and the bin-ordered one timed in turns (old, new,
+   new, old), the probe at the lanes a query that ``binned_lanes`` picks
+   and at its neighbour (``tools/b2_sweep.py`` sweeps lanes and batch
+   sizes);
 4. accurate phase, ``bench.py``'s accurate protocol on the candidate
    phase's grid: ``prepare_accurate`` (acc table, float64 plane solve,
    df-plane rows), 10M float64 queries from default_rng(2) cold (one
    df-plane row each, kernel B2-df) and the candidate phase's moved
-   points in float64 warm, guessed by the cold cells (B2, B3 on the
-   misses, then B5), gated at 1e-10; then B5 through
+   points in float64 warm, guessed by the cold cells (B2, B3's get_cell
+   walk on the misses, then B5), gated at 1e-10; then B5 through
    ``interpolate_at_icell_acc`` on the brute-force meshes;
 5. walk phase, ``bench.py``'s warm protocol on the same box built
    without candidate tables: ``build_grid`` (its refine walks every seed
-   bin center, B3), 10M cold queries (bin-seeded walks), the same
-   points advected by 0.01 * velocity with the cold cells as guesses,
-   and 100k warm queries pushed out of the box (kernel B3);
+   bin center), 10M cold queries (bin-seeded walks), the same points
+   advected by 0.01 * velocity with the cold cells as guesses, and 100k
+   warm queries pushed out of the box, every walk in B3's get_cell walk
+   stage; that stage and the earlier composition it replaces
+   (``walk_origin``, ``_walk_args``, two ``walk_cuda`` launches) timed
+   in turns, and B3's explicit walk (``walk_rows``) on its own;
 6. trace phase, ``bench.py``'s ``trace_at_scale`` protocol on the walk
    phase's grid: the helical field (-(y-0.5), x-0.5, 0.25) added with
    ``add_point_data(..., fuse=False)``, ``build_trace_table`` once, then
    ``integrate_along_field`` (min_dx 1e-4, max_dx 0.05, 256 steps, rtol =
    atol = 1e-3) from 0.3 + 0.4 * default_rng(3).random((n, 3)) for n =
-   1024 and 65,536 lines (B3 for the start cells, B4 for every RK
-   iteration), and the 1024 lines again through the generic path (B3
-   walks plus torch);
+   1024 and 65,536 lines (B3's get_cell walk for the start cells, B4 for
+   every RK iteration), and the 1024 lines again through the generic
+   path (B3's explicit walks plus torch);
 7. holds each kernel against its plain PyTorch version on the same CUDA
    tensors, checks linear exactness and found masks, and times kernel
    and plain version with CUDA events (B4, whose launches are about as
@@ -53,7 +61,11 @@ line of per-kernel results, and ``{"ok": true, "device": ...}``.  Each
 kernel's ``bound_ms`` is the least time for its bytes at 3.35 TB/s or
 its float32 operations at 67 TFLOP/s (H100 SXM data sheet), whichever
 is larger, counted from this run's inputs (df32 operations as the float32
-operations they are made of).  Any failed check raises
+operations they are made of): each input byte once and each output byte
+once, so a table row counts once however many queries or walk steps
+read it (the distinct rows from the run's bin indices and cells, and for
+walks from a run of the plain version on a recording table).  Any
+failed check raises
 before them, with a non-zero exit; without a CUDA device the script
 exits non-zero at once.
 """
@@ -144,54 +156,106 @@ def steady_s(fn, reps):
 
 @contextlib.contextmanager
 def plain_walks(walk_kernel):
-    """Inside the block every walk of the port runs the plain version."""
-    real = walk_kernel.walk_rows
+    """Inside the block every walk of the port runs the plain version
+    (explicit walks and get_cell's walk stage)."""
+    real = walk_kernel.walk_rows, walk_kernel.get_cell_walk
     walk_kernel.walk_rows = walk_kernel.walk_plain
+    walk_kernel.get_cell_walk = walk_kernel.get_cell_walk_plain
     try:
         yield
     finally:
-        walk_kernel.walk_rows = real
+        walk_kernel.walk_rows, walk_kernel.get_cell_walk = real
 
 
 @contextlib.contextmanager
 def timed_walks(walk_kernel, out):
-    """Inside the block every walk records CUDA events around its
-    ``walk_rows`` call; after it, ``out`` holds (lanes, ms) per walk."""
-    real = walk_kernel.walk_rows
+    """Inside the block every get_cell walk stage records CUDA events
+    around its ``get_cell_walk`` call; after it, ``out`` holds (queries,
+    ms) per call."""
+    real = walk_kernel.get_cell_walk
     events = []
 
-    def timed(table, r0, *rest):
+    def timed(grid, r, *rest):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        res = real(table, r0, *rest)
+        res = real(grid, r, *rest)
         end.record()
-        events.append((r0.shape[0], start, end))
+        events.append((r.shape[0], start, end))
         return res
 
-    walk_kernel.walk_rows = timed
+    walk_kernel.get_cell_walk = timed
     try:
         yield
     finally:
-        walk_kernel.walk_rows = real
+        walk_kernel.get_cell_walk = real
     torch.cuda.synchronize()
     out.extend((n, s.elapsed_time(e)) for n, s, e in events)
 
 
+def _counter_names(mod):
+    return [a for a, v in vars(mod).items()
+            if a.endswith("launches") and type(v) is int]
+
+
 def main_path(fn, counters):
     """Run one main-path call with every launch counter zeroed first;
-    return its result and the launches it made, per kernel module (the
-    candidate module's df-plane launches under ``<name>:df``)."""
+    return its result and the launches it made: ``counts[<module>]`` for
+    a module's ``launches``, ``counts["<module>:<x>"]`` for its
+    ``<x>_launches`` (the candidate module's df-plane launches under
+    ``:df``, the bin-ordered kernels under ``:bin_pass``,
+    ``:bin_scatter``, ``:binned`` and ``:bin_unsort``, get_cell's walk
+    stage under
+    ``walk_kernel:get_cell``)."""
     for mod in counters:
-        mod.launches = 0
-        if hasattr(mod, "df_launches"):
-            mod.df_launches = 0
+        for name in _counter_names(mod):
+            setattr(mod, name, 0)
     out = fn()
     torch.cuda.synchronize()
-    counts = {mod.__name__: mod.launches for mod in counters}
-    counts.update({f"{mod.__name__}:df": mod.df_launches for mod in counters
-                   if hasattr(mod, "df_launches")})
+    counts = {}
+    for mod in counters:
+        for name in _counter_names(mod):
+            key = mod.__name__ if name == "launches" else (
+                f"{mod.__name__}:{name[:-len('_launches')]}")
+            counts[key] = getattr(mod, name)
     return out, counts
+
+
+class RowRecorder:
+    """A stand-in for a row table that records the rows a plain version
+    gathers (``table[idx]`` or ``table[idx, cols]``) and hands back the
+    real rows; ``distinct(col0)`` counts the distinct rows gathered with
+    their columns starting at ``col0``, ``distinct()`` all of them."""
+
+    def __init__(self, table):
+        self.table = table
+        self.shape = table.shape
+        self.dtype = table.dtype
+        self.device = table.device
+        self.seen = []
+
+    def __getitem__(self, key):
+        idx, cols = key if isinstance(key, tuple) else (key, slice(None))
+        self.seen.append((cols.start or 0, idx.reshape(-1)))
+        return self.table[key]
+
+    def distinct(self, col0=None):
+        rows = [i for c, i in self.seen if col0 is None or c == col0]
+        if not rows:
+            return 0
+        return int(torch.unique(torch.cat(rows).long()).numel())
+
+
+def turns(fns, reps):
+    """CUDA-event ms per call of each of ``fns`` (name -> callable), timed
+    in turns old, new, new, old for two of them, else in order then in
+    reverse: {name: [ms, ms]}."""
+    names = list(fns)
+    order = names + names[::-1]
+    out = {n: [] for n in names}
+    for n in order:
+        out[n].append(cuda_ms(fns[n], reps))
+    return out
 
 
 def compare(name, k_ic, p_ic, k_vals, p_vals, margins_of, tol_band,
@@ -325,6 +389,223 @@ def probe_compare(name, grid, table, idx, rq, k, ovf_base, cand_kernel, locate):
     return n_bad, err, lay, eps, kaux
 
 
+
+def b2_front_end(dev, grid, r, k, cand_kernel, locate):
+    """B2 on the 10M cold queries of the 998k-tet box: the direct kernel
+    (one warp a query in query order) and the bin-ordered front end, each
+    against its plain version, timed in turns, with bounds that count
+    each row once.  The probe in bin order is checked and timed at the
+    lanes a query that ``binned_lanes`` picks and at its neighbour (2 and
+    4); tools/b2_sweep.py sweeps lanes and batch sizes."""
+    from interpolate_unstructured_tpu_torch.ops import _kernels, geometry
+
+    res = {}
+    n = r.shape[0]
+    idx, rq = locate._cand_probe_inputs(grid, r)
+    _, err, lay, eps, _ = probe_compare(
+        "B2 direct, 998k-tet main table, first 1M", grid, grid.cand_table,
+        idx[:N_CMP], rq[:N_CMP], k, k, cand_kernel, locate)
+    res["max_abs_err"] = err
+    chunk = locate._cand_chunk(grid)
+    bins = (grid.cand_rmin, grid.cand_inv_h, grid.cand_shape)
+    n_bins = int(np.prod(grid.cand_shape))
+    lanes = cand_kernel.binned_lanes(n, n_bins)
+    lanes_guard = 4 if lanes == 2 else 2
+
+    # the bin-ordered front end against its plain versions, bit for bit;
+    # max_abs_err of an integer output is its count of differing entries
+    b_idx, ends, perm, slot = cand_kernel.bin_order_cuda(r, *bins)
+    arange = torch.arange(n, device=dev, dtype=torch.int32)
+    res["pass_err"] = float(int((b_idx != idx).sum()) + int(
+        (ends.long() != torch.cumsum(torch.bincount(
+            idx.long(), minlength=n_bins), 0)).sum()))
+    check(res["pass_err"] == 0, f"B2 bin pass: {res['pass_err']:.0f} bins "
+          "or scanned counts differ from the plain bin index and bincount")
+    res["scatter_err"] = float(
+        int((torch.sort(perm).values != arange).sum())
+        + int((idx[perm.long()] != idx[cand_kernel.bin_order_plain(idx)])
+              .sum())
+        + int((perm[slot.long()] != arange).sum()))
+    check(res["scatter_err"] == 0, f"B2 scatter: {res['scatter_err']:.0f} "
+          "entries of perm or slot are not the plain grouping and its inverse")
+    pout = cand_kernel.probe_rows_plain(grid.cand_table, idx, rq, lay, eps, k,
+                                        chunk)
+    for g in (lanes, lanes_guard):
+        kout = cand_kernel.cand_rows_binned_cuda(
+            grid.cand_table, r, perm, slot, *bins, lay, eps, k, lanes=g)
+        for name, a, b in zip(("id", "aux", "values"), kout, pout):
+            n_bad = int((a != b).reshape(n, -1).any(1).sum())
+            check(torch.equal(a, b), f"B2 in bin order, {g} lanes a query: "
+                  f"{name} differs from probe_rows_plain on {n_bad} queries")
+    res["binned_err"] = float((kout[2] - pout[2]).abs().max())
+    print(f"B2 in bin order, all {n} cold queries: bins equal the plain bin "
+          f"index, ends the scan of its bincount, perm groups the queries as "
+          f"the stable argsort does and slot is its inverse; id, aux and "
+          f"values torch.equal to probe_rows_plain with {lanes} and "
+          f"{lanes_guard} lanes a query")
+    n_rows = int(torch.unique(idx).numel())
+    n_planes = int(torch.unique(
+        idx.long() * (grid.n_cells + 1) + pout[0].long() + 1).numel())
+    del kout, pout
+
+    # timing: the old composition (torch inputs + direct kernel) against
+    # the bin-ordered query in turns, then each kernel alone in turns
+    def old_query():
+        i, q = locate._cand_probe_inputs(grid, r)
+        return cand_kernel.cand_rows_cuda(grid.cand_table, i, q, lay, eps, k)
+
+    def new_query():
+        return cand_kernel.cand_rows_binned_query(grid.cand_table, r, *bins,
+                                                  lay, eps, k, chunk)
+
+    t_q = turns({"old": old_query, "new": new_query}, 10)
+    t_k = turns({
+        "direct": lambda: cand_kernel.cand_rows_cuda(
+            grid.cand_table, idx, rq, lay, eps, k),
+        "binned": lambda: cand_kernel.cand_rows_binned_cuda(
+            grid.cand_table, r, perm, slot, *bins, lay, eps, k),
+    }, 10)
+    lib = _kernels.lib()
+    stream = torch.cuda.current_stream().cuda_stream
+    rmin, inv_h = (t.contiguous() for t in bins[:2])
+    counts = torch.zeros(n_bins, dtype=torch.int32, device=dev)
+    bin_buf, rank_buf, perm_buf, slot_buf = (
+        torch.empty(n, dtype=torch.int32, device=dev) for _ in range(4))
+
+    def bin_pass():  # with the 8 MB memset of the counts
+        counts.zero_()
+        _kernels.check(lib.iu_cand_bin_pass(
+            r.data_ptr(), n, rmin.data_ptr(), inv_h.data_ptr(),
+            *grid.cand_shape, counts.data_ptr(), bin_buf.data_ptr(),
+            rank_buf.data_ptr(), stream), "iu_cand_bin_pass")
+
+    bin_pass()
+    scan = torch.cumsum(counts, 0, dtype=torch.int32)
+
+    def scatter():
+        _kernels.check(lib.iu_cand_bin_scatter(
+            bin_buf.data_ptr(), rank_buf.data_ptr(), scan.data_ptr(), n,
+            perm_buf.data_ptr(), slot_buf.data_ptr(), stream),
+            "iu_cand_bin_scatter")
+
+    n_vars = len(lay.var_roles)
+    rec = torch.empty((n, 2 + n_vars), dtype=torch.int32, device=dev)
+    vroles = torch.tensor(lay.var_roles, dtype=torch.int32, device=dev)
+    outs = (torch.empty(n, dtype=torch.int32, device=dev),
+            torch.empty(n, dtype=torch.int32, device=dev),
+            torch.empty((n, n_vars), dtype=torch.float32, device=dev))
+
+    def probe(lanes, b=n):  # the probe kernel alone, records by slot
+        _kernels.check(lib.iu_cand_rows_binned(
+            grid.cand_table.data_ptr(), grid.cand_table.shape[1],
+            r.data_ptr(), perm.data_ptr(), b, lanes, rmin.data_ptr(),
+            inv_h.data_ptr(), *grid.cand_shape, k, lay.nf, 0, lay.id_role,
+            lay.count_col, float(eps), k, cand_kernel.QINV, n_vars,
+            vroles.data_ptr(), rec.data_ptr(), stream), "iu_cand_rows_binned")
+
+    def unsort():
+        _kernels.check(lib.iu_cand_bin_unsort(
+            rec.data_ptr(), slot.data_ptr(), n, n_vars, outs[0].data_ptr(),
+            outs[1].data_ptr(), outs[2].data_ptr(), stream),
+            "iu_cand_bin_unsort")
+
+    def unsort_plain():  # the records put back in query order, split
+        back = rec[slot.long()]
+        return back[:, 0], back[:, 1], back[:, 2:].view(torch.float32)
+
+    ms_pass = cuda_ms(bin_pass, 10)
+    ms_scan = cuda_ms(lambda: torch.cumsum(counts, 0, dtype=torch.int32), 10)
+    ms_scatter = cuda_ms(scatter, 10)
+    check(lay.kind == "quantized", "the 998k box's rows are not quantized")
+    t_lanes = turns({g: (lambda g=g: probe(g)) for g in (lanes, lanes_guard)},
+                    10)
+    probe(lanes)
+    unsort()
+    u_plain = unsort_plain()
+    res["unsort_err"] = max(
+        float(int((outs[0] != u_plain[0]).sum())
+              + int((outs[1] != u_plain[1]).sum())),
+        float((outs[2] - u_plain[2]).abs().max()))
+    check(res["unsort_err"] == 0 and torch.equal(outs[2], u_plain[2]),
+          f"B2 unsort differs from the records indexed by slot "
+          f"({res['unsort_err']})")
+    del u_plain
+    ms_unsort = cuda_ms(unsort, 10)
+    ms_p_unsort = cuda_ms(unsort_plain, 3)
+    ms_lib_unsort = cuda_ms(lambda: rec[slot.long()], 3)
+    ms_memset = cuda_ms(counts.zero_, 10)
+    ms_inputs = cuda_ms(lambda: locate._cand_probe_inputs(grid, r), 10)
+    ms_p = cuda_ms(lambda: cand_kernel.probe_rows_plain(
+        grid.cand_table, idx, rq, lay, eps, k, chunk), 2)
+    ms_p_binned = cuda_ms(lambda: cand_kernel.probe_rows_plain(
+        grid.cand_table, *cand_kernel.probe_inputs_plain(r, *bins, True), lay,
+        eps, k, chunk), 2)
+    ms_p_pass = cuda_ms(lambda: torch.bincount(geometry.bin_flat(
+        geometry.bin_ijk(r, *bins, torch.int32), grid.cand_shape).long(),
+        minlength=n_bins), 3)
+    ms_p_order = cuda_ms(lambda: cand_kernel.bin_order_plain(idx), 3)
+    ms_lib_order = cuda_ms(lambda: torch.argsort(idx, stable=True), 3)
+    print(f"B2 998k-tet, {n} cold queries, CUDA events in turns: old "
+          f"composition (torch bin index + local frame, direct kernel) "
+          f"{t_q['old'][0]:.4f} / {t_q['old'][1]:.4f} ms, bin-ordered query "
+          f"{t_q['new'][0]:.4f} / {t_q['new'][1]:.4f} ms; kernels alone: "
+          f"direct {t_k['direct'][0]:.4f} / {t_k['direct'][1]:.4f} ms, probe "
+          f"and unsort in bin order {t_k['binned'][0]:.4f} / "
+          f"{t_k['binned'][1]:.4f} ms; "
+          f"bin pass {ms_pass:.4f} ms (with the count memset, {ms_memset:.4f} "
+          f"ms alone), scan {ms_scan:.4f} ms, scatter {ms_scatter:.4f} ms, "
+          f"unsort {ms_unsort:.4f} ms; "
+          f"the old torch inputs {ms_inputs:.4f} ms; row "
+          f"{grid.cand_table.shape[1] * 4} B, {n_rows} distinct rows, "
+          f"{n_bins} bins")
+    print(f"B2 probe kernel alone, records by slot, lanes a query "
+          f"(in turns): " + ", ".join(
+              f"{g}: {t_lanes[g][0]:.4f} / {t_lanes[g][1]:.4f} ms"
+              for g in (lanes, lanes_guard))
+          + f"; binned_lanes picks {lanes}")
+    print(f"B2 plain versions at {n}: probe_rows_plain {ms_p:.4f} ms, with "
+          f"its inputs from r {ms_p_binned:.4f} ms, bin index + bincount "
+          f"{ms_p_pass:.4f} ms, stable argsort {ms_p_order:.4f} ms, unsort "
+          f"(index by slot, split) {ms_p_unsort:.4f} ms; library calls: "
+          f"torch.argsort(idx, stable=True) {ms_lib_order:.4f} ms, "
+          f"rec[slot.long()] {ms_lib_unsort:.4f} ms")
+
+    # Bounds, each byte once: the probe roles (int16 normal and offset
+    # words, ids), count and dscale of every distinct row; the value
+    # plane (4 floats) of every distinct (row, winner); per query its
+    # inputs and outputs (a record of 2 + n_vars words between the probe
+    # and the unsort)
+    n_roles = -(-3 * lay.nf // 2) + -(-lay.nf // 2) + 1
+    rows_b = n_rows * (n_roles * k * 4 + 8) + n_planes * 16
+    ops = n * k * lay.nf * 9
+    rec_b = 4 * (2 + n_vars)
+    res["direct"] = dict(
+        ms=sum(t_k["direct"]) / 2, ms_turns=t_k["direct"], plain_ms=ms_p,
+        bound=bound(rows_b + n * (12 + 4 + 8 + 4 * n_vars), ops))
+    res["probe"] = dict(
+        ms=sum(t_lanes[lanes]) / 2, ms_turns=t_lanes[lanes],
+        plain_ms=ms_p_binned,
+        bound=bound(rows_b + n * (4 + 12 + rec_b), ops))
+    res["bin_pass"] = dict(ms=ms_pass, plain_ms=ms_p_pass, library_ms=None,
+                           bound=bound(n * (12 + 8) + n_bins * 4, n * 9))
+    res["bin_scatter"] = dict(ms=ms_scatter, plain_ms=ms_p_order,
+                              library_ms=ms_lib_order,
+                              bound=bound(n * 16 + n_rows * 4, 0))
+    res["bin_unsort"] = dict(ms=ms_unsort, plain_ms=ms_p_unsort,
+                             library_ms=ms_lib_unsort,
+                             bound=bound(n * (4 + 2 * rec_b), 0))
+    res["query"] = dict(old=t_q["old"], new=t_q["new"],
+                        bound=bound(rows_b + n * (12 + rec_b), ops))
+    for name in ("direct", "probe", "bin_pass", "bin_scatter", "bin_unsort"):
+        b = res[name]["bound"]
+        print(f"B2 {name} bound at {n} queries: {b[0]:.4f} ms ({b[1]})")
+    b = res["query"]["bound"]
+    print(f"B2 bin-ordered query bound (r in, outputs out, each distinct "
+          f"row and winner plane once): {b[0]:.4f} ms ({b[1]}); {n_rows} "
+          f"rows, {n_planes} (row, winner) planes")
+    return res
+
+
 def candidate_phase(dev, tiu, meshgen, interp_kernel, locate, cand_kernel,
                     walk_kernel):
     counters = (interp_kernel, cand_kernel, walk_kernel)
@@ -359,8 +640,14 @@ def candidate_phase(dev, tiu, meshgen, interp_kernel, locate, cand_kernel,
         counters,
     )
     first_s = time.perf_counter() - t0
-    res["launches"] = counts[cand_kernel.__name__]
-    check(res["launches"] >= 1, "B2 was not launched on the main path")
+    ck = cand_kernel.__name__
+    res["launches"] = counts[ck]  # the direct kernel: extension rows only
+    res["binned"] = {x: counts[f"{ck}:{x}"]
+                     for x in ("bin_pass", "bin_scatter", "binned",
+                               "bin_unsort")}
+    check(min(res["binned"].values()) >= 1,
+          f"the bin-ordered B2 kernels were not all launched on the cold "
+          f"call: {res['binned']}")
     check(bool(found.all()), f"{int((~found).sum())} of 10M queries not found")
     lin = float((vals.double() - (r.double().sum(1) + 1.0)).abs().max())
     check(lin <= LIN_TOL, f"998k-tet linear-exactness error {lin}")
@@ -376,33 +663,8 @@ def candidate_phase(dev, tiu, meshgen, interp_kernel, locate, cand_kernel,
           f"steady {e2e * 1e3:.4f} ms = {N_CAND / e2e:.4e} queries/s; "
           f"all found; linear error {lin:.3e}")
 
-    idx, rq = locate._cand_probe_inputs(grid, r)
-    _, err, lay, eps, _ = probe_compare(
-        "B2 998k-tet main table, first 1M", grid, grid.cand_table,
-        idx[:N_CMP], rq[:N_CMP], k, k, cand_kernel, locate)
-    res["max_abs_err"] = err
-    chunk = locate._cand_chunk(grid)
-    ms_k = cuda_ms(lambda: cand_kernel.cand_rows_cuda(
-        grid.cand_table, idx, rq, lay, eps, k), 10)
-    ms_p = cuda_ms(lambda: cand_kernel.probe_rows_plain(
-        grid.cand_table, idx, rq, lay, eps, k, chunk), 2)
-    ms_prep = cuda_ms(lambda: locate._cand_probe_inputs(grid, r), 10)
-    print(f"B2 998k-tet, 10M queries: kernel {ms_k:.4f} ms "
-          f"({ms_k / 10:.4f} ms per 1M), plain {ms_p:.4f} ms; bin index + "
-          f"local frame {ms_prep:.4f} ms; row {grid.cand_table.shape[1] * 4} B")
-    res["ms"], res["plain_ms"], res["e2e_s"] = ms_k, ms_p, e2e
-    # B2 bytes per query: the probe roles of K candidates (int16 normal
-    # and offset words, ids), count and dscale, the winner's value plane;
-    # the query, its bin index; id, aux and one value out
-    n_roles = -(-3 * lay.nf // 2) + -(-lay.nf // 2) + 1
-    per_query = n_roles * k * 4 + 8 + 16 + 12 + 4 + 12
-    res["bound"] = bound(N_CAND * per_query, N_CAND * k * lay.nf * 9)
-    n_rows = int(torch.unique(idx).numel())
-    print(f"B2 bound at 10M queries: {res['bound'][0]:.4f} ms "
-          f"({res['bound'][1]}; {per_query} B per query); the {n_rows} "
-          f"distinct rows read once would take "
-          f"{n_rows * n_roles * k * 4 / HBM_BYTES_S * 1e3:.4f} ms")
-    del idx, rq, vals, found
+    res.update(b2_front_end(dev, grid, r, k, cand_kernel, locate))
+    del vals, found
 
     # Warm on the candidate grid: the points moved, guessed by the cold
     # cells, plus 1% pushed out of the box with in-mesh guesses.  Every
@@ -423,11 +685,15 @@ def candidate_phase(dev, tiu, meshgen, interp_kernel, locate, cand_kernel,
                                           fill_value=FILL),
         counters,
     )
-    n_b2, n_b3 = counts[cand_kernel.__name__], counts[walk_kernel.__name__]
+    n_b2 = counts[f"{ck}:binned"]
+    n_b3 = counts[f"{walk_kernel.__name__}:get_cell"]
     check(n_b2 >= 1 and n_b3 >= 1,
-          f"candidate warm path launched B2 {n_b2}, B3 {n_b3} times")
-    res["launches"] += n_b2
-    res["walk_launches"] = n_b3
+          f"candidate warm path launched B2 in bin order {n_b2}, get_cell's "
+          f"walk {n_b3} times")
+    for x in res["binned"]:
+        res["binned"][x] += counts[f"{ck}:{x}"]
+    res["launches"] += counts[ck]
+    res["gc_launches"] = n_b3
     check(bool(found[:N_CAND].all()), "candidate warm: an inside query was lost")
     check(not bool(found[N_CAND:].any()), "candidate warm: outside query found")
     check(bool((ic_w[N_CAND:] < 0).all() and (vals[N_CAND:] == FILL).all()),
@@ -440,8 +706,9 @@ def candidate_phase(dev, tiu, meshgen, interp_kernel, locate, cand_kernel,
         grid, rq_all, 0, guess=guess, fill_value=FILL), 3)
     print(f"B2+B3 candidate grid, {rq_all.shape[0]} warm queries (1% "
           f"outside): steady {e2e_w * 1e3:.4f} ms = "
-          f"{rq_all.shape[0] / e2e_w:.4e} queries/s; B2 launches {n_b2}, "
-          f"B3 launches {n_b3}; linear error {lin:.3e}")
+          f"{rq_all.shape[0] / e2e_w:.4e} queries/s; B2 bin-ordered probe "
+          f"launches {n_b2}, get_cell walk launches {n_b3}; linear error "
+          f"{lin:.3e}")
     res["grid"] = grid  # the accurate phase prepares it
     del vals, ic, ic_w, found, r, r_in, rq_all, guess, grid
     torch.cuda.empty_cache()
@@ -472,7 +739,26 @@ def candidate_phase(dev, tiu, meshgen, interp_kernel, locate, cand_kernel,
         kaux[sel].contiguous(), rq[sel].contiguous(), k_ext, k + k_ext,
         cand_kernel, locate)
     res["max_abs_err"] = max(res["max_abs_err"], err1, err2)
-    vals, ic, found = tiu.interpolate_scalar_at(grid, r, 0)
+    bins = (grid.cand_rmin, grid.cand_inv_h, grid.cand_shape)
+    _, _, perm, slot = cand_kernel.bin_order_cuda(r, *bins)
+    lay = locate._row_layout(grid, k, (0,))
+    eps = locate._cand_eps(grid)
+    for name, a, b in zip(
+            ("id", "aux", "values"),
+            cand_kernel.cand_rows_binned_cuda(grid.cand_table, r, perm, slot,
+                                              *bins, lay, eps, k),
+            cand_kernel.probe_rows_plain(grid.cand_table, idx, rq, lay, eps,
+                                         k, locate._cand_chunk(grid))):
+        check(torch.equal(a, b), f"B2 in bin order, extension grid: {name} "
+              "differs from probe_rows_plain")
+    (vals, ic, found), counts = main_path(
+        lambda: tiu.interpolate_scalar_at(grid, r, 0),
+        (interp_kernel, cand_kernel, walk_kernel))
+    check(counts[ck] >= 1, "the extension rows were not probed by the direct "
+          "B2 kernel")
+    res["launches"] += counts[ck]
+    for x in res["binned"]:
+        res["binned"][x] += counts[f"{ck}:{x}"]
     # clear of the boundary by far more than the inside tolerance
     strict = ((r > 1e-4) & (r < 1 - 1e-4)).all(1)
     outside = ((r < -1e-4) | (r > 1 + 1e-4)).any(1)
@@ -481,8 +767,9 @@ def candidate_phase(dev, tiu, meshgen, interp_kernel, locate, cand_kernel,
     lin = float((vals[found].double() - (r[found].double().sum(1) + 1)).abs().max())
     check(lin <= LIN_TOL, f"extension grid linear-exactness error {lin}")
     print(f"B2 extension grid ({grid.n_cells} tets, K={k}, k_ext={k_ext}): "
-          f"{sel.numel()} of {N_CMP} queries probed extension rows; "
-          f"linear error {lin:.3e}")
+          f"{sel.numel()} of {N_CMP} queries probed extension rows; the "
+          f"probe in bin order torch.equal to probe_rows_plain on the main "
+          f"table; direct B2 launches {counts[ck]}; linear error {lin:.3e}")
     return res
 
 
@@ -522,14 +809,68 @@ def walk_compare(name, grid, kout, pout):
     return err
 
 
+def walk_origin(grid, starts, walk_kernel):
+    """Centers of the cells ``starts``, the origins of walks from them."""
+    return walk_kernel.walk_origin(grid.walk_table, starts,
+                                   grid.n_faces_per_cell,
+                                   grid.n_points_per_cell)
+
+
+def old_get_cell_walk(grid, r, start, max_steps, p1, locate, walk_kernel):
+    """get_cell's walk stage as the port ran it before the fused kernel,
+    built from its pieces: the seed row or the start cell's center,
+    ``_walk_args``, a phase-1 ``walk_cuda`` launch, then the stragglers
+    gathered, walked again by a second launch and scattered back."""
+    if start is None:
+        g = grid.bin_pack[walk_kernel.seed_bins(grid, r)]
+        start, r0 = g[:, 0].to(torch.int32), g[:, 1:4]
+    else:
+        r0 = walk_origin(grid, start.clamp_min(0), walk_kernel)
+    ic, rp, _, st = walk_kernel.walk_cuda(
+        *locate._walk_args(grid, r0, r, start, p1 or max_steps))
+    found = (st == walk_kernel.STATUS_ARRIVED) & (ic >= 0)
+    sel = torch.nonzero(st == walk_kernel.STATUS_STEP_CAP).squeeze(1)
+    if p1 and sel.numel():
+        ic_o, _, _, st_o = walk_kernel.walk_cuda(*locate._walk_args(
+            grid, rp[sel], r[sel], ic[sel], max_steps - p1))
+        ic[sel] = ic_o
+        found[sel] = (st_o == walk_kernel.STATUS_ARRIVED) & (ic_o >= 0)
+    return torch.where(found, ic, torch.clamp_max(ic, -1)), found
+
+
+def gc_bound(grid, r, start, max_steps, p1, walk_kernel):
+    """(bound, rounds, distinct walk rows) of get_cell's walk stage on
+    these inputs, each byte once: per query r and its start cell in, ic
+    and found out; the nf*5 walk floats of every distinct cell visited;
+    the vertex block of every distinct start cell (or the 16-byte
+    bin_pack row of every distinct seed bin); ~12 flops per face and
+    round.  The rows come from a run of the plain version on a recording
+    table."""
+    rec = RowRecorder(grid.walk_table)
+    walk_kernel.get_cell_walk_plain(
+        dataclasses.replace(grid, walk_table=rec), r, start, max_steps, p1)
+    nf, npc = grid.n_faces_per_cell, grid.n_points_per_cell
+    rounds = sum(int(i.numel()) for c, i in rec.seen if c == 0)
+    walk_rows = rec.distinct(0)
+    n = r.shape[0]
+    if start is None:
+        seeds = walk_kernel.seed_bins(grid, r)
+        n_bytes = n * (12 + 5) + int(torch.unique(seeds).numel()) * 16
+    else:
+        n_bytes = n * (12 + 4 + 5) + rec.distinct(nf * 5) * npc * 3 * 4
+    n_bytes += walk_rows * nf * 5 * 4
+    return bound(n_bytes, rounds * nf * 12), rounds, walk_rows
+
+
 def walk_phase(dev, tiu, meshgen, interp_kernel, locate, cand_kernel,
                walk_kernel):
     """bench.py's warm protocol on the 998,250-tet box without candidate
-    tables: every query walks (kernel B3)."""
+    tables: every query walks (get_cell's walk stage, kernel B3)."""
     from interpolate_unstructured_tpu_torch.ops import wkern
 
     counters = (interp_kernel, cand_kernel, walk_kernel)
-    res = {"launches": {}}
+    gc_key = f"{walk_kernel.__name__}:get_cell"
+    res = {"gc_launches": {}}
     n = 55
     pts, cells, nbrs = meshgen.tet_box_mesh(n, n, n)
     timings = {}
@@ -542,16 +883,16 @@ def walk_phase(dev, tiu, meshgen, interp_kernel, locate, cand_kernel,
     build_s = time.perf_counter() - t0
     del pts, cells, nbrs
     check(grid.cand_table is None, "walk grid has candidate tables")
-    res["launches"]["refine"] = counts[walk_kernel.__name__]
-    check(res["launches"]["refine"] >= 1,
-          "B3 was not launched by build_grid's refine")
+    res["gc_launches"]["refine"] = counts[gc_key]
+    check(res["gc_launches"]["refine"] >= 1,
+          "get_cell's walk stage was not launched by build_grid's refine")
     n_bins = int(np.prod(grid.bin_shape))
     res["build_s"], res["timings"] = build_s, timings
     print(f"B3 walk grid tet_box_mesh({n},{n},{n}), no candidate tables: "
           f"build_grid {build_s:.3f} s split "
           + json.dumps({kk: round(v, 4) for kk, v in timings.items()})
           + f"; {n_bins} seed bins {grid.bin_shape} self-located by the "
-          f"refine ({res['launches']['refine']} B3 launches)")
+          f"refine ({res['gc_launches']['refine']} get_cell walk launches)")
 
     rng = np.random.default_rng(4)
     r = torch.from_numpy(
@@ -566,8 +907,9 @@ def walk_phase(dev, tiu, meshgen, interp_kernel, locate, cand_kernel,
     (vals, ic, found), counts = main_path(
         lambda: tiu.interpolate_scalar_at(grid, r, 0, fill_value=FILL),
         counters)
-    res["launches"]["cold"] = counts[walk_kernel.__name__]
-    check(res["launches"]["cold"] >= 1, "B3 was not launched on the cold walk")
+    res["gc_launches"]["cold"] = counts[gc_key]
+    check(res["gc_launches"]["cold"] >= 1,
+          "get_cell's walk stage was not launched on the cold call")
     check(bool(found.all()), f"{int((~found).sum())} cold queries not found")
     lin_c = float((vals.double() - truth(r)).abs().max())
     check(lin_c <= LIN_TOL_ICELL, f"cold walk linear-exactness error {lin_c}")
@@ -577,8 +919,9 @@ def walk_phase(dev, tiu, meshgen, interp_kernel, locate, cand_kernel,
         lambda: tiu.interpolate_scalar_at(grid, r_warm, 0, guess=ic,
                                           fill_value=FILL),
         counters)
-    res["launches"]["warm"] = counts[walk_kernel.__name__]
-    check(res["launches"]["warm"] >= 1, "B3 was not launched on the warm walk")
+    res["gc_launches"]["warm"] = counts[gc_key]
+    check(res["gc_launches"]["warm"] >= 1,
+          "get_cell's walk stage was not launched on the warm call")
     check(bool(found.all()), f"{int((~found).sum())} warm queries not found")
     lin_w = float((vals.double() - truth(r_warm)).abs().max())
     check(lin_w <= LIN_TOL_ICELL, f"warm walk linear-exactness error {lin_w}")
@@ -601,12 +944,12 @@ def walk_phase(dev, tiu, meshgen, interp_kernel, locate, cand_kernel,
     del cp, v, t, vv, t_sum, acc
     print(f"B3 warm linear error {lin_w:.3e} with the reference's tetra "
           f"weights, {lin_sum:.3e} with the triple products over their sum")
-    # split: locate (seed + B3 walks) and interpolate_at_icell (torch)
+    # split: locate (seed + walk stage) and interpolate_at_icell (torch)
     loc_c = steady_s(lambda: tiu.get_cell(grid, r), 3)
     loc_w = steady_s(lambda: tiu.get_cell(grid, r_warm, ic), 3)
     icell = steady_s(lambda: tiu.interpolate_at_icell(grid, r_warm, [0], ic_w),
                      3)
-    # B3's share of get_cell: event pairs around each walk of one call
+    # the walk stage's share of get_cell: event pairs around it
     for label, call, loc_s in (
         ("cold", lambda: tiu.get_cell(grid, r), loc_c),
         ("warm", lambda: tiu.get_cell(grid, r_warm, ic), loc_w),
@@ -615,8 +958,9 @@ def walk_phase(dev, tiu, meshgen, interp_kernel, locate, cand_kernel,
         with timed_walks(walk_kernel, walks):
             call()
         b3_ms = sum(ms for _, ms in walks)
-        print(f"B3 walks of one 10M {label} get_cell (CUDA events): "
-              + ", ".join(f"{n} lanes {ms:.4f} ms" for n, ms in walks)
+        print(f"B3 get_cell walk stage of one 10M {label} get_cell (CUDA "
+              "events): "
+              + ", ".join(f"{n} queries {ms:.4f} ms" for n, ms in walks)
               + f"; {b3_ms:.4f} ms of {loc_s * 1e3:.4f} ms")
     print(f"B3 10M cold interpolate_scalar_at (bin-seeded walks): steady "
           f"{cold_s * 1e3:.4f} ms = {N_CAND / cold_s:.4e} queries/s "
@@ -636,7 +980,7 @@ def walk_phase(dev, tiu, meshgen, interp_kernel, locate, cand_kernel,
         lambda: tiu.interpolate_scalar_at(grid, r_off, 0, guess=g_off,
                                           fill_value=FILL),
         counters)
-    res["launches"]["off_domain"] = counts[walk_kernel.__name__]
+    res["gc_launches"]["off_domain"] = counts[gc_key]
     check(not bool(f_off.any()), "an off-domain query was found")
     check(bool((ic_off < 0).all() and (v_off == FILL).all()),
           "off-domain queries lack a boundary code or the fill")
@@ -647,30 +991,85 @@ def walk_phase(dev, tiu, meshgen, interp_kernel, locate, cand_kernel,
     print(f"B3 {N_OFF} off-domain warm queries: none found, boundary codes "
           f"{torch.unique(ic_off).tolist()} equal the plain walk's")
 
-    # B3 against its plain version on the first 1M warm lanes, then
-    # both timed on all 10M warm lanes (one walk each, to the end)
+    # get_cell's walk stage against its plain version, bit for bit, on
+    # all 10M warm and 10M cold queries, with get_cell's two phases
+    max_steps = grid.config.max_walk_steps
+    p1 = grid.config.walk_phase1_steps
+    gc_err = 0  # entries of (ic, found) that differ from the plain version
+    for label, q, st in (("warm", r_warm, ic), ("cold", r, None)):
+        k_out = walk_kernel.get_cell_walk_cuda(grid, q, st, max_steps, p1)
+        p_out = walk_kernel.get_cell_walk_plain(grid, q, st, max_steps, p1)
+        o_out = old_get_cell_walk(grid, q, st, max_steps, p1, locate,
+                                  walk_kernel)
+        for name, a, b, c in zip(("ic", "found"), k_out, p_out, o_out):
+            n_bad = int((a != b).sum())
+            gc_err += n_bad
+            check(torch.equal(a, b), f"B3 get_cell walk, {label}: {name} "
+                  f"differs from the plain version on {n_bad} queries")
+            check(torch.equal(a, c), f"B3 get_cell walk, {label}: {name} "
+                  "differs from the composition it replaces")
+        print(f"B3 get_cell walk, {N_CAND} {label} queries (p1 = {p1}): "
+              f"(ic, found) torch.equal to get_cell_walk_plain and to the "
+              f"earlier composition")
+    del k_out, p_out, o_out
+
+    # timing in turns: the earlier composition against the fused stage
+    t_gc = {}
+    for label, q, st in (("warm", r_warm, ic), ("cold", r, None)):
+        t_gc[label] = turns({
+            "old": lambda: old_get_cell_walk(grid, q, st, max_steps, p1,
+                                             locate, walk_kernel),
+            "new": lambda: walk_kernel.get_cell_walk_cuda(grid, q, st,
+                                                          max_steps, p1),
+        }, 10)
+    ms_gc_p = cuda_ms(lambda: walk_kernel.get_cell_walk_plain(
+        grid, r_warm, ic, max_steps, p1), 2)
+    bnd_w, rounds_w, rows_w = gc_bound(grid, r_warm, ic, max_steps, p1,
+                                       walk_kernel)
+    bnd_c, rounds_c, rows_c = gc_bound(grid, r, None, max_steps, p1,
+                                       walk_kernel)
+    for label, bnd_, rounds, rows in (("warm", bnd_w, rounds_w, rows_w),
+                                      ("cold", bnd_c, rounds_c, rows_c)):
+        t = t_gc[label]
+        print(f"B3 get_cell walk, {N_CAND} {label} queries, CUDA events in "
+              f"turns: earlier composition {t['old'][0]:.4f} / "
+              f"{t['old'][1]:.4f} ms, fused stage {t['new'][0]:.4f} / "
+              f"{t['new'][1]:.4f} ms; bound {bnd_[0]:.4f} ms ({bnd_[1]}; "
+              f"{rounds} rounds, {rows} distinct walk rows)")
+    print(f"B3 get_cell walk plain version, 10M warm: {ms_gc_p:.4f} ms")
+    res["gc"] = dict(ms=sum(t_gc["warm"]["new"]) / 2, turns=t_gc,
+                     plain_ms=ms_gc_p, bound=bnd_w, bound_cold=bnd_c,
+                     max_abs_err=float(gc_err))
+
+    # the explicit walk (walk_rows) against its plain version on the
+    # first 1M warm lanes, then both timed on all 10M warm lanes (one
+    # walk each, to the end)
     start = ic[:N_CMP]
-    args = locate._walk_args(grid, locate._walk_origin(grid, start),
+    args = locate._walk_args(grid, walk_origin(grid, start, walk_kernel),
                              r_warm[:N_CMP], start)
     res["max_abs_err"] = walk_compare(
-        "B3 998k-tet warm walks, first 1M", grid,
+        "B3 walk_rows, 998k-tet warm walks, first 1M", grid,
         walk_kernel.walk_cuda(*args), walk_kernel.walk_plain(*args))
-    args = locate._walk_args(grid, locate._walk_origin(grid, ic), r_warm, ic)
+    args = locate._walk_args(grid, walk_origin(grid, ic, walk_kernel), r_warm,
+                             ic)
     steps = walk_kernel.walk_cuda(*args)[2]
     sum_steps = int(steps.sum())
     ms_k = cuda_ms(lambda: walk_kernel.walk_cuda(*args), 10)
     ms_p = cuda_ms(lambda: walk_kernel.walk_plain(*args), 2)
     nf = grid.n_faces_per_cell
-    # bytes: per lane r0, u, total, active, ic0 in and ic, r_p, steps,
-    # status out (57 B), plus the nf*5 leading floats of the row of
-    # every step; ~12 flops per face and step
-    res["bound"] = bound(N_CAND * 57 + sum_steps * nf * 5 * 4,
+    rec = RowRecorder(grid.walk_table)
+    walk_kernel.walk_plain(rec, *args[1:])
+    rows = rec.distinct()
+    # bytes, each once: per lane r0, u, total, active, ic0 in and ic,
+    # r_p, steps, status out (57 B), the nf*5 leading floats of every
+    # distinct row visited; ~12 flops per face and step
+    res["bound"] = bound(N_CAND * 57 + rows * nf * 5 * 4,
                          sum_steps * nf * 12)
     res["ms"], res["plain_ms"] = ms_k, ms_p
-    print(f"B3 998k-tet, 10M warm walks ({sum_steps / N_CAND:.4f} steps per "
-          f"walk, max {int(steps.max())}): kernel {ms_k:.4f} ms, plain "
-          f"{ms_p:.4f} ms; bound {res['bound'][0]:.4f} ms "
-          f"({res['bound'][1]})")
+    print(f"B3 walk_rows, 998k-tet, 10M warm walks ({sum_steps / N_CAND:.4f} "
+          f"steps per walk, max {int(steps.max())}, {rows} distinct rows): "
+          f"kernel {ms_k:.4f} ms, plain {ms_p:.4f} ms; bound "
+          f"{res['bound'][0]:.4f} ms ({res['bound'][1]})")
     res["grid"] = grid  # the trace phase traces on it
     return res
 
@@ -771,24 +1170,32 @@ def trace_compare(name, trace_kernel, inputs):
     return k, err
 
 
-def trace_bound(grid, stages, act):
-    """(bound_ms, bound_by) of one B4 call: 33 B of lane state in and 76 B
-    out per lane, the nf*5 walk floats of every round's row, and the
-    vertex, volume and field floats of each arrival (three for a lane
-    whose stages all arrived; failed lanes are counted without theirs);
-    ~12 flops per face and round, ~100 per arrival."""
+def trace_bound(grid, stages, act, inputs, trace_kernel):
+    """(bound_ms, bound_by) of one B4 call, each byte once: 33 B of lane
+    state in and 76 B out per lane; the nf*5 walk floats of every
+    distinct row the rounds visit (from a run of the plain version on a
+    recording table); the vertex, volume and field floats of every
+    distinct cell the lanes end the iteration in (a subset of the cells
+    where stages arrive, so the bound stays a lower bound); ~12 flops per
+    face and round, ~100 per arrival (three for a lane whose stages all
+    arrived)."""
     nf, npc, ndim = grid.n_faces_per_cell, grid.n_points_per_cell, grid.ndim
+    table, args, kw = inputs
+    rec = RowRecorder(table)
+    trace_kernel.trace_plain(rec, *args, **kw)
     rounds = int(stages.rounds.sum())
     arrivals = 3 * int((act & ~stages.fail).sum())
+    end_cells = int(torch.unique(stages.ic[act & ~stages.fail]).numel())
     n = act.numel()
-    n_bytes = (n * (33 + 76) + rounds * nf * 5 * 4
-               + arrivals * (npc * 3 + 1 + npc * ndim) * 4)
+    n_bytes = (n * (33 + 76) + rec.distinct() * nf * 5 * 4
+               + end_cells * (npc * 3 + 1 + npc * ndim) * 4)
     return bound(n_bytes, rounds * nf * 12 + arrivals * 100)
 
 
 def trace_phase(dev, tiu, grid, counters, walk_kernel, trace_kernel):
     """bench.py's trace_at_scale protocol on the walk phase's grid."""
-    res = {"launches": 0, "walk_launches": 0}
+    res = {"launches": 0, "gc_launches": 0}
+    gc_key = f"{walk_kernel.__name__}:get_cell"
     t0 = time.perf_counter()
     c = grid.points[:, :2] - 0.5
     fld = (-c[:, 1], c[:, 0], torch.full_like(c[:, 0], 0.25))
@@ -822,11 +1229,12 @@ def trace_phase(dev, tiu, grid, counters, walk_kernel, trace_kernel):
         out, counts = main_path(lambda: trace(y0), counters)
         wall = time.perf_counter() - t0
         n_b4 = counts[trace_kernel.__name__]
-        n_b3 = counts[walk_kernel.__name__]
+        n_b3 = counts[gc_key]
         check(n_b4 >= 1, f"{n} lines: B4 was not launched on the main path")
-        check(n_b3 >= 1, f"{n} lines: B3 was not launched for the start cells")
+        check(n_b3 >= 1, f"{n} lines: get_cell's walk stage was not "
+              "launched for the start cells")
         res["launches"] += n_b4
-        res["walk_launches"] += n_b3
+        res["gc_launches"] += n_b3
         rec = {}
         with recorded_stages(trace_kernel, (0, 20), rec):
             out2 = trace(y0)
@@ -849,7 +1257,8 @@ def trace_phase(dev, tiu, grid, counters, walk_kernel, trace_kernel):
         print(f"B4 {n} lines: {steps} steps in {wall * 1e3:.4f} ms = "
               f"{steps / wall:.4e} trace steps/s; RK iterations "
               f"{int(out.n_iterations.max())}, n_rounds {int(out.n_rounds)}, "
-              f"B4 launches {n_b4}, B3 launches {n_b3}; B4 CUDA events "
+              f"B4 launches {n_b4}, get_cell walk launches {n_b3}; B4 CUDA "
+              f"events "
               f"{b4_ms:.4f} ms summed over {len(rec['ms'])} launches "
               f"({b4_ms / (wall * 1e3):.2%} of the wall time); mean steps "
               f"{steps / n:.2f}; boundary codes {json.dumps(codes)}; largest "
@@ -905,7 +1314,8 @@ def trace_phase(dev, tiu, grid, counters, walk_kernel, trace_kernel):
                          else prof[2]["trace_kernel"] / B4_REPS)
             res["plain_ms"] = cuda_ms(lambda: trace_kernel.trace_plain(
                 table_, *args, **kw0), 3)
-            res["bound"] = trace_bound(grid, k, args[4])
+            res["bound"] = trace_bound(grid, k, args[4], big["inputs"][it],
+                                       trace_kernel)
             print(f"B4 {TRACE_N[-1]} lines, first iteration: kernel "
                   f"{res['ms']:.4f} ms ("
                   f"{'CUDA events' if prof is None else 'profiler'}; CUDA "
@@ -916,14 +1326,18 @@ def trace_phase(dev, tiu, grid, counters, walk_kernel, trace_kernel):
     check(0 in big["inputs"] and len(big["inputs"]) == 2,
           "the 65,536-line bundle ran fewer than 21 iterations")
 
-    # The fused trace against the generic one (B3 walks + torch)
+    # The fused trace against the generic one (B3 walk_rows + torch): the
+    # main path of traces the fused kernel does not support (icell masks,
+    # float64 on the CPU)
     small = runs[TRACE_N[0]]
     with generic_trace(trace_kernel):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        gen = trace(small["y0"])
-        torch.cuda.synchronize()
+        gen, counts = main_path(lambda: trace(small["y0"]), counters)
         gen_s = time.perf_counter() - t0
+    res["walk_launches"] = counts[walk_kernel.__name__]
+    check(res["walk_launches"] >= 1,
+          "the generic trace did not launch B3's explicit walk")
     fu = small["out"]
     differ = (fu.n_steps != gen.n_steps) | (
         fu.boundary_material != gen.boundary_material)
@@ -944,7 +1358,8 @@ def trace_phase(dev, tiu, grid, counters, walk_kernel, trace_kernel):
     print(f"B4 fused vs generic ({TRACE_N[0]} lines): {n_diff} lines differ in "
           f"n_steps or boundary code; the others agree within {err:.3e}; "
           f"generic path {gen_s * 1e3:.4f} ms = {gsteps / gen_s:.4e} trace "
-          f"steps/s, fused {small['wall'] * 1e3:.4f} ms")
+          f"steps/s ({res['walk_launches']} walk_rows launches), fused "
+          f"{small['wall'] * 1e3:.4f} ms")
     return res
 
 
@@ -998,9 +1413,11 @@ def accurate_phase(dev, tiu, grid, bf_inputs, counters, cand_kernel,
     """Accurate mode on the candidate phase's 998,250-tet grid (bench.py's
     accurate protocol, bench.py:353-402), then B5 on the brute-force
     phase's meshes."""
-    from interpolate_unstructured_tpu_torch.ops import interp_acc
+    from interpolate_unstructured_tpu_torch.ops import geometry, interp_acc
 
-    res = {"b2_launches": 0, "walk_launches": 0}
+    res = {"b2_launches": 0, "gc_launches": 0,
+           "binned": {"bin_pass": 0, "bin_scatter": 0, "binned": 0,
+                      "bin_unsort": 0}}
     timings = {}
     t0 = time.perf_counter()
     grid = tiu.prepare_accurate(grid, timings=timings)
@@ -1037,8 +1454,9 @@ def accurate_phase(dev, tiu, grid, bf_inputs, counters, cand_kernel,
     def df_inputs(q):
         """B2-df's inputs: bin index and the hi/lo local frame."""
         hi, lo = interp_acc.split_queries(q)
-        ijk = locate._cand_bin_ijk(grid, hi)
-        return (locate._cand_bin_flat(grid, ijk),
+        ijk = geometry.bin_ijk(hi, grid.cand_rmin, grid.cand_inv_h,
+                               grid.cand_shape, torch.int32)
+        return (geometry.bin_flat(ijk, grid.cand_shape),
                 *locate._cand_local_df(grid, hi, lo, ijk))
 
     ms_in = cuda_ms(lambda: df_inputs(r64), 10)
@@ -1071,8 +1489,12 @@ def accurate_phase(dev, tiu, grid, bf_inputs, counters, cand_kernel,
     n_b5 = counts[acc_kernel.__name__]
     check(n_b5 >= 1, "the warm accurate call did not launch B5")
     res["acc_launches"] = n_b5
-    res["b2_launches"] += counts[cand_kernel.__name__]
-    res["walk_launches"] += counts[walk_kernel.__name__]
+    ck = cand_kernel.__name__
+    res["b2_launches"] += counts[ck]
+    for x in res["binned"]:
+        res["binned"][x] += counts[f"{ck}:{x}"]
+    n_gc = counts[f"{walk_kernel.__name__}:get_cell"]
+    res["gc_launches"] += n_gc
     check(bool(found.all()), f"{int((~found).sum())} warm accurate queries "
           "not found")
     err_w = acc_err(vh, vl, r_w)
@@ -1081,9 +1503,9 @@ def accurate_phase(dev, tiu, grid, bf_inputs, counters, cand_kernel,
         lambda: tiu.interpolate_at_acc(grid, r_w, (0,), guess=ic), 3)
     print(f"accurate: 10M warm interpolate_at_acc (moved points, guess = cold "
           f"cells): steady {warm_s * 1e3:.4f} ms = {N_CAND / warm_s:.4e} "
-          f"queries/s; B5 launches {n_b5}, B2 {counts[cand_kernel.__name__]}, "
-          f"B3 {counts[walk_kernel.__name__]}; all found; max |hi + lo - f| "
-          f"{err_w:.3e}")
+          f"queries/s; B5 launches {n_b5}, B2 in bin order "
+          f"{counts[ck + ':binned']}, direct B2 {counts[ck]}, get_cell walk "
+          f"{n_gc}; all found; max |hi + lo - f| {err_w:.3e}")
     del vh, vl, found
 
     # B2-df against its plain version on the first 1M cold queries, both
@@ -1104,18 +1526,26 @@ def accurate_phase(dev, tiu, grid, bf_inputs, counters, cand_kernel,
         grid.cand_df_table, idx, rq, rq_lo, lay, eps, lay.k), 10)
     ms_p = cuda_ms(lambda: cand_kernel.probe_rows_df_plain(
         grid.cand_df_table, idx, rq, rq_lo, lay, eps, lay.k, chunk), 2)
-    # bytes per query: the probe roles of K candidates (int16 normal and
-    # offset words, ids), count and dscale, the winner's df plane (8
-    # floats); the hi/lo local query and its bin index; id, aux and a
-    # hi/lo value out
+    # bytes, each once: the probe roles of K candidates (int16 normal and
+    # offset words, ids), count and dscale of every distinct row, the df
+    # plane (8 floats) of every distinct (row, winner); per query the
+    # hi/lo local query, its bin index, id, aux and a hi/lo value out
+    k_ids = cand_kernel.cand_rows_df_cuda(grid.cand_df_table, idx, rq, rq_lo,
+                                          lay, eps, lay.k)[0]
+    n_rows = int(torch.unique(idx).numel())
+    n_planes = int(torch.unique(
+        idx.long() * (grid.n_cells + 1) + k_ids.long() + 1).numel())
+    del k_ids
     n_roles = -(-3 * lay.nf // 2) + -(-lay.nf // 2) + 1
-    per_q = n_roles * lay.k * 4 + 8 + 32 + 24 + 4 + 16
-    bnd = bound(N_CAND * per_q,
+    n_bytes = (n_rows * (n_roles * lay.k * 4 + 8) + n_planes * 32
+               + N_CAND * (24 + 4 + 4 + 4 + 8))
+    bnd = bound(n_bytes,
                 N_CAND * (lay.k * lay.nf * 9 + 3 * (DF_MUL + DF_ADD)))
     res["df"] = dict(ms=ms_k, plain_ms=ms_p, bound=bnd, max_abs_err=err_df)
     print(f"B2-df 998k-tet, 10M queries: kernel {ms_k:.4f} ms, plain "
-          f"{ms_p:.4f} ms; bound {bnd[0]:.4f} ms ({bnd[1]}; {per_q} B per "
-          f"query); row {grid.cand_df_table.shape[1] * 4} B")
+          f"{ms_p:.4f} ms; bound {bnd[0]:.4f} ms ({bnd[1]}; {n_rows} "
+          f"distinct rows, {n_planes} (row, winner) planes, each read once); "
+          f"row {grid.cand_df_table.shape[1] * 4} B")
     del idx, rq, rq_lo
 
     # B5 against its plain version on the warm call's first 1M queries,
@@ -1131,13 +1561,16 @@ def accurate_phase(dev, tiu, grid, bf_inputs, counters, cand_kernel,
         acc_kernel.interp_acc_plain(*b5_first), 0)
     ms_k = cuda_ms(lambda: acc_kernel.interp_acc_cuda(*b5_args), 10)
     ms_p = cuda_ms(lambda: acc_kernel.interp_acc_plain(*b5_args), 2)
-    # bytes per query: cell id, hi/lo position, the used row floats
-    # (vertex hi/lo, one variable's hi/lo data), a hi/lo value out
-    per_q = 4 + 24 + (4 * 6 + 2 * 4) * 4 + 8
-    bnd = bound(N_CAND * per_q, N_CAND * acc_flops("tetra", 1))
+    # bytes, each once: per query its cell id, hi/lo position and a hi/lo
+    # value out; the used row floats (vertex hi/lo, one variable's hi/lo
+    # data) of every distinct cell
+    n_cells_used = int(torch.unique(cells).numel())
+    n_bytes = N_CAND * (4 + 24 + 8) + n_cells_used * (4 * 6 + 2 * 4) * 4
+    bnd = bound(n_bytes, N_CAND * acc_flops("tetra", 1))
     res["b5"] = dict(ms=ms_k, plain_ms=ms_p, bound=bnd, max_abs_err=err_b5)
     print(f"B5 998k-tet, 10M warm queries: kernel {ms_k:.4f} ms, plain "
-          f"{ms_p:.4f} ms; bound {bnd[0]:.4f} ms ({bnd[1]}; {per_q} B and "
+          f"{ms_p:.4f} ms; bound {bnd[0]:.4f} ms ({bnd[1]}; {n_cells_used} "
+          f"distinct cells' rows once, 36 B per query, "
           f"{acc_flops('tetra', 1)} flops per query)")
     del hi, lo, cells, b5_args, r64, r_w, ic, ic_w, grid
     torch.cuda.empty_cache()
@@ -1220,12 +1653,15 @@ def main() -> int:
                      (interp_kernel, cand_kernel, walk_kernel, trace_kernel),
                      walk_kernel, trace_kernel)
     print("phase seconds: " + json.dumps(phase_s))
-    b3_launches = (sum(b3["launches"].values()) + b2["walk_launches"]
-                   + b5["walk_launches"] + b4["walk_launches"])
-    print("B3 launches on the main path: " + json.dumps(
-        {**b3["launches"], "candidate_warm": b2["walk_launches"],
-         "accurate_warm": b5["walk_launches"],
-         "trace_start_cells": b4["walk_launches"]}))
+    gc_launches = {**b3["gc_launches"], "candidate_warm": b2["gc_launches"],
+                   "accurate_warm": b5["gc_launches"],
+                   "trace_start_cells": b4["gc_launches"]}
+    print("B3 get_cell walk launches on the main path: "
+          + json.dumps(gc_launches))
+    binned = {x: b2["binned"][x] + b5["binned"][x] for x in b2["binned"]}
+    print("B2 bin-ordered launches on the main path: " + json.dumps(binned)
+          + f"; direct B2 {b2['launches'] + b5['b2_launches']}; B3 walk_rows "
+          f"{b4['walk_launches']} (the generic trace)")
 
     pkg = "interpolate_unstructured_tpu_torch"
     kernels = [
@@ -1236,20 +1672,41 @@ def main() -> int:
          "ms": b1["ms"], "plain_ms": b1["plain_ms"],
          "bound_ms": b1["bound"][0], "bound_by": b1["bound"][1],
          "library_ms": None},
-        {"name": "B2 cand_rows", "route": "cuda",
+        {"name": "B2 cand_rows direct", "route": "cuda",
          "source": f"{pkg}/csrc/cand_rows.cu",
          "replaces": "interpolate_unstructured_tpu/ops/pallas_cand.py:64",
          "launches": b2["launches"] + b5["b2_launches"],
          "max_abs_err": b2["max_abs_err"],
-         "ms": b2["ms"], "plain_ms": b2["plain_ms"],
-         "bound_ms": b2["bound"][0], "bound_by": b2["bound"][1],
-         "library_ms": None},
-        {"name": "B3 walk", "route": "cuda",
+         "ms": b2["direct"]["ms"], "plain_ms": b2["direct"]["plain_ms"],
+         "bound_ms": b2["direct"]["bound"][0],
+         "bound_by": b2["direct"]["bound"][1], "library_ms": None},
+        *({"name": f"B2 {label}", "route": "cuda",
+           "source": f"{pkg}/csrc/cand_rows.cu",
+           "replaces": "interpolate_unstructured_tpu/ops/pallas_cand.py:64",
+           "launches": binned[key], "max_abs_err": b2[err],
+           "ms": b2[part]["ms"], "plain_ms": b2[part]["plain_ms"],
+           "bound_ms": b2[part]["bound"][0],
+           "bound_by": b2[part]["bound"][1],
+           "library_ms": b2[part].get("library_ms")}
+          for label, key, part, err in (
+              ("bin pass", "bin_pass", "bin_pass", "pass_err"),
+              ("bin scatter", "bin_scatter", "bin_scatter", "scatter_err"),
+              ("probe in bin order", "binned", "probe", "binned_err"),
+              ("unsort", "bin_unsort", "bin_unsort", "unsort_err"))),
+        {"name": "B3 walk_rows", "route": "cuda",
          "source": f"{pkg}/csrc/walk.cu",
          "replaces": "interpolate_unstructured_tpu/ops/pallas_walk.py:84",
-         "launches": b3_launches, "max_abs_err": b3["max_abs_err"],
+         "launches": b4["walk_launches"], "max_abs_err": b3["max_abs_err"],
          "ms": b3["ms"], "plain_ms": b3["plain_ms"],
          "bound_ms": b3["bound"][0], "bound_by": b3["bound"][1],
+         "library_ms": None},
+        {"name": "B3 get_cell walk", "route": "cuda",
+         "source": f"{pkg}/csrc/walk.cu",
+         "replaces": "interpolate_unstructured_tpu/ops/pallas_walk.py:84",
+         "launches": sum(gc_launches.values()),
+         "max_abs_err": b3["gc"]["max_abs_err"],
+         "ms": b3["gc"]["ms"], "plain_ms": b3["gc"]["plain_ms"],
+         "bound_ms": b3["gc"]["bound"][0], "bound_by": b3["gc"]["bound"][1],
          "library_ms": None},
         {"name": "B4 trace", "route": "cuda",
          "source": f"{pkg}/csrc/trace.cu",

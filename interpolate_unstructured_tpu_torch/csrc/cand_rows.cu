@@ -30,6 +30,30 @@
 // k winning ties (jnp.argmax's first occurrence); only the winner's
 // lane evaluates the values, from its own margins and its row columns.
 //
+// Two front ends share that per-query probe (probe_row).  The direct
+// kernel (cand_rows_kernel) takes the queries in their own order with
+// their bin index and probe frame computed by the caller; it serves the
+// df-plane rows and the extension table.  On the main table, 10M
+// uniform queries touch 1.9M distinct rows of 1.5 KB, and in query order
+// each row comes from DRAM about five times (the L2 holds 50 MB of the
+// 2.9 GB table).  The bin-ordered front end counting-sorts the queries
+// by bin (cand_bin_pass_kernel, a scan, cand_bin_scatter_kernel), then
+// probes them in that order, a group of lanes per query
+// (cand_rows_binned_kernel), so the queries of one bin probe its row one
+// after the other and it comes from DRAM about once; the probe writes
+// each query's record at its sorted slot, and cand_bin_unsort_kernel
+// puts the records back in query order.  On the H100, writing the
+// outputs straight to each query's own position cost more than the probe
+// (random 4-byte writes).  One thread per query took 3x as long as a
+// group of 4 lanes at 1M queries (half a query a bin), 4 lanes 1.2x as
+// long as 2 at 10M (5 a bin), so the wrapper picks the group size by
+// queries per bin (ops/cand_kernel.py:binned_lanes; PERF.md §6).
+// The front end also computes the bin index and local frame, which the
+// direct design left to torch.  Its bound: the distinct rows once, the
+// queries and outputs once (permutation and records are its own
+// scratch).  The probe with 16-byte loads takes 54-64 registers (64 for
+// quantized tets: 4 blocks of 256 threads an SM), no spills.
+//
 // Packed int16 words are often NaN bit patterns as floats, so the
 // qn/qd roles are read through an int pointer and unpacked with integer
 // shifts only.  Plain PyTorch version: ops/cand_kernel.py:probe_rows_plain,
@@ -37,6 +61,9 @@
 
 #include <cuda_runtime.h>
 
+#include <cstdint>
+
+#include "bins.cuh"
 #include "df32.cuh"
 #include "wkern.cuh"
 
@@ -49,105 +76,115 @@ __device__ __forceinline__ float lo16(int w) {
 }
 __device__ __forceinline__ float hi16(int w) { return (float)(w >> 16); }
 
+// int16-pair words of a quantized candidate: SN of normal components,
+// DN of offsets.
+template <int NF>
+struct QuantWords {
+  static constexpr int SN = (3 * NF + 1) / 2;
+  static constexpr int DN = (NF + 1) / 2;
+  int w[SN + DN];
+};
+
+// Margin of a quantized candidate (layouts 0 and 3) from its words: the
+// int16 planes unpacked by integer shifts, the projection scaled by
+// qinv, the offset by the row's dscale; a padding slot (negative id)
+// gets -1e30.  mf: the per-face margins.
+template <int NF>
+__device__ __forceinline__ float quant_margin(const QuantWords<NF>& q,
+                                              bool padding, float rx,
+                                              float ry, float rz, float qinv,
+                                              float ds, float (&mf)[NF]) {
+  constexpr int SN = QuantWords<NF>::SN;
+  float c[2 * SN];
+#pragma unroll
+  for (int s = 0; s < SN; ++s) {
+    c[2 * s] = lo16(q.w[s]);
+    c[2 * s + 1] = hi16(q.w[s]);
+  }
+  float m = 0.0f;
+#pragma unroll
+  for (int f = 0; f < NF; ++f) {
+    const int w = q.w[SN + f / 2];
+    const float dq = (f & 1) ? hi16(w) : lo16(w);
+    const float proj =
+        ((c[3 * f] * rx + c[3 * f + 1] * ry) + c[3 * f + 2] * rz) * qinv;
+    mf[f] = dq * ds - proj;
+    m = f == 0 ? mf[f] : (mf[f] < m ? mf[f] : m);
+  }
+  return padding ? -1e30f : m;
+}
+
+// Margin of an f32 candidate (layouts 1 and 2) from its unit planes g:
+// normals x (g[f]), y (g[NF + f]), z (g[2 NF + f]), offsets g[3 NF + f].
+template <int NF>
+__device__ __forceinline__ float plane_margin(const float (&g)[4 * NF],
+                                              float rx, float ry, float rz,
+                                              float (&mf)[NF]) {
+  float m = 0.0f;
+#pragma unroll
+  for (int f = 0; f < NF; ++f) {
+    mf[f] = g[3 * NF + f] - ((g[f] * rx + g[NF + f] * ry) + g[2 * NF + f] * rz);
+    m = f == 0 ? mf[f] : (mf[f] < m ? mf[f] : m);
+  }
+  return m;
+}
+
+// Margin of candidate k of a row, read in place.
 template <int NF, int LAYOUT>
-__global__ void cand_rows_kernel(
-    const float* __restrict__ table, int W, const int* __restrict__ idx,
-    const float* __restrict__ rq,  // (B, 3): r, or r_local when quantized
-    const float* __restrict__ rq_lo,  // (B, 3) lo of r_local (layout 3)
-    int n_queries, int K, int id_role, int count_col, float eps,
-    int ovf_base, float qinv, int n_vars, const int* __restrict__ vroles,
+__device__ __forceinline__ float row_margin(const float* __restrict__ row,
+                                            int K, int k, int id_role,
+                                            float rx, float ry, float rz,
+                                            float qinv, float ds,
+                                            float (&mf)[NF]) {
+  if constexpr (LAYOUT == 0 || LAYOUT == 3) {
+    const int* rowi = reinterpret_cast<const int*>(row);
+    QuantWords<NF> q;
+#pragma unroll
+    for (int s = 0; s < QuantWords<NF>::SN + QuantWords<NF>::DN; ++s) {
+      q.w[s] = rowi[s * K + k];
+    }
+    return quant_margin<NF>(q, row[id_role * K + k] < 0.0f, rx, ry, rz, qinv,
+                            ds, mf);
+  } else {
+    float g[4 * NF];
+#pragma unroll
+    for (int j = 0; j < 4 * NF; ++j) g[j] = row[j * K + k];
+    return plane_margin<NF>(g, rx, ry, rz, mf);
+  }
+}
+
+// The winner k of a query's row (margin wm, per-face margins mf) gives
+// id, the verdict aux (-2 found, >= 0 overflow-bin miss carrying the
+// extension slot, -1 exact miss) and the fused values, written at
+// position q: out_id[q * stride], out_aux[q * stride] and the values
+// from out_vals + q * vstride (the direct kernel's separate arrays:
+// stride 1, vstride n_vars; the bin-ordered probe's records: both
+// 2 + n_vars).  rq_lo: the lo parts of r_local (layout 3), else null.
+template <int NF, int LAYOUT>
+__device__ __forceinline__ void write_winner(
+    const float* __restrict__ row, int K, int k, float wm,
+    const float (&mf)[NF], float rx, float ry, float rz,
+    const float* __restrict__ rq_lo, int q, int id_role, int count_col,
+    float eps, int ovf_base, int n_vars, const int* __restrict__ vroles,
     int* __restrict__ out_id, int* __restrict__ out_aux,
-    float* __restrict__ out_vals,     // (B, V)
-    float* __restrict__ out_vals_lo)  // (B, V), layout 3
-{
+    float* __restrict__ out_vals, float* __restrict__ out_vals_lo,
+    int stride, int vstride) {
   constexpr int NPC = NF;
-  constexpr int SN = (3 * NF + 1) / 2;  // int16-pair slots of normals
-  constexpr bool kQuant = LAYOUT == 0 || LAYOUT == 3;
-  const int q = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
-  const int lane = threadIdx.x & 31;
-  if (q >= n_queries) return;  // warp-uniform
-
-  const float* row = table + (size_t)idx[q] * W;
-  const int* rowi = reinterpret_cast<const int*>(row);
-  const float rx = rq[3 * q + 0];
-  const float ry = rq[3 * q + 1];
-  const float rz = rq[3 * q + 2];
-  const float ds = kQuant ? row[count_col + 1] : 0.0f;
-
-  float best_m = 0.0f;
-  int best_k = -1;
-  float best_mf[NF];
-  for (int k = lane; k < K; k += 32) {
-    float mf[NF];
-    float m = 0.0f;
-    if constexpr (kQuant) {
-      float c[2 * SN];
-#pragma unroll
-      for (int s = 0; s < SN; ++s) {
-        const int w = rowi[s * K + k];
-        c[2 * s] = lo16(w);
-        c[2 * s + 1] = hi16(w);
-      }
-#pragma unroll
-      for (int f = 0; f < NF; ++f) {
-        const int w = rowi[(SN + f / 2) * K + k];
-        const float dq = (f & 1) ? hi16(w) : lo16(w);
-        const float proj =
-            ((c[3 * f] * rx + c[3 * f + 1] * ry) + c[3 * f + 2] * rz) * qinv;
-        mf[f] = dq * ds - proj;
-        m = f == 0 ? mf[f] : (mf[f] < m ? mf[f] : m);
-      }
-      if (row[id_role * K + k] < 0.0f) m = -1e30f;
-    } else {
-#pragma unroll
-      for (int f = 0; f < NF; ++f) {
-        const float nx = row[f * K + k];
-        const float ny = row[(NF + f) * K + k];
-        const float nz = row[(2 * NF + f) * K + k];
-        const float d = row[(3 * NF + f) * K + k];
-        mf[f] = d - ((nx * rx + ny * ry) + nz * rz);
-        m = f == 0 ? mf[f] : (mf[f] < m ? mf[f] : m);
-      }
-    }
-    if (best_k < 0 || m > best_m) {
-      best_m = m;
-      best_k = k;
-#pragma unroll
-      for (int f = 0; f < NF; ++f) best_mf[f] = mf[f];
-    }
-  }
-
-  // Butterfly argmax over the warp: larger margin wins, lower k on ties
-  // (lanes without a candidate carry k = -1 and never win).
-  float wm = best_m;
-  int wk = best_k;
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    const float om = __shfl_xor_sync(0xffffffffu, wm, off);
-    const int ok = __shfl_xor_sync(0xffffffffu, wk, off);
-    if (ok >= 0 && (wk < 0 || om > wm || (om == wm && ok < wk))) {
-      wm = om;
-      wk = ok;
-    }
-  }
-  if (wk < 0 || best_k != wk) return;  // the winner's lane finishes
-
-  const int k = wk;
   const int id_best = (int)row[id_role * K + k];
   const int cnt = (int)row[count_col];
   const bool found = (wm >= -eps) && (id_best >= 0);
   const bool ovf_miss = !found && (cnt > ovf_base) && (id_best >= 0);
-  out_id[q] = id_best;
-  out_aux[q] = found ? -2 : (ovf_miss ? cnt - (ovf_base + 1) : -1);
+  out_id[(size_t)q * stride] = id_best;
+  out_aux[(size_t)q * stride] =
+      found ? -2 : (ovf_miss ? cnt - (ovf_base + 1) : -1);
 
-  float* vals = out_vals + (size_t)q * n_vars;
+  float* vals = out_vals + (size_t)q * vstride;
   if constexpr (LAYOUT == 3) {
     // df32 value planes: the winner's (g hi, g lo, c_loc hi, c_loc lo)
     // roles, acc = c_loc + sum_d g_d * r_local_d in df32
-    const iu::df rl[3] = {iu::df_make(rx, rq_lo[3 * q + 0]),
-                          iu::df_make(ry, rq_lo[3 * q + 1]),
-                          iu::df_make(rz, rq_lo[3 * q + 2])};
-    float* vals_lo = out_vals_lo + (size_t)q * n_vars;
+    const iu::df rl[3] = {iu::df_make(rx, rq_lo[0]), iu::df_make(ry, rq_lo[1]),
+                          iu::df_make(rz, rq_lo[2])};
+    float* vals_lo = out_vals_lo + (size_t)q * vstride;
     for (int iv = 0; iv < n_vars; ++iv) {
       const int pr = vroles[iv];
       iu::df acc = iu::df_make(row[(pr + 6) * K + k], row[(pr + 7) * K + k]);
@@ -170,10 +207,10 @@ __global__ void cand_rows_kernel(
   } else if constexpr (LAYOUT == 1) {
     for (int iv = 0; iv < n_vars; ++iv) {
       const int dr = vroles[iv];
-      float acc = best_mf[1 % NPC] * row[dr * K + k];
+      float acc = mf[1 % NPC] * row[dr * K + k];
 #pragma unroll
       for (int v = 1; v < NPC; ++v) {
-        acc = acc + best_mf[(v + 1) % NPC] * row[(dr + v) * K + k];
+        acc = acc + mf[(v + 1) % NPC] * row[(dr + v) * K + k];
       }
       vals[iv] = acc;
     }
@@ -197,6 +234,78 @@ __global__ void cand_rows_kernel(
   }
 }
 
+// The probe of one query by one warp: lanes over the K candidates of its
+// row, a butterfly argmax, and the winner's lane writes the results.
+// rx, ry, rz: the query (r_local when quantized).
+template <int NF, int LAYOUT>
+__device__ __forceinline__ void probe_row(
+    const float* __restrict__ row, int lane, int q, float rx, float ry,
+    float rz, const float* __restrict__ rq_lo, int K, int id_role,
+    int count_col, float eps, int ovf_base, float qinv, int n_vars,
+    const int* __restrict__ vroles, int* __restrict__ out_id,
+    int* __restrict__ out_aux, float* __restrict__ out_vals,
+    float* __restrict__ out_vals_lo) {
+  constexpr bool kQuant = LAYOUT == 0 || LAYOUT == 3;
+  const float ds = kQuant ? row[count_col + 1] : 0.0f;
+
+  float best_m = 0.0f;
+  int best_k = -1;
+  float best_mf[NF];
+  for (int k = lane; k < K; k += 32) {
+    float mf[NF];
+    const float m = row_margin<NF, LAYOUT>(row, K, k, id_role, rx, ry, rz,
+                                           qinv, ds, mf);
+    if (best_k < 0 || m > best_m) {
+      best_m = m;
+      best_k = k;
+#pragma unroll
+      for (int f = 0; f < NF; ++f) best_mf[f] = mf[f];
+    }
+  }
+
+  // Butterfly argmax over the warp: larger margin wins, lower k on ties
+  // (lanes without a candidate carry k = -1 and never win).
+  float wm = best_m;
+  int wk = best_k;
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    const float om = __shfl_xor_sync(0xffffffffu, wm, off);
+    const int ok = __shfl_xor_sync(0xffffffffu, wk, off);
+    if (ok >= 0 && (wk < 0 || om > wm || (om == wm && ok < wk))) {
+      wm = om;
+      wk = ok;
+    }
+  }
+  if (wk < 0 || best_k != wk) return;  // the winner's lane finishes
+  write_winner<NF, LAYOUT>(row, K, wk, wm, best_mf, rx, ry, rz, rq_lo, q,
+                           id_role, count_col, eps, ovf_base, n_vars, vroles,
+                           out_id, out_aux, out_vals, out_vals_lo, 1, n_vars);
+}
+
+// Direct probe: one warp per query in query order, each reading the row
+// of its given bin index (the first design, kept for the df-plane rows
+// and the extension-table probe).
+template <int NF, int LAYOUT>
+__global__ void cand_rows_kernel(
+    const float* __restrict__ table, int W, const int* __restrict__ idx,
+    const float* __restrict__ rq,  // (B, 3): r, or r_local when quantized
+    const float* __restrict__ rq_lo,  // (B, 3) lo of r_local (layout 3)
+    int n_queries, int K, int id_role, int count_col, float eps,
+    int ovf_base, float qinv, int n_vars, const int* __restrict__ vroles,
+    int* __restrict__ out_id, int* __restrict__ out_aux,
+    float* __restrict__ out_vals,     // (B, V)
+    float* __restrict__ out_vals_lo)  // (B, V), layout 3
+{
+  const int q = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+  const int lane = threadIdx.x & 31;
+  if (q >= n_queries) return;  // warp-uniform
+  probe_row<NF, LAYOUT>(table + (size_t)idx[q] * W, lane, q, rq[3 * q + 0],
+                        rq[3 * q + 1], rq[3 * q + 2],
+                        LAYOUT == 3 ? rq_lo + 3 * q : nullptr, K, id_role,
+                        count_col, eps, ovf_base, qinv, n_vars, vroles,
+                        out_id, out_aux, out_vals, out_vals_lo);
+}
+
 template <int NF, int LAYOUT>
 void launch(const float* table, int W, const int* idx, const float* rq,
             const float* rq_lo, int n_queries, int K, int id_role,
@@ -208,6 +317,183 @@ void launch(const float* table, int W, const int* idx, const float* rq,
   cand_rows_kernel<NF, LAYOUT><<<blocks, kThreads, 0, s>>>(
       table, W, idx, rq, rq_lo, n_queries, K, id_role, count_col, eps,
       ovf_base, qinv, n_vars, vroles, out_id, out_aux, out_vals, out_vals_lo);
+}
+
+// Bin-ordered front end of the main-table probe (layouts 0-2), three
+// launches: the bin pass, the scatter, the probe in bin order.
+constexpr int kOrderThreads = 256;
+
+// Bin pass: each query's flat candidate bin (ops/geometry.py:bin_ijk and
+// bin_flat) and its rank among its bin's queries, from an
+// atomic count per bin.  The 1.9M+ bin counts of the main path do not
+// fit in shared memory (8 MB), so they are counted in device memory,
+// where they stay L2-resident.
+__global__ void cand_bin_pass_kernel(const float* __restrict__ r, int n,
+                                     iu::BinGrid bins,
+                                     int* __restrict__ counts,
+                                     int* __restrict__ bin_out,
+                                     int* __restrict__ rank_out) {
+  const int q = blockIdx.x * blockDim.x + threadIdx.x;
+  if (q >= n) return;
+  int i, j, k;
+  iu::bin_ijk(bins, r[3 * q + 0], r[3 * q + 1], r[3 * q + 2], i, j, k);
+  const int b = iu::bin_flat(bins, i, j, k);
+  bin_out[q] = b;
+  rank_out[q] = atomicAdd(counts + b, 1);
+}
+
+// Scatter: query q goes to slot ends[b] - 1 - rank of its bin b, where
+// ends is the inclusive scan of the counts, so perm groups the queries
+// by bin in ascending bin order (in each bin, in the order of the
+// atomics: each query's result is independent of the others); slot[q]
+// keeps the way back.
+__global__ void cand_bin_scatter_kernel(const int* __restrict__ bin,
+                                        const int* __restrict__ rank,
+                                        const int* __restrict__ ends, int n,
+                                        int* __restrict__ perm,
+                                        int* __restrict__ slot) {
+  const int q = blockIdx.x * blockDim.x + threadIdx.x;
+  if (q >= n) return;
+  const int s = ends[bin[q]] - 1 - rank[q];
+  perm[s] = q;
+  slot[q] = s;
+}
+
+// Probe in bin order: a group of G lanes per query (G a power of two, at
+// most 32), the queries taken in the order of perm, so the groups of a
+// warp and of its neighbours probe the few rows of adjacent bins and
+// their loads hit L1.  Lane l of a group takes the candidates l, l + G,
+// ... (VEC: the 4-candidate chunks l, l + G, ..., each role read with
+// one 16-byte load), keeping the first of equal margins; the group's
+// butterfly argmax keeps the lower k on ties, the warp probe's rule.
+// For the quantized rows the group probes in the local frame r - center
+// of its bin (ops/geometry.py:cand_bin_center_cols).  The winner's lane
+// writes the query's record (id, aux, values: 2 + n_vars words) at its
+// slot, next to its neighbours' records; cand_bin_unsort_kernel puts
+// the records back in query order.
+template <int NF, int LAYOUT, bool VEC>
+__global__ void __launch_bounds__(kOrderThreads)
+cand_rows_binned_kernel(
+    const float* __restrict__ table, int W, const float* __restrict__ r,
+    const int* __restrict__ perm, int n_queries, int log2_g, iu::BinGrid bins,
+    int K, int id_role, int count_col, float eps, int ovf_base, float qinv,
+    int n_vars, const int* __restrict__ vroles, int* __restrict__ rec) {
+  constexpr bool kQuant = LAYOUT == 0;
+  constexpr int NW = kQuant ? QuantWords<NF>::SN + QuantWords<NF>::DN : 4 * NF;
+  const int G = 1 << log2_g;
+  const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const int slot = (int)(t >> log2_g);
+  const int lane = threadIdx.x & (G - 1);
+  // every lane of the warp reaches the butterfly: the lanes past the
+  // last query probe query perm[0] and write nothing
+  const bool live = slot < n_queries;
+  const int q = perm[live ? slot : 0];
+  float rx = r[3 * q + 0];
+  float ry = r[3 * q + 1];
+  float rz = r[3 * q + 2];
+  int i, j, k;
+  iu::bin_ijk(bins, rx, ry, rz, i, j, k);
+  const float* row = table + (size_t)iu::bin_flat(bins, i, j, k) * W;
+  if constexpr (kQuant) {
+    rx = rx - iu::bin_center(bins, 0, i);
+    ry = ry - iu::bin_center(bins, 1, j);
+    rz = rz - iu::bin_center(bins, 2, k);
+  }
+  const float ds = kQuant ? row[count_col + 1] : 0.0f;
+
+  float best_m = 0.0f;
+  int best_k = -1;
+  float best_mf[NF];
+  auto take = [&](float m, int kc, const float (&mf)[NF]) {
+    if (best_k < 0 || m > best_m) {
+      best_m = m;
+      best_k = kc;
+#pragma unroll
+      for (int f = 0; f < NF; ++f) best_mf[f] = mf[f];
+    }
+  };
+  if constexpr (VEC) {
+    const int4* row4 = reinterpret_cast<const int4*>(row);
+    const int k4 = K / 4;
+    for (int c = lane; c < k4; c += G) {
+      int4 w[NW];
+#pragma unroll
+      for (int s = 0; s < NW; ++s) w[s] = __ldg(row4 + s * k4 + c);
+      int4 ids = make_int4(0, 0, 0, 0);
+      if constexpr (kQuant) ids = __ldg(row4 + id_role * k4 + c);
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        float mf[NF];
+        float m;
+        if constexpr (kQuant) {
+          QuantWords<NF> qw;
+#pragma unroll
+          for (int s = 0; s < NW; ++s) {
+            qw.w[s] = u == 0 ? w[s].x : u == 1 ? w[s].y : u == 2 ? w[s].z
+                                                                   : w[s].w;
+          }
+          const int id = u == 0 ? ids.x : u == 1 ? ids.y : u == 2 ? ids.z
+                                                                  : ids.w;
+          m = quant_margin<NF>(qw, __int_as_float(id) < 0.0f, rx, ry, rz,
+                               qinv, ds, mf);
+        } else {
+          float g[4 * NF];
+#pragma unroll
+          for (int s = 0; s < NW; ++s) {
+            g[s] = __int_as_float(u == 0 ? w[s].x : u == 1 ? w[s].y
+                                  : u == 2 ? w[s].z : w[s].w);
+          }
+          m = plane_margin<NF>(g, rx, ry, rz, mf);
+        }
+        take(m, 4 * c + u, mf);
+      }
+    }
+  } else {
+    for (int kc = lane; kc < K; kc += G) {
+      float mf[NF];
+      const float m = row_margin<NF, LAYOUT>(row, K, kc, id_role, rx, ry, rz,
+                                             qinv, ds, mf);
+      take(m, kc, mf);
+    }
+  }
+
+  // Butterfly argmax over the group (lanes without a candidate carry
+  // k = -1 and never win)
+  float wm = best_m;
+  int wk = best_k;
+  for (int off = G >> 1; off > 0; off >>= 1) {
+    const float om = __shfl_xor_sync(0xffffffffu, wm, off);
+    const int ok = __shfl_xor_sync(0xffffffffu, wk, off);
+    if (ok >= 0 && (wk < 0 || om > wm || (om == wm && ok < wk))) {
+      wm = om;
+      wk = ok;
+    }
+  }
+  if (!live || wk < 0 || best_k != wk) return;  // the winner's lane finishes
+  const int stride = 2 + n_vars;
+  write_winner<NF, LAYOUT>(row, K, wk, wm, best_mf, rx, ry, rz, nullptr, slot,
+                           id_role, count_col, eps, ovf_base, n_vars, vroles,
+                           rec, rec + 1, reinterpret_cast<float*>(rec + 2),
+                           nullptr, stride, stride);
+}
+
+// Unsort: query q's record, read back from its slot, into the outputs
+// at q.  The record reads are random and the writes coalesced: on the
+// H100, the probe's three random 4-byte writes per query, at the
+// query's own position, took longer than the probe itself (PERF.md §6).
+__global__ void cand_bin_unsort_kernel(const int* __restrict__ rec,
+                                       const int* __restrict__ slot, int n,
+                                       int n_vars, int* __restrict__ out_id,
+                                       int* __restrict__ out_aux,
+                                       float* __restrict__ out_vals) {
+  const int q = blockIdx.x * blockDim.x + threadIdx.x;
+  if (q >= n) return;
+  const int* src = rec + (size_t)slot[q] * (2 + n_vars);
+  out_id[q] = src[0];
+  out_aux[q] = src[1];
+  for (int v = 0; v < n_vars; ++v) {
+    out_vals[(size_t)q * n_vars + v] = __int_as_float(src[2 + v]);
+  }
 }
 
 }  // namespace
@@ -255,5 +541,113 @@ extern "C" int iu_cand_rows(const float* table, int W, const int* idx,
     return (int)cudaErrorInvalidValue;
   }
 #undef IU_CAND_LAUNCH
+  return (int)cudaGetLastError();
+}
+
+// Plain C entry points of the bin-ordered probe (bound with ctypes).  r:
+// (B, 3) float32 queries; bin_rmin, bin_inv_h: (3,) float32 on the
+// device; nbx, nby, nbz: the candidate bins per axis.
+//
+// iu_cand_bin_pass: counts ((n_bins,) int32, zeroed by the caller) gets
+// the queries per bin, bin_out and rank_out ((B,) int32) each query's
+// flat bin and its rank in the bin.
+extern "C" int iu_cand_bin_pass(const float* r, int n_queries,
+                                const float* bin_rmin, const float* bin_inv_h,
+                                int nbx, int nby, int nbz, int* counts,
+                                int* bin_out, int* rank_out, void* stream) {
+  if (n_queries <= 0) return (int)cudaSuccess;
+  const iu::BinGrid bins{bin_rmin, bin_inv_h, nbx, nby, nbz};
+  const int blocks = (n_queries + kOrderThreads - 1) / kOrderThreads;
+  cand_bin_pass_kernel<<<blocks, kOrderThreads, 0,
+                         static_cast<cudaStream_t>(stream)>>>(
+      r, n_queries, bins, counts, bin_out, rank_out);
+  return (int)cudaGetLastError();
+}
+
+// iu_cand_bin_scatter: perm ((B,) int32, the queries grouped by bin) and
+// slot ((B,) int32, its inverse) from the bin pass's bin and rank and
+// ends, the inclusive scan of its counts.
+extern "C" int iu_cand_bin_scatter(const int* bin, const int* rank,
+                                   const int* ends, int n_queries, int* perm,
+                                   int* slot, void* stream) {
+  if (n_queries <= 0) return (int)cudaSuccess;
+  const int blocks = (n_queries + kOrderThreads - 1) / kOrderThreads;
+  cand_bin_scatter_kernel<<<blocks, kOrderThreads, 0,
+                            static_cast<cudaStream_t>(stream)>>>(
+      bin, rank, ends, n_queries, perm, slot);
+  return (int)cudaGetLastError();
+}
+
+// iu_cand_rows_binned: the probe of the main table ((n_bins, W), one row
+// per bin) in the order of perm (the B queries grouped by bin), `lanes`
+// lanes per query (1, 2, 4, 8, 16 or 32); layout 0 quantized simplex
+// (the kernel computes r_local), 1 f32 simplex, 2 quad.  rec: (B, 2 +
+// n_vars) int32, one record per slot: id, aux, then the values' float
+// bits.
+extern "C" int iu_cand_rows_binned(const float* table, int W, const float* r,
+                                   const int* perm, int n_queries, int lanes,
+                                   const float* bin_rmin,
+                                   const float* bin_inv_h, int nbx, int nby,
+                                   int nbz, int K, int nf, int layout,
+                                   int id_role, int count_col, float eps,
+                                   int ovf_base, float qinv, int n_vars,
+                                   const int* vroles, int* rec,
+                                   void* stream) {
+  if (n_queries <= 0) return (int)cudaSuccess;
+  if (K <= 0 || n_vars < 0 || lanes < 1 || lanes > 32 ||
+      (lanes & (lanes - 1)) != 0) {
+    return (int)cudaErrorInvalidValue;
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const iu::BinGrid bins{bin_rmin, bin_inv_h, nbx, nby, nbz};
+  const int log2_g = __builtin_ctz(lanes);
+  const long long threads = (long long)n_queries * lanes;
+  const int blocks = (int)((threads + kOrderThreads - 1) / kOrderThreads);
+  // 16-byte loads along the candidates when every role starts aligned
+  const bool vec = K % 4 == 0 && W % 4 == 0 &&
+                   reinterpret_cast<uintptr_t>(table) % 16 == 0;
+#define IU_BINNED_LAUNCH(NF_, L_)                                             \
+  do {                                                                        \
+    if (vec) {                                                                \
+      cand_rows_binned_kernel<NF_, L_, true><<<blocks, kOrderThreads, 0, s>>>( \
+          table, W, r, perm, n_queries, log2_g, bins, K, id_role, count_col,  \
+          eps, ovf_base, qinv, n_vars, vroles, rec);                          \
+    } else {                                                                  \
+      cand_rows_binned_kernel<NF_, L_, false>                                 \
+          <<<blocks, kOrderThreads, 0, s>>>(                                  \
+              table, W, r, perm, n_queries, log2_g, bins, K, id_role,         \
+              count_col, eps, ovf_base, qinv, n_vars, vroles, rec);           \
+    }                                                                         \
+  } while (0)
+  if (layout == 0 && nf == 3) {
+    IU_BINNED_LAUNCH(3, 0);
+  } else if (layout == 0 && nf == 4) {
+    IU_BINNED_LAUNCH(4, 0);
+  } else if (layout == 1 && nf == 3) {
+    IU_BINNED_LAUNCH(3, 1);
+  } else if (layout == 1 && nf == 4) {
+    IU_BINNED_LAUNCH(4, 1);
+  } else if (layout == 2 && nf == 4) {
+    IU_BINNED_LAUNCH(4, 2);
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
+#undef IU_BINNED_LAUNCH
+  return (int)cudaGetLastError();
+}
+
+// iu_cand_bin_unsort: the probe's records ((B, 2 + n_vars) int32 by
+// slot) back in query order through slot: out_id, out_aux (B,) int32,
+// out_vals (B, n_vars) float32.
+extern "C" int iu_cand_bin_unsort(const int* rec, const int* slot,
+                                  int n_queries, int n_vars, int* out_id,
+                                  int* out_aux, float* out_vals,
+                                  void* stream) {
+  if (n_queries <= 0) return (int)cudaSuccess;
+  if (n_vars < 0) return (int)cudaErrorInvalidValue;
+  const int blocks = (n_queries + kOrderThreads - 1) / kOrderThreads;
+  cand_bin_unsort_kernel<<<blocks, kOrderThreads, 0,
+                           static_cast<cudaStream_t>(stream)>>>(
+      rec, slot, n_queries, n_vars, out_id, out_aux, out_vals);
   return (int)cudaGetLastError();
 }

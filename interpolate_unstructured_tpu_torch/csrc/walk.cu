@@ -28,14 +28,172 @@
 // tracer kernel).  Plain PyTorch version:
 // ops/walk_kernel.py:walk_plain, whose rounding order this kernel
 // follows (built with --fmad=false).
+//
+// get_cell_walk_kernel below is get_cell's whole walk stage, from "start
+// cell known" to (ic, found), in one launch; walk_kernel above stays for
+// explicit walks (the public walk(), masked walks, the tracer's generic
+// path).  Per query, in registers: the origin (the seed bin's bin_pack
+// row, or the start cell's center from the vertex block of its walk
+// row), direction and distance as ops/locate.py:_walk_args computes them
+// (sqrtf of (x*x + y*y) + z*z, IEEE division), phase 1 of p1 rounds,
+// then for a query still walking the restart of the JAX package's
+// _resume_walk (direction and distance from r_p, no previous cell) for
+// at most max_steps - p1 more rounds, and get_cell's found rule.  The
+// TPU needed the two phases to compact stragglers between while_loop
+// rounds; here they stay only because the restart changes the rounding,
+// and the port must agree with the JAX package.  5 bytes go out per
+// query (ic, found), where the earlier composition moved 57 bytes of
+// walk state in and out of walk_kernel and more through the torch
+// around it.
+//
+// What bounds it on an H100: the latency of dependent row reads, as for
+// walk_kernel.  Each round reads the leading NF*5 floats of its row
+// with 16-byte loads (5 for tets, 4 for triangles: the wrapper checks
+// that W is a multiple of 4 and the table 16-byte aligned), and many
+// resident threads hide the latency.  -Xptxas -v for sm_90a (the report
+// ops/_kernels.py keeps beside the library): 44 registers for NF = 4
+// and 40 for NF = 3, no spills, so 5 and 6 blocks of 256 threads, 1280
+// and 1536 of an SM's 2048 threads, are resident.  Plain PyTorch
+// version: ops/walk_kernel.py:get_cell_walk_plain.
 
 #include <cuda_runtime.h>
 
+#include "bins.cuh"
 #include "walk.cuh"
 
 namespace {
 
 constexpr int kThreads = 128;
+constexpr int kGetCellThreads = 256;
+
+// Unit direction and length of the walk from p to r (degenerate walks,
+// shorter than tiny, stay put), in _walk_args' rounding order.
+__device__ __forceinline__ void walk_direction(float px, float py, float pz,
+                                               float rx, float ry, float rz,
+                                               float tiny, float& ux,
+                                               float& uy, float& uz,
+                                               iu::WalkState& s) {
+  const float dx = rx - px, dy = ry - py, dz = rz - pz;
+  const float total = sqrtf((dx * dx + dy * dy) + dz * dz);
+  const bool degenerate = total < tiny;
+  const float d = degenerate ? 1.0f : total;
+  ux = dx / d;
+  uy = dy / d;
+  uz = dz / d;
+  s.px = px;
+  s.py = py;
+  s.pz = pz;
+  s.dist_left = total;
+  s.prev = -1;
+  s.status = iu::kStatusArrived;
+  s.active = !degenerate;
+}
+
+// Columns [4 * C0, 4 * C1) of a 16-byte aligned row, as float4 loads.
+template <int C0, int C1>
+__device__ __forceinline__ void load_cols(const float* __restrict__ row,
+                                          float (&out)[4 * (C1 - C0)]) {
+  const float4* row4 = reinterpret_cast<const float4*>(row);
+#pragma unroll
+  for (int c = C0; c < C1; ++c) {
+    const float4 v = __ldg(row4 + c);
+    out[4 * (c - C0) + 0] = v.x;
+    out[4 * (c - C0) + 1] = v.y;
+    out[4 * (c - C0) + 2] = v.z;
+    out[4 * (c - C0) + 3] = v.w;
+  }
+}
+
+template <int NF>
+__device__ __forceinline__ void walk_rounds(const float* __restrict__ table,
+                                            int n_rows, int W, int n_max,
+                                            float ux, float uy, float uz,
+                                            float nudge, float eps_arrive,
+                                            float big, iu::WalkState& s) {
+  constexpr int kChunks = (NF * 5 + 3) / 4;
+  for (int n = 0; n < n_max && s.active; ++n) {
+    float g[4 * kChunks];
+    load_cols<0, kChunks>(table + (size_t)iu::clamp_row(s.ic, n_rows) * W, g);
+    iu::walk_round_row<NF>(g, ux, uy, uz, nudge, eps_arrive, big, nullptr, 0,
+                           s);
+  }
+}
+
+template <int NF>
+__global__ void __launch_bounds__(kGetCellThreads)
+get_cell_walk_kernel(const float* __restrict__ table, int n_rows, int W,
+                     const float* __restrict__ r,
+                     const int* __restrict__ start,
+                     const float* __restrict__ bin_pack,
+                     const int* __restrict__ bin_table,
+                     iu::BinGrid bins, int n_queries, float nudge,
+                     float eps_arrive, float big, float tiny, int max_steps,
+                     int p1,
+                     int* __restrict__ out_ic,
+                     unsigned char* __restrict__ out_found) {
+  constexpr int NPC = NF;  // triangles, quads and tets
+  constexpr int V0 = NF * 5;  // vertex block [V0, V0 + NPC * 3)
+  constexpr int C0 = V0 / 4, C1 = (V0 + NPC * 3 + 3) / 4;
+  const int q = blockIdx.x * blockDim.x + threadIdx.x;
+  if (q >= n_queries) return;
+  const float rx = r[3 * q + 0];
+  const float ry = r[3 * q + 1];
+  const float rz = r[3 * q + 2];
+
+  int ic0 = start != nullptr ? start[q] : -1;
+  float ox = 0.0f, oy = 0.0f, oz = 0.0f;
+  if (start == nullptr ||
+      (bin_table != nullptr && (ic0 < 0 || ic0 >= n_rows))) {
+    int i, j, k;
+    iu::bin_ijk(bins, rx, ry, rz, i, j, k);
+    const int b = iu::bin_flat(bins, i, j, k);
+    if (start == nullptr) {
+      // pure cold start: seed id and origin from one packed row
+      const float4 g = __ldg(reinterpret_cast<const float4*>(bin_pack) + b);
+      ic0 = (int)g.x;
+      ox = g.y;
+      oy = g.z;
+      oz = g.w;
+    } else {
+      ic0 = bin_table[b];  // an out-of-range guess reseeds cold
+    }
+  }
+  if (start != nullptr) {
+    // the start cell's center, summed in vertex order
+    float v[4 * (C1 - C0)];
+    load_cols<C0, C1>(table + (size_t)iu::clamp_row(ic0, n_rows) * W, v);
+    constexpr int o = V0 - 4 * C0;
+    ox = v[o + 0];
+    oy = v[o + 1];
+    oz = v[o + 2];
+#pragma unroll
+    for (int k = 1; k < NPC; ++k) {
+      ox = ox + v[o + 3 * k + 0];
+      oy = oy + v[o + 3 * k + 1];
+      oz = oz + v[o + 3 * k + 2];
+    }
+    ox = ox / (float)NPC;
+    oy = oy / (float)NPC;
+    oz = oz / (float)NPC;
+  }
+
+  iu::WalkState s;
+  float ux, uy, uz;
+  walk_direction(ox, oy, oz, rx, ry, rz, tiny, ux, uy, uz, s);
+  s.ic = ic0;
+  s.steps = 0;
+  walk_rounds<NF>(table, n_rows, W, p1 > 0 ? p1 : max_steps, ux, uy, uz,
+                  nudge, eps_arrive, big, s);
+  if (p1 > 0 && s.active) {
+    // phase 2: a fresh walk from where phase 1 stopped
+    walk_direction(s.px, s.py, s.pz, rx, ry, rz, tiny, ux, uy, uz, s);
+    walk_rounds<NF>(table, n_rows, W, max_steps - p1, ux, uy, uz, nudge,
+                    eps_arrive, big, s);
+  }
+  const bool found = !s.active && s.status == iu::kStatusArrived && s.ic >= 0;
+  out_ic[q] = found ? s.ic : (s.ic < -1 ? s.ic : -1);
+  out_found[q] = found ? 1 : 0;
+}
 
 template <int NF>
 __global__ void walk_kernel(const float* __restrict__ table, int n_rows,
@@ -118,5 +276,46 @@ extern "C" int iu_walk(const float* table, int n_rows, int W, int nf,
   } else {
     return (int)cudaErrorInvalidValue;
   }
+  return (int)cudaGetLastError();
+}
+
+// Plain C entry point of get_cell's walk stage (bound with ctypes).
+// table: (n_rows, W) float32 walk rows, W a multiple of 4, 16-byte
+// aligned; r: (B, 3) queries; start: (B,) int32 start cells, or null for
+// a pure cold start from bin_pack ((n_bins, 4) float32: seed id | seed
+// center); bin_table: (n_bins,) int32 seeds that replace start cells
+// outside [0, n_rows), or null to take start as given; bin_rmin,
+// bin_inv_h: (3,) float32 on the device; p1: phase-1 rounds (0: one
+// phase of max_steps rounds).  out_ic: (B,) int32, out_found: (B,) bool.
+// Returns the cudaError_t of the launch.
+extern "C" int iu_get_cell_walk(const float* table, int n_rows, int W, int nf,
+                                const float* r, const int* start,
+                                const float* bin_pack, const int* bin_table,
+                                const float* bin_rmin, const float* bin_inv_h,
+                                int nbx, int nby, int nbz, int n_queries,
+                                float nudge, float eps_arrive, float big,
+                                float tiny, int max_steps, int p1,
+                                int* out_ic, unsigned char* out_found,
+                                void* stream) {
+  if (n_queries <= 0) return (int)cudaSuccess;
+  if (n_rows <= 0 || W % 4 != 0 || W < 8 * nf || p1 < 0 ||
+      (start == nullptr && bin_pack == nullptr)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const iu::BinGrid bins{bin_rmin, bin_inv_h, nbx, nby, nbz};
+  const int blocks = (n_queries + kGetCellThreads - 1) / kGetCellThreads;
+#define IU_GET_CELL_WALK(NF_)                                               \
+  get_cell_walk_kernel<NF_><<<blocks, kGetCellThreads, 0, s>>>(             \
+      table, n_rows, W, r, start, bin_pack, bin_table, bins, n_queries,      \
+      nudge, eps_arrive, big, tiny, max_steps, p1, out_ic, out_found)
+  if (nf == 3) {
+    IU_GET_CELL_WALK(3);
+  } else if (nf == 4) {
+    IU_GET_CELL_WALK(4);
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
+#undef IU_GET_CELL_WALK
   return (int)cudaGetLastError();
 }

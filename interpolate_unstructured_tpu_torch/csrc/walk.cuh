@@ -76,19 +76,19 @@ __device__ __forceinline__ int clamp_row(int ic, int n_rows) {
   return ic < 0 ? 0 : (ic >= n_rows ? n_rows - 1 : ic);
 }
 
-// One round for an active query: hop across the exit face, or arrive, or
-// leave the domain (status and position as the JAX kernel sets them).
+// One round for an active query on the row of its current cell (in
+// device memory or in registers): hop across the exit face, or arrive,
+// or leave the domain (status and position as the JAX kernel sets them).
 // With a per-cell mask column (mask != nullptr), a hop into a cell whose
 // value differs from mask0, the start cell's, stops on the face in that
 // cell with kStatusMaskChanged (the JAX package's ops/locate.py:279-308).
 template <int NF>
-__device__ __forceinline__ void walk_round(const float* __restrict__ table,
-                                           int n_rows, int W, float ux,
-                                           float uy, float uz, float nudge,
-                                           float eps_arrive, float big,
-                                           const int* __restrict__ mask,
-                                           int mask0, WalkState& s) {
-  const float* row = table + (size_t)clamp_row(s.ic, n_rows) * W;
+__device__ __forceinline__ void walk_round_row(const float* row, float ux,
+                                               float uy, float uz,
+                                               float nudge, float eps_arrive,
+                                               float big,
+                                               const int* __restrict__ mask,
+                                               int mask0, WalkState& s) {
   int ic_next;
   bool hit;
   const float face_dist = face_round<NF>(row, ux, uy, uz, s.px, s.py, s.pz,
@@ -116,6 +116,18 @@ __device__ __forceinline__ void walk_round(const float* __restrict__ table,
   if (crossing) s.ic = ic_next;
   s.steps += 1;
   s.active = continuing;
+}
+
+// walk_round_row on the table row of the current cell, read in place.
+template <int NF>
+__device__ __forceinline__ void walk_round(const float* __restrict__ table,
+                                           int n_rows, int W, float ux,
+                                           float uy, float uz, float nudge,
+                                           float eps_arrive, float big,
+                                           const int* __restrict__ mask,
+                                           int mask0, WalkState& s) {
+  walk_round_row<NF>(table + (size_t)clamp_row(s.ic, n_rows) * W, ux, uy, uz,
+                     nudge, eps_arrive, big, mask, mask0, s);
 }
 
 }  // namespace iu

@@ -56,6 +56,19 @@ _SIGNATURES = {
         [_P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _I, _F, _F, _F, _I, _P, _P,
          _P, _P, _P],
     ),
+    "iu_get_cell_walk": (
+        _I,
+        [_P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F,
+         _F, _I, _I, _P, _P, _P],
+    ),
+    "iu_cand_bin_pass": (_I, [_P, _I, _P, _P, _I, _I, _I, _P, _P, _P, _P]),
+    "iu_cand_bin_scatter": (_I, [_P, _P, _P, _I, _P, _P, _P]),
+    "iu_cand_rows_binned": (
+        _I,
+        [_P, _I, _P, _P, _I, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F,
+         _I, _F, _I, _P, _P, _P],
+    ),
+    "iu_cand_bin_unsort": (_I, [_P, _P, _I, _I, _P, _P, _P, _P]),
     "iu_trace": (
         _I,
         [_P, _I, _I, _I, _P, _P, _P, _P, _P, _I, _F, _F, _F, _F, _I, _I, _I,

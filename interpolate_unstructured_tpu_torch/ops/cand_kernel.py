@@ -12,24 +12,41 @@ weights).  Four row layouts (see ``RowLayout.kind`` and the packers in
 branch (the JAX kernel's ``df_planes=True``), whose values come back as
 hi/lo float32 pairs.
 
-:func:`cand_rows_query` and :func:`cand_rows_df_query` launch the CUDA
-kernel (``csrc/cand_rows.cu``) on CUDA tensors and run the plain PyTorch
-version (:func:`probe_rows_plain`, :func:`probe_rows_df_plain`) on CPU
-tensors.  ``launches`` counts kernel launches on the f32 layouts,
-``df_launches`` those on the df-plane rows.
+:func:`cand_rows_query` and :func:`cand_rows_df_query` launch the direct
+CUDA kernel (``csrc/cand_rows.cu``, one warp per query in query order)
+on CUDA tensors and run the plain PyTorch version
+(:func:`probe_rows_plain`, :func:`probe_rows_df_plain`) on CPU tensors;
+they serve the df-plane rows and the extension table.  The main table
+is probed in bin order by :func:`cand_rows_binned_query`: on CUDA tensors
+a bin pass and a scatter kernel group the queries by bin
+(:func:`bin_order_cuda`), the probe kernel takes them in that order, a
+group of lanes per query (:func:`binned_lanes`), and writes each query's
+record at its sorted slot, and an unsort kernel puts the records back in
+query order (:func:`cand_rows_binned_cuda`); on CPU tensors the plain
+version, :func:`probe_rows_plain`, probes in query order
+(:func:`bin_order_plain` is the scatter's plain twin).  ``launches`` counts the direct kernel's
+launches on the f32 layouts, ``df_launches`` those on the df-plane
+rows, ``bin_pass_launches``, ``bin_scatter_launches``,
+``binned_launches`` and ``bin_unsort_launches`` those of the four
+bin-ordered kernels.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import numpy as np
 import torch
 
-from . import _kernels, df32, wkern
+from . import _kernels, df32, geometry, wkern
 
-launches = 0  # launches on the three f32 layouts (B2)
+launches = 0  # direct launches on the three f32 layouts (B2)
 df_launches = 0  # launches on the df-plane layout (B2-df)
+bin_pass_launches = 0  # bin pass of the bin-ordered probe
+bin_scatter_launches = 0  # scatter of the bin-ordered probe
+binned_launches = 0  # probe in bin order (main table, f32 layouts)
+bin_unsort_launches = 0  # unsort of the bin-ordered probe's records
 
 _KIND_CODE = {"quantized": 0, "simplex": 1, "quad": 2, "qdf": 3}
 _QUANTIZED_KINDS = ("quantized", "qdf")
@@ -58,6 +75,33 @@ class RowLayout:
     id_role: int
     count_col: int
     var_roles: tuple
+
+
+def probe_inputs_plain(r, rmin, inv_h, shape, quantized):
+    """(idx (B,) int32, rq (B, 3)) of a direct probe of (B, 3) queries on
+    the candidate bins (origin ``rmin``, inverse sizes ``inv_h``,
+    ``shape`` bins per axis): each query's flat bin, and the query in
+    that bin's local frame when the rows are quantized."""
+    ijk = geometry.bin_ijk(r, rmin, inv_h, shape, torch.int32)
+    idx = geometry.bin_flat(ijk, shape)
+    if quantized:
+        return idx, geometry.cand_local_frame(r, rmin, inv_h, ijk)
+    return idx, r.contiguous()
+
+
+def bin_order_plain(idx):
+    """Plain version of the bin ordering: the permutation (B,) int64 that
+    groups queries by their flat bin ``idx``, in ascending bin order and,
+    in a bin, in query order (a stable sort)."""
+    return torch.argsort(idx, stable=True)
+
+
+@functools.lru_cache(maxsize=64)
+def _var_roles(var_roles, device):
+    """The (V,) int32 role columns on ``device``, made once: a copy from
+    host memory would make the host wait for the kernels queued before
+    it."""
+    return torch.tensor(var_roles, dtype=torch.int32, device=device)
 
 
 def _gather_rows(table, idx):
@@ -261,7 +305,7 @@ def _launch(table, idx, rq, rq_lo, lay, eps, ovf_base):
     rq = rq.contiguous()
     dev = table.device
     n_vars = len(lay.var_roles)
-    vroles = torch.tensor(lay.var_roles, dtype=torch.int32, device=dev)
+    vroles = _var_roles(lay.var_roles, dev)
     out_id = torch.empty(b, dtype=torch.int32, device=dev)
     out_aux = torch.empty(b, dtype=torch.int32, device=dev)
     vals = torch.empty((b, n_vars), dtype=torch.float32, device=dev)
@@ -312,6 +356,148 @@ def cand_rows_query(table, idx, rq, lay, eps, ovf_base, chunk):
     if table.device.type == "cuda":
         return cand_rows_cuda(table, idx, rq, lay, eps, ovf_base)
     if table.device.type == "cpu":
+        return probe_rows_plain(table, idx, rq, lay, eps, ovf_base, chunk)
+    raise ValueError(f"no candidate probe for device {table.device}")
+
+
+def binned_lanes(n_queries, n_bins):
+    """Lanes per query of the probe in bin order, from the batch's queries
+    per bin.  tools/b2_sweep.py on the 998k-tet box (H100, PERF.md §6):
+    4 lanes were the fastest at 0.5 and 1 query a bin, 2 and 4 tied at
+    2 a bin, 2 (with 1) the fastest at 5 a bin; one lane alone is slow
+    where it walks a whole row for one query, and a group where the
+    queries of a bin repeat its per-query work."""
+    return 2 if n_queries >= 2 * n_bins else 4
+
+
+def _check_bins(r, rmin, inv_h, shape):
+    """Check the queries and bin grid of a bin-ordered launch; returns the
+    contiguous (r, rmin, inv_h) and the number of bins."""
+    if r.dtype != torch.float32 or r.ndim != 2 or r.shape[1] != 3:
+        raise TypeError(f"queries must be float32 (B, 3), got {r.dtype} "
+                        f"{tuple(r.shape)}")
+    for t in (rmin, inv_h):
+        if t.dtype != torch.float32 or t.shape != (3,):
+            raise ValueError("bin origin and inverse sizes must be float32 "
+                             "(3,)")
+    if not r.device == rmin.device == inv_h.device:
+        raise ValueError("queries and bin grid must share one device")
+    n_bins = int(np.prod(shape))
+    if len(shape) != 3 or min(shape) < 1 or n_bins >= 2**31:
+        raise ValueError(f"bad bin grid shape {shape}")
+    return r.contiguous(), rmin.contiguous(), inv_h.contiguous(), n_bins
+
+
+def bin_order_cuda(r, rmin, inv_h, shape):
+    """Launch the bin pass and the scatter on CUDA tensors: (B, 3) float32
+    queries, the (3,) float32 bin origin and inverse sizes, the bins per
+    axis.  Returns (idx (B,) int32 flat bins, ends (n_bins,) int32 the
+    inclusive scan of the queries per bin, perm (B,) int32: the queries
+    grouped by bin, in ascending bin order, bin b in slots
+    [ends[b - 1], ends[b]), in a bin in no fixed order; slot (B,) int32:
+    each query's position in perm)."""
+    global bin_pass_launches, bin_scatter_launches
+    r, rmin, inv_h, n_bins = _check_bins(r, rmin, inv_h, shape)
+    b = r.shape[0]
+    dev = r.device
+    counts = torch.zeros(n_bins, dtype=torch.int32, device=dev)
+    idx, rank, perm, slot = (torch.empty(b, dtype=torch.int32, device=dev)
+                             for _ in range(4))
+    if b == 0:
+        return idx, counts, perm, slot  # no query: the scan of the counts is 0
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
+        code = _kernels.lib().iu_cand_bin_pass(
+            r.data_ptr(), b, rmin.data_ptr(), inv_h.data_ptr(), *shape,
+            counts.data_ptr(), idx.data_ptr(), rank.data_ptr(), stream)
+        _kernels.check(code, "iu_cand_bin_pass")
+        bin_pass_launches += 1
+        ends = torch.cumsum(counts, 0, dtype=torch.int32)
+        code = _kernels.lib().iu_cand_bin_scatter(
+            idx.data_ptr(), rank.data_ptr(), ends.data_ptr(), b,
+            perm.data_ptr(), slot.data_ptr(), stream)
+        _kernels.check(code, "iu_cand_bin_scatter")
+        bin_scatter_launches += 1
+    return idx, ends, perm, slot
+
+
+def cand_rows_binned_cuda(table, r, perm, slot, rmin, inv_h, shape, lay, eps,
+                          ovf_base, lanes=None):
+    """Launch the probe in bin order and the unsort on CUDA tensors:
+    float32 table (one row per bin) and (B, 3) queries ``r`` (the kernel
+    computes their bins and, for quantized rows, their local frame);
+    ``perm`` and ``slot`` the int32 grouping of the queries by bin and its
+    inverse (:func:`bin_order_cuda`).  A group of ``lanes`` lanes (None:
+    :func:`binned_lanes`) probes each query, in the order of ``perm``, and
+    writes its record at its slot; the unsort puts the records back.
+    Returns (id_best, aux, values) in query order."""
+    global binned_launches, bin_unsort_launches
+    if lay.kind not in ("quantized", "simplex", "quad"):
+        raise ValueError(f"{lay.kind!r} rows are probed by the direct kernel")
+    r, rmin, inv_h, n_bins = _check_bins(r, rmin, inv_h, shape)
+    b = r.shape[0]
+    if table.dtype != torch.float32:
+        raise TypeError(f"the CUDA candidate kernel takes float32 tables, got "
+                        f"{table.dtype}")
+    for name, t in (("perm", perm), ("slot", slot)):
+        if t.dtype != torch.int32 or t.shape != (b,):
+            raise ValueError(f"{name} must be an int32 (B,) tensor")
+    if not table.device == r.device == perm.device == slot.device:
+        raise ValueError("table, queries, perm and slot must share one device")
+    if (table.ndim != 2 or not table.is_contiguous()
+            or table.shape[0] != n_bins):
+        raise ValueError("table must be a contiguous (n_bins, W) tensor")
+    if lay.count_col + (2 if lay.kind == "quantized" else 1) > table.shape[1]:
+        raise ValueError(f"row layout {lay} does not fit width {table.shape[1]}")
+    if lanes is None:
+        lanes = binned_lanes(b, n_bins)
+    if lanes not in (1, 2, 4, 8, 16, 32):
+        raise ValueError(f"lanes must be a power of two up to 32, got {lanes}")
+    perm, slot = perm.contiguous(), slot.contiguous()
+    dev = table.device
+    n_vars = len(lay.var_roles)
+    vroles = _var_roles(lay.var_roles, dev)
+    out_id = torch.empty(b, dtype=torch.int32, device=dev)
+    out_aux = torch.empty(b, dtype=torch.int32, device=dev)
+    vals = torch.empty((b, n_vars), dtype=torch.float32, device=dev)
+    if b == 0:
+        return out_id, out_aux, vals
+    rec = torch.empty((b, 2 + n_vars), dtype=torch.int32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
+        code = _kernels.lib().iu_cand_rows_binned(
+            table.data_ptr(), table.shape[1], r.data_ptr(), perm.data_ptr(),
+            b, lanes, rmin.data_ptr(), inv_h.data_ptr(), *shape, lay.k,
+            lay.nf, _KIND_CODE[lay.kind], lay.id_role, lay.count_col,
+            float(eps), int(ovf_base), QINV, n_vars, vroles.data_ptr(),
+            rec.data_ptr(), stream,
+        )
+        _kernels.check(code, "iu_cand_rows_binned")
+        binned_launches += 1
+        code = _kernels.lib().iu_cand_bin_unsort(
+            rec.data_ptr(), slot.data_ptr(), b, n_vars, out_id.data_ptr(),
+            out_aux.data_ptr(), vals.data_ptr(), stream)
+        _kernels.check(code, "iu_cand_bin_unsort")
+        bin_unsort_launches += 1
+    return out_id, out_aux, vals
+
+
+def cand_rows_binned_query(table, r, rmin, inv_h, shape, lay, eps, ovf_base,
+                           chunk):
+    """The main-table probe in bin order, from the queries themselves:
+    ``table`` holds one row per candidate bin of the grid (origin
+    ``rmin``, inverse sizes ``inv_h``, ``shape`` bins per axis).  The
+    bin pass, scatter, probe and unsort kernels for CUDA tensors; for
+    CPU tensors the plain version, :func:`probe_rows_plain` in query
+    order (a query's result does not depend on the order).  Returns
+    (id_best (B,) int32, aux (B,) int32, values (B, V)) in query order."""
+    if table.device.type == "cuda":
+        _, _, perm, slot = bin_order_cuda(r, rmin, inv_h, shape)
+        return cand_rows_binned_cuda(table, r, perm, slot, rmin, inv_h, shape,
+                                     lay, eps, ovf_base)
+    if table.device.type == "cpu":
+        idx, rq = probe_inputs_plain(r, rmin, inv_h, shape,
+                                     lay.kind == "quantized")
         return probe_rows_plain(table, idx, rq, lay, eps, ovf_base, chunk)
     raise ValueError(f"no candidate probe for device {table.device}")
 

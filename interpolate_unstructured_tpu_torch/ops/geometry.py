@@ -16,8 +16,9 @@ of a cell consists of vertices ``(k, k+1)`` for tri/quad and
 
 The port's copy of the JAX package's ``ops/geometry.py``: the host
 builders stay numpy so that their candidate lists are bit-identical to
-the JAX package's, and only :func:`cand_bin_center_cols` works on torch
-tensors.
+the JAX package's, and only the bin helpers (:func:`bin_ijk`,
+:func:`bin_flat`, :func:`cand_bin_center_cols`, :func:`cand_local_frame`)
+work on torch tensors.
 """
 
 from __future__ import annotations
@@ -186,12 +187,40 @@ def cand_bin_center_cols(rmin, inv_h, i, j, k):
     return c(i, 0), c(j, 1), c(k, 2)
 
 
+def bin_ijk(r, rmin, inv_h, shape, dtype):
+    """Clipped integer bin coordinates [(B,) ``dtype``] * 3 of (B, 3)
+    queries on a bin grid (origin ``rmin``, inverse sizes ``inv_h``,
+    ``shape`` bins per axis): floor((r - rmin) * inv_h) per axis,
+    clipped before the integer conversion, as the JAX package computes
+    them (``csrc/bins.cuh:bin_coord``).  Seed bins index with int64,
+    candidate bins with int32."""
+    return [
+        torch.clamp(torch.floor((r[:, d] - rmin[d]) * inv_h[d]), 0,
+                    shape[d] - 1).to(dtype)
+        for d in range(3)
+    ]
+
+
+def bin_flat(ijk, shape):
+    """Flat bin index of integer bin coordinates: THE encode ``(i*nby +
+    j)*nbz + k`` (inverse: :func:`cand_bin_decode`)."""
+    return (ijk[0] * shape[1] + ijk[1]) * shape[2] + ijk[2]
+
+
+def cand_local_frame(r, rmin, inv_h, ijk):
+    """(B, 3) queries in their candidate bin's local frame: r minus the
+    bin center of :func:`cand_bin_center_cols`, bitwise-matching the
+    packer."""
+    cx, cy, cz = cand_bin_center_cols(rmin, inv_h, *ijk)
+    return torch.stack([r[:, 0] - cx, r[:, 1] - cy, r[:, 2] - cz], dim=1)
+
+
 def cand_bin_decode(bin_idx, nby, nbz):
     """Flat candidate-bin index -> (i, j, k) integer coordinates.
 
-    THE single definition of the decode (inverse of the
-    ``(i*nby + j)*nbz + k`` encode used by the builders and
-    locate._cand_bin_flat): every packer feeding
+    THE single definition of the decode (inverse of
+    :func:`bin_flat`, the encode used by the builders and the
+    queries): every packer feeding
     :func:`cand_bin_center_cols` must agree on the axis order or the
     quantized rows' local frame drifts against the query side."""
     return bin_idx // (nby * nbz), (bin_idx // nbz) % nby, bin_idx % nbz

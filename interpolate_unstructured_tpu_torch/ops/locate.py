@@ -8,15 +8,17 @@ The port of the JAX package's ``ops/locate.py``
 * ``locate_bruteforce`` — exact containment against every cell (small
   meshes);
 * ``walk`` — the face-to-face neighbor walk (kernel B3,
-  ``ops/walk_kernel.py``);
+  ``ops/walk_kernel.walk_rows``);
 * ``_candidates_query`` — the per-bin candidate rows: one row per query
   answers "which cell contains r" and, for fused variables, the
-  interpolated values (kernel B2, ``ops/cand_kernel.py``); overflow bins
-  probe their extension row, and bins whose candidates exceed even that
-  resume with a walk;
+  interpolated values (kernel B2 in bin order on the main table,
+  ``ops/cand_kernel.py``); overflow bins probe their extension row, and
+  bins whose candidates exceed even that resume with a walk;
 * ``_candidates_query_df`` — accurate mode's cold query on the df-plane
   rows: the same probe, values in df32 (B2's df-plane branch);
-* ``get_cell`` — the warm/cold dispatch (:412-434).
+* ``get_cell`` — the warm/cold dispatch (:412-434); its walks, from the
+  start cells or seed bins to (ic, found), run in one launch of B3's
+  ``ops/walk_kernel.get_cell_walk``.
 
 Cells are 0-based; "no cell" is a negative index.  Status codes follow
 the reference: 0 arrived, -1 left the domain, 1 icell-mask value changed
@@ -51,20 +53,6 @@ def _cells(grid, ic):
     return torch.as_tensor(ic, device=grid.device).to(torch.int32)
 
 
-def _bin_index(grid, r):
-    """Flat seed-bin index of each query: floor((r - rmin) * inv_h) per
-    axis, clipped to the bin grid."""
-    ij = [
-        torch.clamp(
-            torch.floor((r[:, d] - grid.bin_rmin[d]) * grid.bin_inv_h[d]),
-            0, grid.bin_shape[d] - 1,
-        ).to(torch.int64)
-        for d in range(3)
-    ]
-    _, nby, nbz = grid.bin_shape
-    return (ij[0] * nby + ij[1]) * nbz + ij[2]
-
-
 def bin_seed(grid, r):
     """Cold-start seed cell for each query: one lookup in the per-bin
     nearest-cell table built with the grid.
@@ -74,13 +62,7 @@ def bin_seed(grid, r):
     Returns:
       (B,) int32 seed cell indices (always valid cells).
     """
-    return grid.bin_table[_bin_index(grid, _queries(grid, r))]
-
-
-def _bin_seed_pack(grid, r):
-    """Seed cell AND its center from one packed row (id | center xyz)."""
-    g = grid.bin_pack[_bin_index(grid, r)]  # (B, 4)
-    return g[:, 0].to(torch.int32), g[:, 1:4]
+    return grid.bin_table[walk_kernel.seed_bins(grid, _queries(grid, r))]
 
 
 def kd_seed(grid, r):
@@ -195,64 +177,10 @@ def _walk_args(grid, r0, r1, ic0, max_steps=None, table=None):
     r1 = _queries(grid, r1)
     dtype = torch.empty((), dtype=r0.dtype).numpy().dtype
     nudge, eps_arrive = walk_tolerances(dtype, grid.rmin, grid.rmax)
-    delta = r1 - r0
-    total = torch.sqrt(
-        (delta[:, 0] * delta[:, 0] + delta[:, 1] * delta[:, 1])
-        + delta[:, 2] * delta[:, 2]
-    )
-    degenerate = total < tiny_distance(dtype)
-    u = delta / torch.where(degenerate, 1.0, total)[:, None]
-    return (table, r0, u, total, ~degenerate, _cells(grid, ic0), nudge,
+    u, total, active = walk_kernel.walk_direction(r0, r1, tiny_distance(dtype))
+    return (table, r0, u, total, active, _cells(grid, ic0), nudge,
             eps_arrive, huge_distance(dtype), max_steps,
             grid.n_faces_per_cell)
-
-
-def _walk_origin(grid, starts):
-    """Cell centers of ``starts`` (walk origins, :429), from the vertex
-    block of the walk rows (columns [nf*5, nf*5 + npc*3)), summed in
-    vertex order."""
-    nf = grid.n_faces_per_cell
-    npc = grid.n_points_per_cell
-    cp = grid.walk_table[starts.long(), nf * 5: nf * 5 + npc * 3].reshape(
-        -1, npc, 3
-    )
-    acc = cp[:, 0]
-    for k in range(1, npc):
-        acc = acc + cp[:, k]
-    return acc / npc
-
-
-def _found_of(ic, status):
-    return (status == STATUS_ARRIVED) & (ic >= 0)
-
-
-def _cand_bin_ijk(grid, r):
-    """Clipped integer candidate-bin coordinates of (B, 3) queries —
-    floor((r - rmin) * inv_h) per axis, as the JAX package computes
-    them (clipped before the integer conversion)."""
-    return [
-        torch.clamp(
-            torch.floor((r[:, d] - grid.cand_rmin[d]) * grid.cand_inv_h[d]),
-            0, grid.cand_shape[d] - 1,
-        ).to(torch.int32)
-        for d in range(3)
-    ]
-
-
-def _cand_bin_flat(grid, ijk):
-    """Flat candidate-bin index from integer coordinates — THE encode
-    (inverse: geometry.cand_bin_decode)."""
-    _, nby, nbz = grid.cand_shape
-    return (ijk[0] * nby + ijk[1]) * nbz + ijk[2]
-
-
-def _cand_local(grid, r, ijk):
-    """(B, 3) queries in their bin's local frame (bin centers via the
-    shared geometry.cand_bin_center_cols, bitwise-matching the packer)."""
-    cx, cy, cz = geometry.cand_bin_center_cols(
-        grid.cand_rmin, grid.cand_inv_h, ijk[0], ijk[1], ijk[2]
-    )
-    return torch.stack([r[:, 0] - cx, r[:, 1] - cy, r[:, 2] - cz], dim=1)
 
 
 def _cand_chunk(grid, table=None) -> int:
@@ -304,16 +232,14 @@ def _cand_eps(grid) -> float:
 
 
 def _cand_probe_inputs(grid, r):
-    """(idx (B,) int32, rq (B, 3)) of the main-table probe: each
+    """(idx (B,) int32, rq (B, 3)) of a direct main-table probe: each
     query's bin, and the query in that bin's local frame when the rows
-    are quantized."""
-    ijk = _cand_bin_ijk(grid, r)
-    idx = _cand_bin_flat(grid, ijk)
+    are quantized (the extension rows share the frame)."""
     from ..models.grid import cand_is_quantized
 
-    if cand_is_quantized(grid.cell_type, grid.dtype, grid.config):
-        return idx, _cand_local(grid, r, ijk)
-    return idx, r.contiguous()
+    return cand_kernel.probe_inputs_plain(
+        r, grid.cand_rmin, grid.cand_inv_h, grid.cand_shape,
+        cand_is_quantized(grid.cell_type, grid.dtype, grid.config))
 
 
 def _candidates_query(grid, r, var_slots, max_steps=None):
@@ -327,8 +253,10 @@ def _candidates_query(grid, r, var_slots, max_steps=None):
     extension row (candidates K..K+k_ext, same layout, same kernel).
     Bins whose count exceeds K + k_ext (or grids without extension
     rows) leave a residual: those misses walk from their best
-    candidate's center (kernel B3) and interpolate in the cell they
-    reach.
+    candidate's center (kernel B3's get_cell walk) and interpolate in
+    the cell they reach.  The main table is probed in bin order
+    (``cand_kernel.cand_rows_binned_query``); the few extension-row
+    probes go to the direct kernel.
 
     Returns (i_cell (B,) int32, found (B,) bool, values (B, V)).
     """
@@ -337,10 +265,9 @@ def _candidates_query(grid, r, var_slots, max_steps=None):
     var_slots = tuple(var_slots)
     k_max = grid.cand_ids.shape[1]
     eps = _cand_eps(grid)
-    idx, rq = _cand_probe_inputs(grid, r)
-    id_best, aux, values = cand_kernel.cand_rows_query(
-        grid.cand_table, idx, rq, _row_layout(grid, k_max, var_slots),
-        eps, k_max, _cand_chunk(grid),
+    id_best, aux, values = cand_kernel.cand_rows_binned_query(
+        grid.cand_table, r, grid.cand_rmin, grid.cand_inv_h, grid.cand_shape,
+        _row_layout(grid, k_max, var_slots), eps, k_max, _cand_chunk(grid),
     )
     found = aux == -2
     ic = torch.where(found, id_best, -1)
@@ -351,10 +278,8 @@ def _candidates_query(grid, r, var_slots, max_steps=None):
     def walk_and_interp(sel):
         """Walk the selected misses from their best candidate's center;
         (ic, found, values) of the cells they reach."""
-        starts = id_best[sel].clamp_min(0)
-        ic_w, _, _, st_w = walk(grid, _walk_origin(grid, starts), r[sel],
-                                starts, max_steps=max_steps)
-        found_w = _found_of(ic_w, st_w)
+        ic_w, found_w = walk_kernel.get_cell_walk(
+            grid, r[sel], id_best[sel].clamp_min(0), max_steps, 0)
         vals_w = None
         if var_slots:
             from .interp import interpolate_at_icell
@@ -377,8 +302,9 @@ def _candidates_query(grid, r, var_slots, max_steps=None):
         return ic, ic >= 0, values
 
     k_ext = grid.cand_ext_ids.shape[1]
+    _, rq = _cand_probe_inputs(grid, r[sel])
     id2, aux2, vals2 = cand_kernel.cand_rows_query(
-        grid.cand_ext_table, aux[sel].contiguous(), rq[sel],
+        grid.cand_ext_table, aux[sel].contiguous(), rq,
         _row_layout(grid, k_ext, var_slots), eps, k_max + k_ext,
         _cand_chunk(grid, grid.cand_ext_table),
     )
@@ -448,8 +374,9 @@ def _candidates_query_df(grid, r_hi, var_slots, r_lo=None):
     lay = _df_row_layout(grid, var_slots)
     if r_lo is None:
         r_lo = torch.zeros_like(r_hi)
-    ijk = _cand_bin_ijk(grid, r_hi)
-    idx = _cand_bin_flat(grid, ijk)
+    ijk = geometry.bin_ijk(r_hi, grid.cand_rmin, grid.cand_inv_h,
+                           grid.cand_shape, torch.int32)
+    idx = geometry.bin_flat(ijk, grid.cand_shape)
     rq, rq_lo = _cand_local_df(grid, r_hi, r_lo, ijk)
     id_best, aux, vh, vl = cand_kernel.cand_rows_df_query(
         grid.cand_df_table, idx, rq, rq_lo, lay, _cand_eps(grid), lay.k,
@@ -483,20 +410,9 @@ def _get_cell_warm(grid, r, guess, max_steps):
     ic, found, _ = _candidates_query(grid, r, (), max_steps)
     sel = torch.nonzero(~found & (guess >= 0)).squeeze(1)
     if sel.numel():
-        starts = guess[sel]
-        ic_w, _, _, st_w = walk(grid, _walk_origin(grid, starts), r[sel],
-                                starts, max_steps=max_steps)
-        found_w = _found_of(ic_w, st_w)
-        ic[sel] = torch.where(found_w, ic_w, torch.clamp_max(ic_w, -1))
-        found[sel] = found_w
+        ic[sel], found[sel] = walk_kernel.get_cell_walk(
+            grid, r[sel], guess[sel], max_steps, 0)
     return ic, found
-
-
-def _resume_walk(grid, r_p, r1, ic, max_steps):
-    """Continue interrupted walks from their current position (a fresh
-    walk: direction and distance from ``r_p``, no previous cell)."""
-    ic_o, rp_o, _, st_o = walk(grid, r_p, r1, ic, max_steps=max_steps)
-    return ic_o, rp_o, st_o
 
 
 def get_cell(grid, r, guess=None, max_steps=None):
@@ -513,6 +429,7 @@ def get_cell(grid, r, guess=None, max_steps=None):
     in two phases: ``config.walk_phase1_steps`` steps on the full batch,
     then the stragglers resume from where they stopped (which restarts
     their direction and distance from there, as in the JAX package).
+    Both phases run in one launch of ``walk_kernel.get_cell_walk``.
 
     Returns (i_cell, found): i_cell is -1 (or the off-domain neighbor
     code) where the point is in no cell.
@@ -535,34 +452,21 @@ def get_cell(grid, r, guess=None, max_steps=None):
         return _get_cell_warm(grid, r, guess, max_steps)
 
     use_kd = cfg.seed_mode == "kdtree" and grid.kd_node_points is not None
-    if guess is None and not use_kd and grid.bin_pack is not None:
-        # Pure cold start: id + walk origin from one packed row
-        start, r0 = _bin_seed_pack(grid, r)
+    if use_kd:
+        # Out-of-range guesses fall back to a cold start (the reference
+        # error-stops on guess > n_cells, :490)
+        start = kd_seed(grid, r)
+        if guess is not None:
+            ok = (guess >= 0) & (guess < grid.n_cells)
+            start = torch.where(ok, guess, start)
+    elif guess is not None:
+        start = guess  # out-of-range guesses reseed from the bin table
+    elif grid.bin_pack is None:
+        start = bin_seed(grid, r)
     else:
-        cold = kd_seed if use_kd else bin_seed
-        if guess is None:
-            start = cold(grid, r)
-        else:
-            # Out-of-range guesses fall back to a cold start (the
-            # reference error-stops on guess > n_cells, :490)
-            guess = torch.where(guess >= grid.n_cells, -1, guess)
-            start = torch.where(guess >= 0, guess, cold(grid, r))
-        r0 = _walk_origin(grid, start.clamp_min(0))
+        start = None  # pure cold start: id + origin from one packed row
 
-    b = r.shape[0]
     p1 = min(cfg.walk_phase1_steps, max_steps)
-    if b < cfg.walk_compact_min_batch or max_steps <= p1:
-        ic, _, _, status = walk(grid, r0, r, start, max_steps=max_steps)
-        found = _found_of(ic, status)
-        return torch.where(found, ic, torch.clamp_max(ic, -1)), found
-
-    # Phase 1: full batch, few rounds; phase 2: the stragglers resume
-    ic, rp, _, status = walk(grid, r0, r, start, max_steps=p1)
-    found = _found_of(ic, status)
-    sel = torch.nonzero(status == STATUS_STEP_CAP).squeeze(1)
-    if sel.numel():
-        ic_o, _, st_o = _resume_walk(grid, rp[sel], r[sel], ic[sel],
-                                     max_steps - p1)
-        ic[sel] = ic_o
-        found[sel] = _found_of(ic_o, st_o)
-    return torch.where(found, ic, torch.clamp_max(ic, -1)), found
+    if r.shape[0] < cfg.walk_compact_min_batch or max_steps <= p1:
+        p1 = 0
+    return walk_kernel.get_cell_walk(grid, r, start, max_steps, p1)

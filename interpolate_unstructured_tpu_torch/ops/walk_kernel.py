@@ -16,7 +16,15 @@ with ``STATUS_MASK_CHANGED``, in that cell (:706-719).
 per query walking to its end) on CUDA tensors and runs
 :func:`walk_plain`, the plain PyTorch version (the round loop, rows
 gathered per round), on CPU tensors.  ``launches`` counts kernel
-launches.
+launches.  It serves explicit walks: the public ``walk()``, masked
+walks and the tracer's generic path.
+
+:func:`get_cell_walk` is ``get_cell``'s whole walk stage, from the start
+cells (or the seed bins) to (ic, found): origin, direction, the
+two-phase walk and the found rule in one launch of
+``get_cell_walk_kernel`` (``csrc/walk.cu``) on CUDA tensors, and
+:func:`get_cell_walk_plain`, the composition of the plain pieces, on CPU
+tensors.  ``get_cell_launches`` counts its launches.
 
 Walk rows (``models.grid._build_walk_table``) start with face normals
 (nf*3, column f*3 + d) | face offsets (nf) | neighbor ids as floats
@@ -27,9 +35,11 @@ from __future__ import annotations
 
 import torch
 
-from . import _kernels
+from . import _kernels, geometry
+from ..utils.config import huge_distance, tiny_distance, walk_tolerances
 
-launches = 0
+launches = 0  # launches of the explicit walk (walk_rows)
+get_cell_launches = 0  # launches of get_cell's walk stage (get_cell_walk)
 
 STATUS_ARRIVED = 0
 STATUS_BOUNDARY = -1
@@ -198,3 +208,199 @@ def walk_rows(table, r0, u, total, active, ic0, nudge, eps_arrive, big,
         return walk_plain(table, r0, u, total, active, ic0, nudge,
                           eps_arrive, big, max_steps, nf, mask)
     raise ValueError(f"no walk for device {table.device}")
+
+
+def seed_bins(grid, r):
+    """Flat seed-bin index (B,) int64 of (B, 3) queries on the grid's
+    seed bins (``bin_table`` and ``bin_pack`` rows)."""
+    ijk = geometry.bin_ijk(r, grid.bin_rmin, grid.bin_inv_h, grid.bin_shape,
+                           torch.int64)
+    return geometry.bin_flat(ijk, grid.bin_shape)
+
+
+def walk_origin(table, starts, nf, npc):
+    """Cell centers of ``starts`` (walk origins), from the vertex block of
+    the walk rows (columns [nf*5, nf*5 + npc*3)), summed in vertex order
+    and divided by a tensor, so that CUDA tensors divide as the CPU and
+    the kernel do (torch multiplies a CUDA tensor by the reciprocal of a
+    Python scalar divisor)."""
+    cp = table[starts.long(), nf * 5: nf * 5 + npc * 3].reshape(-1, npc, 3)
+    acc = cp[:, 0]
+    for k in range(1, npc):
+        acc = acc + cp[:, k]
+    return acc / torch.full_like(acc, npc)
+
+
+def walk_direction(r0, r1, tiny):
+    """(u, total, active) of walks from r0 to r1: unit directions,
+    lengths ``sqrt((x*x + y*y) + z*z)``, and which walks move (the
+    degenerate ones, shorter than ``tiny``, stay put)."""
+    delta = r1 - r0
+    total = torch.sqrt(
+        (delta[:, 0] * delta[:, 0] + delta[:, 1] * delta[:, 1])
+        + delta[:, 2] * delta[:, 2]
+    )
+    degenerate = total < tiny
+    u = delta / torch.where(degenerate, 1.0, total)[:, None]
+    return u, total, ~degenerate
+
+
+def _tolerances(grid, dtype):
+    """(nudge, eps_arrive, big, tiny) of the grid's walks in ``dtype``."""
+    np_dtype = torch.empty((), dtype=dtype).numpy().dtype
+    nudge, eps_arrive = walk_tolerances(np_dtype, grid.rmin, grid.rmax)
+    return nudge, eps_arrive, huge_distance(np_dtype), tiny_distance(np_dtype)
+
+
+def _resume_plain(grid, r_p, r1, ic, max_steps):
+    """Phase 2 of the plain get_cell walk: the stragglers walk again from
+    where they stopped (direction and distance from ``r_p``, no previous
+    cell).  Returns (ic, status)."""
+    nudge, eps_arrive, big, tiny = _tolerances(grid, r_p.dtype)
+    u, total, active = walk_direction(r_p, r1, tiny)
+    ic_o, _, _, st_o = walk_plain(grid.walk_table, r_p, u, total, active, ic,
+                                  nudge, eps_arrive, big, max_steps,
+                                  grid.n_faces_per_cell)
+    return ic_o, st_o
+
+
+def get_cell_walk_plain(grid, r, start, max_steps, p1):
+    """Plain PyTorch version of :func:`get_cell_walk`: the composition the
+    port ran before the fused kernel (seed rows or start-cell centers,
+    :func:`walk_direction`, :func:`walk_plain`, the two-phase merge), on
+    any device and float dtype."""
+    table = grid.walk_table
+    n_rows = table.shape[0]
+    nf = grid.n_faces_per_cell
+    nudge, eps_arrive, big, tiny = _tolerances(grid, r.dtype)
+    if start is None:
+        g = grid.bin_pack[seed_bins(grid, r)]
+        start, r0 = g[:, 0].to(torch.int32), g[:, 1:4]
+    else:
+        if grid.bin_table is not None:
+            # out-of-range start cells (guesses) reseed from the bin table
+            bad = (start < 0) | (start >= n_rows)
+            start = torch.where(bad, grid.bin_table[seed_bins(grid, r)], start)
+        r0 = walk_origin(table, start.clamp(0, n_rows - 1), nf,
+                         grid.n_points_per_cell)
+    u, total, active = walk_direction(r0, r, tiny)
+    ic, rp, _, status = walk_plain(table, r0, u, total, active, start, nudge,
+                                   eps_arrive, big,
+                                   p1 if p1 > 0 else max_steps, nf)
+    found = (status == STATUS_ARRIVED) & (ic >= 0)
+    if p1 > 0:
+        sel = torch.nonzero(status == STATUS_STEP_CAP).squeeze(1)
+        if sel.numel():
+            ic_o, st_o = _resume_plain(grid, rp[sel], r[sel], ic[sel],
+                                       max_steps - p1)
+            ic[sel] = ic_o
+            found[sel] = (st_o == STATUS_ARRIVED) & (ic_o >= 0)
+    return torch.where(found, ic, torch.clamp_max(ic, -1)), found
+
+
+def _aligned(t):
+    return t.data_ptr() % 16 == 0
+
+
+def get_cell_walk_cuda(grid, r, start, max_steps, p1):
+    """Launch ``get_cell_walk_kernel`` on CUDA tensors: float32 walk rows
+    (a width divisible by 4, 16-byte aligned) and queries, int32 start
+    cells or None.  One thread per query, from its origin to (ic,
+    found)."""
+    global get_cell_launches
+    table = grid.walk_table
+    nf, npc = grid.n_faces_per_cell, grid.n_points_per_cell
+    if table.dtype != torch.float32 or r.dtype != torch.float32:
+        raise TypeError(
+            "the CUDA get_cell walk takes float32 walk rows and queries, "
+            f"got {table.dtype} / {r.dtype}"
+        )
+    b = r.shape[0]
+    if r.ndim != 2 or r.shape[1] != 3:
+        raise ValueError(f"queries must be (B, 3), got {tuple(r.shape)}")
+    if start is not None and (start.dtype != torch.int32
+                              or start.shape != (b,)):
+        raise ValueError("start must be an int32 (B,) tensor or None")
+    tensors = [table, r, grid.bin_rmin, grid.bin_inv_h]
+    tensors += [t for t in (start, grid.bin_pack, grid.bin_table)
+                if t is not None]
+    if len({t.device for t in tensors}) != 1:
+        raise ValueError("get_cell walk inputs must share one device")
+    if (table.ndim != 2 or not table.is_contiguous() or table.shape[0] < 1
+            or table.shape[1] % 4 or not _aligned(table)):
+        raise ValueError(
+            "walk rows must be a contiguous, non-empty (n, W) tensor with W "
+            "divisible by 4 and 16-byte aligned rows"
+        )
+    if nf not in (3, 4) or npc != nf or table.shape[1] < 8 * nf:
+        raise ValueError(f"rows of width {table.shape[1]} hold no nf={nf} "
+                         f"faces and npc={npc} vertices")
+    if start is None:
+        pack = grid.bin_pack
+        if (pack is None or pack.dtype != torch.float32
+                or pack.shape[1:] != (4,) or not pack.is_contiguous()
+                or not _aligned(pack)):
+            raise ValueError("a cold start needs a contiguous, 16-byte "
+                             "aligned float32 (n_bins, 4) bin_pack")
+    bin_table = grid.bin_table
+    if bin_table is not None:
+        if bin_table.dtype != torch.int32:
+            raise TypeError("bin_table must be int32")
+        bin_table = bin_table.contiguous()
+    for t in (grid.bin_rmin, grid.bin_inv_h):
+        if t.dtype != torch.float32 or t.shape != (3,):
+            raise ValueError("bin_rmin and bin_inv_h must be float32 (3,)")
+    rmin, inv_h = grid.bin_rmin.contiguous(), grid.bin_inv_h.contiguous()
+    r = r.contiguous()
+    if start is not None:
+        start = start.contiguous()
+    dev = table.device
+    out_ic = torch.empty(b, dtype=torch.int32, device=dev)
+    out_found = torch.empty(b, dtype=torch.bool, device=dev)
+    if b == 0:
+        return out_ic, out_found
+    nudge, eps_arrive, big, tiny = _tolerances(grid, torch.float32)
+    nbx, nby, nbz = grid.bin_shape
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    with torch.cuda.device(dev):
+        code = _kernels.lib().iu_get_cell_walk(
+            table.data_ptr(), table.shape[0], table.shape[1], nf,
+            r.data_ptr(), ptr(start),
+            ptr(grid.bin_pack if start is None else None), ptr(bin_table),
+            rmin.data_ptr(), inv_h.data_ptr(), nbx, nby, nbz, b,
+            float(nudge), float(eps_arrive), float(big), float(tiny),
+            int(max_steps), int(p1), out_ic.data_ptr(), out_found.data_ptr(),
+            torch.cuda.current_stream().cuda_stream,
+        )
+    _kernels.check(code, "iu_get_cell_walk")
+    get_cell_launches += 1
+    return out_ic, out_found
+
+
+def get_cell_walk(grid, r, start, max_steps, p1):
+    """``get_cell``'s walk stage on a walk grid: (i_cell, found) of the
+    (B, 3) queries ``r``.
+
+    Args:
+      start: (B,) int32 start cells, or None for a pure cold start
+        (start cell and origin from the query's ``bin_pack`` row).
+        Start cells outside [0, n_cells) take the query's seed from
+        ``bin_table`` (get_cell's rule for out-of-range guesses); a
+        start cell's walk leaves from its center.
+      max_steps: the step cap of the whole walk.
+      p1: rounds of phase 1; a query still walking after them restarts
+        from where it stopped, for at most ``max_steps - p1`` more
+        rounds.  0: one phase of ``max_steps`` rounds.
+    Returns (i_cell (B,) int32, found (B,) bool) with get_cell's
+    contract: where not found, i_cell is -1 or the boundary code.
+
+    The kernel on CUDA tensors, the plain version on CPU tensors.
+    """
+    if grid.walk_table.device.type == "cuda":
+        return get_cell_walk_cuda(grid, r, start, max_steps, p1)
+    if grid.walk_table.device.type == "cpu":
+        return get_cell_walk_plain(grid, r, start, max_steps, p1)
+    raise ValueError(f"no get_cell walk for device {grid.walk_table.device}")

@@ -48,6 +48,7 @@ from interpolate_unstructured_tpu_torch.models.grid import (
 from interpolate_unstructured_tpu_torch.ops import (
     acc_kernel,
     cand_kernel,
+    geometry,
     interp_acc,
     locate,
 )
@@ -210,6 +211,12 @@ def _jax_df_probe(ug, r64):
     return np.array(idx, np.int32), np.asarray(rq6).T.copy(), out
 
 
+def _cand_ijk(g, r):
+    """Integer candidate-bin coordinates of the (B, 3) queries ``r``."""
+    return geometry.bin_ijk(r, g.cand_rmin, g.cand_inv_h, g.cand_shape,
+                            torch.int32)
+
+
 @pytest.mark.parametrize("case", DF_MESHES)
 def test_df_probe_inputs_match_jax(case):
     ug, _ = _jax_grids(case)
@@ -217,13 +224,13 @@ def test_df_probe_inputs_match_jax(case):
     r64 = queries64(case, 2000, 12, outside=0.1)
     idx, rq6, _ = _jax_df_probe(ug, r64)
     r_hi, r_lo = (torch.from_numpy(a) for a in _split(r64))
-    ijk = locate._cand_bin_ijk(tg, r_hi)
-    assert np.array_equal(locate._cand_bin_flat(tg, ijk).numpy(), idx)
+    ijk = _cand_ijk(tg, r_hi)
+    assert np.array_equal(geometry.bin_flat(ijk, tg.cand_shape).numpy(), idx)
     hi, lo = locate._cand_local_df(tg, r_hi, r_lo, ijk)
     # hi is the quantized probe's r_local, bit for bit
     np.testing.assert_array_equal(hi.numpy(), rq6[:, :3])
-    np.testing.assert_array_equal(hi.numpy(), locate._cand_local(
-        tg, r_hi, ijk).numpy())
+    np.testing.assert_array_equal(hi.numpy(), geometry.cand_local_frame(
+        r_hi, tg.cand_rmin, tg.cand_inv_h, ijk).numpy())
     np.testing.assert_array_equal(lo.numpy(), rq6[:, 3:])
 
 
@@ -292,8 +299,8 @@ def test_cuda_b2df_matches_plain(cuda, case):
     assert g.cand_df_table is not None
     r_hi, r_lo = (torch.from_numpy(a).to(cuda)
                   for a in _split(queries64(case, 200_000, 15, outside=0.05)))
-    ijk = locate._cand_bin_ijk(g, r_hi)
-    idx = locate._cand_bin_flat(g, ijk)
+    ijk = _cand_ijk(g, r_hi)
+    idx = geometry.bin_flat(ijk, g.cand_shape)
     rq, rq_lo = locate._cand_local_df(g, r_hi, r_lo, ijk)
     lay = locate._df_row_layout(g, (0,))
     args = (g.cand_df_table, idx, rq, rq_lo, lay, locate._cand_eps(g), lay.k)

@@ -242,3 +242,237 @@ def test_cuda_kernel_matches_plain(cuda, case):
     assert torch.equal(kid, pid) and torch.equal(kaux, paux)
     found = paux == -2
     assert (kvals[found] - pvals[found]).abs().max().item() <= 2e-6
+
+
+# The bin-ordered probe of the main table: the plain bin ordering, the
+# plain probe in bin order against the direct plain probe and the JAX
+# package, the CUDA wrappers' checks; on the card, the three kernels
+# against their plain versions, bit for bit.
+def _order_batches(shape):
+    """Flat bin indices (B,) int32 of skewed batches over ``shape`` bins:
+    random with empty bins, all in one bin, one per bin in reverse order,
+    and the empty batch."""
+    n_bins = int(np.prod(shape))
+    rng = np.random.default_rng(31)
+    return {
+        "random": rng.integers(0, n_bins // 3, 5000) * 3,
+        "one_bin": np.full(777, n_bins // 2),
+        "one_per_bin": np.arange(n_bins)[::-1].copy(),
+        "empty": np.zeros(0, np.int64),
+    }
+
+
+@pytest.mark.parametrize("batch", ["random", "one_bin", "one_per_bin",
+                                   "empty"])
+def test_bin_order_plain(batch):
+    """A permutation that groups the queries by bin in ascending bin order,
+    stable in a bin; empty bins take no slot."""
+    idx = torch.from_numpy(_order_batches((20, 17, 9))[batch]).to(torch.int32)
+    perm = cand_kernel.bin_order_plain(idx)
+    assert torch.equal(torch.sort(perm).values, torch.arange(len(idx)))
+    grouped = idx[perm]
+    assert bool((grouped[1:] >= grouped[:-1]).all())
+    same_bin = grouped[1:] == grouped[:-1]
+    assert bool((perm[1:][same_bin] > perm[:-1][same_bin]).all())
+
+
+def _cpu_grid(case):
+    kind, cell_type, mesh, cfg = CASES[case]
+    pts, cells, nbrs = mesh()
+    tg = tiu.build_grid(pts, cells, nbrs, cell_type, dtype=torch.float32,
+                        locate_mode="walk", config=cfg,
+                        point_data=_point_data(pts), device="cpu")
+    return pts, tg
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_probe_in_bin_order_matches_direct(case):
+    """The probe in bin order, put back in query order, equals the direct
+    plain probe on every output, bit for bit; queries inside and outside
+    the mesh, with a batch that falls in one bin."""
+    pts, tg = _cpu_grid(case)
+    k = tg.cand_ids.shape[1]
+    lay = locate._row_layout(tg, k, tuple(range(tg.cand_nv)))
+    eps = locate._cand_eps(tg)
+    r = torch.from_numpy(_queries(pts, CASES[case][1], 4000))
+    one = r[:1].repeat(300, 1) + 1e-6 * torch.arange(300)[:, None]
+    for q in (r, one):
+        idx, rq = locate._cand_probe_inputs(tg, q)
+        want = cand_kernel.probe_rows_plain(tg.cand_table, idx, rq, lay, eps,
+                                            k, chunk=1024)
+        perm = cand_kernel.bin_order_plain(idx)
+        in_order = cand_kernel.probe_rows_plain(
+            tg.cand_table, idx[perm], rq[perm], lay, eps, k, chunk=1024)
+        query = cand_kernel.cand_rows_binned_query(
+            tg.cand_table, q, tg.cand_rmin, tg.cand_inv_h, tg.cand_shape, lay,
+            eps, k, chunk=1024)
+        for a, b, c in zip(in_order, want, query):
+            back = torch.empty_like(a)
+            back[perm] = a
+            assert torch.equal(back, b) and torch.equal(c, b)
+    assert (want[1] == -2).any()
+
+
+@pytest.mark.parametrize("case", ["quantized-tetra", "quad",
+                                  "extension-tetra"])
+def test_binned_query_matches_pallas_interpret(case):
+    """The main-table probe in bin order (the CPU path of
+    cand_rows_binned_query) against the JAX package's Pallas kernel in
+    interpret mode, with the tolerances of the direct probe's test."""
+    ug, idx, rq = _setup(case)
+    tg = carry(ug)
+    k = ug.cand_ids.shape[1]
+    lay = locate._row_layout(tg, k, tuple(range(tg.cand_nv)))
+    eps = locate._cand_eps(tg)
+    pts = CASES[case][2]()[0]
+    r = torch.from_numpy(_queries(pts, CASES[case][1], 3000))  # _setup's
+    tout = cand_kernel.cand_rows_binned_query(
+        tg.cand_table, r, tg.cand_rmin, tg.cand_inv_h, tg.cand_shape, lay,
+        eps, k, chunk=1024)
+    aux = _check_same(_jax_probe(ug, ug.cand_table, idx, rq, k, lay, eps, k),
+                      tout, tg.cand_table, idx, rq, lay, eps)
+    assert (aux == -2).any() and (aux == -1).any()
+
+
+def test_cand_wrapper_checks():
+    """The CUDA wrappers refuse a wrong dtype, device or stride before they
+    reach a kernel."""
+    pts, tg = _cpu_grid("quantized-tetra")
+    k = tg.cand_ids.shape[1]
+    lay = locate._row_layout(tg, k, (0,))
+    eps = locate._cand_eps(tg)
+    grid_args = (tg.cand_rmin, tg.cand_inv_h, tg.cand_shape)
+    r = torch.full((5, 3), 0.5)
+    perm = torch.arange(5, dtype=torch.int32)
+    meta = torch.empty((5, 3), device="meta")
+    with pytest.raises(TypeError):
+        cand_kernel.bin_order_cuda(r.double(), *grid_args)
+    with pytest.raises(ValueError):
+        cand_kernel.bin_order_cuda(meta, *grid_args)
+    with pytest.raises(ValueError):
+        cand_kernel.bin_order_cuda(r, tg.cand_rmin.double(), tg.cand_inv_h,
+                                   tg.cand_shape)
+    with pytest.raises(TypeError):
+        cand_kernel.cand_rows_binned_cuda(tg.cand_table, r.double(), perm,
+                                          perm, *grid_args, lay, eps, k)
+    with pytest.raises(ValueError):
+        cand_kernel.cand_rows_binned_cuda(tg.cand_table, r, perm.long(), perm,
+                                          *grid_args, lay, eps, k)
+    with pytest.raises(ValueError):
+        cand_kernel.cand_rows_binned_cuda(tg.cand_table, r, perm, perm[1:],
+                                          *grid_args, lay, eps, k)
+    with pytest.raises(ValueError):
+        cand_kernel.cand_rows_binned_cuda(tg.cand_table[:, ::2], r, perm,
+                                          perm, *grid_args, lay, eps, k)
+    with pytest.raises(ValueError):
+        cand_kernel.cand_rows_binned_cuda(tg.cand_table, meta, perm, perm,
+                                          *grid_args, lay, eps, k)
+    with pytest.raises(ValueError):
+        cand_kernel.cand_rows_binned_cuda(tg.cand_table, r, perm, perm,
+                                          *grid_args, lay, eps, k, lanes=3)
+    with pytest.raises(TypeError):
+        cand_kernel.cand_rows_cuda(tg.cand_table, perm.long(), r, lay, eps, k)
+    with pytest.raises(ValueError):
+        cand_kernel.cand_rows_cuda(tg.cand_table[:, ::2], perm, r, lay, eps,
+                                   k)
+
+
+def _skewed(pts, cell_type, tg, dev):
+    """Skewed query batches on ``dev``: uniform (inside and outside),
+    every query in one bin, one query per bin (the bin centers), a batch
+    that is not a multiple of the block, and the empty batch."""
+    uniform = _queries(pts, cell_type, 30_000)
+    one = np.repeat(uniform[:1], 4000, axis=0)
+    one = one + (1e-6 * np.random.default_rng(32).random(one.shape)).astype(
+        np.float32)
+    shape = tg.cand_shape
+    inv_h = tg.cand_inv_h.cpu().numpy().astype(np.float64)
+    h = np.divide(1.0, inv_h, out=np.zeros(3), where=inv_h > 0)
+    axes = [tg.cand_rmin.cpu().numpy()[d] + (np.arange(shape[d]) + 0.5) * h[d]
+            for d in range(3)]
+    per_bin = np.stack(np.meshgrid(*axes, indexing="ij"), -1).reshape(-1, 3)
+    out = {"uniform": uniform, "one_bin": one, "one_per_bin": per_bin,
+           "ragged": uniform[:1037], "empty": uniform[:0]}
+    for name, v in out.items():
+        v = v.astype(np.float32)
+        if cell_type != "tetra":
+            v[:, 2] = 0.0
+        out[name] = torch.from_numpy(v).to(dev)
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(CASES))
+def test_cuda_binned_matches_plain(cuda, case):
+    """The bin pass and the scatter give the plain bins, the scan of the
+    counts, the plain grouping and its inverse; the probe in bin order,
+    with any number of lanes per query, is torch.equal to
+    probe_rows_plain on every skewed batch (the extension case
+    included)."""
+    kind, cell_type, mesh, cfg = CASES[case]
+    pts, cells, nbrs = mesh()
+    tg = tiu.build_grid(pts, cells, nbrs, cell_type, dtype=torch.float32,
+                        locate_mode="walk", config=cfg,
+                        point_data=_point_data(pts), device=cuda)
+    k = tg.cand_ids.shape[1]
+    lay = locate._row_layout(tg, k, tuple(range(tg.cand_nv)))
+    eps = locate._cand_eps(tg)
+    grid_args = (tg.cand_rmin, tg.cand_inv_h, tg.cand_shape)
+    n_bins = int(np.prod(tg.cand_shape))
+    for name, r in _skewed(pts, cell_type, tg, cuda).items():
+        idx_p, rq = locate._cand_probe_inputs(tg, r)
+        idx, ends, perm, slot = cand_kernel.bin_order_cuda(r, *grid_args)
+        torch.cuda.synchronize()
+        assert torch.equal(idx, idx_p), name
+        assert torch.equal(ends.long(), torch.cumsum(torch.bincount(
+            idx_p.long(), minlength=n_bins), 0)), name
+        assert torch.equal(torch.sort(perm.long()).values,
+                           torch.arange(len(r), device=cuda)), name
+        assert torch.equal(idx[perm.long()],
+                           idx[cand_kernel.bin_order_plain(idx)]), name
+        assert torch.equal(perm[slot.long()],
+                           torch.arange(len(r), device=cuda,
+                                        dtype=torch.int32)), name
+        want = cand_kernel.probe_rows_plain(tg.cand_table, idx_p, rq, lay,
+                                            eps, k, chunk=8192)
+        for lanes in (1, 2, 4, 8, 16, 32):
+            before = (cand_kernel.binned_launches,
+                      cand_kernel.bin_unsort_launches)
+            got = cand_kernel.cand_rows_binned_cuda(
+                tg.cand_table, r, perm, slot, *grid_args, lay, eps, k,
+                lanes=lanes)
+            torch.cuda.synchronize()
+            one = 1 if len(r) else 0
+            assert (cand_kernel.binned_launches,
+                    cand_kernel.bin_unsort_launches) == (
+                        before[0] + one, before[1] + one)
+            for a, b in zip(got, want):
+                assert torch.equal(a, b), (name, lanes)
+        query = cand_kernel.cand_rows_binned_query(tg.cand_table, r, *grid_args,
+                                                   lay, eps, k, 8192)
+        for a, b in zip(query, want):
+            assert torch.equal(a, b), name
+
+
+@pytest.mark.cuda
+def test_cuda_binned_on_the_main_path(cuda):
+    """Cold interpolate_scalar_at and get_cell on a candidate grid launch
+    the four bin-ordered kernels and not the direct probe; the extension
+    grid's overflow misses still take the direct kernel."""
+    for case in ("quantized-tetra", "extension-tetra"):
+        kind, cell_type, mesh, cfg = CASES[case]
+        pts, cells, nbrs = mesh()
+        tg = tiu.build_grid(pts, cells, nbrs, cell_type, dtype=torch.float32,
+                            locate_mode="walk", config=cfg,
+                            point_data=_point_data(pts), device=cuda)
+        r = torch.from_numpy(_queries(pts, cell_type, 50_000)).to(cuda)
+        for call in (lambda: tiu.interpolate_scalar_at(tg, r, 0),
+                     lambda: tiu.get_cell(tg, r)):
+            names = ("launches", "bin_pass_launches", "bin_scatter_launches",
+                     "binned_launches", "bin_unsort_launches")
+            before = [getattr(cand_kernel, n) for n in names]
+            call()
+            torch.cuda.synchronize()
+            d = [getattr(cand_kernel, n) - b for n, b in zip(names, before)]
+            assert d[1:] == [1, 1, 1, 1], (case, d)
+            assert d[0] == (1 if case == "extension-tetra" else 0), (case, d)

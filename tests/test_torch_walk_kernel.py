@@ -307,3 +307,285 @@ def test_walk_tolerances_match_jax(dtype):
         tdt = getattr(torch, dtype)
         assert list(walk_tolerances(tdt, torch.from_numpy(rmin),
                                     torch.from_numpy(rmax))) == want
+
+
+# get_cell's walk stage (walk_kernel.get_cell_walk): the plain version
+# against the JAX package's get_cell on walk grids without candidate
+# tables, carried into the port bit for bit (refined seed tables
+# included); the CUDA kernel against the plain version, bit for bit.
+GC_MESHES = {
+    "tetra": ("tetra", lambda: meshgen.tet_box_mesh(6, 6, 6)),
+    "quad": ("quad", lambda: meshgen.quad_rect_mesh(16, 14)),
+    "triangle": ("triangle", lambda: meshgen.triangle_rect_mesh(16, 14)),
+}
+GC_N = 3000
+
+
+def _gc_config(seeds, phases):
+    """Walk-grid config: bin or kd-tree seeds; "two" phases lowers
+    walk_compact_min_batch below the batch so that get_cell splits."""
+    return tiu.IUConfig(
+        cand_build="host", use_candidate_bins=False, seed_mode=seeds,
+        walk_compact_min_batch=64 if phases == "two" else 1 << 16,
+    )
+
+
+def _gc_queries(pts, cell_type, n=GC_N, seed=21, grow=0.1):
+    """Uniform in the mesh's box grown by ``grow`` a side (off-domain
+    queries included); 2D meshes stay in their plane."""
+    rng = np.random.default_rng(seed)
+    lo, hi = pts.min(0), pts.max(0)
+    r = lo - grow * (hi - lo) + rng.random((n, 3)) * (1 + 2 * grow) * (hi - lo)
+    if cell_type != "tetra":
+        r[:, 2] = 0.0
+    return r.astype(np.float32)
+
+
+def _gc_guesses(ic, n_cells, seed=22):
+    """Cells as guesses, some negative and some past the last cell."""
+    g = torch.as_tensor(ic).cpu().numpy().astype(np.int32)
+    rng = np.random.default_rng(seed)
+    g[rng.random(len(g)) < 0.1] = -1
+    g[rng.random(len(g)) < 0.05] = n_cells + 7
+    return g
+
+
+def _gc_start(tg, r, guess, seeds):
+    """The start cells get_cell hands the walk stage: None (bin_pack
+    seeds), the guesses (the stage reseeds out-of-range ones from the
+    bin table), or kd-tree seeds where no guess is in range."""
+    if seeds == "bins":
+        return None if guess is None else guess
+    kd = locate.kd_seed(tg, r)
+    if guess is None:
+        return kd
+    return torch.where((guess >= 0) & (guess < tg.n_cells), guess, kd)
+
+
+def _check_located(tg, r, jic, jf, tic, tf):
+    """Found masks identical; not-found codes identical; cell ids
+    identical except near-ties, where both cells contain the point
+    (XLA contracts the JAX side's float32 arithmetic into FMAs)."""
+    jic = torch.from_numpy(np.array(jic))
+    jf = torch.from_numpy(np.array(jf))
+    assert torch.equal(tf, jf)
+    differ = torch.nonzero(jic != tic).squeeze(1)
+    assert differ.numel() <= 0.01 * len(tic)
+    if differ.numel():
+        rr = torch.as_tensor(r)[differ]
+        assert bool(tf[differ].all())
+        assert bool(tiu.point_is_inside_cell(tg, rr, jic[differ]).all())
+        assert bool(tiu.point_is_inside_cell(tg, rr, tic[differ]).all())
+
+
+@pytest.mark.parametrize("phases", ["one", "two"])
+@pytest.mark.parametrize("seeds", ["bins", "kdtree"])
+@pytest.mark.parametrize("mesh", list(GC_MESHES))
+def test_get_cell_walk_plain_matches_jax(monkeypatch, mesh, seeds, phases):
+    """Cold (bin-seeded from bin_pack, or kd-seeded) and warm (guesses
+    with some -1 and some >= n_cells) queries, inside and off the
+    domain, in one phase or split in two."""
+    pytest.importorskip("jax")
+    import dataclasses
+
+    import jax.numpy as jnp
+
+    import interpolate_unstructured_tpu as jiu
+
+    cell_type, gen = GC_MESHES[mesh]
+    pts, cells, nbrs = gen()
+    cfg = _gc_config(seeds, phases)
+    ug = jiu.build_grid(pts, cells, nbrs, cell_type, locate_mode="walk",
+                        dtype=jnp.float32,
+                        config=jiu.IUConfig(**dataclasses.asdict(cfg)))
+    tg = tiu.grid_from_numpy(
+        {f: None if getattr(ug, f) is None else np.asarray(getattr(ug, f))
+         for f in DATA_FIELDS},
+        {f: getattr(ug, f) for f in META_FIELDS}, "cpu",
+    )
+    assert (tg.kd_node_points is not None) == (seeds == "kdtree")
+    resumes = []
+    real = walk_kernel._resume_plain
+
+    def spy(grid, r_p, r1, ic, max_steps):
+        resumes.append(r_p.shape[0])
+        return real(grid, r_p, r1, ic, max_steps)
+
+    monkeypatch.setattr(walk_kernel, "_resume_plain", spy)
+    max_steps = tg.config.max_walk_steps
+    p1 = tg.config.walk_phase1_steps if phases == "two" else 0
+
+    r = _gc_queries(pts, cell_type)
+    jic, jf = jiu.get_cell(ug, jnp.asarray(r))
+    rt = torch.from_numpy(r)
+    tic, tf = walk_kernel.get_cell_walk_plain(
+        tg, rt, _gc_start(tg, rt, None, seeds), max_steps, p1)
+    _check_located(tg, r, jic, jf, tic, tf)
+    assert 0 < int(tf.sum()) < GC_N
+    assert (tic[~tf] < 0).all()
+
+    rw = r + (0.03 * np.random.default_rng(23).random(r.shape)).astype(
+        np.float32)
+    if cell_type != "tetra":
+        rw[:, 2] = 0.0
+    g = _gc_guesses(tic, tg.n_cells)
+    jic2, jf2 = jiu.get_cell(ug, jnp.asarray(rw), jnp.asarray(g))
+    rwt, gt = torch.from_numpy(rw), torch.from_numpy(g)
+    tic2, tf2 = walk_kernel.get_cell_walk_plain(
+        tg, rwt, _gc_start(tg, rwt, gt, seeds), max_steps, p1)
+    _check_located(tg, rw, jic2, jf2, tic2, tf2)
+    assert (tic2[~tf2] < 0).all() and not bool(tf2.all())
+    # the public entry takes the same stage
+    assert all(torch.equal(a, b) for a, b in zip(
+        tiu.get_cell(tg, rwt, gt), (tic2, tf2)))
+    assert bool(resumes) == (phases == "two")
+
+
+@pytest.mark.parametrize("mesh", list(GC_MESHES))
+def test_walk_origin_unchanged_and_matches_jax(mesh):
+    """The walk origin divides by a tensor: on the CPU it equals the
+    division by the Python int it replaced, bit for bit.  Against the
+    JAX package's _walk_origin it is exact on tets and quads (npc = 4)
+    and within one ulp on triangles, where XLA multiplies the vertex
+    sum by the rounded 1/3 and the port divides by 3."""
+    pytest.importorskip("jax")
+    import jax.numpy as jnp
+
+    import interpolate_unstructured_tpu as jiu
+    from interpolate_unstructured_tpu.ops import locate as jlocate
+
+    cell_type, gen = GC_MESHES[mesh]
+    pts, cells, nbrs = gen()
+    ug = jiu.build_grid(pts * np.pi, cells, nbrs, cell_type,
+                        locate_mode="walk", dtype=jnp.float32)
+    tg = tiu.grid_from_numpy(
+        {f: None if getattr(ug, f) is None else np.asarray(getattr(ug, f))
+         for f in DATA_FIELDS},
+        {f: getattr(ug, f) for f in META_FIELDS}, "cpu",
+    )
+    starts = torch.arange(tg.n_cells, dtype=torch.int32)
+    nf, npc = tg.n_faces_per_cell, tg.n_points_per_cell
+    got = walk_kernel.walk_origin(tg.walk_table, starts, nf, npc)
+    cp = tg.walk_table[:, nf * 5: nf * 5 + npc * 3].reshape(-1, npc, 3)
+    acc = cp[:, 0]
+    for k in range(1, npc):
+        acc = acc + cp[:, k]
+    assert torch.equal(got, acc / npc)
+    want = np.asarray(jlocate._walk_origin(ug, jnp.asarray(starts.numpy())))
+    if npc == 4:
+        np.testing.assert_array_equal(got.numpy(), want)
+    else:
+        ulps = np.abs(got.numpy() - want) / np.spacing(np.abs(want))
+        assert ulps.max() <= 1.0
+
+
+def test_get_cell_walk_wrapper_checks():
+    """The CUDA wrapper refuses a wrong dtype, device or row stride before
+    it reaches the kernel."""
+    pts, cells, nbrs = meshgen.tet_box_mesh(3, 3, 3)
+    g = tiu.build_grid(pts, cells, nbrs, "tetra", locate_mode="walk",
+                       dtype=torch.float32, device="cpu",
+                       config=tiu.IUConfig(use_candidate_bins=False))
+    r = torch.full((5, 3), 0.5)
+    with pytest.raises(TypeError):
+        walk_kernel.get_cell_walk_cuda(g, r.double(), None, 10, 0)
+    with pytest.raises(ValueError):
+        walk_kernel.get_cell_walk_cuda(g, torch.empty((5, 3), device="meta"),
+                                       None, 10, 0)
+    with pytest.raises(ValueError):
+        walk_kernel.get_cell_walk_cuda(g, r, torch.zeros(5, dtype=torch.int64),
+                                       10, 0)
+    import dataclasses
+
+    narrow = dataclasses.replace(g, walk_table=g.walk_table[:, :126])
+    with pytest.raises(ValueError):
+        walk_kernel.get_cell_walk_cuda(narrow, r, None, 10, 0)
+
+
+def _gc_batches(g, cell_type):
+    """Skewed CUDA batches of the walk stage: uniform with off-domain
+    queries, every query in one seed bin, one query per seed bin (the bin
+    centers), a batch that is not a multiple of the block, and the empty
+    batch."""
+    pts = g.points.cpu().numpy()
+    uniform = _gc_queries(pts, cell_type, n=20_000, seed=24, grow=0.2)
+    lo, hi = pts.min(0), pts.max(0)
+    one = np.repeat(lo + 0.37 * (hi - lo), 5000, axis=0).reshape(-1, 3)
+    one = one + 1e-5 * np.random.default_rng(25).random(one.shape)
+    nb = g.bin_shape
+    inv_h = g.bin_inv_h.cpu().numpy()
+    h = np.divide(1.0, inv_h, out=np.zeros(3), where=inv_h > 0)
+    axes = [g.bin_rmin.cpu().numpy()[d] + (np.arange(nb[d]) + 0.5) * h[d]
+            for d in range(3)]
+    per_bin = np.stack(np.meshgrid(*axes, indexing="ij"), -1).reshape(-1, 3)
+    ragged = uniform[:1037]
+    out = {"uniform": uniform, "one_bin": one, "one_per_bin": per_bin,
+           "ragged": ragged, "empty": uniform[:0]}
+    for k, v in out.items():
+        v = v.astype(np.float32)
+        if cell_type != "tetra":
+            v[:, 2] = pts[0, 2]
+        out[k] = torch.from_numpy(v).to(g.walk_table.device)
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seeds", ["bins", "kdtree"])
+@pytest.mark.parametrize("mesh", list(GC_MESHES))
+def test_cuda_get_cell_walk_matches_plain(cuda, mesh, seeds):
+    """The kernel's (ic, found) are torch.equal to the plain version's on
+    every batch, cold and warm (mixed guesses), in one phase and in two
+    (also with a step cap that leaves walks unfinished)."""
+    cell_type, gen = GC_MESHES[mesh]
+    pts, cells, nbrs = gen()
+    g = tiu.build_grid(pts, cells, nbrs, cell_type, locate_mode="walk",
+                       dtype=torch.float32, device=cuda,
+                       config=_gc_config(seeds, "two"))
+    for name, r in _gc_batches(g, cell_type).items():
+        ic_p, _ = walk_kernel.get_cell_walk_plain(
+            g, r, _gc_start(g, r, None, seeds), 1024, 0)
+        guess = torch.from_numpy(_gc_guesses(ic_p, g.n_cells)).to(cuda)
+        for gs in (None, guess):
+            start = _gc_start(g, r, gs, seeds)
+            for max_steps, p1 in ((1024, 0), (1024, 2), (5, 2), (3, 0)):
+                before = walk_kernel.get_cell_launches
+                k = walk_kernel.get_cell_walk(g, r, start, max_steps, p1)
+                torch.cuda.synchronize()
+                assert walk_kernel.get_cell_launches == before + (
+                    1 if len(r) else 0)
+                p = walk_kernel.get_cell_walk_plain(g, r, start, max_steps, p1)
+                assert torch.equal(k[0], p[0]) and torch.equal(k[1], p[1]), (
+                    name, gs is None, max_steps, p1)
+        if name == "uniform":
+            assert not bool(k[1].all()) and (k[0] < 0).any()
+
+
+@pytest.mark.cuda
+def test_cuda_get_cell_walk_on_the_main_path(cuda):
+    """get_cell on a walk grid, cold and warm, launches the walk stage
+    and not the explicit walk; on a candidate grid whose rows do not
+    cover every bin (the 10,368-tet box), the residual walks do too, and
+    the answers equal the CPU's."""
+    pts, cells, nbrs = meshgen.tet_box_mesh(8, 8, 8)
+    g = tiu.build_grid(pts, cells, nbrs, "tetra", locate_mode="walk",
+                       dtype=torch.float32, device=cuda,
+                       config=tiu.IUConfig(use_candidate_bins=False))
+    r = torch.from_numpy(_gc_queries(pts, "tetra", n=100_000)).to(cuda)
+    for guess in (None, torch.zeros(len(r), dtype=torch.int32, device=cuda)):
+        b0, w0 = walk_kernel.get_cell_launches, walk_kernel.launches
+        tiu.get_cell(g, r, guess)
+        assert walk_kernel.get_cell_launches == b0 + 1
+        assert walk_kernel.launches == w0
+    pts, cells, nbrs = meshgen.tet_box_mesh(12, 12, 12)
+    cfg = tiu.IUConfig(cand_build="host", cand_bins_per_cell=0.3,
+                       cand_ext_max_k=2, cand_cover_row_bytes=0)
+    grids = [tiu.build_grid(pts, cells, nbrs, "tetra", dtype=torch.float32,
+                            point_data={"P": pts.sum(1)}, config=cfg,
+                            device=d) for d in ("cpu", cuda)]
+    assert not grids[1].cand_ext_covers
+    r = torch.from_numpy(_gc_queries(pts, "tetra", n=50_000))
+    b0 = walk_kernel.get_cell_launches
+    _, gic, gf = tiu.interpolate_scalar_at(grids[1], r.to(cuda), 0)
+    assert walk_kernel.get_cell_launches > b0
+    _, cic, cf = tiu.interpolate_scalar_at(grids[0], r, 0)
+    assert torch.equal(gic.cpu(), cic) and torch.equal(gf.cpu(), cf)

@@ -27,7 +27,7 @@ import pytest
 import torch
 
 import interpolate_unstructured_tpu_torch as tiu
-from interpolate_unstructured_tpu_torch.ops import locate
+from interpolate_unstructured_tpu_torch.ops import walk_kernel
 from interpolate_unstructured_tpu_torch.utils import meshgen
 
 HOST = tiu.IUConfig(cand_build="host", walk_compact_min_batch=2048)
@@ -129,15 +129,16 @@ def _check_cells(tg, r, jic, jf, tic, tf):
 
 @pytest.fixture
 def count_resumes(monkeypatch):
-    """Count the straggler resumes of the two-phase walk."""
+    """Count the straggler resumes of the two-phase walk (phase 2 of the
+    get_cell walk's plain version, which runs on CPU tensors)."""
     calls = []
-    real = locate._resume_walk
+    real = walk_kernel._resume_plain
 
     def spy(grid, r_p, r1, ic, max_steps):
         calls.append(r_p.shape[0])
         return real(grid, r_p, r1, ic, max_steps)
 
-    monkeypatch.setattr(locate, "_resume_walk", spy)
+    monkeypatch.setattr(walk_kernel, "_resume_plain", spy)
     return calls
 
 
@@ -250,13 +251,13 @@ def test_residual_walk_matches_jax(ext_k, monkeypatch):
     assert not tg.cand_ext_covers
     assert (tg.cand_ext_table is None) == (ext_k == 0)
     walked = []
-    real_walk = locate.walk
+    real_walk = walk_kernel.get_cell_walk
 
-    def spy(grid, r0, r1, ic0, **kw):
-        walked.append(len(r0))
-        return real_walk(grid, r0, r1, ic0, **kw)
+    def spy(grid, r, start, max_steps, p1):
+        walked.append(len(r))
+        return real_walk(grid, r, start, max_steps, p1)
 
-    monkeypatch.setattr(locate, "walk", spy)
+    monkeypatch.setattr(walk_kernel, "get_cell_walk", spy)
     r = _queries(pts, "tetra").astype(np.float32)
     jv, jic, jf = jiu.interpolate_scalar_at(ug, jnp.asarray(r), 0)
     tv, tic, tf = tiu.interpolate_scalar_at(tg, torch.from_numpy(r), 0)
