@@ -28,9 +28,12 @@ a guess, ``prepare_accurate``, ``interpolate_at_acc``,
 4. accurate phase, ``bench.py``'s accurate protocol on the candidate
    phase's grid: ``prepare_accurate`` (acc table, float64 plane solve,
    df-plane rows), 10M float64 queries from default_rng(2) cold (one
-   df-plane row each, kernel B2-df) and the candidate phase's moved
-   points in float64 warm, guessed by the cold cells (B2, B3's get_cell
-   walk on the misses, then B5), gated at 1e-10; then B5 through
+   df-plane row each: kernel B2-df in bin order, the bin pass, scatter,
+   df probe and unsort from the float64 queries as given, then again
+   from their float32 hi/lo pair) and the candidate phase's moved points
+   in float64 warm, guessed by the cold cells (B2, B3's get_cell walk on
+   the misses, then B5), gated at 1e-10; the cold call and the get_cell
+   + B5 route timed in turns; then B5 through
    ``interpolate_at_icell_acc`` on the brute-force meshes;
 5. walk phase, ``bench.py``'s warm protocol on the same box built
    without candidate tables: ``build_grid`` (its refine walks every seed
@@ -45,14 +48,15 @@ a guess, ``prepare_accurate``, ``interpolate_at_acc``,
    ``add_point_data(..., fuse=False)``, ``build_trace_table`` once, then
    ``integrate_along_field`` (min_dx 1e-4, max_dx 0.05, 256 steps, rtol =
    atol = 1e-3) from 0.3 + 0.4 * default_rng(3).random((n, 3)) for n =
-   1024 and 65,536 lines (B3's get_cell walk for the start cells, B4 for
-   every RK iteration), and the 1024 lines again through the generic
-   path (B3's explicit walks plus torch);
+   1024 and 65,536 lines (B3's get_cell walk for the start cells, then
+   one launch of B4 running every line's RK loop), each held field by
+   field against the plain loop on the card, and the 1024 lines again
+   through the generic path (B3's explicit walks plus torch);
 7. holds each kernel against its plain PyTorch version on the same CUDA
    tensors, checks linear exactness and found masks, and times kernel
-   and plain version with CUDA events (B4, whose launches are about as
-   short as its wrapper's host work, by the profiler's device time where
-   it records one).
+   and plain version with CUDA events (B4 and B3's walks at the generic
+   trace's size, whose launches are short beside the wrapper's host
+   work, by the profiler's device time where it records one).
 
 Launch counters are zeroed right before each main-path call and read
 right after it; comparison and timing launches are not counted.  The
@@ -165,32 +169,6 @@ def plain_walks(walk_kernel):
         yield
     finally:
         walk_kernel.walk_rows, walk_kernel.get_cell_walk = real
-
-
-@contextlib.contextmanager
-def timed_walks(walk_kernel, out):
-    """Inside the block every get_cell walk stage records CUDA events
-    around its ``get_cell_walk`` call; after it, ``out`` holds (queries,
-    ms) per call."""
-    real = walk_kernel.get_cell_walk
-    events = []
-
-    def timed(grid, r, *rest):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        res = real(grid, r, *rest)
-        end.record()
-        events.append((r.shape[0], start, end))
-        return res
-
-    walk_kernel.get_cell_walk = timed
-    try:
-        yield
-    finally:
-        walk_kernel.get_cell_walk = real
-    torch.cuda.synchronize()
-    out.extend((n, s.elapsed_time(e)) for n, s, e in events)
 
 
 def _counter_names(mod):
@@ -475,7 +453,7 @@ def b2_front_end(dev, grid, r, k, cand_kernel, locate):
     def bin_pass():  # with the 8 MB memset of the counts
         counts.zero_()
         _kernels.check(lib.iu_cand_bin_pass(
-            r.data_ptr(), n, rmin.data_ptr(), inv_h.data_ptr(),
+            r.data_ptr(), 0, n, rmin.data_ptr(), inv_h.data_ptr(),
             *grid.cand_shape, counts.data_ptr(), bin_buf.data_ptr(),
             rank_buf.data_ptr(), stream), "iu_cand_bin_pass")
 
@@ -498,7 +476,7 @@ def b2_front_end(dev, grid, r, k, cand_kernel, locate):
     def probe(lanes, b=n):  # the probe kernel alone, records by slot
         _kernels.check(lib.iu_cand_rows_binned(
             grid.cand_table.data_ptr(), grid.cand_table.shape[1],
-            r.data_ptr(), perm.data_ptr(), b, lanes, rmin.data_ptr(),
+            r.data_ptr(), None, 0, perm.data_ptr(), b, lanes, rmin.data_ptr(),
             inv_h.data_ptr(), *grid.cand_shape, k, lay.nf, 0, lay.id_role,
             lay.count_col, float(eps), k, cand_kernel.QINV, n_vars,
             vroles.data_ptr(), rec.data_ptr(), stream), "iu_cand_rows_binned")
@@ -954,14 +932,14 @@ def walk_phase(dev, tiu, meshgen, interp_kernel, locate, cand_kernel,
         ("cold", lambda: tiu.get_cell(grid, r), loc_c),
         ("warm", lambda: tiu.get_cell(grid, r_warm, ic), loc_w),
     ):
-        walks = []
-        with timed_walks(walk_kernel, walks):
+        walks = {}
+        with recorded_calls(walk_kernel, "get_cell_walk", walks):
             call()
-        b3_ms = sum(ms for _, ms in walks)
         print(f"B3 get_cell walk stage of one 10M {label} get_cell (CUDA "
               "events): "
-              + ", ".join(f"{n} queries {ms:.4f} ms" for n, ms in walks)
-              + f"; {b3_ms:.4f} ms of {loc_s * 1e3:.4f} ms")
+              + ", ".join(f"{a[1].shape[0]} queries {ms:.4f} ms"
+                          for (a, _), ms in zip(walks["inputs"], walks["ms"]))
+              + f"; {sum(walks['ms']):.4f} ms of {loc_s * 1e3:.4f} ms")
     print(f"B3 10M cold interpolate_scalar_at (bin-seeded walks): steady "
           f"{cold_s * 1e3:.4f} ms = {N_CAND / cold_s:.4e} queries/s "
           f"(get_cell {loc_c * 1e3:.4f} ms); linear error {lin_c:.3e}")
@@ -1079,34 +1057,34 @@ TRACE_KW = dict(min_dx=1e-4, max_dx=0.05, max_steps=256, rtol=1e-3, atol=1e-3)
 TRACE_TOL = 5e-5  # fused vs generic curves (tests/test_pallas_trace.py:74)
 TRACE_DIFFER = 0.01  # share of lines whose step count or code may differ
 TRACE_REPS = 5  # timed calls per bundle after the main-path call
-B4_REPS = 20  # B4 launches timed on one iteration's stage inputs
+B4_REPS = 5  # B4 launches timed on a bundle's loop inputs
+WALK_REPS = 20  # B3 walk_rows launches timed at the generic trace's size
 
 
 @contextlib.contextmanager
-def recorded_stages(trace_kernel, keep, out):
-    """Inside the block every call of ``trace_kernel.trace_stages`` is
-    timed with CUDA events; ``out`` gets its ms after the block, and the
-    inputs of the calls numbered in ``keep`` are kept in ``out``."""
-    real = trace_kernel.trace_stages
+def recorded_calls(mod, name, out):
+    """Inside the block every call of ``mod.<name>`` keeps clones of its
+    tensor arguments in ``out["inputs"]`` and is timed with CUDA events;
+    ``out["ms"]`` gets the times after the block."""
+    real = getattr(mod, name)
     events = []
 
-    def timed(table, *args, **kw):
-        if len(events) in keep:
-            out.setdefault("inputs", {})[len(events)] = (
-                table, [a.clone() for a in args], kw)
+    def timed(*args, **kw):
+        out.setdefault("inputs", []).append(
+            ([a.clone() if torch.is_tensor(a) else a for a in args], kw))
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        res = real(table, *args, **kw)
+        res = real(*args, **kw)
         end.record()
         events.append((start, end))
         return res
 
-    trace_kernel.trace_stages = timed
+    setattr(mod, name, timed)
     try:
         yield
     finally:
-        trace_kernel.trace_stages = real
+        setattr(mod, name, real)
     torch.cuda.synchronize()
     out["ms"] = [s.elapsed_time(e) for s, e in events]
 
@@ -1152,44 +1130,81 @@ def device_busy(fn, tags):
     return wall * 1e3, busy, by_tag, len(ev)
 
 
-def trace_compare(name, trace_kernel, inputs):
-    """B4 against its plain version on one iteration's stage inputs, bit
-    for bit.  Returns (kernel result, max |float diff|)."""
-    table, args, kw = inputs
-    k = trace_kernel.trace_cuda(table, *args, **kw)
-    p = trace_kernel.trace_plain(table, *args, **kw)
-    torch.cuda.synchronize()
-    for field, a, b in zip(k._fields, k, p):
-        check(torch.equal(a, b), f"{name}: B4 {field} differs from the plain "
-              f"version on {int((a != b).reshape(len(a), -1).any(1).sum())} "
-              "lanes")
-    err = max(float((a.float() - b.float()).abs().max()) for a, b in zip(k, p))
-    print(f"{name}: B4 vs plain bit-identical on {len(args[0])} lanes "
-          f"({int(args[4].sum())} active); rounds max {int(k.rounds.max())}, "
-          f"mean {float(k.rounds[args[4]].float().mean()):.4f}")
-    return k, err
+def host_ops(fn, top):
+    """The ``top`` torch ops by self host time in one call of ``fn``
+    under the profiler (CPU activity only), as 'name ms xcalls'."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows = sorted(prof.key_averages(), key=lambda e: -e.self_cpu_time_total)
+    return ", ".join(f"{e.key} {e.self_cpu_time_total / 1e3:.3f} ms "
+                     f"x{e.count}" for e in rows[:top])
 
 
-def trace_bound(grid, stages, act, inputs, trace_kernel):
-    """(bound_ms, bound_by) of one B4 call, each byte once: 33 B of lane
-    state in and 76 B out per lane; the nf*5 walk floats of every
-    distinct row the rounds visit (from a run of the plain version on a
-    recording table); the vertex, volume and field floats of every
-    distinct cell the lanes end the iteration in (a subset of the cells
-    where stages arrive, so the bound stays a lower bound); ~12 flops per
-    face and round, ~100 per arrival (three for a lane whose stages all
-    arrived)."""
+def kernel_ms(fn, tag, reps):
+    """Device ms of one launch of the kernels named by ``tag`` among
+    ``reps`` calls of ``fn``, by the profiler, and the CUDA-event ms per
+    call around them (which also times the wrapper's host work): the
+    first is None where the profiler records nothing."""
+    ev_ms = cuda_ms(fn, reps)
+    prof = device_busy(lambda: [fn() for _ in range(reps)], (tag,))
+    return (None if prof is None else prof[2][tag] / reps), ev_ms
+
+
+def trace_bound(grid, out, inputs, trace_kernel):
+    """(bound_ms, bound_by) of one B4 call, each byte once: per line 33 B
+    of start state in (y0, field0, ic0, done, code) and 12 B out (step
+    count, code, iterations); the y and y_field rows the lines store;
+    the nf*5 walk floats of every distinct row the rounds visit (from a
+    run of the plain loop on a recording table); the vertex, volume and
+    field floats of every distinct cell where an iteration's stages end
+    (a subset of the cells where stages arrive, so the bound stays a
+    lower bound); ~12 flops per face and round, ~100 per arrival (three
+    for an iteration whose stages all arrive) and ~60 per line and
+    iteration for k1, the error estimate and the step control."""
     nf, npc, ndim = grid.n_faces_per_cell, grid.n_points_per_cell, grid.ndim
-    table, args, kw = inputs
+    args, kw = inputs
+    table, args = args[0], args[1:]
     rec = RowRecorder(table)
-    trace_kernel.trace_plain(rec, *args, **kw)
-    rounds = int(stages.rounds.sum())
-    arrivals = 3 * int((act & ~stages.fail).sum())
-    end_cells = int(torch.unique(stages.ic[act & ~stages.fail]).numel())
-    n = act.numel()
-    n_bytes = (n * (33 + 76) + rec.distinct() * nf * 5 * 4
+    real = trace_kernel.trace_plain
+    stat = {"rounds": 0, "arrivals": 0, "iters": 0, "cells": []}
+
+    def counted(tab, anchor, k1, dx, ic_start, act, **k):
+        st = real(tab, anchor, k1, dx, ic_start, act, **k)
+        ok = act & ~st.fail
+        stat["rounds"] += int(st.rounds.sum())
+        stat["arrivals"] += 3 * int(ok.sum())
+        stat["iters"] += int(act.sum())
+        stat["cells"].append(st.ic[ok])
+        return st
+
+    trace_kernel.trace_plain = counted
+    try:
+        trace_kernel.trace_loop_plain(rec, *args, **kw)
+    finally:
+        trace_kernel.trace_plain = real
+    end_cells = int(torch.unique(torch.cat(stat["cells"])).numel())
+    stored = int((out.n_steps.clamp(max=kw["max_steps"]) - 1).sum())
+    n = out.n_steps.numel()
+    n_bytes = (n * (33 + 12) + stored * ndim * 4 * 2
+               + rec.distinct() * nf * 5 * 4
                + end_cells * (npc * 3 + 1 + npc * ndim) * 4)
-    return bound(n_bytes, rounds * nf * 12 + arrivals * 100)
+    ops = (stat["rounds"] * nf * 12 + stat["arrivals"] * 100
+           + stat["iters"] * 60)
+    return bound(n_bytes, ops), stat
+
+
+def walk_bound(table, args, walk_kernel, nf):
+    """(bound_ms, bound_by) of one B3 walk_rows call, each byte once: per
+    lane r0, u, total, active, ic0 in and ic, r_p, steps, status out
+    (57 B), the nf*5 leading floats of every distinct row visited; ~12
+    flops per face and step."""
+    rec = RowRecorder(table)
+    _, _, steps, _ = walk_kernel.walk_plain(rec, *args)
+    return bound(args[0].shape[0] * 57 + rec.distinct() * nf * 5 * 4,
+                 int(steps.sum()) * nf * 12)
 
 
 def trace_phase(dev, tiu, grid, counters, walk_kernel, trace_kernel):
@@ -1220,6 +1235,7 @@ def trace_phase(dev, tiu, grid, counters, walk_kernel, trace_kernel):
         return tiu.integrate_along_field(grid, y0, i_field, **kw)
 
     runs = {}
+    res["max_abs_err"] = 0.0
     for n in TRACE_N:
         y0 = torch.from_numpy(0.3 + 0.4 * np.random.default_rng(3).random(
             (n, 3))).to(device=dev, dtype=torch.float32)
@@ -1230,16 +1246,29 @@ def trace_phase(dev, tiu, grid, counters, walk_kernel, trace_kernel):
         wall = time.perf_counter() - t0
         n_b4 = counts[trace_kernel.__name__]
         n_b3 = counts[gc_key]
-        check(n_b4 >= 1, f"{n} lines: B4 was not launched on the main path")
+        check(n_b4 == 1, f"{n} lines: {n_b4} B4 launches on the main path, "
+              "not one")
         check(n_b3 >= 1, f"{n} lines: get_cell's walk stage was not "
               "launched for the start cells")
         res["launches"] += n_b4
         res["gc_launches"] += n_b3
         rec = {}
-        with recorded_stages(trace_kernel, (0, 20), rec):
+        with recorded_calls(trace_kernel, "trace_loop", rec):
             out2 = trace(y0)
         for a, b in zip(out, out2):
             check(torch.equal(a, b), f"{n} lines: a second run differs")
+        inputs = rec["inputs"][0]
+        # the plain loop (trace_plain stages + step_control, a host loop)
+        # on the same CUDA tensors: every field bit for bit
+        p_out = trace_kernel.trace_loop_plain(*inputs[0], **inputs[1])
+        for name, a, b in zip(out._fields, out, p_out):
+            n_bad = int((a != b).reshape(a.shape[0], -1).any(1).sum()
+                        if a.ndim else int(a != b))
+            res["max_abs_err"] = max(res["max_abs_err"], float(
+                (a.double() - b.double()).abs().max()))
+            check(torch.equal(a, b), f"{n} lines: B4 {name} differs from "
+                  f"the plain loop on {n_bad} lines")
+        del p_out
         n_steps = out.n_steps
         steps = int(n_steps.clamp(max=max_steps).sum())
         bm = out.boundary_material
@@ -1253,13 +1282,13 @@ def trace_phase(dev, tiu, grid, counters, walk_kernel, trace_kernel):
         valid = idx < n_steps.clamp(max=max_steps)[:, None]
         rad = torch.sqrt((out.y[..., 0] - 0.5) ** 2 + (out.y[..., 1] - 0.5) ** 2)
         drift = float(torch.where(valid, (rad - rad[:, :1]).abs(), 0.0).max())
-        b4_ms = sum(rec["ms"])
+        b4_ms = rec["ms"][0]
         print(f"B4 {n} lines: {steps} steps in {wall * 1e3:.4f} ms = "
               f"{steps / wall:.4e} trace steps/s; RK iterations "
               f"{int(out.n_iterations.max())}, n_rounds {int(out.n_rounds)}, "
-              f"B4 launches {n_b4}, get_cell walk launches {n_b3}; B4 CUDA "
-              f"events "
-              f"{b4_ms:.4f} ms summed over {len(rec['ms'])} launches "
+              f"B4 launches {n_b4}, get_cell walk launches {n_b3}; every "
+              f"TraceResult field torch.equal to trace_loop_plain on the "
+              f"card; trace_loop CUDA events {b4_ms:.4f} ms "
               f"({b4_ms / (wall * 1e3):.2%} of the wall time); mean steps "
               f"{steps / n:.2f}; boundary codes {json.dumps(codes)}; largest "
               f"helix radius drift {drift:.3e}")
@@ -1274,7 +1303,8 @@ def trace_phase(dev, tiu, grid, counters, walk_kernel, trace_kernel):
         print(f"B4 {n} lines, {TRACE_REPS} more calls: median {med:.4f} ms "
               f"(min {min(walls):.4f}, max {max(walls):.4f}) = "
               f"{steps / med * 1e3:.4e} trace steps/s")
-        prof = device_busy(lambda: trace(y0), ("trace_kernel", "walk_kernel"))
+        prof = device_busy(lambda: trace(y0),
+                           ("trace_loop_kernel", "walk_kernel"))
         if prof is None:
             print(f"B4 {n} lines, profiled call: no device activity "
                   "recorded; device busy share not measured")
@@ -1283,54 +1313,53 @@ def trace_phase(dev, tiu, grid, counters, walk_kernel, trace_kernel):
             print(f"B4 {n} lines, profiled call: wall {p_wall:.4f} ms, device "
                   f"busy {busy:.4f} ms over {n_ev} device events ({busy / p_wall:.2%}"
                   f" of the profiled wall, {busy / med:.2%} of the median "
-                  f"wall); B4 kernels {by_tag['trace_kernel']:.4f} ms, B3 "
+                  f"wall); B4 kernel {by_tag['trace_loop_kernel']:.4f} ms, B3 "
                   f"kernels {by_tag['walk_kernel']:.4f} ms")
-        runs[n] = dict(out=out, y0=y0, inputs=rec.get("inputs", {}),
-                       wall=wall)
+        # B4 alone on this bundle's loop inputs, and the setup before it
+        (tab_, *args), kw0 = inputs
 
-    # B4 against its plain version, and timed, on the 65,536-line stage
-    # inputs of the first iteration and of a later one
+        def b4():
+            return trace_kernel.trace_loop_cuda(tab_, *args, **kw0)
+
+        k_ms, ev_ms = kernel_ms(b4, "trace_loop_kernel", B4_REPS)
+        r0 = trace_kernel.pad3(y0)
+        setup = {
+            "get_cell": steady_s(lambda: tiu.get_cell(grid, r0), 5),
+            "interpolate_at_icell": steady_s(
+                lambda: tiu.interpolate_at_icell(grid, r0, i_field, args[2]),
+                5),
+            "trace_loop": steady_s(b4, 5),
+        }
+        print(f"B4 {n} lines alone: {'not measured' if k_ms is None else f'{k_ms:.4f} ms'} "
+              f"(profiler device time), CUDA events {ev_ms:.4f} ms a call; "
+              f"host clock of the call's parts: "
+              + ", ".join(f"{k} {v * 1e3:.4f} ms" for k, v in setup.items()))
+        print(f"B4 {n} lines, host time by op in one call (torch.profiler, "
+              f"self CPU ms, top 8): " + host_ops(lambda: trace(y0), 8))
+        runs[n] = dict(out=out, y0=y0, inputs=inputs, wall=wall, med=med,
+                       k_ms=k_ms if k_ms is not None else ev_ms)
+
+    # B4's numbers at 65,536 lines: the kernel, the plain loop, the bound
     big = runs[TRACE_N[-1]]
-    res["max_abs_err"] = 0.0
-    for it in sorted(big["inputs"]):
-        k, err = trace_compare(f"B4 {TRACE_N[-1]} lines, iteration {it}",
-                               trace_kernel, big["inputs"][it])
-        res["max_abs_err"] = max(res["max_abs_err"], err)
-        if it == 0:
-            table_, args, kw0 = big["inputs"][it]
-            def b4():
-                return trace_kernel.trace_cuda(table_, *args, **kw0)
-
-            # The wrapper's host work per call is of the order of the
-            # kernel's time, so back-to-back calls between two CUDA events
-            # can time the host; the profiler's device time of the kernel
-            # is the kernel's own, and it is the one reported where the
-            # profiler records it
-            wrapper_ms = cuda_ms(b4, B4_REPS)
-            b4()
-            prof = device_busy(lambda: [b4() for _ in range(B4_REPS)],
-                               ("trace_kernel",))
-            res["ms"] = (wrapper_ms if prof is None
-                         else prof[2]["trace_kernel"] / B4_REPS)
-            res["plain_ms"] = cuda_ms(lambda: trace_kernel.trace_plain(
-                table_, *args, **kw0), 3)
-            res["bound"] = trace_bound(grid, k, args[4], big["inputs"][it],
-                                       trace_kernel)
-            print(f"B4 {TRACE_N[-1]} lines, first iteration: kernel "
-                  f"{res['ms']:.4f} ms ("
-                  f"{'CUDA events' if prof is None else 'profiler'}; CUDA "
-                  f"events around {B4_REPS} wrapper calls {wrapper_ms:.4f} ms "
-                  f"a call), plain {res['plain_ms']:.4f} ms, bound "
-                  f"{res['bound'][0]:.4f} ms ({res['bound'][1]}; "
-                  f"{int(k.rounds.sum())} rounds)")
-    check(0 in big["inputs"] and len(big["inputs"]) == 2,
-          "the 65,536-line bundle ran fewer than 21 iterations")
+    (tab_, *args), kw0 = big["inputs"]
+    res["ms"] = big["k_ms"]
+    res["plain_ms"] = cuda_ms(lambda: trace_kernel.trace_loop_plain(
+        tab_, *args, **kw0), 1)
+    res["bound"], stat = trace_bound(grid, big["out"], big["inputs"],
+                                     trace_kernel)
+    res["e2e"] = {n: (runs[n]["med"], runs[n]["k_ms"]) for n in TRACE_N}
+    print(f"B4 {TRACE_N[-1]} lines, one launch: kernel {res['ms']:.4f} ms, "
+          f"plain loop {res['plain_ms']:.4f} ms, bound "
+          f"{res['bound'][0]:.4f} ms ({res['bound'][1]}; {stat['rounds']} "
+          f"rounds, {stat['iters']} line iterations)")
 
     # The fused trace against the generic one (B3 walk_rows + torch): the
     # main path of traces the fused kernel does not support (icell masks,
     # float64 on the CPU)
     small = runs[TRACE_N[0]]
-    with generic_trace(trace_kernel):
+    walks = {}
+    with generic_trace(trace_kernel), recorded_calls(walk_kernel,
+                                                     "walk_rows", walks):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         gen, counts = main_path(lambda: trace(small["y0"]), counters)
@@ -1360,6 +1389,29 @@ def trace_phase(dev, tiu, grid, counters, walk_kernel, trace_kernel):
           f"generic path {gen_s * 1e3:.4f} ms = {gsteps / gen_s:.4e} trace "
           f"steps/s ({res['walk_launches']} walk_rows launches), fused "
           f"{small['wall'] * 1e3:.4f} ms")
+
+    # B3 walk_rows at the size the generic trace launches it: the first
+    # stage walk of its first iteration, against its plain version
+    w_args, _ = walks["inputs"][0]
+    k_out = walk_kernel.walk_cuda(*w_args)
+    p_out = walk_kernel.walk_plain(*w_args)
+    for name, a, b in zip(("ic", "r_p", "steps", "status"), k_out, p_out):
+        check(torch.equal(a, b), f"B3 walk_rows, {TRACE_N[0]} generic-trace "
+              f"walks: {name} differs from the plain version")
+    w_ms, w_ev = kernel_ms(lambda: walk_kernel.walk_cuda(*w_args),
+                           "walk_kernel", WALK_REPS)
+    w_plain = cuda_ms(lambda: walk_kernel.walk_plain(*w_args), 3)
+    w_bound = walk_bound(w_args[0], w_args[1:], walk_kernel,
+                         grid.n_faces_per_cell)
+    res["walk_small"] = dict(n=w_args[1].shape[0], ms=w_ms, ev_ms=w_ev,
+                             plain_ms=w_plain, bound=w_bound)
+    print(f"B3 walk_rows, {w_args[1].shape[0]} walks of the generic trace "
+          f"(its first stage walk), bit-identical to walk_plain: kernel "
+          f"{'not measured' if w_ms is None else f'{w_ms:.4f} ms'} "
+          f"(profiler device time), CUDA events {w_ev:.4f} ms a call, plain "
+          f"{w_plain:.4f} ms, bound {w_bound[0]:.4f} ms ({w_bound[1]}); "
+          f"CUDA events over the generic call's {len(walks['ms'])} walks: "
+          f"mean {np.mean(walks['ms']):.4f} ms")
     return res
 
 
@@ -1413,9 +1465,11 @@ def accurate_phase(dev, tiu, grid, bf_inputs, counters, cand_kernel,
     """Accurate mode on the candidate phase's 998,250-tet grid (bench.py's
     accurate protocol, bench.py:353-402), then B5 on the brute-force
     phase's meshes."""
-    from interpolate_unstructured_tpu_torch.ops import geometry, interp_acc
+    from interpolate_unstructured_tpu_torch.ops import _kernels, interp_acc
 
-    res = {"b2_launches": 0, "gc_launches": 0,
+    ck = cand_kernel.__name__
+    res = {"b2_launches": 0, "gc_launches": 0, "df_launches": 0,
+           "df_pass_launches": 0,
            "binned": {"bin_pass": 0, "bin_scatter": 0, "binned": 0,
                       "bin_unsort": 0}}
     timings = {}
@@ -1432,52 +1486,75 @@ def accurate_phase(dev, tiu, grid, bf_inputs, counters, cand_kernel,
           f"{tuple(grid.cand_df_table.shape)} {mib['cand_df_table']:.1f} MiB")
 
     r64 = torch.from_numpy(np.random.default_rng(2).random((N_CAND, 3))).to(dev)
+    r_hi, r_lo = interp_acc.split_queries(r64)
 
     def acc_err(vh, vl, q):
         return float((vh[:, 0].double() + vl[:, 0].double()
                       - (q.sum(1) + 1.0)).abs().max())
 
-    # Cold: one row of the df-plane table per query (B2-df), no B5
-    (vh, vl, found, ic), counts = main_path(
-        lambda: tiu.interpolate_at_acc(grid, r64, (0,)), counters)
-    n_df = counts[f"{cand_kernel.__name__}:df"]
-    check(n_df >= 1 and counts[acc_kernel.__name__] == 0,
-          f"cold accurate call launched B2-df {n_df}, B5 "
-          f"{counts[acc_kernel.__name__]} times")
-    res["df_launches"] = n_df
+    # Cold: one df-plane row per query, the bin-ordered pipeline (bin
+    # pass, scatter, df probe, unsort) from the float64 queries as given,
+    # no torch split or local frame, no B5; then the same queries as a
+    # float32 hi/lo pair (the r_lo= argument)
+    df_names = ("bin_pass", "bin_scatter", "df", "bin_unsort")
+    cold = {}
+    for label, call in (
+            ("float64", lambda: tiu.interpolate_at_acc(grid, r64, (0,))),
+            ("hi/lo pair", lambda: tiu.interpolate_at_acc(grid, r_hi, (0,),
+                                                          r_lo=r_lo))):
+        cold[label], counts = main_path(call, counters)
+        got = {x: counts[f"{ck}:{x}"] for x in df_names}
+        check(min(got.values()) >= 1 and counts[acc_kernel.__name__] == 0
+              and counts[f"{ck}:binned"] == 0 and counts[ck] == 0,
+              f"cold accurate call ({label}) launched {got}, B5 "
+              f"{counts[acc_kernel.__name__]}, f32 probes "
+              f"{counts[f'{ck}:binned']} + {counts[ck]}")
+        res["df_launches"] += got["df"]
+        if label == "float64":
+            res["df_pass_launches"] += got["bin_pass"]
+        else:
+            res["binned"]["bin_pass"] += got["bin_pass"]
+        for x in ("bin_scatter", "bin_unsort"):
+            res["binned"][x] += got[x]
+    vh, vl, found, ic = cold["float64"]
+    for name, a, b in zip(("vals_hi", "vals_lo", "found", "i_cell"),
+                          cold["hi/lo pair"], cold["float64"]):
+        check(torch.equal(a, b), f"cold accurate: the hi/lo pair's {name} "
+              "differs from the float64 queries'")
+    del cold
     check(bool(found.all()), f"{int((~found).sum())} cold accurate queries "
           "not found")
     err_c = acc_err(vh, vl, r64)
     check(err_c <= ACC_TOL, f"cold accurate error {err_c}")
     cold_s = steady_s(lambda: tiu.interpolate_at_acc(grid, r64, (0,)), 3)
-
-    def df_inputs(q):
-        """B2-df's inputs: bin index and the hi/lo local frame."""
-        hi, lo = interp_acc.split_queries(q)
-        ijk = geometry.bin_ijk(hi, grid.cand_rmin, grid.cand_inv_h,
-                               grid.cand_shape, torch.int32)
-        return (geometry.bin_flat(ijk, grid.cand_shape),
-                *locate._cand_local_df(grid, hi, lo, ijk))
-
-    ms_in = cuda_ms(lambda: df_inputs(r64), 10)
     print(f"accurate: 10M cold interpolate_at_acc (float64 queries): steady "
           f"{cold_s * 1e3:.4f} ms = {N_CAND / cold_s:.4e} queries/s; B2-df "
-          f"launches {n_df}; all found; max |hi + lo - f| {err_c:.3e}; query "
-          f"split, bin index and hi/lo local frame {ms_in:.4f} ms")
+          f"pipeline launches (float64 and pair calls) {res['df_launches']}; "
+          f"the hi/lo pair's results torch.equal to the float64 queries'; "
+          f"all found; max |hi + lo - f| {err_c:.3e}")
     # The same call without the df-plane rows (the build_df=False route:
     # get_cell on the float32 candidate rows, then B5), which finds the
-    # same cells: both tables carry the same probe words
+    # same cells: both tables carry the same probe words; both routes in
+    # turns
     no_df = dataclasses.replace(grid, cand_df_table=None)
     vh2, vl2, found2, ic2 = tiu.interpolate_at_acc(no_df, r64, (0,))
     check(torch.equal(ic2, ic) and bool(found2.all()),
           "cold accurate cells differ without the df-plane rows")
     err_n = acc_err(vh2, vl2, r64)
     check(err_n <= ACC_TOL, f"cold accurate error without df rows {err_n}")
-    nodf_s = steady_s(lambda: tiu.interpolate_at_acc(no_df, r64, (0,)), 3)
-    print(f"accurate: the same 10M cold queries without the df-plane rows "
-          f"(get_cell + B5): steady {nodf_s * 1e3:.4f} ms = "
-          f"{N_CAND / nodf_s:.4e} queries/s; max |hi + lo - f| {err_n:.3e}")
-    del no_df, vh2, vl2, found2, ic2
+    del vh2, vl2, found2, ic2
+    t_route = turns({
+        "df rows": lambda: tiu.interpolate_at_acc(grid, r64, (0,)),
+        "get_cell + B5": lambda: tiu.interpolate_at_acc(no_df, r64, (0,)),
+    }, 5)
+    res["route"] = t_route
+    print(f"accurate: 10M cold queries, CUDA events in turns: df-plane rows "
+          f"in bin order {t_route['df rows'][0]:.4f} / "
+          f"{t_route['df rows'][1]:.4f} ms, without them (get_cell + B5) "
+          f"{t_route['get_cell + B5'][0]:.4f} / "
+          f"{t_route['get_cell + B5'][1]:.4f} ms; max |hi + lo - f| "
+          f"{err_n:.3e} without them")
+    del no_df
 
     # Warm: the candidate phase's moved points in float64, guessed by the
     # cold cells: get_cell (B2, B3 on misses), then B5
@@ -1489,7 +1566,6 @@ def accurate_phase(dev, tiu, grid, bf_inputs, counters, cand_kernel,
     n_b5 = counts[acc_kernel.__name__]
     check(n_b5 >= 1, "the warm accurate call did not launch B5")
     res["acc_launches"] = n_b5
-    ck = cand_kernel.__name__
     res["b2_launches"] += counts[ck]
     for x in res["binned"]:
         res["binned"][x] += counts[f"{ck}:{x}"]
@@ -1508,45 +1584,156 @@ def accurate_phase(dev, tiu, grid, bf_inputs, counters, cand_kernel,
           f"{n_gc}; all found; max |hi + lo - f| {err_w:.3e}")
     del vh, vl, found
 
-    # B2-df against its plain version on the first 1M cold queries, both
-    # timed on all 10M
-    idx, rq, rq_lo = df_inputs(r64)
+    # B2-df in bin order against its plain version (split, bin index,
+    # hi/lo local frame, probe, from the same float64 queries) on the
+    # first 1M, then each kernel of the pipeline timed on all 10M
     lay = locate._df_row_layout(grid, (0,))
     eps = locate._cand_eps(grid)
-    chunk = locate._cand_chunk(grid, grid.cand_df_table)
+    table = grid.cand_df_table
+    chunk = locate._cand_chunk(grid, table)
+    bins = (grid.cand_rmin, grid.cand_inv_h, grid.cand_shape)
+    n_bins = int(np.prod(grid.cand_shape))
     cut = slice(0, N_CMP)
-    _, err_df = acc_compare(
-        "B2-df 998k-tet df-plane rows, first 1M",
-        cand_kernel.cand_rows_df_cuda(grid.cand_df_table, idx[cut], rq[cut],
-                                      rq_lo[cut], lay, eps, lay.k),
-        cand_kernel.probe_rows_df_plain(grid.cand_df_table, idx[cut],
-                                        rq[cut], rq_lo[cut], lay, eps,
-                                        lay.k, chunk), 2)
-    ms_k = cuda_ms(lambda: cand_kernel.cand_rows_df_cuda(
-        grid.cand_df_table, idx, rq, rq_lo, lay, eps, lay.k), 10)
-    ms_p = cuda_ms(lambda: cand_kernel.probe_rows_df_plain(
-        grid.cand_df_table, idx, rq, rq_lo, lay, eps, lay.k, chunk), 2)
-    # bytes, each once: the probe roles of K candidates (int16 normal and
-    # offset words, ids), count and dscale of every distinct row, the df
-    # plane (8 floats) of every distinct (row, winner); per query the
-    # hi/lo local query, its bin index, id, aux and a hi/lo value out
-    k_ids = cand_kernel.cand_rows_df_cuda(grid.cand_df_table, idx, rq, rq_lo,
-                                          lay, eps, lay.k)[0]
+    k_out = cand_kernel.cand_rows_df_query(table, r64[cut], None, *bins, lay,
+                                           eps, lay.k, chunk)
+    p_out = cand_kernel.cand_rows_df_plain(table, r64[cut], None, *bins, lay,
+                                           eps, lay.k, chunk)
+    for name, a, b in zip(("id", "aux"), k_out, p_out):
+        check(torch.equal(a, b), f"B2-df in bin order: {name} differs from "
+              f"the plain version on {int((a != b).sum())} of the first "
+              f"{N_CMP} queries")
+    _, err_df = acc_compare("B2-df in bin order, 998k-tet df-plane rows, "
+                            "first 1M", k_out, p_out, 2)
+    del k_out, p_out
+    idx, _, _ = cand_kernel.probe_inputs_df_plain(r64, None, *bins)
+    lanes = cand_kernel.binned_lanes(N_CAND, n_bins)
+    lanes_guard = 4 if lanes == 2 else 2
+    full = cand_kernel.cand_rows_df_query(table, r64, None, *bins, lay, eps,
+                                          lay.k, chunk)
+    _, _, perm, slot = cand_kernel.bin_order_cuda(r64, *bins)
+    guard = cand_kernel.cand_rows_binned_cuda(table, r64, perm, slot, *bins,
+                                              lay, eps, lay.k,
+                                              lanes=lanes_guard)
+    nv = len(lay.var_roles)
+    for name, a, b in zip(("id", "aux", "vals_hi", "vals_lo"), full,
+                          (guard[0], guard[1], guard[2][:, :nv],
+                           guard[2][:, nv:])):
+        check(torch.equal(a, b), f"B2-df in bin order: {name} differs "
+              f"between {lanes} and {lanes_guard} lanes a query")
+    print(f"B2-df in bin order, all {N_CAND} cold queries: id, aux and "
+          f"values torch.equal with {lanes} and {lanes_guard} lanes a query")
     n_rows = int(torch.unique(idx).numel())
     n_planes = int(torch.unique(
-        idx.long() * (grid.n_cells + 1) + k_ids.long() + 1).numel())
-    del k_ids
+        idx.long() * (grid.n_cells + 1) + full[0].long() + 1).numel())
+    del full, guard, perm, slot
+
+    lib = _kernels.lib()
+    stream = torch.cuda.current_stream().cuda_stream
+    rmin, inv_h = (t.contiguous() for t in bins[:2])
+    counts_b = torch.zeros(n_bins, dtype=torch.int32, device=dev)
+    bin_buf, rank_buf, perm_buf, slot_buf = (
+        torch.empty(N_CAND, dtype=torch.int32, device=dev) for _ in range(4))
+
+    def bin_pass64():  # with the 8 MB memset of the counts
+        counts_b.zero_()
+        _kernels.check(lib.iu_cand_bin_pass(
+            r64.data_ptr(), 1, N_CAND, rmin.data_ptr(), inv_h.data_ptr(),
+            *grid.cand_shape, counts_b.data_ptr(), bin_buf.data_ptr(),
+            rank_buf.data_ptr(), stream), "iu_cand_bin_pass")
+
+    bin_pass64()
+    res["pass_err"] = float(int((bin_buf != idx).sum()))
+    check(res["pass_err"] == 0, f"B2-df bin pass: {res['pass_err']:.0f} bins "
+          "differ from the plain split and bin index")
+    scan = torch.cumsum(counts_b, 0, dtype=torch.int32)
+
+    def scatter():
+        _kernels.check(lib.iu_cand_bin_scatter(
+            bin_buf.data_ptr(), rank_buf.data_ptr(), scan.data_ptr(), N_CAND,
+            perm_buf.data_ptr(), slot_buf.data_ptr(), stream),
+            "iu_cand_bin_scatter")
+
+    scatter()
+    rec = torch.empty((N_CAND, 2 + 2 * nv), dtype=torch.int32, device=dev)
+    vroles = torch.tensor(lay.var_roles, dtype=torch.int32, device=dev)
+
+    def probe(g):  # the df probe alone, float64 queries, records by slot
+        _kernels.check(lib.iu_cand_rows_binned(
+            table.data_ptr(), table.shape[1], r64.data_ptr(), None, 1,
+            perm_buf.data_ptr(), N_CAND, g, rmin.data_ptr(), inv_h.data_ptr(),
+            *grid.cand_shape, lay.k, lay.nf, 3, lay.id_role, lay.count_col,
+            float(eps), lay.k, cand_kernel.QINV, nv, vroles.data_ptr(),
+            rec.data_ptr(), stream), "iu_cand_rows_binned")
+
+    outs = (torch.empty(N_CAND, dtype=torch.int32, device=dev),
+            torch.empty(N_CAND, dtype=torch.int32, device=dev),
+            torch.empty((N_CAND, 2 * nv), dtype=torch.float32, device=dev))
+
+    def unsort():
+        _kernels.check(lib.iu_cand_bin_unsort(
+            rec.data_ptr(), slot_buf.data_ptr(), N_CAND, 2 * nv,
+            outs[0].data_ptr(), outs[1].data_ptr(), outs[2].data_ptr(),
+            stream), "iu_cand_bin_unsort")
+
+    ms_pass = cuda_ms(bin_pass64, 10)
+    ms_scan = cuda_ms(lambda: torch.cumsum(counts_b, 0, dtype=torch.int32), 10)
+    ms_scatter = cuda_ms(scatter, 10)
+    t_lanes = turns({g: (lambda g=g: probe(g)) for g in (lanes, lanes_guard)},
+                    10)
+    probe(lanes)
+    ms_unsort = cuda_ms(unsort, 10)
+    t_whole = turns({
+        "float64": lambda: cand_kernel.cand_rows_df_query(
+            table, r64, None, *bins, lay, eps, lay.k, chunk),
+        "hi/lo pair": lambda: cand_kernel.cand_rows_df_query(
+            table, r_hi, r_lo, *bins, lay, eps, lay.k, chunk),
+    }, 10)
+    ms_p = cuda_ms(lambda: cand_kernel.cand_rows_df_plain(
+        table, r64, None, *bins, lay, eps, lay.k, chunk), 1)
+    ms_p_inputs = cuda_ms(lambda: cand_kernel.probe_inputs_df_plain(
+        r64, None, *bins), 5)
+    ms_p_pass = cuda_ms(lambda: torch.bincount(
+        cand_kernel.probe_inputs_df_plain(r64, None, *bins)[0].long(),
+        minlength=n_bins), 3)
+    # Bounds, each byte once: the probe roles of K candidates (int16
+    # normal and offset words, ids), count and dscale of every distinct
+    # row, the df plane (8 floats) of every distinct (row, winner); per
+    # query its float64 input (24 B, in place of the 24 B hi/lo local
+    # frame of the direct design) and its permutation entry in, a record
+    # (id, aux, hi/lo value) out: the direct design's bytes
     n_roles = -(-3 * lay.nf // 2) + -(-lay.nf // 2) + 1
-    n_bytes = (n_rows * (n_roles * lay.k * 4 + 8) + n_planes * 32
-               + N_CAND * (24 + 4 + 4 + 4 + 8))
-    bnd = bound(n_bytes,
-                N_CAND * (lay.k * lay.nf * 9 + 3 * (DF_MUL + DF_ADD)))
-    res["df"] = dict(ms=ms_k, plain_ms=ms_p, bound=bnd, max_abs_err=err_df)
-    print(f"B2-df 998k-tet, 10M queries: kernel {ms_k:.4f} ms, plain "
-          f"{ms_p:.4f} ms; bound {bnd[0]:.4f} ms ({bnd[1]}; {n_rows} "
-          f"distinct rows, {n_planes} (row, winner) planes, each read once); "
-          f"row {grid.cand_df_table.shape[1] * 4} B")
-    del idx, rq, rq_lo
+    rows_b = n_rows * (n_roles * lay.k * 4 + 8) + n_planes * 32
+    ops = N_CAND * (lay.k * lay.nf * 9 + 3 * (DF_MUL + DF_ADD))
+    rec_b = 4 * (2 + 2 * nv)
+    res["df"] = dict(ms=sum(t_lanes[lanes]) / 2, plain_ms=ms_p,
+                     bound=bound(rows_b + N_CAND * (24 + 4 + rec_b), ops),
+                     max_abs_err=err_df)
+    res["df_pass"] = dict(ms=ms_pass, plain_ms=ms_p_pass,
+                          bound=bound(N_CAND * (24 + 8) + n_bins * 4,
+                                      N_CAND * 9))
+    res["df_whole"] = dict(turns=t_whole,
+                           bound=bound(rows_b + N_CAND * (24 + rec_b), ops))
+    print(f"B2-df in bin order, 998k-tet, {N_CAND} cold float64 queries, "
+          f"CUDA events: bin pass (float64) {ms_pass:.4f} ms (with the count "
+          f"memset), scan {ms_scan:.4f} ms, scatter {ms_scatter:.4f} ms, df "
+          f"probe " + ", ".join(f"{g} lanes {t_lanes[g][0]:.4f} / "
+                                f"{t_lanes[g][1]:.4f} ms"
+                                for g in (lanes, lanes_guard))
+          + f" (binned_lanes picks {lanes}), unsort of the 2 + 2V records "
+          f"{ms_unsort:.4f} ms; the whole query in turns: float64 "
+          f"{t_whole['float64'][0]:.4f} / {t_whole['float64'][1]:.4f} ms, "
+          f"hi/lo pair {t_whole['hi/lo pair'][0]:.4f} / "
+          f"{t_whole['hi/lo pair'][1]:.4f} ms; row "
+          f"{table.shape[1] * 4} B, {n_rows} distinct rows, {n_planes} (row, "
+          f"winner) planes")
+    print(f"B2-df plain versions at {N_CAND}: the whole query "
+          f"(cand_rows_df_plain) {ms_p:.4f} ms, its torch split, bin index "
+          f"and hi/lo frame {ms_p_inputs:.4f} ms, bin index + bincount "
+          f"{ms_p_pass:.4f} ms")
+    for name in ("df", "df_pass", "df_whole"):
+        b = res[name]["bound"]
+        print(f"B2-df {name} bound at {N_CAND} queries: {b[0]:.4f} ms ({b[1]})")
+    del idx, rec, outs, bin_buf, rank_buf, perm_buf, slot_buf, counts_b
 
     # B5 against its plain version on the warm call's first 1M queries,
     # both timed on all 10M
@@ -1572,7 +1759,7 @@ def accurate_phase(dev, tiu, grid, bf_inputs, counters, cand_kernel,
           f"{ms_p:.4f} ms; bound {bnd[0]:.4f} ms ({bnd[1]}; {n_cells_used} "
           f"distinct cells' rows once, 36 B per query, "
           f"{acc_flops('tetra', 1)} flops per query)")
-    del hi, lo, cells, b5_args, r64, r_w, ic, ic_w, grid
+    del hi, lo, cells, b5_args, r64, r_hi, r_lo, r_w, ic, ic_w, grid
     torch.cuda.empty_cache()
 
     # B5 through interpolate_at_icell_acc on the brute-force meshes, at
@@ -1660,8 +1847,10 @@ def main() -> int:
           + json.dumps(gc_launches))
     binned = {x: b2["binned"][x] + b5["binned"][x] for x in b2["binned"]}
     print("B2 bin-ordered launches on the main path: " + json.dumps(binned)
-          + f"; direct B2 {b2['launches'] + b5['b2_launches']}; B3 walk_rows "
-          f"{b4['walk_launches']} (the generic trace)")
+          + f"; B2-df: float64 bin pass {b5['df_pass_launches']}, df probe "
+          f"{b5['df_launches']}; direct B2 "
+          f"{b2['launches'] + b5['b2_launches']}; B3 walk_rows "
+          f"{b4['walk_launches']} (the generic trace); B4 {b4['launches']}")
 
     pkg = "interpolate_unstructured_tpu_torch"
     kernels = [
@@ -1708,14 +1897,21 @@ def main() -> int:
          "ms": b3["gc"]["ms"], "plain_ms": b3["gc"]["plain_ms"],
          "bound_ms": b3["gc"]["bound"][0], "bound_by": b3["gc"]["bound"][1],
          "library_ms": None},
-        {"name": "B4 trace", "route": "cuda",
+        {"name": "B4 trace loop", "route": "cuda",
          "source": f"{pkg}/csrc/trace.cu",
          "replaces": "interpolate_unstructured_tpu/ops/pallas_trace.py:103",
          "launches": b4["launches"], "max_abs_err": b4["max_abs_err"],
          "ms": b4["ms"], "plain_ms": b4["plain_ms"],
          "bound_ms": b4["bound"][0], "bound_by": b4["bound"][1],
          "library_ms": None},
-        {"name": "B2-df cand_rows df planes", "route": "cuda",
+        {"name": "B2-df bin pass, float64 queries", "route": "cuda",
+         "source": f"{pkg}/csrc/cand_rows.cu",
+         "replaces": "interpolate_unstructured_tpu/ops/pallas_cand.py:64",
+         "launches": b5["df_pass_launches"], "max_abs_err": b5["pass_err"],
+         "ms": b5["df_pass"]["ms"], "plain_ms": b5["df_pass"]["plain_ms"],
+         "bound_ms": b5["df_pass"]["bound"][0],
+         "bound_by": b5["df_pass"]["bound"][1], "library_ms": None},
+        {"name": "B2-df probe in bin order", "route": "cuda",
          "source": f"{pkg}/csrc/cand_rows.cu",
          "replaces": "interpolate_unstructured_tpu/ops/pallas_cand.py:64",
          "launches": b5["df_launches"],

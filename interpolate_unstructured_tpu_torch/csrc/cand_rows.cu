@@ -15,8 +15,8 @@
 //   3 accurate-mode df planes (the JAX kernel's df_planes branch,
 //     pallas_cand.py:73-77, :178-200): the probe of layout 0, then the
 //     winner's df32 value plane v = g . r_local + c_loc evaluated in
-//     compensated float32 (df32.cuh) from a hi/lo r_local (rq, rq_lo);
-//     values out as hi (out_vals) and lo (out_vals_lo) pairs
+//     compensated float32 (df32.cuh) from a hi/lo r_local; values out as
+//     hi and lo pairs.  Probed in bin order only (below).
 //
 // What bounds it on an H100: memory.  One random row of about 1.5 KB
 // (K = 24 quantized tets) per query and a few flops per byte, so the
@@ -30,10 +30,10 @@
 // k winning ties (jnp.argmax's first occurrence); only the winner's
 // lane evaluates the values, from its own margins and its row columns.
 //
-// Two front ends share that per-query probe (probe_row).  The direct
-// kernel (cand_rows_kernel) takes the queries in their own order with
-// their bin index and probe frame computed by the caller; it serves the
-// df-plane rows and the extension table.  On the main table, 10M
+// Two front ends share that per-query probe.  The direct kernel
+// (cand_rows_kernel, probe_row) takes the queries in their own order
+// with their bin index and probe frame computed by the caller; it serves
+// the extension table.  On the main table, 10M
 // uniform queries touch 1.9M distinct rows of 1.5 KB, and in query order
 // each row comes from DRAM about five times (the L2 holds 50 MB of the
 // 2.9 GB table).  The bin-ordered front end counting-sorts the queries
@@ -53,6 +53,17 @@
 // queries and outputs once (permutation and records are its own
 // scratch).  The probe with 16-byte loads takes 54-64 registers (64 for
 // quantized tets: 4 blocks of 256 threads an SM), no spills.
+//
+// The df-plane rows (layout 3) take the same bin order, and their front
+// end also does what torch did before the direct layout-3 kernel: the
+// bin pass and the probe read the queries as given, float64 (B, 3) or a
+// float32 hi/lo pair, and split them themselves, hi = f32(r) rounded to
+// nearest and lo = f32(r - f64(hi)) (ops/df32.py:split_queries); the
+// probe forms the hi/lo local frame two_sum(hi - center) + lo of
+// ops/cand_kernel.py:local_frame_df.  A query's record is then id, aux,
+// V hi and V lo values, and the unsort moves 2 + 2V words.  The 24 bytes
+// of float64 input a query replace the 24 of the hi/lo frame the direct
+// kernel read, so the bound counts the same bytes.
 //
 // Packed int16 words are often NaN bit patterns as floats, so the
 // qn/qd roles are read through an int pointer and unpacked with integer
@@ -159,7 +170,8 @@ __device__ __forceinline__ float row_margin(const float* __restrict__ row,
 // position q: out_id[q * stride], out_aux[q * stride] and the values
 // from out_vals + q * vstride (the direct kernel's separate arrays:
 // stride 1, vstride n_vars; the bin-ordered probe's records: both
-// 2 + n_vars).  rq_lo: the lo parts of r_local (layout 3), else null.
+// 2 + n_vars, layout 3 2 + 2 n_vars).  rq_lo: the lo parts of r_local
+// and out_vals_lo the lo values (layout 3), else null.
 template <int NF, int LAYOUT>
 __device__ __forceinline__ void write_winner(
     const float* __restrict__ row, int K, int k, float wm,
@@ -240,12 +252,11 @@ __device__ __forceinline__ void write_winner(
 template <int NF, int LAYOUT>
 __device__ __forceinline__ void probe_row(
     const float* __restrict__ row, int lane, int q, float rx, float ry,
-    float rz, const float* __restrict__ rq_lo, int K, int id_role,
-    int count_col, float eps, int ovf_base, float qinv, int n_vars,
-    const int* __restrict__ vroles, int* __restrict__ out_id,
-    int* __restrict__ out_aux, float* __restrict__ out_vals,
-    float* __restrict__ out_vals_lo) {
-  constexpr bool kQuant = LAYOUT == 0 || LAYOUT == 3;
+    float rz, int K, int id_role, int count_col, float eps, int ovf_base,
+    float qinv, int n_vars, const int* __restrict__ vroles,
+    int* __restrict__ out_id, int* __restrict__ out_aux,
+    float* __restrict__ out_vals) {
+  constexpr bool kQuant = LAYOUT == 0;
   const float ds = kQuant ? row[count_col + 1] : 0.0f;
 
   float best_m = 0.0f;
@@ -277,58 +288,61 @@ __device__ __forceinline__ void probe_row(
     }
   }
   if (wk < 0 || best_k != wk) return;  // the winner's lane finishes
-  write_winner<NF, LAYOUT>(row, K, wk, wm, best_mf, rx, ry, rz, rq_lo, q,
+  write_winner<NF, LAYOUT>(row, K, wk, wm, best_mf, rx, ry, rz, nullptr, q,
                            id_role, count_col, eps, ovf_base, n_vars, vroles,
-                           out_id, out_aux, out_vals, out_vals_lo, 1, n_vars);
+                           out_id, out_aux, out_vals, nullptr, 1, n_vars);
 }
 
 // Direct probe: one warp per query in query order, each reading the row
-// of its given bin index (the first design, kept for the df-plane rows
-// and the extension-table probe).
+// of its given bin index (the first design, kept for the extension-table
+// probe).
 template <int NF, int LAYOUT>
 __global__ void cand_rows_kernel(
     const float* __restrict__ table, int W, const int* __restrict__ idx,
     const float* __restrict__ rq,  // (B, 3): r, or r_local when quantized
-    const float* __restrict__ rq_lo,  // (B, 3) lo of r_local (layout 3)
     int n_queries, int K, int id_role, int count_col, float eps,
     int ovf_base, float qinv, int n_vars, const int* __restrict__ vroles,
     int* __restrict__ out_id, int* __restrict__ out_aux,
-    float* __restrict__ out_vals,     // (B, V)
-    float* __restrict__ out_vals_lo)  // (B, V), layout 3
+    float* __restrict__ out_vals)  // (B, V)
 {
   const int q = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
   const int lane = threadIdx.x & 31;
   if (q >= n_queries) return;  // warp-uniform
   probe_row<NF, LAYOUT>(table + (size_t)idx[q] * W, lane, q, rq[3 * q + 0],
-                        rq[3 * q + 1], rq[3 * q + 2],
-                        LAYOUT == 3 ? rq_lo + 3 * q : nullptr, K, id_role,
-                        count_col, eps, ovf_base, qinv, n_vars, vroles,
-                        out_id, out_aux, out_vals, out_vals_lo);
+                        rq[3 * q + 1], rq[3 * q + 2], K, id_role, count_col,
+                        eps, ovf_base, qinv, n_vars, vroles, out_id, out_aux,
+                        out_vals);
 }
 
 template <int NF, int LAYOUT>
 void launch(const float* table, int W, const int* idx, const float* rq,
-            const float* rq_lo, int n_queries, int K, int id_role,
-            int count_col, float eps, int ovf_base, float qinv, int n_vars,
-            const int* vroles, int* out_id, int* out_aux, float* out_vals,
-            float* out_vals_lo, cudaStream_t s) {
+            int n_queries, int K, int id_role, int count_col, float eps,
+            int ovf_base, float qinv, int n_vars, const int* vroles,
+            int* out_id, int* out_aux, float* out_vals, cudaStream_t s) {
   const long long threads = (long long)n_queries * 32;
   const int blocks = (int)((threads + kThreads - 1) / kThreads);
   cand_rows_kernel<NF, LAYOUT><<<blocks, kThreads, 0, s>>>(
-      table, W, idx, rq, rq_lo, n_queries, K, id_role, count_col, eps,
-      ovf_base, qinv, n_vars, vroles, out_id, out_aux, out_vals, out_vals_lo);
+      table, W, idx, rq, n_queries, K, id_role, count_col, eps, ovf_base,
+      qinv, n_vars, vroles, out_id, out_aux, out_vals);
 }
 
-// Bin-ordered front end of the main-table probe (layouts 0-2), three
-// launches: the bin pass, the scatter, the probe in bin order.
+// Bin-ordered front end (the main table's layouts 0-2 and the df-plane
+// rows), four launches: the bin pass, the scatter, the probe in bin
+// order, the unsort.
 constexpr int kOrderThreads = 256;
+
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(double x) { return __double2float_rn(x); }
 
 // Bin pass: each query's flat candidate bin (ops/geometry.py:bin_ijk and
 // bin_flat) and its rank among its bin's queries, from an
 // atomic count per bin.  The 1.9M+ bin counts of the main path do not
 // fit in shared memory (8 MB), so they are counted in device memory,
-// where they stay L2-resident.
-__global__ void cand_bin_pass_kernel(const float* __restrict__ r, int n,
+// where they stay L2-resident.  T: float, or double for float64 queries,
+// binned by their float32 rounding hi = f32(r) (a hi/lo pair is binned
+// by its hi, as float queries).
+template <typename T>
+__global__ void cand_bin_pass_kernel(const T* __restrict__ r, int n,
                                      iu::BinGrid bins,
                                      int* __restrict__ counts,
                                      int* __restrict__ bin_out,
@@ -336,7 +350,8 @@ __global__ void cand_bin_pass_kernel(const float* __restrict__ r, int n,
   const int q = blockIdx.x * blockDim.x + threadIdx.x;
   if (q >= n) return;
   int i, j, k;
-  iu::bin_ijk(bins, r[3 * q + 0], r[3 * q + 1], r[3 * q + 2], i, j, k);
+  iu::bin_ijk(bins, to_f32(r[3 * q + 0]), to_f32(r[3 * q + 1]),
+              to_f32(r[3 * q + 2]), i, j, k);
   const int b = iu::bin_flat(bins, i, j, k);
   bin_out[q] = b;
   rank_out[q] = atomicAdd(counts + b, 1);
@@ -367,18 +382,22 @@ __global__ void cand_bin_scatter_kernel(const int* __restrict__ bin,
 // one 16-byte load), keeping the first of equal margins; the group's
 // butterfly argmax keeps the lower k on ties, the warp probe's rule.
 // For the quantized rows the group probes in the local frame r - center
-// of its bin (ops/geometry.py:cand_bin_center_cols).  The winner's lane
-// writes the query's record (id, aux, values: 2 + n_vars words) at its
-// slot, next to its neighbours' records; cand_bin_unsort_kernel puts
-// the records back in query order.
-template <int NF, int LAYOUT, bool VEC>
+// of its bin (ops/geometry.py:cand_bin_center_cols); for the df-plane
+// rows (LAYOUT 3) it splits the query as given and forms the hi/lo local
+// frame (F64: r is float64 (B, 3); else r is the float32 hi and r_lo the
+// lo, or null for zeros).  The winner's lane writes the query's record
+// (id, aux, values: 2 + n_vars words; layout 3: 2 + 2 n_vars, hi values
+// then lo) at its slot, next to its neighbours' records;
+// cand_bin_unsort_kernel puts the records back in query order.
+template <int NF, int LAYOUT, bool VEC, bool F64>
 __global__ void __launch_bounds__(kOrderThreads)
 cand_rows_binned_kernel(
-    const float* __restrict__ table, int W, const float* __restrict__ r,
-    const int* __restrict__ perm, int n_queries, int log2_g, iu::BinGrid bins,
-    int K, int id_role, int count_col, float eps, int ovf_base, float qinv,
-    int n_vars, const int* __restrict__ vroles, int* __restrict__ rec) {
-  constexpr bool kQuant = LAYOUT == 0;
+    const float* __restrict__ table, int W, const void* __restrict__ r,
+    const float* __restrict__ r_lo, const int* __restrict__ perm,
+    int n_queries, int log2_g, iu::BinGrid bins, int K, int id_role,
+    int count_col, float eps, int ovf_base, float qinv, int n_vars,
+    const int* __restrict__ vroles, int* __restrict__ rec) {
+  constexpr bool kQuant = LAYOUT == 0 || LAYOUT == 3;
   constexpr int NW = kQuant ? QuantWords<NF>::SN + QuantWords<NF>::DN : 4 * NF;
   const int G = 1 << log2_g;
   const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
@@ -388,16 +407,40 @@ cand_rows_binned_kernel(
   // last query probe query perm[0] and write nothing
   const bool live = slot < n_queries;
   const int q = perm[live ? slot : 0];
-  float rx = r[3 * q + 0];
-  float ry = r[3 * q + 1];
-  float rz = r[3 * q + 2];
+  float hi[3], lo[3] = {0.0f, 0.0f, 0.0f};
+#pragma unroll
+  for (int d = 0; d < 3; ++d) {
+    if constexpr (F64) {
+      const double x = static_cast<const double*>(r)[3 * q + d];
+      hi[d] = __double2float_rn(x);
+      lo[d] = __double2float_rn(x - (double)hi[d]);
+    } else {
+      hi[d] = static_cast<const float*>(r)[3 * q + d];
+      if (LAYOUT == 3 && r_lo != nullptr) lo[d] = r_lo[3 * q + d];
+    }
+  }
   int i, j, k;
-  iu::bin_ijk(bins, rx, ry, rz, i, j, k);
+  iu::bin_ijk(bins, hi[0], hi[1], hi[2], i, j, k);
   const float* row = table + (size_t)iu::bin_flat(bins, i, j, k) * W;
-  if constexpr (kQuant) {
+  float rx = hi[0], ry = hi[1], rz = hi[2];
+  float rq_lo[3] = {0.0f, 0.0f, 0.0f};
+  if constexpr (LAYOUT == 0) {
     rx = rx - iu::bin_center(bins, 0, i);
     ry = ry - iu::bin_center(bins, 1, j);
     rz = rz - iu::bin_center(bins, 2, k);
+  } else if constexpr (LAYOUT == 3) {
+    // hi/lo local frame: two_sum(hi, -center), its error plus the lo
+    const int ijk[3] = {i, j, k};
+    float rl[3];
+#pragma unroll
+    for (int d = 0; d < 3; ++d) {
+      const iu::df s = iu::two_sum(hi[d], -iu::bin_center(bins, d, ijk[d]));
+      rl[d] = s.hi;
+      rq_lo[d] = s.lo + lo[d];
+    }
+    rx = rl[0];
+    ry = rl[1];
+    rz = rl[2];
   }
   const float ds = kQuant ? row[count_col + 1] : 0.0f;
 
@@ -470,11 +513,13 @@ cand_rows_binned_kernel(
     }
   }
   if (!live || wk < 0 || best_k != wk) return;  // the winner's lane finishes
-  const int stride = 2 + n_vars;
-  write_winner<NF, LAYOUT>(row, K, wk, wm, best_mf, rx, ry, rz, nullptr, slot,
+  const int stride = 2 + (LAYOUT == 3 ? 2 : 1) * n_vars;
+  float* vals = reinterpret_cast<float*>(rec + 2);
+  write_winner<NF, LAYOUT>(row, K, wk, wm, best_mf, rx, ry, rz, rq_lo, slot,
                            id_role, count_col, eps, ovf_base, n_vars, vroles,
-                           rec, rec + 1, reinterpret_cast<float*>(rec + 2),
-                           nullptr, stride, stride);
+                           rec, rec + 1, vals,
+                           LAYOUT == 3 ? vals + n_vars : nullptr, stride,
+                           stride);
 }
 
 // Unsort: query q's record, read back from its slot, into the outputs
@@ -499,30 +544,24 @@ __global__ void cand_bin_unsort_kernel(const int* __restrict__ rec,
 }  // namespace
 
 // Plain C entry point (bound with ctypes).  layout: 0 quantized simplex,
-// 1 f32 simplex, 2 quad, 3 accurate-mode df planes; nf 3 or 4.  vroles:
-// (n_vars,) device int32, the first role column of each fused variable.
-// rq_lo and out_vals_lo are used by layout 3 only (null otherwise).
-// Returns the cudaError_t of the launch.
+// 1 f32 simplex, 2 quad; nf 3 or 4.  vroles: (n_vars,) device int32, the
+// first role column of each fused variable.  Returns the cudaError_t of
+// the launch.
 extern "C" int iu_cand_rows(const float* table, int W, const int* idx,
-                            const float* rq, const float* rq_lo,
-                            int n_queries, int K, int nf, int layout,
-                            int id_role, int count_col, float eps,
+                            const float* rq, int n_queries, int K, int nf,
+                            int layout, int id_role, int count_col, float eps,
                             int ovf_base, float qinv, int n_vars,
                             const int* vroles, int* out_id, int* out_aux,
-                            float* out_vals, float* out_vals_lo,
-                            void* stream) {
+                            float* out_vals, void* stream) {
   if (n_queries <= 0) return (int)cudaSuccess;
   if (K <= 0 || n_vars < 0) {
     return (int)cudaErrorInvalidValue;
   }
-  if (layout == 3 && (rq_lo == nullptr || out_vals_lo == nullptr)) {
-    return (int)cudaErrorInvalidValue;
-  }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define IU_CAND_LAUNCH(NF_, L_)                                             \
-  launch<NF_, L_>(table, W, idx, rq, rq_lo, n_queries, K, id_role, count_col, \
-                  eps, ovf_base, qinv, n_vars, vroles, out_id, out_aux,     \
-                  out_vals, out_vals_lo, s)
+#define IU_CAND_LAUNCH(NF_, L_)                                            \
+  launch<NF_, L_>(table, W, idx, rq, n_queries, K, id_role, count_col, eps, \
+                  ovf_base, qinv, n_vars, vroles, out_id, out_aux, out_vals, \
+                  s)
   if (layout == 0 && nf == 3) {
     IU_CAND_LAUNCH(3, 0);
   } else if (layout == 0 && nf == 4) {
@@ -533,10 +572,6 @@ extern "C" int iu_cand_rows(const float* table, int W, const int* idx,
     IU_CAND_LAUNCH(4, 1);
   } else if (layout == 2 && nf == 4) {
     IU_CAND_LAUNCH(4, 2);
-  } else if (layout == 3 && nf == 3) {
-    IU_CAND_LAUNCH(3, 3);
-  } else if (layout == 3 && nf == 4) {
-    IU_CAND_LAUNCH(4, 3);
   } else {
     return (int)cudaErrorInvalidValue;
   }
@@ -545,22 +580,30 @@ extern "C" int iu_cand_rows(const float* table, int W, const int* idx,
 }
 
 // Plain C entry points of the bin-ordered probe (bound with ctypes).  r:
-// (B, 3) float32 queries; bin_rmin, bin_inv_h: (3,) float32 on the
-// device; nbx, nby, nbz: the candidate bins per axis.
+// (B, 3) queries, float32, or float64 where f64 is nonzero (the df-plane
+// rows only); bin_rmin, bin_inv_h: (3,) float32 on the device; nbx, nby,
+// nbz: the candidate bins per axis.
 //
 // iu_cand_bin_pass: counts ((n_bins,) int32, zeroed by the caller) gets
 // the queries per bin, bin_out and rank_out ((B,) int32) each query's
 // flat bin and its rank in the bin.
-extern "C" int iu_cand_bin_pass(const float* r, int n_queries,
+extern "C" int iu_cand_bin_pass(const void* r, int f64, int n_queries,
                                 const float* bin_rmin, const float* bin_inv_h,
                                 int nbx, int nby, int nbz, int* counts,
                                 int* bin_out, int* rank_out, void* stream) {
   if (n_queries <= 0) return (int)cudaSuccess;
   const iu::BinGrid bins{bin_rmin, bin_inv_h, nbx, nby, nbz};
   const int blocks = (n_queries + kOrderThreads - 1) / kOrderThreads;
-  cand_bin_pass_kernel<<<blocks, kOrderThreads, 0,
-                         static_cast<cudaStream_t>(stream)>>>(
-      r, n_queries, bins, counts, bin_out, rank_out);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (f64) {
+    cand_bin_pass_kernel<double><<<blocks, kOrderThreads, 0, s>>>(
+        static_cast<const double*>(r), n_queries, bins, counts, bin_out,
+        rank_out);
+  } else {
+    cand_bin_pass_kernel<float><<<blocks, kOrderThreads, 0, s>>>(
+        static_cast<const float*>(r), n_queries, bins, counts, bin_out,
+        rank_out);
+  }
   return (int)cudaGetLastError();
 }
 
@@ -578,13 +621,17 @@ extern "C" int iu_cand_bin_scatter(const int* bin, const int* rank,
   return (int)cudaGetLastError();
 }
 
-// iu_cand_rows_binned: the probe of the main table ((n_bins, W), one row
-// per bin) in the order of perm (the B queries grouped by bin), `lanes`
+// iu_cand_rows_binned: the probe of a table ((n_bins, W), one row per
+// bin) in the order of perm (the B queries grouped by bin), `lanes`
 // lanes per query (1, 2, 4, 8, 16 or 32); layout 0 quantized simplex
-// (the kernel computes r_local), 1 f32 simplex, 2 quad.  rec: (B, 2 +
-// n_vars) int32, one record per slot: id, aux, then the values' float
-// bits.
-extern "C" int iu_cand_rows_binned(const float* table, int W, const float* r,
+// (the kernel computes r_local), 1 f32 simplex, 2 quad, 3 df planes
+// (the kernel splits the queries and computes the hi/lo r_local).  r:
+// float32 (B, 3), or float64 where f64 is nonzero (layout 3 only); r_lo:
+// the float32 lo parts of float32 queries, layout 3 only (null: zeros).
+// rec: (B, 2 + n_vars) int32 (layout 3: 2 + 2 n_vars), one record per
+// slot: id, aux, then the values' float bits (layout 3: hi, then lo).
+extern "C" int iu_cand_rows_binned(const float* table, int W, const void* r,
+                                   const float* r_lo, int f64,
                                    const int* perm, int n_queries, int lanes,
                                    const float* bin_rmin,
                                    const float* bin_inv_h, int nbx, int nby,
@@ -598,6 +645,9 @@ extern "C" int iu_cand_rows_binned(const float* table, int W, const float* r,
       (lanes & (lanes - 1)) != 0) {
     return (int)cudaErrorInvalidValue;
   }
+  if (layout != 3 && (f64 || r_lo != nullptr)) {
+    return (int)cudaErrorInvalidValue;
+  }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const iu::BinGrid bins{bin_rmin, bin_inv_h, nbx, nby, nbz};
   const int log2_g = __builtin_ctz(lanes);
@@ -606,39 +656,48 @@ extern "C" int iu_cand_rows_binned(const float* table, int W, const float* r,
   // 16-byte loads along the candidates when every role starts aligned
   const bool vec = K % 4 == 0 && W % 4 == 0 &&
                    reinterpret_cast<uintptr_t>(table) % 16 == 0;
-#define IU_BINNED_LAUNCH(NF_, L_)                                             \
-  do {                                                                        \
-    if (vec) {                                                                \
-      cand_rows_binned_kernel<NF_, L_, true><<<blocks, kOrderThreads, 0, s>>>( \
-          table, W, r, perm, n_queries, log2_g, bins, K, id_role, count_col,  \
-          eps, ovf_base, qinv, n_vars, vroles, rec);                          \
-    } else {                                                                  \
-      cand_rows_binned_kernel<NF_, L_, false>                                 \
-          <<<blocks, kOrderThreads, 0, s>>>(                                  \
-              table, W, r, perm, n_queries, log2_g, bins, K, id_role,         \
-              count_col, eps, ovf_base, qinv, n_vars, vroles, rec);           \
-    }                                                                         \
+#define IU_BINNED_KERNEL(NF_, L_, V_, D_)                                     \
+  cand_rows_binned_kernel<NF_, L_, V_, D_><<<blocks, kOrderThreads, 0, s>>>(  \
+      table, W, r, r_lo, perm, n_queries, log2_g, bins, K, id_role,           \
+      count_col, eps, ovf_base, qinv, n_vars, vroles, rec)
+#define IU_BINNED_LAUNCH(NF_, L_, D_)        \
+  do {                                       \
+    if (vec) {                               \
+      IU_BINNED_KERNEL(NF_, L_, true, D_);   \
+    } else {                                 \
+      IU_BINNED_KERNEL(NF_, L_, false, D_);  \
+    }                                        \
   } while (0)
   if (layout == 0 && nf == 3) {
-    IU_BINNED_LAUNCH(3, 0);
+    IU_BINNED_LAUNCH(3, 0, false);
   } else if (layout == 0 && nf == 4) {
-    IU_BINNED_LAUNCH(4, 0);
+    IU_BINNED_LAUNCH(4, 0, false);
   } else if (layout == 1 && nf == 3) {
-    IU_BINNED_LAUNCH(3, 1);
+    IU_BINNED_LAUNCH(3, 1, false);
   } else if (layout == 1 && nf == 4) {
-    IU_BINNED_LAUNCH(4, 1);
+    IU_BINNED_LAUNCH(4, 1, false);
   } else if (layout == 2 && nf == 4) {
-    IU_BINNED_LAUNCH(4, 2);
+    IU_BINNED_LAUNCH(4, 2, false);
+  } else if (layout == 3 && nf == 3 && f64) {
+    IU_BINNED_LAUNCH(3, 3, true);
+  } else if (layout == 3 && nf == 3) {
+    IU_BINNED_LAUNCH(3, 3, false);
+  } else if (layout == 3 && nf == 4 && f64) {
+    IU_BINNED_LAUNCH(4, 3, true);
+  } else if (layout == 3 && nf == 4) {
+    IU_BINNED_LAUNCH(4, 3, false);
   } else {
     return (int)cudaErrorInvalidValue;
   }
 #undef IU_BINNED_LAUNCH
+#undef IU_BINNED_KERNEL
   return (int)cudaGetLastError();
 }
 
 // iu_cand_bin_unsort: the probe's records ((B, 2 + n_vars) int32 by
 // slot) back in query order through slot: out_id, out_aux (B,) int32,
-// out_vals (B, n_vars) float32.
+// out_vals (B, n_vars) float32 (the df-plane records: n_vars = 2V, hi
+// columns then lo).
 extern "C" int iu_cand_bin_unsort(const int* rec, const int* slot,
                                   int n_queries, int n_vars, int* out_id,
                                   int* out_aux, float* out_vals,

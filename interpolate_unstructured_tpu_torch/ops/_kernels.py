@@ -45,8 +45,8 @@ _SIGNATURES = {
     ),
     "iu_cand_rows": (
         _I,
-        [_P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _F, _I, _P,
-         _P, _P, _P, _P, _P],
+        [_P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _F, _I, _P, _P,
+         _P, _P, _P],
     ),
     "iu_interp_acc": (
         _I, [_P, _I, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P],
@@ -61,18 +61,21 @@ _SIGNATURES = {
         [_P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F,
          _F, _I, _I, _P, _P, _P],
     ),
-    "iu_cand_bin_pass": (_I, [_P, _I, _P, _P, _I, _I, _I, _P, _P, _P, _P]),
+    "iu_cand_bin_pass": (
+        _I, [_P, _I, _I, _P, _P, _I, _I, _I, _P, _P, _P, _P],
+    ),
     "iu_cand_bin_scatter": (_I, [_P, _P, _P, _I, _P, _P, _P]),
     "iu_cand_rows_binned": (
         _I,
-        [_P, _I, _P, _P, _I, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F,
-         _I, _F, _I, _P, _P, _P],
+        [_P, _I, _P, _P, _I, _P, _I, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+         _I, _F, _I, _F, _I, _P, _P, _P],
     ),
     "iu_cand_bin_unsort": (_I, [_P, _P, _I, _I, _P, _P, _P, _P]),
-    "iu_trace": (
+    "iu_trace_loop": (
         _I,
         [_P, _I, _I, _I, _P, _P, _P, _P, _P, _I, _F, _F, _F, _F, _I, _I, _I,
-         _F, _I, _P, _P, _P],
+         _F, _I, _F, _F, _F, _F, _F, _F, _F, _F, _I, _I, _P, _P, _P, _P, _P,
+         _P, _P],
     ),
     "iu_error_string": (ctypes.c_char_p, [_I]),
 }

@@ -12,23 +12,27 @@ weights).  Four row layouts (see ``RowLayout.kind`` and the packers in
 branch (the JAX kernel's ``df_planes=True``), whose values come back as
 hi/lo float32 pairs.
 
-:func:`cand_rows_query` and :func:`cand_rows_df_query` launch the direct
-CUDA kernel (``csrc/cand_rows.cu``, one warp per query in query order)
-on CUDA tensors and run the plain PyTorch version
-(:func:`probe_rows_plain`, :func:`probe_rows_df_plain`) on CPU tensors;
-they serve the df-plane rows and the extension table.  The main table
-is probed in bin order by :func:`cand_rows_binned_query`: on CUDA tensors
-a bin pass and a scatter kernel group the queries by bin
-(:func:`bin_order_cuda`), the probe kernel takes them in that order, a
-group of lanes per query (:func:`binned_lanes`), and writes each query's
-record at its sorted slot, and an unsort kernel puts the records back in
-query order (:func:`cand_rows_binned_cuda`); on CPU tensors the plain
-version, :func:`probe_rows_plain`, probes in query order
-(:func:`bin_order_plain` is the scatter's plain twin).  ``launches`` counts the direct kernel's
-launches on the f32 layouts, ``df_launches`` those on the df-plane
-rows, ``bin_pass_launches``, ``bin_scatter_launches``,
-``binned_launches`` and ``bin_unsort_launches`` those of the four
-bin-ordered kernels.
+:func:`cand_rows_query` launches the direct CUDA kernel
+(``csrc/cand_rows.cu``, one warp per query in query order) on CUDA
+tensors and runs the plain PyTorch version (:func:`probe_rows_plain`) on
+CPU tensors; it serves the extension table.  The main table is probed in
+bin order by :func:`cand_rows_binned_query`: on CUDA tensors a bin pass
+and a scatter kernel group the queries by bin (:func:`bin_order_cuda`),
+the probe kernel takes them in that order, a group of lanes per query
+(:func:`binned_lanes`), and writes each query's record at its sorted
+slot, and an unsort kernel puts the records back in query order
+(:func:`cand_rows_binned_cuda`); on CPU tensors the plain version,
+:func:`probe_rows_plain`, probes in query order (:func:`bin_order_plain`
+is the scatter's plain twin).  The df-plane rows take the same four
+kernels from the queries as given, float64 or a float32 hi/lo pair,
+which the kernels split and carry into the hi/lo local frame themselves
+(:func:`cand_rows_df_query`); the plain version is
+:func:`cand_rows_df_plain` (:func:`probe_inputs_df_plain`, then
+:func:`probe_rows_df_plain`).  ``launches`` counts the direct kernel's
+launches, ``bin_pass_launches``, ``bin_scatter_launches`` and
+``bin_unsort_launches`` those of the bin-ordered front end (both row
+kinds), ``binned_launches`` the probe in bin order of the f32 layouts and
+``df_launches`` that of the df-plane rows.
 """
 
 from __future__ import annotations
@@ -41,8 +45,8 @@ import torch
 
 from . import _kernels, df32, geometry, wkern
 
-launches = 0  # direct launches on the three f32 layouts (B2)
-df_launches = 0  # launches on the df-plane layout (B2-df)
+launches = 0  # direct launches (B2, the extension rows)
+df_launches = 0  # probe in bin order of the df-plane rows (B2-df)
 bin_pass_launches = 0  # bin pass of the bin-ordered probe
 bin_scatter_launches = 0  # scatter of the bin-ordered probe
 binned_launches = 0  # probe in bin order (main table, f32 layouts)
@@ -87,6 +91,35 @@ def probe_inputs_plain(r, rmin, inv_h, shape, quantized):
     if quantized:
         return idx, geometry.cand_local_frame(r, rmin, inv_h, ijk)
     return idx, r.contiguous()
+
+
+def local_frame_df(r_hi, r_lo, rmin, inv_h, ijk):
+    """(hi, lo) split of r_local = r - bin_center, each (B, 3): hi =
+    fl(r_hi - c) and lo its error-free residual (two_sum) plus the query's
+    own residual ``r_lo`` -- the JAX package's ``_cand_local_df_t``, so
+    the df32 plane evaluation sees r_local to float64-grade precision.
+    hi equals the quantized probe's r_local bit for bit."""
+    cs = geometry.cand_bin_center_cols(rmin, inv_h, *ijk)
+    his, los = [], []
+    for d in range(3):
+        hi, err = df32.two_sum(r_hi[:, d], -cs[d])
+        his.append(hi)
+        los.append(err + r_lo[:, d])
+    return torch.stack(his, dim=1), torch.stack(los, dim=1)
+
+
+def probe_inputs_df_plain(r, r_lo, rmin, inv_h, shape):
+    """(idx (B,) int32, rq (B, 3), rq_lo (B, 3)) of a df-plane probe of
+    the queries ``r`` (float64, split by :func:`df32.split_queries`, or
+    float32 with their lo parts ``r_lo``, None for zeros): each query's
+    flat bin from its hi part, and the hi/lo local frame."""
+    if r_lo is None:
+        r_hi, r_lo = df32.split_queries(r)
+    else:
+        r_hi = r
+    ijk = geometry.bin_ijk(r_hi, rmin, inv_h, shape, torch.int32)
+    return (geometry.bin_flat(ijk, shape),
+            *local_frame_df(r_hi, r_lo, rmin, inv_h, ijk))
 
 
 def bin_order_plain(idx):
@@ -274,31 +307,42 @@ def probe_rows_df_plain(table, idx, rq, rq_lo, lay, eps, ovf_base, chunk):
     return id_best, aux, vals[:, :n], vals[:, n:]
 
 
-def _launch(table, idx, rq, rq_lo, lay, eps, ovf_base):
-    """Check the tensors and launch B2; returns (id_best, aux, values,
-    values_lo or None)."""
-    global launches, df_launches
-    df = lay.kind == "qdf"
-    qs = (rq, rq_lo) if df else (rq,)
-    if table.dtype != torch.float32 or any(
-            x.dtype != torch.float32 for x in qs):
+def cand_rows_df_plain(table, r, r_lo, rmin, inv_h, shape, lay, eps,
+                       ovf_base, chunk):
+    """Plain PyTorch version of the df-plane query in bin order, from the
+    same inputs as :func:`cand_rows_df_query` (any device; in query
+    order, which no query's result depends on).  Returns (id_best, aux,
+    vals_hi (B, V), vals_lo (B, V))."""
+    idx, rq, rq_lo = probe_inputs_df_plain(r, r_lo, rmin, inv_h, shape)
+    return probe_rows_df_plain(table, idx, rq, rq_lo, lay, eps, ovf_base,
+                               chunk)
+
+
+def cand_rows_cuda(table, idx, rq, lay, eps, ovf_base):
+    """Launch B2's direct kernel on CUDA tensors: float32 table, int32
+    idx, float32 rq.  The kernel reads each query's row from the table
+    itself.  Returns (id_best, aux, values)."""
+    global launches
+    if lay.kind not in ("quantized", "simplex", "quad"):
+        raise ValueError(f"{lay.kind!r} rows are probed in bin order")
+    if table.dtype != torch.float32 or rq.dtype != torch.float32:
         raise TypeError(
             "the CUDA candidate kernel takes float32 tables and queries, "
-            f"got {table.dtype} / {[x.dtype for x in qs]}"
+            f"got {table.dtype} / {rq.dtype}"
         )
     if idx.dtype != torch.int32:
         raise TypeError(f"idx must be int32, got {idx.dtype}")
-    if not all(x.device == table.device for x in (idx, *qs)):
+    if not table.device == idx.device == rq.device:
         raise ValueError("table, idx and queries must share one device")
     if table.ndim != 2 or not table.is_contiguous():
         raise ValueError("table must be a contiguous (n_rows, W) tensor")
     b = idx.shape[0]
-    if idx.ndim != 1 or any(x.shape != (b, 3) for x in qs):
+    if idx.ndim != 1 or rq.shape != (b, 3):
         raise ValueError(
             f"idx must be (B,), queries (B, 3): got {tuple(idx.shape)}, "
-            f"{[tuple(x.shape) for x in qs]}"
+            f"{tuple(rq.shape)}"
         )
-    tail = 2 if lay.kind in _QUANTIZED_KINDS else 1
+    tail = 2 if lay.kind == "quantized" else 1
     if lay.count_col + tail > table.shape[1] or lay.k < 1:
         raise ValueError(f"row layout {lay} does not fit width {table.shape[1]}")
     idx = idx.contiguous()
@@ -309,44 +353,19 @@ def _launch(table, idx, rq, rq_lo, lay, eps, ovf_base):
     out_id = torch.empty(b, dtype=torch.int32, device=dev)
     out_aux = torch.empty(b, dtype=torch.int32, device=dev)
     vals = torch.empty((b, n_vars), dtype=torch.float32, device=dev)
-    vals_lo = None
-    if df:
-        rq_lo = rq_lo.contiguous()
-        vals_lo = torch.empty((b, n_vars), dtype=torch.float32, device=dev)
     if b == 0:
-        return out_id, out_aux, vals, vals_lo
+        return out_id, out_aux, vals
     with torch.cuda.device(dev):
         code = _kernels.lib().iu_cand_rows(
             table.data_ptr(), table.shape[1], idx.data_ptr(), rq.data_ptr(),
-            rq_lo.data_ptr() if df else None, b, lay.k, lay.nf,
-            _KIND_CODE[lay.kind], lay.id_role, lay.count_col, float(eps),
-            int(ovf_base), QINV, n_vars, vroles.data_ptr(),
-            out_id.data_ptr(), out_aux.data_ptr(), vals.data_ptr(),
-            vals_lo.data_ptr() if df else None,
-            torch.cuda.current_stream().cuda_stream,
+            b, lay.k, lay.nf, _KIND_CODE[lay.kind], lay.id_role,
+            lay.count_col, float(eps), int(ovf_base), QINV, n_vars,
+            vroles.data_ptr(), out_id.data_ptr(), out_aux.data_ptr(),
+            vals.data_ptr(), torch.cuda.current_stream().cuda_stream,
         )
     _kernels.check(code, "iu_cand_rows")
-    if df:
-        df_launches += 1
-    else:
-        launches += 1
-    return out_id, out_aux, vals, vals_lo
-
-
-def cand_rows_cuda(table, idx, rq, lay, eps, ovf_base):
-    """Launch B2 on CUDA tensors: float32 table, int32 idx, float32 rq.
-    The kernel reads each query's row from the table itself."""
-    if lay.kind == "qdf":
-        raise ValueError("df-plane rows are probed by cand_rows_df_cuda")
-    return _launch(table, idx, rq, None, lay, eps, ovf_base)[:3]
-
-
-def cand_rows_df_cuda(table, idx, rq, rq_lo, lay, eps, ovf_base):
-    """Launch B2's df-plane branch on CUDA tensors ("qdf" rows, hi/lo
-    r_local).  Returns (id_best, aux, vals_hi (B, V), vals_lo (B, V))."""
-    if lay.kind != "qdf":
-        raise ValueError(f"{lay.kind!r} rows are probed by cand_rows_cuda")
-    return _launch(table, idx, rq, rq_lo, lay, eps, ovf_base)
+    launches += 1
+    return out_id, out_aux, vals
 
 
 def cand_rows_query(table, idx, rq, lay, eps, ovf_base, chunk):
@@ -370,12 +389,20 @@ def binned_lanes(n_queries, n_bins):
     return 2 if n_queries >= 2 * n_bins else 4
 
 
+def _check_table(table):
+    if table.dtype != torch.float32:
+        raise TypeError(f"the CUDA candidate kernel takes float32 tables, got "
+                        f"{table.dtype}")
+
+
 def _check_bins(r, rmin, inv_h, shape):
-    """Check the queries and bin grid of a bin-ordered launch; returns the
-    contiguous (r, rmin, inv_h) and the number of bins."""
-    if r.dtype != torch.float32 or r.ndim != 2 or r.shape[1] != 3:
-        raise TypeError(f"queries must be float32 (B, 3), got {r.dtype} "
-                        f"{tuple(r.shape)}")
+    """Check the queries (float32, or float64) and bin grid of a
+    bin-ordered launch; returns the contiguous (r, rmin, inv_h) and the
+    number of bins."""
+    if (r.dtype not in (torch.float32, torch.float64) or r.ndim != 2
+            or r.shape[1] != 3):
+        raise TypeError(f"queries must be float32 or float64 (B, 3), got "
+                        f"{r.dtype} {tuple(r.shape)}")
     for t in (rmin, inv_h):
         if t.dtype != torch.float32 or t.shape != (3,):
             raise ValueError("bin origin and inverse sizes must be float32 "
@@ -390,8 +417,8 @@ def _check_bins(r, rmin, inv_h, shape):
 
 def bin_order_cuda(r, rmin, inv_h, shape):
     """Launch the bin pass and the scatter on CUDA tensors: (B, 3) float32
-    queries, the (3,) float32 bin origin and inverse sizes, the bins per
-    axis.  Returns (idx (B,) int32 flat bins, ends (n_bins,) int32 the
+    queries (or float64, binned by their float32 rounding), the (3,)
+    float32 bin origin and inverse sizes, the bins per axis.  Returns (idx (B,) int32 flat bins, ends (n_bins,) int32 the
     inclusive scan of the queries per bin, perm (B,) int32: the queries
     grouped by bin, in ascending bin order, bin b in slots
     [ends[b - 1], ends[b]), in a bin in no fixed order; slot (B,) int32:
@@ -408,7 +435,8 @@ def bin_order_cuda(r, rmin, inv_h, shape):
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
         code = _kernels.lib().iu_cand_bin_pass(
-            r.data_ptr(), b, rmin.data_ptr(), inv_h.data_ptr(), *shape,
+            r.data_ptr(), int(r.dtype == torch.float64), b, rmin.data_ptr(),
+            inv_h.data_ptr(), *shape,
             counts.data_ptr(), idx.data_ptr(), rank.data_ptr(), stream)
         _kernels.check(code, "iu_cand_bin_pass")
         bin_pass_launches += 1
@@ -422,7 +450,7 @@ def bin_order_cuda(r, rmin, inv_h, shape):
 
 
 def cand_rows_binned_cuda(table, r, perm, slot, rmin, inv_h, shape, lay, eps,
-                          ovf_base, lanes=None):
+                          ovf_base, lanes=None, r_lo=None):
     """Launch the probe in bin order and the unsort on CUDA tensors:
     float32 table (one row per bin) and (B, 3) queries ``r`` (the kernel
     computes their bins and, for quantized rows, their local frame);
@@ -430,15 +458,28 @@ def cand_rows_binned_cuda(table, r, perm, slot, rmin, inv_h, shape, lay, eps,
     inverse (:func:`bin_order_cuda`).  A group of ``lanes`` lanes (None:
     :func:`binned_lanes`) probes each query, in the order of ``perm``, and
     writes its record at its slot; the unsort puts the records back.
-    Returns (id_best, aux, values) in query order."""
-    global binned_launches, bin_unsort_launches
-    if lay.kind not in ("quantized", "simplex", "quad"):
-        raise ValueError(f"{lay.kind!r} rows are probed by the direct kernel")
+    For the df-plane rows ("qdf") ``r`` is float64, or float32 with the
+    lo parts ``r_lo`` (None: zeros), and the kernel splits the queries and
+    forms their hi/lo local frame.  Returns (id_best, aux, values) in
+    query order; for "qdf" values is (B, 2V), hi columns then lo."""
+    global binned_launches, df_launches, bin_unsort_launches
+    df = lay.kind == "qdf"
+    if lay.kind not in ("quantized", "simplex", "quad", "qdf"):
+        raise ValueError(f"unknown row kind {lay.kind!r}")
     r, rmin, inv_h, n_bins = _check_bins(r, rmin, inv_h, shape)
+    f64 = r.dtype == torch.float64
+    if f64 and (not df or r_lo is not None):
+        raise TypeError("float64 queries are taken by the df-plane rows only, "
+                        "without r_lo")
+    if r_lo is not None:
+        if not df or r_lo.dtype != torch.float32 or r_lo.shape != r.shape:
+            raise ValueError("r_lo must be the float32 (B, 3) lo parts of "
+                             "df-plane queries")
+        if r_lo.device != r.device:
+            raise ValueError("r and r_lo must share one device")
+        r_lo = r_lo.contiguous()
     b = r.shape[0]
-    if table.dtype != torch.float32:
-        raise TypeError(f"the CUDA candidate kernel takes float32 tables, got "
-                        f"{table.dtype}")
+    _check_table(table)
     for name, t in (("perm", perm), ("slot", slot)):
         if t.dtype != torch.int32 or t.shape != (b,):
             raise ValueError(f"{name} must be an int32 (B,) tensor")
@@ -447,7 +488,8 @@ def cand_rows_binned_cuda(table, r, perm, slot, rmin, inv_h, shape, lay, eps,
     if (table.ndim != 2 or not table.is_contiguous()
             or table.shape[0] != n_bins):
         raise ValueError("table must be a contiguous (n_bins, W) tensor")
-    if lay.count_col + (2 if lay.kind == "quantized" else 1) > table.shape[1]:
+    tail = 2 if lay.kind in _QUANTIZED_KINDS else 1
+    if lay.count_col + tail > table.shape[1]:
         raise ValueError(f"row layout {lay} does not fit width {table.shape[1]}")
     if lanes is None:
         lanes = binned_lanes(b, n_bins)
@@ -456,26 +498,31 @@ def cand_rows_binned_cuda(table, r, perm, slot, rmin, inv_h, shape, lay, eps,
     perm, slot = perm.contiguous(), slot.contiguous()
     dev = table.device
     n_vars = len(lay.var_roles)
+    n_words = 2 * n_vars if df else n_vars  # values a record carries
     vroles = _var_roles(lay.var_roles, dev)
     out_id = torch.empty(b, dtype=torch.int32, device=dev)
     out_aux = torch.empty(b, dtype=torch.int32, device=dev)
-    vals = torch.empty((b, n_vars), dtype=torch.float32, device=dev)
+    vals = torch.empty((b, n_words), dtype=torch.float32, device=dev)
     if b == 0:
         return out_id, out_aux, vals
-    rec = torch.empty((b, 2 + n_vars), dtype=torch.int32, device=dev)
+    rec = torch.empty((b, 2 + n_words), dtype=torch.int32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
         code = _kernels.lib().iu_cand_rows_binned(
-            table.data_ptr(), table.shape[1], r.data_ptr(), perm.data_ptr(),
-            b, lanes, rmin.data_ptr(), inv_h.data_ptr(), *shape, lay.k,
-            lay.nf, _KIND_CODE[lay.kind], lay.id_role, lay.count_col,
-            float(eps), int(ovf_base), QINV, n_vars, vroles.data_ptr(),
-            rec.data_ptr(), stream,
+            table.data_ptr(), table.shape[1], r.data_ptr(),
+            None if r_lo is None else r_lo.data_ptr(), int(f64),
+            perm.data_ptr(), b, lanes, rmin.data_ptr(), inv_h.data_ptr(),
+            *shape, lay.k, lay.nf, _KIND_CODE[lay.kind], lay.id_role,
+            lay.count_col, float(eps), int(ovf_base), QINV, n_vars,
+            vroles.data_ptr(), rec.data_ptr(), stream,
         )
         _kernels.check(code, "iu_cand_rows_binned")
-        binned_launches += 1
+        if df:
+            df_launches += 1
+        else:
+            binned_launches += 1
         code = _kernels.lib().iu_cand_bin_unsort(
-            rec.data_ptr(), slot.data_ptr(), b, n_vars, out_id.data_ptr(),
+            rec.data_ptr(), slot.data_ptr(), b, n_words, out_id.data_ptr(),
             out_aux.data_ptr(), vals.data_ptr(), stream)
         _kernels.check(code, "iu_cand_bin_unsort")
         bin_unsort_launches += 1
@@ -492,6 +539,7 @@ def cand_rows_binned_query(table, r, rmin, inv_h, shape, lay, eps, ovf_base,
     order (a query's result does not depend on the order).  Returns
     (id_best (B,) int32, aux (B,) int32, values (B, V)) in query order."""
     if table.device.type == "cuda":
+        _check_table(table)  # before the bin pass, which takes float64 r
         _, _, perm, slot = bin_order_cuda(r, rmin, inv_h, shape)
         return cand_rows_binned_cuda(table, r, perm, slot, rmin, inv_h, shape,
                                      lay, eps, ovf_base)
@@ -502,13 +550,24 @@ def cand_rows_binned_query(table, r, rmin, inv_h, shape, lay, eps, ovf_base,
     raise ValueError(f"no candidate probe for device {table.device}")
 
 
-def cand_rows_df_query(table, idx, rq, rq_lo, lay, eps, ovf_base, chunk):
-    """The df-plane probe of accurate mode: the CUDA kernel for CUDA
-    tensors, the plain version for CPU tensors.  Returns (id_best,
-    aux, vals_hi (B, V), vals_lo (B, V))."""
+def cand_rows_df_query(table, r, r_lo, rmin, inv_h, shape, lay, eps,
+                       ovf_base, chunk):
+    """The df-plane probe of accurate mode in bin order, from the queries
+    as given: float64 ``r`` (``r_lo`` None), or float32 ``r`` with its lo
+    parts ``r_lo`` (None: zeros); ``table`` holds one df-plane row per
+    candidate bin.  The bin pass, scatter, df probe and unsort kernels
+    for CUDA tensors, which split the queries themselves; for CPU tensors
+    the plain version, :func:`cand_rows_df_plain`.  Returns (id_best,
+    aux, vals_hi (B, V), vals_lo (B, V)) in query order."""
     if table.device.type == "cuda":
-        return cand_rows_df_cuda(table, idx, rq, rq_lo, lay, eps, ovf_base)
+        _check_table(table)
+        _, _, perm, slot = bin_order_cuda(r, rmin, inv_h, shape)
+        id_best, aux, vals = cand_rows_binned_cuda(
+            table, r, perm, slot, rmin, inv_h, shape, lay, eps, ovf_base,
+            r_lo=r_lo)
+        n = len(lay.var_roles)
+        return id_best, aux, vals[:, :n], vals[:, n:]
     if table.device.type == "cpu":
-        return probe_rows_df_plain(table, idx, rq, rq_lo, lay, eps, ovf_base,
-                                   chunk)
+        return cand_rows_df_plain(table, r, r_lo, rmin, inv_h, shape, lay,
+                                  eps, ovf_base, chunk)
     raise ValueError(f"no candidate probe for device {table.device}")

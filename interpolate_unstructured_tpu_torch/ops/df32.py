@@ -28,6 +28,19 @@ import torch
 _MASK = -4096  # 0xFFFFF000 as int32: sign, exponent, 11 explicit mantissa bits
 
 
+def split_queries(r64):
+    """Split float64 (or float32) queries into a float32 (hi, lo) pair
+    on their own device: hi = f32(r), lo = f32(r - f64(hi)).  Float32
+    queries get zero residuals."""
+    r = torch.as_tensor(r64)
+    if r.dtype == torch.float64:
+        hi = r.to(torch.float32)
+        lo = (r - hi.to(torch.float64)).to(torch.float32)
+        return hi, lo
+    hi = r.to(torch.float32)
+    return hi, torch.zeros_like(hi)
+
+
 def two_sum(a, b):
     """Error-free a + b: (s, e) with s = fl(a + b), s + e = a + b."""
     s = a + b

@@ -20,7 +20,10 @@ Routes of :func:`interpolate_at_acc`:
 
 * a cold call on a grid with df-plane candidate rows (``cand_df_table``)
   and every slot fused: locate and df32 evaluation from one row per
-  query, kernel B2's df-plane branch (``ops/locate._candidates_query_df``);
+  query, kernel B2's df-plane branch in bin order
+  (``ops/locate._candidates_query_df``), which on the card takes the
+  queries as given (float64, or a float32 hi/lo pair) and splits them
+  itself;
 * everything else: ``get_cell`` (B2 / B3), then
   :func:`interpolate_at_icell_acc`, kernel B5 (``ops/acc_kernel.py``),
   which reads each query's cell row itself.
@@ -34,6 +37,7 @@ import time
 import torch
 
 from . import acc_kernel, locate
+from .df32 import split_queries
 from .interp import _static_slots
 
 ACC_ROW_ALIGN = 128  # floats; 512-byte rows, the JAX package's layout
@@ -150,19 +154,6 @@ def prepare_accurate(grid, build_df: bool = True, timings: dict | None = None):
     return dataclasses.replace(grid, **updates)
 
 
-def split_queries(r64):
-    """Split float64 (or float32) queries into a float32 (hi, lo) pair
-    on their own device: hi = f32(r), lo = f32(r - f64(hi)).  Float32
-    queries get zero residuals."""
-    r = torch.as_tensor(r64)
-    if r.dtype == torch.float64:
-        hi = r.to(torch.float32)
-        lo = (r - hi.to(torch.float64)).to(torch.float32)
-        return hi, lo
-    hi = r.to(torch.float32)
-    return hi, torch.zeros_like(hi)
-
-
 def interpolate_at_icell_acc(grid, r_hi, i_vars, i_cell, r_lo=None):
     """df32 interpolation at known cells (kernel B5 on CUDA tensors).
 
@@ -199,21 +190,22 @@ def interpolate_at_icell_acc(grid, r_hi, i_vars, i_cell, r_lo=None):
 def interpolate_at_acc(grid, r, i_vars, guess=None, r_lo=None):
     """Accurate-mode public entry: float32 locate + df32 interpolate.
 
-    ``r`` may be float64 (split into float32 hi/lo pairs on its own
-    device) or float32 (pass ``r_lo`` when the queries carry known
+    ``r`` may be float64 (split into float32 hi/lo pairs on the grid's
+    device: by the kernels themselves on a cold call on the df-plane rows
+    on the card) or float32 (pass ``r_lo`` when the queries carry known
     float64 residuals).
 
     Returns (vals_hi (B, V), vals_lo (B, V), found (B,), i_cell (B,));
     missed queries keep the values of their best candidate or walk end,
     with ``found`` False.
     """
-    if r_lo is None:
-        r_hi, r_lo = split_queries(r)
-    else:
-        r_hi = torch.as_tensor(r, dtype=torch.float32)
-        r_lo = torch.as_tensor(r_lo, dtype=torch.float32)
-    r_hi = r_hi.to(grid.device)
-    r_lo = r_lo.to(grid.device)
+    r = torch.as_tensor(r)
+    if r_lo is not None:
+        r = r.to(torch.float32)
+        r_lo = torch.as_tensor(r_lo, dtype=torch.float32).to(grid.device)
+    elif r.dtype != torch.float64:
+        r = r.to(torch.float32)
+    r = r.to(grid.device)
 
     # Fused cold path: df-plane candidate rows answer locate AND df32
     # interpolation from one row per query
@@ -227,10 +219,14 @@ def interpolate_at_acc(grid, r, i_vars, guess=None, r_lo=None):
         and all(0 <= s < cand_fused_nv(grid) for s in slots)
     ):
         ic, found, vh, vl = locate._candidates_query_df(
-            grid, r_hi, slots, r_lo=r_lo
+            grid, r, slots, r_lo=r_lo
         )
         return vh, vl, found, ic
 
+    if r_lo is None:
+        r_hi, r_lo = split_queries(r)
+    else:
+        r_hi = r
     ic, found = locate.get_cell(grid, r_hi, guess=guess)
     vh, vl = interpolate_at_icell_acc(
         grid, r_hi, i_vars, ic.clamp_min(0), r_lo=r_lo

@@ -31,7 +31,7 @@ from __future__ import annotations
 
 import torch
 
-from . import cand_kernel, df32, geometry, walk_kernel
+from . import cand_kernel, walk_kernel
 from ..utils.config import huge_distance, tiny_distance, walk_tolerances
 
 STATUS_ARRIVED = walk_kernel.STATUS_ARRIVED
@@ -341,27 +341,14 @@ def _df_row_layout(grid, var_slots) -> cand_kernel.RowLayout:
     )
 
 
-def _cand_local_df(grid, r_hi, r_lo, ijk):
-    """(hi, lo) split of r_local = r - bin_center, each (B, 3): hi =
-    fl(r_hi - c) and lo its error-free residual (two_sum) plus the query's
-    own residual ``r_lo`` — the JAX package's ``_cand_local_df_t``, so
-    the df32 plane evaluation sees r_local to float64-grade precision.
-    hi equals the quantized probe's r_local bit for bit."""
-    cs = geometry.cand_bin_center_cols(
-        grid.cand_rmin, grid.cand_inv_h, ijk[0], ijk[1], ijk[2]
-    )
-    his, los = [], []
-    for d in range(3):
-        hi, err = df32.two_sum(r_hi[:, d], -cs[d])
-        his.append(hi)
-        los.append(err + r_lo[:, d])
-    return torch.stack(his, dim=1), torch.stack(los, dim=1)
-
-
-def _candidates_query_df(grid, r_hi, var_slots, r_lo=None):
+def _candidates_query_df(grid, r, var_slots, r_lo=None):
     """Accurate-mode fused cold query: one row of the df-plane candidate
     table (``grid.cand_df_table``) per query answers containment AND the
-    ~1e-13 interpolation (kernel B2's df-plane branch).
+    ~1e-13 interpolation (kernel B2's df-plane branch, in bin order).
+
+    ``r``: (B, 3) float64 queries, or float32 ones with their lo parts
+    ``r_lo`` (None: zeros), on the grid's device; on the card the kernels
+    split them and form the hi/lo local frame themselves.
 
     Only built for simplex grids whose rows cover every bin
     (``models.grid.cand_df_supported``), so a probe miss is exact.
@@ -370,16 +357,10 @@ def _candidates_query_df(grid, r_hi, var_slots, r_lo=None):
     missed queries carry their best candidate's plane values with found
     False.
     """
-    var_slots = tuple(var_slots)
-    lay = _df_row_layout(grid, var_slots)
-    if r_lo is None:
-        r_lo = torch.zeros_like(r_hi)
-    ijk = geometry.bin_ijk(r_hi, grid.cand_rmin, grid.cand_inv_h,
-                           grid.cand_shape, torch.int32)
-    idx = geometry.bin_flat(ijk, grid.cand_shape)
-    rq, rq_lo = _cand_local_df(grid, r_hi, r_lo, ijk)
+    lay = _df_row_layout(grid, tuple(var_slots))
     id_best, aux, vh, vl = cand_kernel.cand_rows_df_query(
-        grid.cand_df_table, idx, rq, rq_lo, lay, _cand_eps(grid), lay.k,
+        grid.cand_df_table, r, r_lo, grid.cand_rmin, grid.cand_inv_h,
+        grid.cand_shape, lay, _cand_eps(grid), lay.k,
         _cand_chunk(grid, grid.cand_df_table),
     )
     found = aux == -2

@@ -27,16 +27,19 @@ Control-flow parity with the reference:
   (:1120/:1133/:1147/:1171); an optional icell mask restricts
   integration to a region (:1055-1068).
 
-Stages 2-4 of an iteration take one of two paths.  The fused path
-(float32, no mask, ``nvar == 0``) runs them in kernel B4
-(``ops/trace_kernel.py``): each lane walks, interpolates on arrival from
-the trace table and advances its own stage machine.  The generic path
-walks each stage with kernel B3 on the trace table
-(``ops/locate.walk(..., table=)``) and interpolates in torch.  A lane
-whose earlier sub-step failed (or that is done) aims its later walks at
-their own start, which makes them no-ops, so one pass through the body
-computes what the reference's goto-laden loop does.  Vectors are (B, D)
-inside; the JAX package's (D, B) row layout was a TPU layout.
+After the setup (start cells by ``get_cell``, the field there, the
+buffers) the loop takes one of two paths.  The fused path (float32, no
+mask, ``nvar == 0``) is one call of ``ops/trace_kernel.trace_loop``:
+kernel B4, one launch in which each line runs all its RK iterations
+(stages 2-4 walk, interpolate on arrival from the trace table and
+advance the line's stage machine).  The generic path keeps a host loop
+over RK iterations: it walks each stage with kernel B3 on the trace
+table (``ops/locate.walk(..., table=)``) and interpolates in torch.  A
+lane whose earlier sub-step failed (or that is done) aims its later
+walks at their own start, which makes them no-ops, so one pass through
+the body computes what the reference's goto-laden loop does.  Both paths
+end each iteration with ``trace_kernel.step_control``.  Vectors are
+(B, D) inside; the JAX package's (D, B) row layout was a TPU layout.
 """
 
 from __future__ import annotations
@@ -47,17 +50,13 @@ import numpy as np
 import torch
 
 from .ops import interp, locate, trace_kernel
+from .ops.trace_kernel import (  # noqa: F401
+    BM_NOT_REACHED,
+    BM_STEP_CAP,
+    MIN_RADIUS,
+    SAFETY_FAC,
+)
 from .utils.config import huge_distance, tiny_distance, walk_tolerances
-
-SAFETY_FAC = 0.8
-MIN_RADIUS = 1e-12
-# boundary_material sentinel: trace still running / buffer exhausted
-BM_NOT_REACHED = -2
-# A sub-step walk hit config.trace_walk_max_steps even at dx ~ min_dx:
-# a min_dx segment crosses more cells than the cap allows.  The reference
-# walks unbounded (:431), so it has no analog; reporting a boundary (-1)
-# would be wrong mid-domain.  Raise trace_walk_max_steps or min_dx.
-BM_STEP_CAP = -3
 
 
 def _shrink_eps(dtype):
@@ -81,8 +80,9 @@ class TraceResult(NamedTuple):
     #                         BM_NOT_REACHED if the buffer filled first,
     #                         or BM_STEP_CAP (walk cap at min_dx)
     n_iterations: Any  # (B,) int32: RK iterations spent (diagnostics)
-    n_rounds: Any = None  # () int32: B4 rounds, summed over iterations of
-    #                       the largest lane count (0 on the generic path)
+    n_rounds: Any = None  # () int32: B4's stage rounds, summed over
+    #                       iterations of the largest lane count (0 on the
+    #                       generic path)
 
 
 def build_trace_table(grid, i_field):
@@ -182,7 +182,6 @@ def integrate_along_field(
     np_dtype = torch.empty((), dtype=dtype).numpy().dtype
     shrink_eps = _shrink_eps(np_dtype)
     tiny = tiny_distance(np_dtype)
-    b = y0.shape[0]
     i32 = torch.int32
 
     if trace_table is None:
@@ -191,23 +190,12 @@ def integrate_along_field(
     sub_int_b = torch.func.vmap(sub_int) if nvar else None
     walk_cap = grid.config.trace_walk_max_steps
 
-    def pad3(r):
-        """(B, ndim) -> (B, 3) with zero-filled unused coordinates."""
-        return torch.nn.functional.pad(r, (0, 3 - ndim))
-
-    def clamp_axi(r):
-        if axisymmetric:
-            return torch.cat([r[:, :1].clamp_min(MIN_RADIUS), r[:, 1:]], 1)
-        return r
+    pad3 = trace_kernel.pad3
 
     def derivs(field, y):
-        """(B, D) derivatives: the unit field vector, guarded by ``tiny``
-        (a zero field steps in place and ends as BM_NOT_REACHED; the
-        reference divides by zero, :1199), then the extra variables'."""
-        norm = trace_kernel.norm3(field)
-        u = field[:, :ndim] / norm.clamp_min(tiny)[:, None]
-        if reverse:
-            u = -u
+        """(B, D) derivatives: the unit field vector, then the extra
+        variables'."""
+        u = trace_kernel.unit_field(field, ndim, tiny, reverse)
         if not nvar:
             return u
         return torch.cat([u, sub_int_b(field[:, :ndim], y)], dim=1)
@@ -230,7 +218,8 @@ def integrate_along_field(
         tgt (B, 3), failed, capped): ``capped`` flags failures that are
         walk step-cap artifacts, not boundary or mask stops."""
         ys = anchor + coeff[:, None] * k_prev
-        tgt = torch.where(ok[:, None], clamp_axi(pad3(ys[:, :ndim])), r_start)
+        tgt = torch.where(ok[:, None], trace_kernel.clamp_axi(
+            pad3(ys[:, :ndim]), axisymmetric, MIN_RADIUS), r_start)
         ic, r_p, _, st = locate.walk(
             grid, r_start, tgt, ic_start, max_steps=walk_cap,
             i_icell_mask=i_icell_mask, table=trace_table,
@@ -240,15 +229,6 @@ def integrate_along_field(
         field = trace_kernel.field_at_rows(
             trace_table[ic.clamp_min(0).long()], grid.cell_type, ndim, tgt)
         return ys, field, derivs(field, ys), ic, r_p, tgt, failed, capped
-
-    if use_fused:
-        nudge, eps_arrive = walk_tolerances(np_dtype, grid.rmin, grid.rmax)
-        fused_kw = dict(
-            cell_type=grid.cell_type, ndim=ndim, nudge=nudge,
-            eps_arrive=eps_arrive, tiny=tiny, big=huge_distance(np_dtype),
-            reverse=reverse, axisymmetric=axisymmetric, max_steps=walk_cap,
-            min_radius=MIN_RADIUS,
-        )
 
     # ---- initialization (:1045-1073) ----
     r0_3 = pad3(y0[:, :ndim])
@@ -264,133 +244,58 @@ def integrate_along_field(
         )
     done = ~in_region
     bm = torch.where(done, boundary_code(ic0), BM_NOT_REACHED).to(i32)
-    field0 = torch.where(in_region[:, None], field0, 0.0)
+    field0 = pad3(torch.where(in_region[:, None], field0, 0.0))
+    loop_kw = dict(min_dx=min_dx, max_dx=max_dx, max_steps=max_steps,
+                   rtol=rtol, atol=atol, shrink_eps=shrink_eps,
+                   axisymmetric=axisymmetric)
 
-    # One scratch row past max_steps takes the writes of lanes that do
-    # not store a point
-    y_buf = torch.zeros((b, max_steps + 1, ndim + nvar), dtype=dtype,
-                        device=dev)
-    y_buf[:, 0] = y0
-    yf_buf = torch.zeros((b, max_steps + 1, ndim), dtype=dtype, device=dev)
-    yf_buf[:, 0] = field0
-    rows = torch.arange(b, device=dev)
+    if use_fused:
+        # Every line's whole RK loop in one launch of B4
+        nudge, eps_arrive = walk_tolerances(np_dtype, grid.rmin, grid.rmax)
+        return TraceResult(*trace_kernel.trace_loop(
+            trace_table, y0, field0, ic0, done, bm, cell_type=grid.cell_type,
+            ndim=ndim, nudge=nudge, eps_arrive=eps_arrive, tiny=tiny,
+            big=huge_distance(np_dtype), reverse=reverse,
+            walk_steps=walk_cap, min_radius=MIN_RADIUS,
+            max_iterations=max_iterations, **loop_kw))
 
-    anchor = y0  # (B, D) current accepted state
-    field_a = pad3(field0)  # (B, 3) field at the anchor
-    n_idx = torch.zeros(b, dtype=i32, device=dev)
-    i_cell_prev = ic0
-    dx = torch.full((b,), max_dx, dtype=dtype, device=dev)
-    last_rejected = torch.full((b,), -100, dtype=i32, device=dev)
-    iteration = torch.zeros(b, dtype=i32, device=dev)
-    overflow = torch.zeros(b, dtype=torch.bool, device=dev)
-    n_rounds = torch.zeros((), dtype=i32, device=dev)
-
+    s = trace_kernel.RKState(y0, field0, ic0, done, bm, max_dx, max_steps,
+                             ndim)
     it = 0
-    while it < max_iterations and bool((~done).any()):
-        act = ~done
+    while it < max_iterations and bool((~s.done).any()):
+        act = ~s.done
+        anchor = s.anchor
         r0 = pad3(anchor[:, :ndim])
         # k1 reuses the stored field sample (:1109-1115)
-        k1 = derivs(field_a, anchor)
-
-        if use_fused:
-            st = trace_kernel.trace_stages(
-                trace_table, r0, pad3(k1), dx, i_cell_prev, act, **fused_kw)
-            k2, k3, k4 = (k[:, :ndim] for k in (st.k2, st.k3, st.k4))
-            field4, ic4, r_p, ic_fail = st.field4, st.ic, st.rp_fail, st.ic_fail
-            n_rounds = n_rounds + st.rounds.max()
-            ok = act & ~st.fail
-            failed = act & st.fail
-            # The fused path never runs with an icell mask, so a failure
-            # that ends INSIDE the domain can only be the walk step cap
-            cap_fail = failed & (ic_fail >= 0)
-            k123 = trace_kernel.k123(k1, k2, k3)
-            ys3 = anchor + dx[:, None] * k123
-        else:
-            ok = act
-            _, _, k2, ic2, rp2, tgt2, f2, c2 = rk_stage(
-                anchor, k1, 0.5 * dx, r0, i_cell_prev, ok)
-            ok = ok & ~f2
-            # Carry the sub-step end point and cell into the next walk
-            # (:1122-1150); failed or done lanes keep the anchor start
-            start3 = torch.where(ok[:, None], tgt2, r0)
-            ics3 = torch.where(ok, ic2, i_cell_prev)
-            _, _, k3, ic3, rp3, tgt3, f3, c3 = rk_stage(
-                anchor, k2, 0.75 * dx, start3, ics3, ok)
-            ok = ok & ~f3
-            # 3rd-order update + 4th sub-step at the updated point
-            # (:1144-1156)
-            k123 = trace_kernel.k123(k1, k2, k3)
-            start4 = torch.where(ok[:, None], tgt3, r0)
-            ics4 = torch.where(ok, ic3, i_cell_prev)
-            ys3, field4, k4, ic4, rp4, _, f4, c4 = rk_stage(
-                anchor, k123, dx, start4, ics4, ok)
-            ok = ok & ~f4
-            failed = act & ~ok
-            # The first failing stage supplies (r_p, i_cell) for the shrink
-            r_p = torch.where(f2[:, None], rp2,
-                              torch.where(f3[:, None], rp3, rp4))
-            ic_fail = torch.where(f2, ic2, torch.where(f3, ic3, ic4))
-            cap_fail = torch.where(f2, c2, torch.where(f3, c3, c4))
-
-        # Embedded 2nd-order estimate and error norm (:1159-1163)
-        y2nd = anchor + dx[:, None] * (
-            7.0 * k1 + 6.0 * k2 + 8.0 * k3 + 3.0 * k4
-        ) / 24.0
-        scales = atol + torch.maximum(ys3.abs(), y2nd.abs()) * rtol
-        err = torch.sqrt((((ys3 - y2nd) / scales) ** 2).sum(dim=1) / 3.0)
-        accept = ok & ((err <= 1.0) | (dx < 2.0 * min_dx))
-
-        # ---- failure path: shrink dx to the boundary distance ----
-        # Capped at 0.75*dx: a trajectory hugging a wall fails right at
-        # the step end, and the (1-eps) factor alone would decay dx by
-        # ~eps per retry
-        d_boundary = trace_kernel.norm3(r_p - r0)
-        dx_fail = torch.minimum((1.0 - shrink_eps) * d_boundary, 0.75 * dx)
-        hit_boundary = failed & (dx_fail < min_dx)
-
-        # ---- accept path: store the new point ----
-        n_new = torch.where(accept, n_idx + 1, n_idx)
-        overflow_now = accept & (n_new >= max_steps)
-        write = accept & ~overflow_now
-        ys_store = clamp_axi(ys3)
-        slot = torch.where(write, n_new, max_steps).long()
-        y_buf[rows, slot] = ys_store
-        yf_buf[rows, slot] = field4[:, :ndim]
-        anchor = torch.where(write[:, None], ys_store, anchor)
-        field_a = torch.where(write[:, None], field4, field_a)
-        i_cell_prev = torch.where(accept, ic4, i_cell_prev)
-
-        # ---- step-size control (:1178-1188) ----
-        last_rejected = torch.where(act & (failed | ~accept), it,
-                                    last_rejected)
-        max_growth = torch.where(last_rejected > it - 2, 1.0, 2.0).to(dtype)
-        dx_factor = torch.minimum(
-            max_growth, SAFETY_FAC * (1.0 / err) ** (1.0 / 3.0))
-        dx_ok = torch.clamp(dx * dx_factor, min_dx, max_dx)
-        dx = torch.where(act, torch.where(failed, dx_fail, dx_ok), dx)
-
-        done = done | hit_boundary | overflow_now
-        # A step-cap failure at min_dx is a walk-budget artifact, not a
-        # boundary or mask stop: it is reported distinctly
-        bm = torch.where(
-            hit_boundary,
-            torch.where(cap_fail, BM_STEP_CAP, boundary_code(ic_fail)),
-            bm,
-        ).to(i32)
-        n_idx = torch.where(write, n_new, n_idx)
-        iteration = torch.where(act, it + 1, iteration).to(i32)
-        overflow = overflow | overflow_now
+        k1 = derivs(s.field_a, anchor)
+        dx = s.dx
+        ok = act
+        _, _, k2, ic2, rp2, tgt2, f2, c2 = rk_stage(
+            anchor, k1, 0.5 * dx, r0, s.i_cell_prev, ok)
+        ok = ok & ~f2
+        # Carry the sub-step end point and cell into the next walk
+        # (:1122-1150); failed or done lanes keep the anchor start
+        start3 = torch.where(ok[:, None], tgt2, r0)
+        ics3 = torch.where(ok, ic2, s.i_cell_prev)
+        _, _, k3, ic3, rp3, tgt3, f3, c3 = rk_stage(
+            anchor, k2, 0.75 * dx, start3, ics3, ok)
+        ok = ok & ~f3
+        # 3rd-order update + 4th sub-step at the updated point
+        # (:1144-1156)
+        k123 = trace_kernel.k123(k1, k2, k3)
+        start4 = torch.where(ok[:, None], tgt3, r0)
+        ics4 = torch.where(ok, ic3, s.i_cell_prev)
+        ys3, field4, k4, ic4, rp4, _, f4, c4 = rk_stage(
+            anchor, k123, dx, start4, ics4, ok)
+        ok = ok & ~f4
+        # The first failing stage supplies (r_p, i_cell) for the shrink
+        r_p = torch.where(f2[:, None], rp2,
+                          torch.where(f3[:, None], rp3, rp4))
+        ic_fail = torch.where(f2, ic2, torch.where(f3, ic3, ic4))
+        cap_fail = torch.where(f2, c2, torch.where(f3, c3, c4))
+        trace_kernel.step_control(
+            s, it, act, (k1, k2, k3, k4), ys3, field4, ic4, r_p, ok,
+            act & ~ok, ic_fail, cap_fail, boundary_code, ndim=ndim,
+            min_radius=MIN_RADIUS, **loop_kw)
         it += 1
-
-    # n_steps: points stored; max_steps+1 flags 'boundary not reached
-    # before the buffer filled' (:1167-1168)
-    n_steps = torch.where(overflow, max_steps + 1, n_idx + 1).to(i32)
-    return TraceResult(
-        y=y_buf[:, :max_steps],
-        y_field=yf_buf[:, :max_steps],
-        n_steps=n_steps,
-        boundary_material=bm,
-        n_iterations=iteration,
-        n_rounds=n_rounds,
-    )
-
+    return TraceResult(*s.result(max_steps))

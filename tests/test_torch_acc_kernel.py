@@ -1,5 +1,6 @@
 """Kernels B5 (df32 interpolation at known cells) and B2-df (the df-plane
-candidate probe) against the JAX package.
+candidate probe, in bin order from the queries as given) against the JAX
+package.
 
 The JAX package builds float32 walk grids with candidate tables
 (``cand_build="host"``), prepares them for accurate mode, and its Pallas
@@ -26,7 +27,10 @@ Tolerances:
   1e-13 times max(1, |value|) as hi + lo: the
   FMA-contracted df32 plane evaluation of the JAX package differs by up
   to ~4e-14 relative (2.3e-13 seen on the scaled triangle mesh, whose
-  values reach 6.3).
+  values reach 6.3).  The whole cold query (split, bin, local frame,
+  probe) against the JAX package's ``_candidates_query_df``: cells and
+  found masks identical, values within the same bound; float64 queries
+  and the same queries as a hi/lo pair give identical results.
 
 The CUDA kernels are held against the plain versions where a card exists
 (bit for bit: the kernels are built with ``--fmad=false``); those tests
@@ -226,7 +230,8 @@ def test_df_probe_inputs_match_jax(case):
     r_hi, r_lo = (torch.from_numpy(a) for a in _split(r64))
     ijk = _cand_ijk(tg, r_hi)
     assert np.array_equal(geometry.bin_flat(ijk, tg.cand_shape).numpy(), idx)
-    hi, lo = locate._cand_local_df(tg, r_hi, r_lo, ijk)
+    hi, lo = cand_kernel.local_frame_df(r_hi, r_lo, tg.cand_rmin,
+                                        tg.cand_inv_h, ijk)
     # hi is the quantized probe's r_local, bit for bit
     np.testing.assert_array_equal(hi.numpy(), rq6[:, :3])
     np.testing.assert_array_equal(hi.numpy(), geometry.cand_local_frame(
@@ -292,35 +297,88 @@ def test_cuda_b5_matches_plain(cuda, case):
     assert torch.equal(kh, ph) and torch.equal(kl, pl)
 
 
+@pytest.mark.parametrize("kind", ["float64", "pair"])
+@pytest.mark.parametrize("case", DF_MESHES)
+def test_df_query_plain_matches_jax(case, kind):
+    """The plain df route (split, bin, hi/lo local frame, probe) against
+    the JAX package's _candidates_query_df on the same tables, from
+    float64 queries and from their hi/lo pair (nonzero lo)."""
+    jnp, _, _, jlocate, _, _ = _jax()
+    ug, _ = _jax_grids(case)
+    tg = carry(ug)
+    r64 = queries64(case, 3000, 17, outside=0.1)
+    r_hi, r_lo = _split(r64)
+    assert (r_lo != 0).any()
+    jic, jfound, jh, jl = (np.asarray(x) for x in jlocate._candidates_query_df(
+        ug, jnp.asarray(r_hi), (0,), r_lo=jnp.asarray(r_lo)))
+    ic, found, vh, vl = locate._candidates_query_df(
+        tg, torch.from_numpy(r64), (0,))
+    if kind == "pair":
+        pair = locate._candidates_query_df(
+            tg, torch.from_numpy(r_hi), (0,), r_lo=torch.from_numpy(r_lo))
+        for a, b in zip(pair, (ic, found, vh, vl)):
+            assert torch.equal(a, b)
+    np.testing.assert_array_equal(ic.numpy(), jic)
+    np.testing.assert_array_equal(found.numpy(), jfound)
+    assert found.numpy().any() and not found.numpy().all()
+    got = _sum(vh[:, 0], vl[:, 0])[jfound]
+    scale = max(1.0, np.abs(got).max())
+    assert np.abs(got - _sum(jh[0], jl[0])[jfound]).max() <= 1e-13 * scale
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", DF_MESHES)
 def test_cuda_b2df_matches_plain(cuda, case):
+    """The bin-ordered df pipeline against its plain version, bit for
+    bit, from float64 queries and from their hi/lo pair."""
     g = _cuda_grid(case, cuda)
     assert g.cand_df_table is not None
+    r64 = torch.from_numpy(queries64(case, 200_000, 15, outside=0.05)).to(cuda)
     r_hi, r_lo = (torch.from_numpy(a).to(cuda)
-                  for a in _split(queries64(case, 200_000, 15, outside=0.05)))
-    ijk = _cand_ijk(g, r_hi)
-    idx = geometry.bin_flat(ijk, g.cand_shape)
-    rq, rq_lo = locate._cand_local_df(g, r_hi, r_lo, ijk)
+                  for a in _split(r64.cpu().numpy()))
     lay = locate._df_row_layout(g, (0,))
-    args = (g.cand_df_table, idx, rq, rq_lo, lay, locate._cand_eps(g), lay.k)
-    before = cand_kernel.df_launches
-    k = cand_kernel.cand_rows_df_cuda(*args)
-    torch.cuda.synchronize()
-    assert cand_kernel.df_launches == before + 1
-    p = cand_kernel.probe_rows_df_plain(*args, chunk=8192)
-    for a, b in zip(k, p):
-        assert torch.equal(a, b)
+    bins = (g.cand_rmin, g.cand_inv_h, g.cand_shape)
+    eps = locate._cand_eps(g)
+    want = cand_kernel.cand_rows_df_plain(g.cand_df_table, r64, None, *bins,
+                                          lay, eps, lay.k, 8192)
+    for r, lo in ((r64, None), (r_hi, r_lo)):
+        cand_kernel.df_launches = cand_kernel.bin_pass_launches = 0
+        cand_kernel.bin_unsort_launches = 0
+        got = cand_kernel.cand_rows_df_query(g.cand_df_table, r, lo, *bins,
+                                             lay, eps, lay.k, 8192)
+        torch.cuda.synchronize()
+        assert cand_kernel.df_launches == cand_kernel.bin_pass_launches == 1
+        assert cand_kernel.bin_unsort_launches == 1
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)
+        for lanes in (1, 2, 4, 32):
+            _, _, perm, slot = cand_kernel.bin_order_cuda(r, *bins)
+            k = cand_kernel.cand_rows_binned_cuda(
+                g.cand_df_table, r, perm, slot, *bins, lay, eps, lay.k,
+                lanes=lanes, r_lo=lo)
+            n = len(lay.var_roles)
+            for a, b in zip((k[0], k[1], k[2][:, :n], k[2][:, n:]), want):
+                assert torch.equal(a, b)
 
 
 @pytest.mark.cuda
 def test_cuda_accurate_calls_launch_the_kernels(cuda):
     g = _cuda_grid("tetra", cuda)
     r64 = torch.from_numpy(queries64("tetra", 100_000, 16)).to(cuda)
-    cand_kernel.df_launches = acc_kernel.launches = 0
+    for name in ("df_launches", "bin_pass_launches", "bin_scatter_launches",
+                 "bin_unsort_launches", "binned_launches", "launches"):
+        setattr(cand_kernel, name, 0)
+    acc_kernel.launches = 0
     vh, vl, found, ic = tiu.interpolate_at_acc(g, r64, (0,))
     assert cand_kernel.df_launches == 1 and acc_kernel.launches == 0
+    assert (cand_kernel.bin_pass_launches == cand_kernel.bin_scatter_launches
+            == cand_kernel.bin_unsort_launches == 1)
+    assert cand_kernel.binned_launches == cand_kernel.launches == 0
     assert bool(found.all())
+    r_hi, r_lo = interp_acc.split_queries(r64)
+    pair = tiu.interpolate_at_acc(g, r_hi, (0,), r_lo=r_lo)
+    for a, b in zip(pair, (vh, vl, found, ic)):
+        assert torch.equal(a, b)
     vh2, vl2, found2, _ = tiu.interpolate_at_acc(g, r64, (0,), guess=ic)
     assert acc_kernel.launches == 1 and bool(found2.all())
     err = (vh.double() + vl.double() - (vh2.double() + vl2.double())).abs()

@@ -345,8 +345,8 @@ def test_cand_wrapper_checks():
     r = torch.full((5, 3), 0.5)
     perm = torch.arange(5, dtype=torch.int32)
     meta = torch.empty((5, 3), device="meta")
-    with pytest.raises(TypeError):
-        cand_kernel.bin_order_cuda(r.double(), *grid_args)
+    with pytest.raises(TypeError):  # float32 or float64 queries only
+        cand_kernel.bin_order_cuda(r.half(), *grid_args)
     with pytest.raises(ValueError):
         cand_kernel.bin_order_cuda(meta, *grid_args)
     with pytest.raises(ValueError):

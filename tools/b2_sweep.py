@@ -1,6 +1,8 @@
 #!/usr/bin/env python3
 """Sweeps of B2's bin-ordered probe on one GPU: batch sizes and lanes a
-query, on the 998,250-tet box of ``chip_smoke.py``'s candidate phase.
+query, on the 998,250-tet box of ``chip_smoke.py``'s candidate phase,
+and lanes a query of the df-plane probe (B2-df) on the same box
+prepared for accurate mode.
 
     python3 tools/b2_sweep.py
 
@@ -17,7 +19,12 @@ new, old; or each lane count in order, then in reverse):
 2. lanes a query of the probe in bin order, 1 to 32, at 1M, 2M, 4M and
    10M queries (0.5 to 5 queries a bin), probe and unsort together, each
    lane count first checked torch.equal to ``probe_rows_plain`` -- the
-   measurement behind ``ops/cand_kernel.binned_lanes``.
+   measurement behind ``ops/cand_kernel.binned_lanes``;
+3. lanes a query of the df-plane probe in bin order (layout 3), 1 to 32,
+   at 1M and 10M float64 queries (``default_rng(2)``, the accurate
+   phase's), probe and unsort together, each lane count first checked
+   torch.equal to ``cand_rows_df_plain`` -- whether the df rows (872
+   bytes read a query, two value planes) want another rule.
 
 Prints the card (nvidia-smi name and power limit) first; exits non-zero
 without a CUDA device or when a check fails.
@@ -37,6 +44,7 @@ import torch  # noqa: E402
 SIZES = (1_000, 10_000, 100_000, 1_000_000)  # batches of the size sweep
 LANES = (1, 2, 4, 8, 16, 32)  # lanes a query of the probe in bin order
 DENSITY = (1_000_000, 2_000_000, 4_000_000, 10_000_000)  # lanes sweep
+DF_DENSITY = (1_000_000, 10_000_000)  # lanes sweep of the df-plane rows
 
 
 def main() -> int:
@@ -102,6 +110,46 @@ def main() -> int:
               f"({b / n_bins:.2f} a bin; binned_lanes picks "
               f"{cand_kernel.binned_lanes(b, n_bins)}), torch.equal to "
               f"probe_rows_plain at every lane count; lanes a query (in "
+              f"turns): " + ", ".join(f"{g}: {t[g][0]:.4f} / {t[g][1]:.4f} ms"
+                                      for g in LANES))
+        del rb, perm, slot
+    del r
+
+    t0 = time.perf_counter()
+    grid = tiu.prepare_accurate(grid)
+    print(f"prepare_accurate in {time.perf_counter() - t0:.3f} s: "
+          f"cand_df_table {tuple(grid.cand_df_table.shape)}")
+    lay = locate._df_row_layout(grid, (0,))
+    eps = locate._cand_eps(grid)
+    table = grid.cand_df_table
+    chunk = locate._cand_chunk(grid, table)
+    n = len(lay.var_roles)
+    r64 = torch.from_numpy(np.random.default_rng(2).random(
+        (max(DF_DENSITY), 3))).to(dev)
+    for b in DF_DENSITY:
+        rb = r64[:b]
+        _, _, perm, slot = cand_kernel.bin_order_cuda(rb, *bins)
+        want = cand_kernel.cand_rows_df_plain(table, rb, None, *bins, lay,
+                                              eps, k, chunk)
+
+        def probe(g):
+            return cand_kernel.cand_rows_binned_cuda(
+                table, rb, perm, slot, *bins, lay, eps, k, lanes=g)
+
+        for g in LANES:
+            got = probe(g)
+            for name, a, w in zip(("id", "aux", "vals_hi", "vals_lo"),
+                                  (got[0], got[1], got[2][:, :n],
+                                   got[2][:, n:]), want):
+                chip_smoke.check(torch.equal(a, w), f"df rows, {b} queries, "
+                                 f"{g} lanes a query: {name} differs from "
+                                 f"cand_rows_df_plain")
+        del want, got
+        t = chip_smoke.turns({g: (lambda g=g: probe(g)) for g in LANES}, 10)
+        print(f"B2-df probe and unsort in bin order, {b} cold float64 "
+              f"queries ({b / n_bins:.2f} a bin; binned_lanes picks "
+              f"{cand_kernel.binned_lanes(b, n_bins)}), torch.equal to "
+              f"cand_rows_df_plain at every lane count; lanes a query (in "
               f"turns): " + ", ".join(f"{g}: {t[g][0]:.4f} / {t[g][1]:.4f} ms"
                                       for g in LANES))
         del rb, perm, slot
