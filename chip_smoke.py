@@ -15,7 +15,10 @@ a guess, ``prepare_accurate``, ``interpolate_at_acc``,
    started together);
 2. brute-force phase: the 8-triangle mesh of the reference's
    benchmark.f90, an 8x8 quad mesh and a 750-tet box, 1M cold queries
-   inside the bounding box plus 1% outside it (kernel B1);
+   inside the bounding box plus 1% outside it (kernel B1; its ids, found
+   masks and values, and the main path's, torch.equal to the plain
+   version on each mesh; ``tools/b1_b5_sweep.py`` sweeps B1's queries a
+   thread and threads a block, and B5's threads a block);
 3. candidate phase: the 998,250-tet box of ``bench.py``, 10M uniform cold
    queries (kernel B2 in bin order: bin pass, scatter, probe, unsort),
    then 10M warm queries guessed by the cold cells plus 1% outside the
@@ -68,7 +71,9 @@ is larger, counted from this run's inputs (df32 operations as the float32
 operations they are made of): each input byte once and each output byte
 once, so a table row counts once however many queries or walk steps
 read it (the distinct rows from the run's bin indices and cells, and for
-walks from a run of the plain version on a recording table).  Any
+walks from a run of the plain version on a recording table).  B1 and B5
+also print an instruction floor: the float32 instructions that parity
+keeps unfused at one per lane per clock (33.5e12/s).  Any
 failed check raises
 before them, with a non-zero exit; without a CUDA device the script
 exits non-zero at once.
@@ -108,6 +113,9 @@ N_OFF = 100_000  # warm queries pushed out of the box, walk phase
 RP_TOL = 4e-6  # B3 vs plain final positions where the walks agree
 HBM_BYTES_S = 3.35e12  # H100 SXM memory rate
 F32_FLOPS_S = 67e12  # H100 SXM float32 rate outside the tensor cores
+# one float32 instruction per lane per clock (an FMA counts 2 operations
+# in F32_FLOPS_S): the floor of the work that parity keeps unfused
+F32_INSTR_S = F32_FLOPS_S / 2
 
 
 def check(cond, msg):
@@ -262,30 +270,53 @@ def compare(name, k_ic, p_ic, k_vals, p_vals, margins_of, tol_band,
     return n_bad, err
 
 
-def bruteforce_phase(dev, tiu, meshgen, interp_kernel, locate, cand_kernel,
-                     walk_kernel):
-    rng = np.random.default_rng(1)
-    meshes = [
+def bf_meshes(meshgen):
+    """The brute-force phase's meshes: (cell type, label, mesh)."""
+    return [
         ("triangle", "triangle_rect_mesh(2,2)", meshgen.triangle_rect_mesh(2, 2)),
         ("quad", "quad_rect_mesh(8,8)", meshgen.quad_rect_mesh(8, 8)),
         ("tetra", "tet_box_mesh(5,5,5)", meshgen.tet_box_mesh(5, 5, 5)),
     ]
-    res = {"launches": 0, "max_abs_err": 0.0, "rows": []}
-    for cell_type, label, (pts, cells, nbrs) in meshes:
+
+
+def bf_queries(pts, rng, dev):
+    """N_BF float32 queries inside the bounding box of ``pts``, then 1%
+    pushed out of it along x."""
+    lo, hi = pts.min(0), pts.max(0)
+    span = hi - lo
+    r_in = lo + rng.random((N_BF, 3)) * span
+    n_out = N_BF // 100
+    r_out = lo + rng.random((n_out, 3)) * span
+    side = np.where(rng.random(n_out) < 0.5, -1.0, 1.0)
+    r_out[:, 0] = np.where(side < 0, lo[0], hi[0]) + side * (
+        0.01 + rng.random(n_out)) * span[0]
+    return torch.from_numpy(
+        np.concatenate([r_in, r_out]).astype(np.float32)).to(dev)
+
+
+def b1_work(grid):
+    """(bytes, operations, instructions) of B1 at N_BF queries: per query
+    and cell nf plane evaluations of 7 operations (3 mul, 2 add, 1 sub, 1
+    min), plus the argmax's select and maximum as instructions; bytes:
+    queries in, values, ids and flags out, planes and winner geometry
+    once."""
+    nc, nf = grid.n_cells, grid.n_faces_per_cell
+    n_bytes = (N_BF * (12 + 4 + 4 + 1) + nc * nf * 16
+               + nc * (grid.n_points_per_cell * 4 + 1) * 4)
+    return n_bytes, N_BF * nc * nf * 7, N_BF * nc * (nf * 7 + 2)
+
+
+def bruteforce_phase(dev, tiu, meshgen, interp_kernel, locate, cand_kernel,
+                     walk_kernel):
+    rng = np.random.default_rng(1)
+    res = {"rows": []}
+    for cell_type, label, (pts, cells, nbrs) in bf_meshes(meshgen):
         grid = tiu.build_grid(
             pts, cells, nbrs, cell_type, point_data={"Polynomial": pts.sum(1) + 1.0},
             dtype=torch.float32, device=dev,
         )
         check(grid.locate_mode == "bruteforce", f"{label} is not brute force")
-        lo, hi = pts.min(0), pts.max(0)
-        span = hi - lo
-        r_in = lo + rng.random((N_BF, 3)) * span
-        n_out = N_BF // 100
-        r_out = lo + rng.random((n_out, 3)) * span
-        side = np.where(rng.random(n_out) < 0.5, -1.0, 1.0)
-        r_out[:, 0] = np.where(side < 0, lo[0], hi[0]) + side * (
-            0.01 + rng.random(n_out)) * span[0]
-        r = torch.from_numpy(np.concatenate([r_in, r_out]).astype(np.float32)).to(dev)
+        r = bf_queries(pts, rng, dev)
 
         (vals, ic, found), counts = main_path(
             lambda: tiu.interpolate_scalar_at(grid, r, 0, fill_value=FILL),
@@ -293,7 +324,6 @@ def bruteforce_phase(dev, tiu, meshgen, interp_kernel, locate, cand_kernel,
         )
         n_b1 = counts[interp_kernel.__name__]
         check(n_b1 >= 1, f"{label}: B1 was not launched on the main path")
-        res["launches"] += n_b1
         truth = r.double().sum(1) + 1.0
         check(bool(found[:N_BF].all()), f"{label}: an inside query was not found")
         dev_err = torch.where(found, (vals.double() - truth).abs(), 0.0)
@@ -306,47 +336,49 @@ def bruteforce_phase(dev, tiu, meshgen, interp_kernel, locate, cand_kernel,
         check(bool((vals[out] == FILL).all() and (ic[out] == -1).all()),
               f"{label}: outside queries do not carry the fill value")
 
-        pv, pic, _ = interp_kernel.interpolate_bruteforce_plain(grid, r, [0])
-        eps = grid.config.eps_inside
+        # the kernel and the main path against the plain version, bit for
+        # bit: ids, found masks and values
+        pv, pic, pf = interp_kernel.interpolate_bruteforce_plain(grid, r, [0])
+        kv, kic, kf = interp_kernel.interpolate_bruteforce_cuda(grid, r, [0])
+        for name, a, b in (("i_cell", kic, pic), ("found", kf, pf),
+                           ("values", kv, pv), ("main-path i_cell", ic, pic),
+                           ("main-path found", found, pf),
+                           ("main-path values", vals,
+                            torch.where(pf, pv[:, 0], FILL))):
+            check(torch.equal(a, b), f"B1 {label}: {name} differs from the "
+                  f"plain version on {int((a != b).sum())} queries")
+        err = float((kv - pv).abs().max())
+        del pv, pic, pf, kv, kic, kf
+        print(f"B1 {label}: kernel and main path torch.equal to the plain "
+              f"version (ids, found, values) on {r.shape[0]} queries")
 
-        def margins_of(bad):
-            m = locate._containment_margins(grid, r[bad])
-            return torch.topk(m, min(2, m.shape[1]), dim=1).values, eps
-
-        _, err = compare(f"B1 {label}", ic, pic, vals, pv[:, 0], margins_of,
-                         4 * eps)
-        res["max_abs_err"] = max(res["max_abs_err"], err)
-
-        ms_k = cuda_ms(lambda: interp_kernel.interpolate_bruteforce_cuda(
-            grid, r[:N_BF], [0]), 10)
+        # the kernel's device time by the profiler (on the small meshes
+        # the launches are short beside the wrapper's host work, which
+        # CUDA events around back-to-back calls also time)
+        dev_ms, ev_ms = kernel_ms(
+            lambda: interp_kernel.interpolate_bruteforce_cuda(
+                grid, r[:N_BF], [0]), "table_kernel", 10)
+        ms_k = ev_ms if dev_ms is None else dev_ms
         ms_p = cuda_ms(lambda: interp_kernel.interpolate_bruteforce_plain(
             grid, r[:N_BF], [0]), 3)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(5):
-            tiu.interpolate_scalar_at(grid, r[:N_BF], 0)
-        torch.cuda.synchronize()
-        e2e = (time.perf_counter() - t0) / 5
+        e2e = steady_s(lambda: tiu.interpolate_scalar_at(grid, r[:N_BF], 0), 5)
+        n_bytes, n_ops, n_instr = b1_work(grid)
+        bnd = bound(n_bytes, n_ops)
+        floor = n_instr / F32_INSTR_S * 1e3
+        dev_txt = "not recorded" if dev_ms is None else f"{dev_ms:.4f} ms"
         print(f"B1 {label} ({grid.n_cells} cells), 1M queries: kernel "
-              f"{ms_k:.4f} ms, plain {ms_p:.4f} ms; interpolate_scalar_at "
-              f"{e2e * 1e3:.4f} ms = {N_BF / e2e:.4e} queries/s; "
+              f"{dev_txt} device time ({ev_ms:.4f} ms a call by CUDA "
+              f"events), plain {ms_p:.4f} ms; interpolate_scalar_at "
+              f"{e2e * 1e3:.4f} ms = {N_BF / e2e:.4e} queries/s; bound "
+              f"{bnd[0]:.4f} ms ({bnd[1]}), instruction floor {floor:.4f} ms; "
               f"linear error {lin:.3e}")
-        res["rows"].append((label, grid.n_cells, ms_k, ms_p, e2e, lin))
+        res["rows"].append(dict(label=label, n_cells=grid.n_cells,
+                                launches=n_b1, ms=ms_k, plain_ms=ms_p,
+                                e2e_ms=e2e * 1e3, lin=lin, bound=bnd,
+                                floor_ms=floor, max_abs_err=err))
         # the accurate phase runs B5 on these grids, queries and cells
         res.setdefault("acc_inputs", []).append(
             (label, grid, r[:N_BF], ic[:N_BF]))
-        # B1 at 1M queries: C * nf plane evaluations of 7 flops per query
-        # (3 mul, 2 add, 1 sub, 1 min); bytes: queries in, values, ids
-        # and flags out, planes and payload once
-        nc, nf = grid.n_cells, grid.n_faces_per_cell
-        res["bound"] = bound(
-            N_BF * (12 + 4 + 4 + 1) + nc * nf * 16
-            + nc * (grid.n_points_per_cell * 4 + 1) * 4,
-            N_BF * nc * nf * 7,
-        )
-    res["ms"], res["plain_ms"] = res["rows"][-1][2], res["rows"][-1][3]
-    print(f"B1 bound at 1M queries on {res['rows'][-1][0]}: "
-          f"{res['bound'][0]:.4f} ms ({res['bound'][1]})")
     return res
 
 
@@ -1417,31 +1449,39 @@ def trace_phase(dev, tiu, grid, counters, walk_kernel, trace_kernel):
 
 ACC_TOL = 1e-10  # accurate mode's gate (bench.py:401)
 ACC_VAL_TOL = 1e-13  # kernel vs plain hi + lo where the verdicts agree
-# float32 operations of one df32 operation, as ops/df32.py and
-# csrc/df32.cuh compute it (the mask of a split is an integer op)
-DF_ADD, DF_MUL, DF_DIV, DF_SQRT = 20, 18, 45, 45
+# float32 operations of one df32 operation in the least work that gives
+# the kernels' bits (csrc/df32.cuh): a product takes its exact error from
+# one FMA, counted as 2 operations (DF_MUL: 10 operations in 9
+# instructions); a division or root is a product, a sum and 7 more
+DF_ADD = 20
+DF_MUL = 10
+DF_DIV = DF_SQRT = DF_MUL + DF_ADD + 7
 
 
-def acc_flops(cell_type, n_vars):
+def acc_flops(cell_type, n_vars, fma_ops=2):
     """float32 operations of B5 for one query: the df32 weights, the
-    simplex normalization and the contraction of ``n_vars`` variables."""
+    simplex normalization and the contraction of ``n_vars`` variables;
+    with ``fma_ops=1`` the instructions, an FMA counted once."""
+    mul = DF_MUL - 2 + fma_ops
+    div = sqrt = mul + DF_ADD + 7
     if cell_type == "tetra":  # 21 differences, 4 triple products
-        w = 21 * DF_ADD + 4 * (9 * DF_MUL + 5 * DF_ADD)
-        w += 3 * DF_ADD + 4 * DF_DIV
+        w = 21 * DF_ADD + 4 * (9 * mul + 5 * DF_ADD)
+        w += 3 * DF_ADD + 4 * div
     elif cell_type == "triangle":  # per area: 6 differences, cross, dot, sqrt
-        w = 3 * (6 * DF_ADD + 9 * DF_MUL + 5 * DF_ADD + DF_SQRT)
-        w += 2 * DF_ADD + 3 * DF_DIV
+        w = 3 * (6 * DF_ADD + 9 * mul + 5 * DF_ADD + sqrt)
+        w += 2 * DF_ADD + 3 * div
     else:  # inverse bilinear: about 35 adds, 24 products, 2 divisions, a root
-        w = 35 * DF_ADD + 24 * DF_MUL + 2 * DF_DIV + DF_SQRT
+        w = 35 * DF_ADD + 24 * mul + 2 * div + sqrt
     npc = 3 if cell_type == "triangle" else 4
-    return w + n_vars * (npc * DF_MUL + (npc - 1) * DF_ADD)
+    return w + n_vars * (npc * mul + (npc - 1) * DF_ADD)
 
 
-def acc_compare(name, k_out, p_out, n_ids):
+def acc_compare(name, k_out, p_out, n_ids, exact=False):
     """Kernel vs plain for the accurate kernels: every output identical
-    on >= AGREE of the queries, hi + lo within ACC_VAL_TOL where the
-    first ``n_ids`` outputs (ids, verdicts) agree.  Returns
-    (n_differ, max |hi + lo diff| where the verdicts agree)."""
+    on >= AGREE of the queries (on all of them if ``exact``), hi + lo
+    within ACC_VAL_TOL where the first ``n_ids`` outputs (ids, verdicts)
+    agree.  Returns (n_differ, max |hi + lo diff| where the verdicts
+    agree)."""
     same_ids = torch.ones_like(k_out[-1][:, 0], dtype=torch.bool)
     for a, b in zip(k_out[:n_ids], p_out[:n_ids]):
         same_ids &= a == b
@@ -1449,7 +1489,7 @@ def acc_compare(name, k_out, p_out, n_ids):
     for a, b in zip(k_out[n_ids:], p_out[n_ids:]):
         same &= (a == b).all(1)
     n_bad = int((~same).sum())
-    check(n_bad <= (1 - AGREE) * same.numel(),
+    check(n_bad <= (0 if exact else (1 - AGREE) * same.numel()),
           f"{name}: {n_bad} of {same.numel()} queries differ")
     kv = k_out[-2].double() + k_out[-1].double()
     pv = p_out[-2].double() + p_out[-1].double()
@@ -1745,7 +1785,7 @@ def accurate_phase(dev, tiu, grid, bf_inputs, counters, cand_kernel,
     _, err_b5 = acc_compare(
         "B5 998k-tet warm cells, first 1M",
         acc_kernel.interp_acc_cuda(*b5_first),
-        acc_kernel.interp_acc_plain(*b5_first), 0)
+        acc_kernel.interp_acc_plain(*b5_first), 0, exact=True)
     ms_k = cuda_ms(lambda: acc_kernel.interp_acc_cuda(*b5_args), 10)
     ms_p = cuda_ms(lambda: acc_kernel.interp_acc_plain(*b5_args), 2)
     # bytes, each once: per query its cell id, hi/lo position and a hi/lo
@@ -1754,11 +1794,15 @@ def accurate_phase(dev, tiu, grid, bf_inputs, counters, cand_kernel,
     n_cells_used = int(torch.unique(cells).numel())
     n_bytes = N_CAND * (4 + 24 + 8) + n_cells_used * (4 * 6 + 2 * 4) * 4
     bnd = bound(n_bytes, N_CAND * acc_flops("tetra", 1))
-    res["b5"] = dict(ms=ms_k, plain_ms=ms_p, bound=bnd, max_abs_err=err_b5)
+    floor = N_CAND * acc_flops("tetra", 1, fma_ops=1) / F32_INSTR_S * 1e3
+    res["b5"] = dict(ms=ms_k, plain_ms=ms_p, bound=bnd, floor_ms=floor,
+                     max_abs_err=err_b5)
     print(f"B5 998k-tet, 10M warm queries: kernel {ms_k:.4f} ms, plain "
           f"{ms_p:.4f} ms; bound {bnd[0]:.4f} ms ({bnd[1]}; {n_cells_used} "
           f"distinct cells' rows once, 36 B per query, "
-          f"{acc_flops('tetra', 1)} flops per query)")
+          f"{acc_flops('tetra', 1)} flops per query), instruction floor "
+          f"{floor:.4f} ms ({acc_flops('tetra', 1, fma_ops=1)} instructions "
+          f"per query)")
     del hi, lo, cells, b5_args, r64, r_hi, r_lo, r_w, ic, ic_w, grid
     torch.cuda.empty_cache()
 
@@ -1778,7 +1822,7 @@ def accurate_phase(dev, tiu, grid, bf_inputs, counters, cand_kernel,
         args = (g.acc_table, ic.clamp_min(0), r, z, g.cell_type,
                 g.n_points_per_cell, g.n_point_data, (0,))
         _, e = acc_compare(f"B5 {label}, 1M", (vh, vl),
-                           acc_kernel.interp_acc_plain(*args), 0)
+                           acc_kernel.interp_acc_plain(*args), 0, exact=True)
         res["b5"]["max_abs_err"] = max(res["b5"]["max_abs_err"], e)
         ms = cuda_ms(lambda: acc_kernel.interp_acc_cuda(*args), 10)
         print(f"B5 {label} ({g.n_cells} cells), 1M queries: kernel "
@@ -1854,13 +1898,14 @@ def main() -> int:
 
     pkg = "interpolate_unstructured_tpu_torch"
     kernels = [
-        {"name": "B1 interp_bruteforce", "route": "cuda",
-         "source": f"{pkg}/csrc/interp_bruteforce.cu",
-         "replaces": "interpolate_unstructured_tpu/ops/pallas_interp.py:93",
-         "launches": b1["launches"], "max_abs_err": b1["max_abs_err"],
-         "ms": b1["ms"], "plain_ms": b1["plain_ms"],
-         "bound_ms": b1["bound"][0], "bound_by": b1["bound"][1],
-         "library_ms": None},
+        *({"name": f"B1 interp_bruteforce, {row['label']}", "route": "cuda",
+           "source": f"{pkg}/csrc/interp_bruteforce.cu",
+           "replaces": "interpolate_unstructured_tpu/ops/pallas_interp.py:93",
+           "launches": row["launches"], "max_abs_err": row["max_abs_err"],
+           "ms": row["ms"], "plain_ms": row["plain_ms"],
+           "bound_ms": row["bound"][0], "bound_by": row["bound"][1],
+           "library_ms": None}
+          for row in b1["rows"]),
         {"name": "B2 cand_rows direct", "route": "cuda",
          "source": f"{pkg}/csrc/cand_rows.cu",
          "replaces": "interpolate_unstructured_tpu/ops/pallas_cand.py:64",

@@ -2,14 +2,14 @@
 // kernels: B5 (interp_acc.cu) and the df-plane branch of B2
 // (cand_rows.cu).
 //
-// Operation for operation the same as ops/df32.py (which ports the JAX
-// package's ops/df32.py): a value is hi + lo with |lo| <= ulp(hi)/2,
-// about 48 significant bits.  The error-free transforms are exact only
-// if every sum and product rounds on its own, so the library is built
-// with --fmad=false and without fast math; division and sqrtf stay
-// IEEE-rounded (nvcc's defaults).  Products split each operand by a
-// mantissa bit mask (the low 12 of 24 bits), so every partial product
-// is exact, as in the plain versions.  An edit here is an edit there.
+// Bit for bit the same as ops/df32.py (which ports the JAX package's
+// ops/df32.py): a value is hi + lo with |lo| <= ulp(hi)/2, about 48
+// significant bits.  The error-free transforms are exact only if every
+// sum and product rounds on its own, so the library is built with
+// --fmad=false and without fast math; division and sqrtf stay
+// IEEE-rounded (nvcc's defaults).  The one fused operation is the
+// explicit __fmaf_rn of two_prod (below).  An edit here is an edit
+// there.
 #pragma once
 
 namespace iu {
@@ -36,15 +36,20 @@ __device__ __forceinline__ df quick_two_sum(float a, float b) {
   return df_make(s, b - (s - a));
 }
 
-__device__ __forceinline__ float split_hi(float a) {
-  return __uint_as_float(__float_as_uint(a) & 0xFFFFF000u);
-}
-
+// Error-free a * b: p = fl(a * b) and e = a * b - p.  The rounding
+// error of a float32 product is itself a float32 (as long as nothing
+// underflows), so one exact fused multiply-add returns it: 2 instructions
+// where Dekker's split product takes 13.  The plain versions (ops/df32.py)
+// and the JAX package keep Dekker's form: split each operand by a
+// mantissa mask (the low 12 of 24 bits), so every partial product is
+// exact, and sum the partial products minus p.  That sum is the same
+// exact error, so both forms give the same bits as long as no partial
+// product underflows below 2^-126 (tests/test_torch_fma_form.py holds
+// the plain versions against the FMA form).  B2-df's probe
+// (cand_rows.cu) shares this header, and so this product.
 __device__ __forceinline__ df two_prod(float a, float b) {
   const float p = a * b;
-  const float ah = split_hi(a), al = a - ah;
-  const float bh = split_hi(b), bl = b - bh;
-  return df_make(p, (((ah * bh - p) + ah * bl) + al * bh) + al * bl);
+  return df_make(p, __fmaf_rn(a, b, -p));
 }
 
 __device__ __forceinline__ df df_add(df x, df y) {

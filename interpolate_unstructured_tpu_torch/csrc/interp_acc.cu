@@ -10,28 +10,33 @@
 // the df32 contraction with the requested variables' vertex data.
 // Writes (B, V) hi and (B, V) lo values.
 //
-// What bounds it on an H100: memory, nearly.  A query reads 28 bytes
-// (cell id, hi/lo position) and the used columns of one random 512-byte
-// row (128 bytes for a tet and one variable) and writes 8 bytes per
-// variable, ~165 bytes; its df32 weights take ~1,800 float32 operations
-// (a tet), about half the byte time at the card's float32 rate.  One
-// thread per query reads its own row through its cell id (the TPU
-// wrapper gathered the rows into a separate buffer first, and worked
-// on (3, B) transposes reshaped into (8, T/8) sublane tiles; none of
-// that is carried over): the vertex block with 16-byte loads, then only
-// the requested slots of the data block.  The whole df32 DAG stays in
-// registers.  Plain PyTorch version: ops/acc_kernel.py:interp_acc_plain,
-// whose rounding order this kernel follows (built with --fmad=false).
+// What bounds it on an H100: operations.  A query reads 28 bytes (cell
+// id, hi/lo position) and the used columns of one 512-byte row (128
+// bytes for a tet and one variable), and writes 8 bytes per variable;
+// rows of neighbouring queries repeat, so the bytes, each counted once,
+// take less time than the arithmetic: ~1,500 float32 instructions for a
+// tet query's df32 weights and contraction.  So the design keeps the
+// arithmetic to the least that gives the same bits: each df32 product
+// takes its exact error from one FMA (df32.cuh two_prod), and the whole
+// df32 DAG stays in registers.  One thread per query reads its own row
+// through its cell id (the TPU wrapper gathered the rows into a separate
+// buffer first, and worked on (3, B) transposes reshaped into (8, T/8)
+// sublane tiles; none of that is carried over): the vertex block with
+// 16-byte loads, then only the requested slots of the data block, 16
+// bytes a slot's hi or lo words for 4-vertex cells.  The slots come by
+// value with the launch.  Plain PyTorch version:
+// ops/acc_kernel.py:interp_acc_plain, whose rounding order this kernel
+// follows (built with --fmad=false; the plain two_prod is Dekker's split
+// form, which gives the same bits).
 
 #include <cuda_runtime.h>
 
 #include "df32.cuh"
+#include "var_slots.cuh"
 
 namespace {
 
 using iu::df;
-
-constexpr int kThreads = 128;
 
 __device__ __forceinline__ void cross_df(const df a[3], const df b[3],
                                          df c[3]) {
@@ -155,6 +160,35 @@ __device__ __forceinline__ void quad_weights_df(const df v[][3],
   w[3] = iu::df_mul(il, mu);
 }
 
+// One slot's npc hi and lo vertex data words of a row.  4-vertex cells
+// read them as one float4 each (rows, the data block at 24 floats and
+// each slot's words are 16-byte aligned).
+template <int NPC>
+__device__ __forceinline__ void slot_words(const float* row, int d0, int nv,
+                                           int s, float dh[NPC],
+                                           float dl[NPC]) {
+  const float* h = row + d0 + s * NPC;
+  const float* l = row + d0 + (nv + s) * NPC;
+  if constexpr (NPC == 4) {
+    const float4 h4 = __ldg(reinterpret_cast<const float4*>(h));
+    const float4 l4 = __ldg(reinterpret_cast<const float4*>(l));
+    dh[0] = h4.x;
+    dh[1] = h4.y;
+    dh[2] = h4.z;
+    dh[3] = h4.w;
+    dl[0] = l4.x;
+    dl[1] = l4.y;
+    dl[2] = l4.z;
+    dl[3] = l4.w;
+  } else {
+#pragma unroll
+    for (int k = 0; k < NPC; ++k) {
+      dh[k] = __ldg(h + k);
+      dl[k] = __ldg(l + k);
+    }
+  }
+}
+
 // CT: 0 triangle, 1 quad, 2 tetra.
 template <int CT, int NPC>
 __global__ void interp_acc_kernel(
@@ -162,9 +196,9 @@ __global__ void interp_acc_kernel(
     const int* __restrict__ ic,               // (B,)
     const float* __restrict__ r_hi,           // (B, 3)
     const float* __restrict__ r_lo,           // (B, 3)
-    int n_queries, int nv, int n_vars, const int* __restrict__ slots,
-    float* __restrict__ out_hi,               // (B, V)
-    float* __restrict__ out_lo)               // (B, V)
+    int n_queries, int nv, const __grid_constant__ iu::VarSlots slots,
+    float* __restrict__ out_hi,               // (B, out_stride)
+    float* __restrict__ out_lo, int out_stride)
 {
   const int qi = blockIdx.x * blockDim.x + threadIdx.x;
   if (qi >= n_queries) return;
@@ -215,53 +249,60 @@ __global__ void interp_acc_kernel(
   }
 
   const int d0 = NPC * 6;
-  for (int iv = 0; iv < n_vars; ++iv) {
-    const int s = slots[iv];
-    const float* dh = row + d0 + s * NPC;
-    const float* dl = row + d0 + nv * NPC + s * NPC;
-    df acc = iu::df_mul(w[0], iu::df_make(__ldg(dh), __ldg(dl)));
+  for (int iv = 0; iv < slots.n; ++iv) {
+    float dh[NPC], dl[NPC];
+    slot_words<NPC>(row, d0, nv, slots.s[iv], dh, dl);
+    df acc = iu::df_mul(w[0], iu::df_make(dh[0], dl[0]));
 #pragma unroll
     for (int k = 1; k < NPC; ++k) {
-      acc = iu::df_add(acc,
-                       iu::df_mul(w[k], iu::df_make(__ldg(dh + k), __ldg(dl + k))));
+      acc = iu::df_add(acc, iu::df_mul(w[k], iu::df_make(dh[k], dl[k])));
     }
-    out_hi[(size_t)qi * n_vars + iv] = acc.hi;
-    out_lo[(size_t)qi * n_vars + iv] = acc.lo;
+    out_hi[(size_t)qi * out_stride + iv] = acc.hi;
+    out_lo[(size_t)qi * out_stride + iv] = acc.lo;
   }
 }
 
 template <int CT, int NPC>
 void launch(const float* table, int W, const int* ic, const float* r_hi,
-            const float* r_lo, int n_queries, int nv, int n_vars,
-            const int* slots, float* out_hi, float* out_lo, cudaStream_t s) {
-  const int blocks = (n_queries + kThreads - 1) / kThreads;
-  interp_acc_kernel<CT, NPC><<<blocks, kThreads, 0, s>>>(
-      table, W, ic, r_hi, r_lo, n_queries, nv, n_vars, slots, out_hi, out_lo);
+            const float* r_lo, int n_queries, int nv,
+            const iu::VarSlots& slots, float* out_hi, float* out_lo,
+            int out_stride, int threads, cudaStream_t s) {
+  const int blocks = (n_queries + threads - 1) / threads;
+  interp_acc_kernel<CT, NPC><<<blocks, threads, 0, s>>>(
+      table, W, ic, r_hi, r_lo, n_queries, nv, slots, out_hi, out_lo,
+      out_stride);
 }
 
 }  // namespace
 
 // Plain C entry point (bound with ctypes).  cell_type: 0 triangle,
 // 1 quad, 2 tetra.  table: (n_cells, W) float32 acc rows, W a multiple of
-// 4 and the table 16-byte aligned; slots: (n_vars,) device int32 in
-// [0, nv).  Returns the cudaError_t of the launch.
+// 4 and the table 16-byte aligned; slots: host array of n_vars slots in
+// [0, nv) (at most iu::kMaxVarSlots); out_hi / out_lo (B, out_stride)
+// get columns [0, n_vars); threads: a block's threads.  Returns the
+// cudaError_t of the launch.
 extern "C" int iu_interp_acc(const float* table, int W, const int* ic,
                              const float* r_hi, const float* r_lo,
-                             int n_queries, int cell_type, int nv, int n_vars,
-                             const int* slots, float* out_hi, float* out_lo,
+                             int n_queries, int cell_type, int nv,
+                             const int* slots, int n_vars, float* out_hi,
+                             float* out_lo, int out_stride, int threads,
                              void* stream) {
   if (n_queries <= 0) return (int)cudaSuccess;
-  if (n_vars < 0 || nv < 0 || (W & 3)) return (int)cudaErrorInvalidValue;
+  if (n_vars < 0 || n_vars > iu::kMaxVarSlots || nv < 0 || (W & 3) ||
+      threads < 32 || threads > 1024 || threads % 32) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const iu::VarSlots sl = iu::make_var_slots(slots, n_vars);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (cell_type == 0) {
-    launch<0, 3>(table, W, ic, r_hi, r_lo, n_queries, nv, n_vars, slots,
-                 out_hi, out_lo, s);
+    launch<0, 3>(table, W, ic, r_hi, r_lo, n_queries, nv, sl, out_hi, out_lo,
+                 out_stride, threads, s);
   } else if (cell_type == 1) {
-    launch<1, 4>(table, W, ic, r_hi, r_lo, n_queries, nv, n_vars, slots,
-                 out_hi, out_lo, s);
+    launch<1, 4>(table, W, ic, r_hi, r_lo, n_queries, nv, sl, out_hi, out_lo,
+                 out_stride, threads, s);
   } else if (cell_type == 2) {
-    launch<2, 4>(table, W, ic, r_hi, r_lo, n_queries, nv, n_vars, slots,
-                 out_hi, out_lo, s);
+    launch<2, 4>(table, W, ic, r_hi, r_lo, n_queries, nv, sl, out_hi, out_lo,
+                 out_stride, threads, s);
   } else {
     return (int)cudaErrorInvalidValue;
   }

@@ -38,10 +38,13 @@ NVCC_FLAGS = (
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_IP = ctypes.POINTER(ctypes.c_int)  # a host int array
 # name -> (restype, argtypes) of every C entry point
 _SIGNATURES = {
     "iu_interp_bruteforce": (
-        _I, [_P, _P, _P, _I, _I, _I, _I, _F, _P, _P, _P, _P],
+        _I,
+        [_P, _P, _P, _P, _P, _P, _I, _IP, _I, _P, _I, _I, _I, _F, _P, _I, _P,
+         _P, _I, _I, _P],
     ),
     "iu_cand_rows": (
         _I,
@@ -49,7 +52,7 @@ _SIGNATURES = {
          _P, _P, _P],
     ),
     "iu_interp_acc": (
-        _I, [_P, _I, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P],
+        _I, [_P, _I, _P, _P, _P, _I, _I, _I, _IP, _I, _P, _P, _I, _I, _P],
     ),
     "iu_walk": (
         _I,
@@ -82,6 +85,23 @@ _SIGNATURES = {
 
 _lib = None
 _lock = threading.Lock()
+
+# Most variable columns one launch of B1 or B5 takes, passed by value
+# (csrc/var_slots.cuh kMaxVarSlots); the wrappers launch once for each
+# group of this many.
+MAX_VAR_SLOTS = 64
+
+
+def var_slot_groups(slots):
+    """``slots`` in groups of at most MAX_VAR_SLOTS as (first column of
+    the group in the output, host int array, count); one empty group
+    for no slots."""
+    slots = list(slots)
+    return [
+        (g, (ctypes.c_int * max(len(part), 1))(*part), len(part))
+        for g in range(0, max(len(slots), 1), MAX_VAR_SLOTS)
+        for part in [slots[g: g + MAX_VAR_SLOTS]]
+    ]
 
 
 def _nvcc() -> str:

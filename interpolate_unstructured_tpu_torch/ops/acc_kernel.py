@@ -20,6 +20,10 @@ from . import _kernels, df32, wkern
 
 launches = 0
 
+# Threads a block of the kernel, from the sweep of tools/b1_b5_sweep.py
+# (PERF.md §6)
+THREADS = 128
+
 _CELL_TYPE_CODE = {"triangle": 0, "quad": 1, "tetra": 2}
 _CHUNK = 1 << 20  # queries per block of the plain version
 
@@ -85,10 +89,13 @@ def interp_acc_plain(table, ic, r_hi, r_lo, cell_type, npc, nv, slots):
     return torch.cat(his), torch.cat(los)
 
 
-def interp_acc_cuda(table, ic, r_hi, r_lo, cell_type, npc, nv, slots):
+def interp_acc_cuda(table, ic, r_hi, r_lo, cell_type, npc, nv, slots, *,
+                    threads=THREADS):
     """Launch B5 on CUDA tensors: float32 (n_cells, W) acc table, int32
     cells, float32 (B, 3) hi/lo queries.  The kernel reads each
-    query's row itself."""
+    query's row itself; the slots go by value with the launch.
+    ``threads`` is the kernel's threads a block, for the sweep; callers
+    keep the default."""
     global launches
     if table.dtype != torch.float32 or r_hi.dtype != torch.float32 \
             or r_lo.dtype != torch.float32:
@@ -120,19 +127,21 @@ def interp_acc_cuda(table, ic, r_hi, r_lo, cell_type, npc, nv, slots):
     vl = torch.empty((b, len(slots)), dtype=torch.float32, device=dev)
     if b == 0 or not slots:
         return vh, vl
-    sl = torch.tensor(slots, dtype=torch.int32, device=dev)
     ic = ic.contiguous()
     r_hi = r_hi.contiguous()
     r_lo = r_lo.contiguous()
+    lib = _kernels.lib()
     with torch.cuda.device(dev):
-        code = _kernels.lib().iu_interp_acc(
-            table.data_ptr(), width, ic.data_ptr(), r_hi.data_ptr(),
-            r_lo.data_ptr(), b, _CELL_TYPE_CODE[cell_type], nv, len(slots),
-            sl.data_ptr(), vh.data_ptr(), vl.data_ptr(),
-            torch.cuda.current_stream().cuda_stream,
-        )
-    _kernels.check(code, "iu_interp_acc")
-    launches += 1
+        stream = torch.cuda.current_stream().cuda_stream
+        for g, sl, n in _kernels.var_slot_groups(slots):
+            code = lib.iu_interp_acc(
+                table.data_ptr(), width, ic.data_ptr(), r_hi.data_ptr(),
+                r_lo.data_ptr(), b, _CELL_TYPE_CODE[cell_type], nv, sl, n,
+                vh.data_ptr() + 4 * g, vl.data_ptr() + 4 * g, len(slots),
+                threads, stream,
+            )
+            _kernels.check(code, "iu_interp_acc")
+            launches += 1
     return vh, vl
 
 

@@ -9,11 +9,20 @@ df-plane candidate rows.
 
 Every function keeps the JAX package's order of operations, and the
 CUDA kernels (``csrc/df32.cuh``, built with ``--fmad=false``) keep it
-too, so the plain versions and the kernels agree bit for bit.  Products
-split each operand by a mantissa bit mask (the low 12 of the 24 bits),
-so every partial product is exact.  The JAX package wraps sums and
-products in ``_freeze`` to keep XLA from contracting them into FMAs;
-eager torch runs each operation on its own and needs no such guard.
+too, so the plain versions and the kernels agree bit for bit.  The JAX
+package wraps sums and products in ``_freeze`` to keep XLA from
+contracting them into FMAs; eager torch runs each operation on its own
+and needs no such guard.
+
+:func:`two_prod` keeps the JAX package's Dekker form: each operand is
+split by a mantissa bit mask (the low 12 of the 24 bits), so every
+partial product is exact, and the error is the sum of the partial
+products minus the rounded product.  The kernels take the same error
+from one exact fused multiply-add, ``__fmaf_rn(a, b, -p)``: the rounding
+error of a float32 product is itself a float32, so both forms give the
+same bits as long as no partial product underflows below 2^-126
+(``tests/test_torch_fma_form.py``).  B5 and B2-df's probe share that
+header.
 
 Inputs are ``(hi, lo)`` tuples of float32 tensors of one shape (or
 shapes that broadcast).  Divide by tensors only: torch turns a CUDA
@@ -63,7 +72,9 @@ def _split(a):
 
 
 def two_prod(a, b):
-    """Error-free a * b: (p, e) with p = fl(a * b), p + e = a * b."""
+    """Error-free a * b: (p, e) with p = fl(a * b), p + e = a * b
+    (Dekker's split product; the kernels' FMA form gives the same bits,
+    see the module docstring)."""
     p = a * b
     ah, al = _split(a)
     bh, bl = _split(b)

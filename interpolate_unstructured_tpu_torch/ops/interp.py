@@ -152,7 +152,11 @@ def _static_slots(i_vars):
 
 def _fill(values, found, fill_value):
     """Values where found, else ``fill_value`` (a scalar, or anything
-    that broadcasts to (B, V), such as the previous values)."""
+    that broadcasts to (B, V), such as the previous values).  A Python
+    scalar goes to ``torch.where`` as it is, with no tensor made of it
+    (on the card that would be a host-to-device copy per call)."""
+    if isinstance(fill_value, (int, float)):
+        return torch.where(found[:, None], values, float(fill_value))
     fill = torch.as_tensor(fill_value, dtype=values.dtype,
                            device=values.device)
     return torch.where(found[:, None], values, fill.broadcast_to(values.shape))

@@ -9,7 +9,9 @@ values (m_interp_unstructured.f90:412-527).
 :func:`interpolate_bruteforce` launches the CUDA kernel
 (``csrc/interp_bruteforce.cu``) on CUDA tensors and runs
 :func:`interpolate_bruteforce_plain`, the plain PyTorch version, on CPU
-tensors.  ``launches`` counts kernel launches.
+tensors.  ``launches`` counts kernel launches.  The kernel reads the
+grid's own tensors (face planes, winner geometry, point data), so a
+launch builds nothing but its outputs.
 """
 
 from __future__ import annotations
@@ -17,16 +19,22 @@ from __future__ import annotations
 import torch
 
 from . import _kernels, locate
-from .interp import _weights_from_geometry
+from .interp import _static_slots, _weights_from_geometry
 
 launches = 0
+
+# Queries a thread and threads a block of the kernel, from the sweep of
+# tools/b1_b5_sweep.py on the smoke's three meshes (PERF.md §6)
+QUERIES_PER_THREAD = 8
+THREADS = 512
 
 _CELL_TYPE_CODE = {"triangle": 0, "quad": 1, "tetra": 2}
 
 
 def _payload(grid, i_vars):
-    """(C, npc*3 + 1 + npc*V) winner payload per cell: vertex coords |
-    volume | vertex values (vertex-major, ``k*V + v``)."""
+    """(C, npc*3 + 1 + npc*V) winner payload per cell of the plain
+    version: vertex coords | volume | vertex values (vertex-major,
+    ``k*V + v``)."""
     n_cells = grid.n_cells
     npc = grid.n_points_per_cell
     pd_cell = grid.point_data[:, i_vars][grid.cells.long()]  # (C, npc, V)
@@ -79,8 +87,24 @@ def interpolate_bruteforce_plain(grid, r, i_vars):
     return torch.cat(vals), torch.cat(ics), torch.cat(founds)
 
 
-def interpolate_bruteforce_cuda(grid, r, i_vars):
-    """Launch B1 on CUDA tensors (float32 grid and queries)."""
+def _var_columns(grid, i_vars):
+    """``i_vars`` as point_data columns, negative ones wrapped as torch
+    indexing wraps them."""
+    width = grid.point_data.shape[1]
+    cols = []
+    for v in _static_slots(i_vars):
+        if not -width <= v < width:
+            raise IndexError(f"variable {v} outside point_data's {width} "
+                             "columns")
+        cols.append(v % width)
+    return cols
+
+
+def interpolate_bruteforce_cuda(grid, r, i_vars, *, q=QUERIES_PER_THREAD,
+                                threads=THREADS):
+    """Launch B1 on CUDA tensors (float32 grid and queries).  ``q`` and
+    ``threads`` are the kernel's queries a thread and threads a block,
+    for the sweep; callers keep the defaults."""
     global launches
     if grid.dtype != torch.float32 or r.dtype != torch.float32:
         raise TypeError(
@@ -91,28 +115,37 @@ def interpolate_bruteforce_cuda(grid, r, i_vars):
         raise ValueError(f"queries on {r.device}, grid on {grid.device}")
     if r.ndim != 2 or r.shape[1] != 3:
         raise ValueError(f"queries must be (B, 3), got {tuple(r.shape)}")
+    if grid.cells.dtype != torch.int32:
+        raise TypeError(f"grid cells must be int32, got {grid.cells.dtype}")
+    cols = _var_columns(grid, i_vars)
     r = r.contiguous()
-    i_vars = torch.as_tensor(i_vars, dtype=torch.long, device=grid.device)
-    payload = _payload(grid, i_vars)
-    # (C, nf, 4) face planes [nx ny nz d], staged by the kernel in tiles
-    planes = torch.cat(
-        [grid.face_normals, grid.face_offsets[..., None]], dim=2
-    ).contiguous()
-    b, n_vars = r.shape[0], i_vars.shape[0]
+    normals, offsets, cell_points, volume, cells = (
+        t.contiguous() for t in (grid.face_normals, grid.face_offsets,
+                                 grid.cell_points, grid.cell_volume,
+                                 grid.cells))
+    pd = grid.point_data
+    if pd.stride(1) != 1:
+        pd = pd.contiguous()
+    b, n_vars = r.shape[0], len(cols)
     vals = torch.empty((b, n_vars), dtype=torch.float32, device=r.device)
     ic = torch.empty(b, dtype=torch.int32, device=r.device)
     found = torch.empty(b, dtype=torch.bool, device=r.device)
     if b == 0:
         return vals, ic, found
+    lib = _kernels.lib()
     with torch.cuda.device(r.device):
-        code = _kernels.lib().iu_interp_bruteforce(
-            planes.data_ptr(), payload.data_ptr(), r.data_ptr(), b,
-            grid.n_cells, _CELL_TYPE_CODE[grid.cell_type], n_vars,
-            float(grid.config.eps_inside), vals.data_ptr(), ic.data_ptr(),
-            found.data_ptr(), torch.cuda.current_stream().cuda_stream,
-        )
-    _kernels.check(code, "iu_interp_bruteforce")
-    launches += 1
+        stream = torch.cuda.current_stream().cuda_stream
+        for g, slots, n in _kernels.var_slot_groups(cols):
+            code = lib.iu_interp_bruteforce(
+                normals.data_ptr(), offsets.data_ptr(),
+                cell_points.data_ptr(), volume.data_ptr(), cells.data_ptr(),
+                pd.data_ptr(), pd.stride(0), slots, n, r.data_ptr(), b,
+                grid.n_cells, _CELL_TYPE_CODE[grid.cell_type],
+                float(grid.config.eps_inside), vals.data_ptr() + 4 * g,
+                n_vars, ic.data_ptr(), found.data_ptr(), q, threads, stream,
+            )
+            _kernels.check(code, "iu_interp_bruteforce")
+            launches += 1
     return vals, ic, found
 
 

@@ -33,7 +33,10 @@ Tolerances:
   and the same queries as a hi/lo pair give identical results.
 
 The CUDA kernels are held against the plain versions where a card exists
-(bit for bit: the kernels are built with ``--fmad=false``); those tests
+(bit for bit: the kernels are built with ``--fmad=false``, and their one
+FMA, in the df32 product, gives the bits of the plain Dekker product;
+``tests/test_torch_fma_form.py``), B5 also on meshes scaled by 1e-6 and
+1e3 with two variables in reverse order; those tests
 use the port alone, so that on a machine without jax they run with
 ``python -m pytest --noconftest -m cuda tests/test_torch_*.py``.
 """
@@ -295,6 +298,40 @@ def test_cuda_b5_matches_plain(cuda, case):
     assert acc_kernel.launches == before + 1
     ph, pl = acc_kernel.interp_acc_plain(*args)
     assert torch.equal(kh, ph) and torch.equal(kl, pl)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scale", [1e-6, 1e3])
+@pytest.mark.parametrize("case", list(MESHES))
+def test_cuda_b5_scaled_meshes(cuda, case, scale):
+    """B5 on the meshes scaled by 1e-6 and 1e3 (coordinates, cell sizes
+    and products far from 1), with nv = 2 and the slots in reverse,
+    bit for bit against the plain version."""
+    cell_type, mesh, s0 = MESHES[case]
+    pts, cells, nbrs = mesh()
+    s = scale * (1.0 if s0 is None else s0)
+    p64 = np.asarray(pts, np.float64) * s
+    data = {"D0": np.sin(3 * p64[:, 0] / s) * p64[:, 1],
+            "D1": np.cos(2 * p64[:, 1] / s) + 7.0 * p64[:, 0]}
+    g = interp_acc.prepare_accurate(tiu.build_grid(
+        pts, cells, nbrs, cell_type, point_data=data, dtype=torch.float32,
+        locate_mode="walk", coord_scale_factor=s, config=HOST, device=cuda),
+        build_df=False)
+    assert g.n_point_data == 2
+    rng = np.random.default_rng(18)
+    ic = rng.integers(0, len(cells), 100_000)
+    w = rng.random((len(ic), cells.shape[1])) + 0.05
+    w /= w.sum(1, keepdims=True)
+    r64 = np.einsum("nk,nkd->nd", w, p64[cells[ic]])
+    r_hi, r_lo = (torch.from_numpy(a).to(cuda) for a in _split(r64))
+    ic = torch.from_numpy(ic.astype(np.int32)).to(cuda)
+    for slots in ((1, 0), (0,), (1,)):
+        args = (g.acc_table, ic, r_hi, r_lo, g.cell_type,
+                g.n_points_per_cell, g.n_point_data, slots)
+        kh, kl = acc_kernel.interp_acc_cuda(*args)
+        ph, pl = acc_kernel.interp_acc_plain(*args)
+        assert torch.equal(kh, ph) and torch.equal(kl, pl)
+        assert bool((kl != 0).any())
 
 
 @pytest.mark.parametrize("kind", ["float64", "pair"])

@@ -5,9 +5,11 @@ The JAX package's Pallas kernel runs in interpret mode
 grid; the same grid is carried into the port with ``grid_from_numpy``
 and the port's plain version runs on the same queries.  Cell ids and
 found masks must be identical and values agree to 1e-6 absolute.  The
-CUDA kernel is held against the plain version where a card exists;
-those tests use the port alone, so that on a machine without jax they
-run with ``python -m pytest --noconftest -m cuda tests/test_torch_*.py``.
+CUDA kernel is held against the plain version where a card exists, bit
+for bit (``torch.equal`` on ids, found masks and values; queries with an
+inf or NaN coordinate on ids and found masks); those tests use the port
+alone, so that on a machine without jax they run with
+``python -m pytest --noconftest -m cuda tests/test_torch_*.py``.
 """
 
 import numpy as np
@@ -143,6 +145,74 @@ def test_cuda_kernel_matches_plain(cuda, cell_type):
     assert interp_kernel.launches == before + 1
     pv, pic, pf = interp_kernel.interpolate_bruteforce_plain(g, rq, [0, 1])
     assert torch.equal(kf, pf) and torch.equal(kic, pic)
-    assert (kv - pv).abs().max().item() <= 2e-6
+    assert torch.equal(kv, pv)
     with pytest.raises(TypeError):
         interp_kernel.interpolate_bruteforce(g, rq.double(), [0])
+
+
+def _assert_kernel_equals_plain(g, rq, i_vars, **config):
+    kv, kic, kf = interp_kernel.interpolate_bruteforce_cuda(g, rq, i_vars,
+                                                            **config)
+    pv, pic, pf = interp_kernel.interpolate_bruteforce_plain(g, rq, i_vars)
+    assert torch.equal(kf, pf) and torch.equal(kic, pic)
+    assert torch.equal(kv, pv)
+    return kf
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 31, 50_001])
+@pytest.mark.parametrize("cell_type", list(MESHES))
+def test_cuda_batch_sizes(cuda, cell_type, n):
+    """Batches that are no multiple of a block's queries (the kernel's
+    queries a thread times its threads), and one query."""
+    g, rq = _port_grid_and_queries(cell_type, n, cuda)
+    _assert_kernel_equals_plain(g, rq, [1, 0])
+
+
+def _single_tet():
+    pts, cells, _ = meshgen.tet_box_mesh(1, 1, 1)
+    return pts[cells[0]], np.arange(4, dtype=cells.dtype)[None], \
+        np.full((1, 4), -1, dtype=cells.dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mesh", ["one tet", "1024 quads", "3072 tets"])
+def test_cuda_cell_counts(cuda, mesh):
+    """One cell; a plane table that fills the 64 KB a block stages
+    (1024 quads); and a grid above it (3072 tets, a config with a larger
+    ``bruteforce_max_cells``), which the kernel takes in tiles.  The
+    wrapper's configuration and others of the sweep's (queries a thread,
+    threads a block)."""
+    cell_type, (pts, cells, nbrs), cfg = {
+        "one tet": ("tetra", _single_tet(), tiu.IUConfig()),
+        "1024 quads": ("quad", meshgen.quad_rect_mesh(32, 32),
+                       tiu.IUConfig()),
+        "3072 tets": ("tetra", meshgen.tet_box_mesh(8, 8, 8),
+                      tiu.IUConfig(bruteforce_max_cells=4096)),
+    }[mesh]
+    g = tiu.build_grid(pts, cells, nbrs, cell_type, dtype=torch.float32,
+                       point_data=_point_data(pts), config=cfg, device=cuda)
+    assert g.locate_mode == "bruteforce"
+    rq = torch.from_numpy(_queries(pts, 20_000)).to(cuda)
+    kf = _assert_kernel_equals_plain(g, rq, [0, 1])
+    assert 0 < int(kf.sum()) < rq.shape[0]
+    for q, threads in ((1, 128), (2, 256), (4, 512)):
+        _assert_kernel_equals_plain(g, rq, [1], q=q, threads=threads)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cell_type", list(MESHES))
+def test_cuda_nonfinite_queries(cuda, cell_type):
+    """Queries with an inf or NaN coordinate among finite ones: ids and
+    found masks as the plain version's (amin and argmax propagate NaN),
+    the finite queries bit for bit."""
+    g, rq = _port_grid_and_queries(cell_type, 4096, cuda)
+    bad = torch.tensor([float("inf"), float("-inf"), float("nan")],
+                       device=cuda)
+    for i in range(24):
+        rq[97 * i + 5, i % 3] = bad[i % 3]
+    kv, kic, kf = interp_kernel.interpolate_bruteforce_cuda(g, rq, [0])
+    pv, pic, pf = interp_kernel.interpolate_bruteforce_plain(g, rq, [0])
+    assert torch.equal(kf, pf) and torch.equal(kic, pic)
+    fin = torch.isfinite(rq).all(1)
+    assert torch.equal(kv[fin], pv[fin])
