@@ -3,12 +3,13 @@
 
     python3 chip_smoke.py
 
-Drives the cold and warm paths, accurate mode and the tracer of
-``interpolate_unstructured_tpu_torch`` on the card through its public
-entry points (``build_grid``, ``interpolate_scalar_at`` with and without
+Drives the cold and warm paths, accurate mode, the tracer, mesh files
+and grid checkpoints of ``interpolate_unstructured_tpu_torch`` on the
+card through its public entry points (``build_grid``, ``read_grid``,
+``save_grid``, ``load_grid``, ``interpolate_scalar_at`` with and without
 a guess, ``prepare_accurate``, ``interpolate_at_acc``,
 ``interpolate_at_icell_acc``, ``add_point_data``,
-``integrate_along_field``):
+``integrate_along_field``, ``write_trace_vtk``):
 
 1. builds the CUDA kernels from ``interpolate_unstructured_tpu_torch/csrc``
    into ``build/kernels/`` (set-up time; one nvcc process per source,
@@ -28,7 +29,19 @@ a guess, ``prepare_accurate``, ``interpolate_at_acc``,
    new, old), the probe at the lanes a query that ``binned_lanes`` picks
    and at its neighbour (``tools/b2_sweep.py`` sweeps lanes and batch
    sizes);
-4. accurate phase, ``bench.py``'s accurate protocol on the candidate
+4. io phase: the brute-force meshes written with the port's
+   ``write_vtu`` and read back by ``read_grid`` (every leaf against
+   ``build_grid`` of the arrays, B1's results torch.equal); the
+   candidate phase's grid through ``save_grid`` and ``load_grid`` onto
+   the card (no candidate-list rebuild, every leaf bit for bit, the 10M
+   cold queries torch.equal, ``prepare_accurate`` of the loaded grid and
+   the accurate phase's 10M float64 queries cold and warm torch.equal);
+   the 55^3 box written as a .vtu, converted by ``convert_to_binda`` and
+   read by ``read_grid`` without candidate tables (every leaf against
+   ``build_grid`` of the arrays), the walk and trace phases' grid.  The
+   .vtu stores coordinates as Float32, as the reference's writer does,
+   so the arrays are meshgen's points rounded to float32;
+5. accurate phase, ``bench.py``'s accurate protocol on the candidate
    phase's grid: ``prepare_accurate`` (acc table, float64 plane solve,
    df-plane rows), 10M float64 queries from default_rng(2) cold (one
    df-plane row each: kernel B2-df in bin order, the bin pass, scatter,
@@ -38,15 +51,16 @@ a guess, ``prepare_accurate``, ``interpolate_at_acc``,
    the misses, then B5), gated at 1e-10; the cold call and the get_cell
    + B5 route timed in turns; then B5 through
    ``interpolate_at_icell_acc`` on the brute-force meshes;
-5. walk phase, ``bench.py``'s warm protocol on the same box built
-   without candidate tables: ``build_grid`` (its refine walks every seed
-   bin center), 10M cold queries (bin-seeded walks), the same points
+6. walk phase, ``bench.py``'s warm protocol on the same box without
+   candidate tables, as the io phase read it (``read_grid``'s refine
+   walks every seed bin center), 10M cold queries (bin-seeded walks), the
+   same points
    advected by 0.01 * velocity with the cold cells as guesses, and 100k
    warm queries pushed out of the box, every walk in B3's get_cell walk
    stage; that stage and the earlier composition it replaces
    (``walk_origin``, ``_walk_args``, two ``walk_cuda`` launches) timed
    in turns, and B3's explicit walk (``walk_rows``) on its own;
-6. trace phase, ``bench.py``'s ``trace_at_scale`` protocol on the walk
+7. trace phase, ``bench.py``'s ``trace_at_scale`` protocol on the walk
    phase's grid: the helical field (-(y-0.5), x-0.5, 0.25) added with
    ``add_point_data(..., fuse=False)``, ``build_trace_table`` once, then
    ``integrate_along_field`` (min_dx 1e-4, max_dx 0.05, 256 steps, rtol =
@@ -54,8 +68,10 @@ a guess, ``prepare_accurate``, ``interpolate_at_acc``,
    1024 and 65,536 lines (B3's get_cell walk for the start cells, then
    one launch of B4 running every line's RK loop), each held field by
    field against the plain loop on the card, and the 1024 lines again
-   through the generic path (B3's explicit walks plus torch);
-7. holds each kernel against its plain PyTorch version on the same CUDA
+   through the generic path (B3's explicit walks plus torch); the 1024
+   lines' result written by ``write_trace_vtk`` and its points read
+   back;
+8. holds each kernel against its plain PyTorch version on the same CUDA
    tensors, checks linear exactness and found masks, and times kernel
    and plain version with CUDA events (B4 and B3's walks at the generic
    trace's size, whose launches are short beside the wrapper's host
@@ -86,6 +102,7 @@ import dataclasses
 import json
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -631,6 +648,7 @@ def candidate_phase(dev, tiu, meshgen, interp_kernel, locate, cand_kernel,
         dtype=torch.float32, locate_mode="walk", device=dev, timings=timings,
     )
     build_s = time.perf_counter() - t0
+    res["build_s"], res["timings"] = build_s, timings
     k = grid.cand_ids.shape[1]
     print(f"B2 mesh tet_box_mesh({n},{n},{n}): {grid.n_cells} tets, "
           f"meshgen {mesh_s:.3f} s; build_grid {build_s:.3f} s split "
@@ -873,36 +891,23 @@ def gc_bound(grid, r, start, max_steps, p1, walk_kernel):
 
 
 def walk_phase(dev, tiu, meshgen, interp_kernel, locate, cand_kernel,
-               walk_kernel):
+               walk_kernel, io_res):
     """bench.py's warm protocol on the 998,250-tet box without candidate
-    tables: every query walks (get_cell's walk stage, kernel B3)."""
+    tables, the grid that the io phase read from its file: every query
+    walks (get_cell's walk stage, kernel B3)."""
     from interpolate_unstructured_tpu_torch.ops import wkern
 
     counters = (interp_kernel, cand_kernel, walk_kernel)
     gc_key = f"{walk_kernel.__name__}:get_cell"
     res = {"gc_launches": {}}
-    n = 55
-    pts, cells, nbrs = meshgen.tet_box_mesh(n, n, n)
-    timings = {}
-    t0 = time.perf_counter()
-    grid, counts = main_path(lambda: tiu.build_grid(
-        pts, cells, nbrs, "tetra", point_data={"Polynomial": pts.sum(1) + 1.0},
-        dtype=torch.float32, locate_mode="walk",
-        config=tiu.IUConfig(use_candidate_bins=False), device=dev,
-        timings=timings), counters)
-    build_s = time.perf_counter() - t0
-    del pts, cells, nbrs
+    grid = io_res.pop("walk_grid")
     check(grid.cand_table is None, "walk grid has candidate tables")
-    res["gc_launches"]["refine"] = counts[gc_key]
-    check(res["gc_launches"]["refine"] >= 1,
-          "get_cell's walk stage was not launched by build_grid's refine")
+    res["gc_launches"]["refine"] = io_res["refine_launches"]
     n_bins = int(np.prod(grid.bin_shape))
-    res["build_s"], res["timings"] = build_s, timings
-    print(f"B3 walk grid tet_box_mesh({n},{n},{n}), no candidate tables: "
-          f"build_grid {build_s:.3f} s split "
-          + json.dumps({kk: round(v, 4) for kk, v in timings.items()})
-          + f"; {n_bins} seed bins {grid.bin_shape} self-located by the "
-          f"refine ({res['gc_launches']['refine']} get_cell walk launches)")
+    print(f"B3 walk grid, the 55^3 box that read_grid read from its .binda "
+          f"(io phase), no candidate tables: {n_bins} seed bins "
+          f"{grid.bin_shape} self-located by the refine "
+          f"({res['gc_launches']['refine']} get_cell walk launches)")
 
     rng = np.random.default_rng(4)
     r = torch.from_numpy(
@@ -1239,8 +1244,10 @@ def walk_bound(table, args, walk_kernel, nf):
                  int(steps.sum()) * nf * 12)
 
 
-def trace_phase(dev, tiu, grid, counters, walk_kernel, trace_kernel):
-    """bench.py's trace_at_scale protocol on the walk phase's grid."""
+def trace_phase(dev, tiu, grid, counters, walk_kernel, trace_kernel, tmp,
+                card):
+    """bench.py's trace_at_scale protocol on the walk phase's grid; the
+    1024-line result then goes through write_trace_vtk."""
     res = {"launches": 0, "gc_launches": 0}
     gc_key = f"{walk_kernel.__name__}:get_cell"
     t0 = time.perf_counter()
@@ -1370,6 +1377,9 @@ def trace_phase(dev, tiu, grid, counters, walk_kernel, trace_kernel):
               f"self CPU ms, top 8): " + host_ops(lambda: trace(y0), 8))
         runs[n] = dict(out=out, y0=y0, inputs=inputs, wall=wall, med=med,
                        k_ms=k_ms if k_ms is not None else ev_ms)
+
+    res["trace_vtk_s"] = trace_vtk_check(tiu, runs[TRACE_N[0]]["out"], tmp,
+                                         card)
 
     # B4's numbers at 65,536 lines: the kernel, the plain loop, the bound
     big = runs[TRACE_N[-1]]
@@ -1830,6 +1840,277 @@ def accurate_phase(dev, tiu, grid, bf_inputs, counters, cand_kernel,
     return res
 
 
+def same_bits(a, b):
+    """Bit-for-bit equality of two tensors.  Float tensors compare as
+    their bits: the quantized candidate rows hold int16 pairs in float32
+    words, some of them NaN patterns that torch.equal of the floats
+    would call unequal to themselves."""
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    if a.dtype.is_floating_point:
+        it = {2: torch.int16, 4: torch.int32, 8: torch.int64}[a.element_size()]
+        a, b = a.view(it), b.view(it)
+    return torch.equal(a, b)
+
+
+def check_same_grid(name, a, b):
+    """Every tensor leaf of two grids bit for bit, every metadata field
+    equal; returns the number of tensor leaves compared."""
+    from interpolate_unstructured_tpu_torch.models.grid import (
+        DATA_FIELDS,
+        META_FIELDS,
+    )
+
+    n = 0
+    for f in DATA_FIELDS:
+        x, y = getattr(a, f), getattr(b, f)
+        check((x is None) == (y is None), f"{name}: leaf {f} is None on "
+              "one grid only")
+        if x is not None:
+            check(same_bits(x, y), f"{name}: leaf {f} differs")
+            n += 1
+    for f in META_FIELDS:
+        check(getattr(a, f) == getattr(b, f), f"{name}: {f} differs: "
+              f"{getattr(a, f)!r} against {getattr(b, f)!r}")
+    return n
+
+
+def add_counts(total, counts):
+    for k, v in counts.items():
+        total[k] = total.get(k, 0) + v
+
+
+def vtu_rounded(pts):
+    """The coordinates a .vtu holds: its writer stores points as Float32,
+    as the reference's does (m_vtk.f90:79)."""
+    return pts.astype(np.float32).astype(np.float64)
+
+
+def io_phase(dev, tiu, meshgen, cand_grid, cand_res, counters, card, tmp):
+    """Mesh files and checkpoints on the card: the brute-force meshes and
+    the walk phase's 998,250-tet box read from .vtu files the port wrote
+    (write_vtu, convert_to_binda, read_grid), each against build_grid
+    from meshgen's arrays; the candidate phase's grid saved and loaded
+    (save_grid, load_grid) with no candidate-list rebuild, then its 10M
+    cold queries and accurate mode's cold and warm queries on both."""
+    import os
+
+    from interpolate_unstructured_tpu_torch.io import convert, vtk
+    from interpolate_unstructured_tpu_torch.models import grid as tgrid
+
+    interp_kernel, cand_kernel, walk_kernel, acc_kernel = counters
+    gc_key = f"{walk_kernel.__name__}:get_cell"
+    res = {"b1": {}, "counts": {}}
+
+    # Brute-force meshes through read_grid: B1 on the grid read from the
+    # file against B1 on the grid built from the same arrays
+    rng = np.random.default_rng(1)
+    for cell_type, label, (pts, cells, nbrs) in bf_meshes(meshgen):
+        pd = {"Polynomial": pts.sum(1) + 1.0}
+        path = os.path.join(tmp, f"bf_{cell_type}.vtu")
+        vtk.write_vtu(path, pts, cells, cell_type, point_data=pd)
+        g_file = tiu.read_grid(path, dtype=torch.float32, device=dev)
+        g_arr = tiu.build_grid(vtu_rounded(pts), cells, nbrs, cell_type,
+                               point_data=pd, dtype=torch.float32, device=dev)
+        n_leaves = check_same_grid(f"read_grid {label}", g_file, g_arr)
+        r = bf_queries(pts, rng, dev)
+        out, counts = main_path(
+            lambda: tiu.interpolate_scalar_at(g_file, r, 0, fill_value=FILL),
+            counters)
+        n_b1 = counts[interp_kernel.__name__]
+        check(n_b1 >= 1, f"io {label}: B1 was not launched on the grid read "
+              "from its file")
+        add_counts(res["counts"], counts)
+        res["b1"][label] = n_b1
+        ref = tiu.interpolate_scalar_at(g_arr, r, 0, fill_value=FILL)
+        for name, a, b in zip(("values", "i_cell", "found"), out, ref):
+            check(same_bits(a, b), f"io {label}: B1 {name} on the grid read "
+                  "from the file differs from the grid built from arrays")
+        print(f"io {label}: read_grid of the port's .vtu, {n_leaves} tensor "
+              f"leaves and every metadata field equal to build_grid of the "
+              f"arrays; B1 ({n_b1} launches) values, cells and found masks "
+              f"torch.equal on {r.shape[0]} queries")
+        del g_file, g_arr, r, out, ref
+
+    # The candidate phase's 998,250-tet grid: save, then load onto the
+    # card; the candidate builder must not run
+    path = os.path.join(tmp, "box.binda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tiu.save_grid(cand_grid, path)
+    save_s = time.perf_counter() - t0
+    size = os.path.getsize(path)
+    rebuilds = []
+    real_builder = tgrid.build_candidate_bins_dispatch
+
+    def counting_builder(*a, **k):
+        rebuilds.append(1)
+        return real_builder(*a, **k)
+
+    tgrid.build_candidate_bins_dispatch = counting_builder
+    try:
+        timings = {}
+        t0 = time.perf_counter()
+        loaded = tiu.load_grid(path, device=dev, timings=timings)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+    finally:
+        tgrid.build_candidate_bins_dispatch = real_builder
+    check(not rebuilds, "load_grid rebuilt the candidate lists")
+    n_leaves = check_same_grid("load_grid of the 998k-tet box", cand_grid,
+                               loaded)
+    res.update(save_s=save_s, size=size, load_s=load_s, load=timings)
+    print(f"io checkpoint, {cand_grid.n_cells} tets: save_grid {save_s:.3f} "
+          f"s, {size} bytes; load_grid {load_s:.3f} s split "
+          + json.dumps({k: round(v, 4) for k, v in timings.items()})
+          + f"; this run's build_grid {cand_res['build_s']:.3f} s split "
+          + json.dumps({k: round(v, 4) for k, v in cand_res["timings"].items()})
+          + f"; no candidate-list rebuild; {n_leaves} tensor leaves (walk, "
+          f"candidate and extension tables, bin_pack included) and every "
+          f"metadata field equal to the built grid's [{card}]")
+
+    # 10M cold queries on both grids
+    r = torch.from_numpy(
+        np.random.default_rng(2).random((N_CAND, 3)).astype(np.float32)
+    ).to(dev)
+    out, counts = main_path(
+        lambda: tiu.interpolate_scalar_at(loaded, r, 0, fill_value=0.0),
+        counters)
+    ck = cand_kernel.__name__
+    check(counts[f"{ck}:binned"] >= 1, "the loaded grid's cold queries did "
+          "not launch B2 in bin order")
+    add_counts(res["counts"], counts)
+    ref = tiu.interpolate_scalar_at(cand_grid, r, 0, fill_value=0.0)
+    for name, a, b in zip(("values", "i_cell", "found"), out, ref):
+        check(same_bits(a, b), f"io checkpoint: 10M cold {name} on the "
+              "loaded grid differ from the built grid's")
+    check(bool(out[2].all()), "io checkpoint: a cold query was not found")
+    print(f"io checkpoint: {N_CAND} cold interpolate_scalar_at on the loaded "
+          f"grid torch.equal to the built grid's (B2 in bin order "
+          f"{counts[f'{ck}:binned']} launches)")
+    del r, out, ref
+
+    # Accurate mode on both: prepare_accurate, then the accurate phase's
+    # 10M float64 queries cold and moved warm (guess = cold cells)
+    pa = tiu.prepare_accurate(cand_grid)
+    t0 = time.perf_counter()
+    pb = tiu.prepare_accurate(loaded)
+    torch.cuda.synchronize()
+    prep_s = time.perf_counter() - t0
+    del loaded
+    n_leaves = check_same_grid("prepare_accurate of the loaded grid", pa, pb)
+    r64 = torch.from_numpy(np.random.default_rng(2).random((N_CAND, 3))).to(dev)
+    vel = torch.from_numpy(np.random.default_rng(5).random((N_CAND, 3))).to(dev)
+    r_w = 0.005 + 0.98 * r64 + 0.01 * vel
+    del vel
+    cold, counts = main_path(lambda: tiu.interpolate_at_acc(pb, r64, (0,)),
+                             counters)
+    check(counts[f"{ck}:df"] >= 1, "the loaded grid's cold accurate queries "
+          "did not launch the df probe")
+    # the float64 bin pass, kept apart from the float32 one
+    res["df_pass"] = counts.pop(f"{ck}:bin_pass")
+    add_counts(res["counts"], counts)
+    warm, counts = main_path(
+        lambda: tiu.interpolate_at_acc(pb, r_w, (0,), guess=cold[3]),
+        counters)
+    check(counts[acc_kernel.__name__] >= 1, "the loaded grid's warm accurate "
+          "queries did not launch B5")
+    add_counts(res["counts"], counts)
+    cold_a = tiu.interpolate_at_acc(pa, r64, (0,))
+    warm_a = tiu.interpolate_at_acc(pa, r_w, (0,), guess=cold_a[3])
+    for label, a_out, b_out in (("cold", cold_a, cold), ("warm", warm_a, warm)):
+        for name, a, b in zip(("vals_hi", "vals_lo", "found", "i_cell"),
+                              a_out, b_out):
+            check(same_bits(a, b), f"io checkpoint: {label} accurate {name} "
+                  "on the loaded grid differs from the built grid's")
+    check(bool(cold[2].all() and warm[2].all()),
+          "io checkpoint: an accurate query was not found")
+    print(f"io checkpoint: prepare_accurate of the loaded grid {prep_s:.3f} s "
+          f"[{card}], {n_leaves} tensor leaves equal to the built grid's "
+          f"(acc_table, cand_df_table included); {N_CAND} float64 queries "
+          f"cold and warm: vals_hi, vals_lo, found, i_cell torch.equal")
+    del pa, pb, r64, r_w, cold, warm, cold_a, warm_a
+    torch.cuda.empty_cache()
+
+    # The walk phase's grid from a file: write_vtu, convert_to_binda,
+    # read_grid with the walk phase's config (no candidate tables)
+    n = 55
+    pts, cells, nbrs = meshgen.tet_box_mesh(n, n, n)
+    pd = {"Polynomial": pts.sum(1) + 1.0}
+    vtu = os.path.join(tmp, "box55.vtu")
+    t0 = time.perf_counter()
+    vtk.write_vtu(vtu, pts, cells, "tetra", point_data=pd)
+    write_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    binda = convert.convert_to_binda(vtu)
+    convert_s = time.perf_counter() - t0
+    cfg = tiu.IUConfig(use_candidate_bins=False)
+    t0 = time.perf_counter()
+    grid, counts = main_path(lambda: tiu.read_grid(
+        binda, dtype=torch.float32, locate_mode="walk", config=cfg,
+        device=dev), counters)
+    read_s = time.perf_counter() - t0
+    check(counts[gc_key] >= 1, "get_cell's walk stage was not launched by "
+          "read_grid's refine")
+    res["refine_launches"] = counts[gc_key]
+    timings = {}
+    t0 = time.perf_counter()
+    g_arr = tiu.build_grid(vtu_rounded(pts), cells, nbrs, "tetra",
+                           point_data=pd, dtype=torch.float32,
+                           locate_mode="walk", config=cfg, device=dev,
+                           timings=timings)
+    build_s = time.perf_counter() - t0
+    n_leaves = check_same_grid("read_grid of the 55^3 box", grid, g_arr)
+    del g_arr
+    res.update(write_s=write_s, convert_s=convert_s, read_s=read_s,
+               walk_build_s=build_s, walk_grid=grid,
+               vtu_bytes=os.path.getsize(vtu),
+               binda_bytes=os.path.getsize(binda))
+    print(f"io walk grid, {grid.n_cells} tets: write_vtu {write_s:.3f} s "
+          f"({res['vtu_bytes']} bytes), convert_to_binda {convert_s:.3f} s "
+          f"({res['binda_bytes']} bytes), read_grid {read_s:.3f} s (its "
+          f"refine {res['refine_launches']} get_cell walk launches); "
+          f"build_grid of the arrays {build_s:.3f} s split "
+          + json.dumps({k: round(v, 4) for k, v in timings.items()})
+          + f"; {n_leaves} tensor leaves and every metadata field equal "
+          f"[{card}]")
+    return res
+
+
+def trace_vtk_check(tiu, out, tmp, card):
+    """write_trace_vtk of a trace result, read back with the port's VTU
+    decoding: the polyline points are each line's stored points."""
+    import os
+    from xml.etree import ElementTree
+
+    from interpolate_unstructured_tpu_torch.io import vtu
+
+    path = os.path.join(tmp, "trace.vtu")
+    t0 = time.perf_counter()
+    tiu.write_trace_vtk(out, path)
+    write_s = time.perf_counter() - t0
+    xml_text, blob, _ = vtu._split_appended_blob(open(path, "rb").read())
+    arrays = {}
+    for da in ElementTree.fromstring(xml_text).iter("DataArray"):
+        raw = vtu._decode_block(blob[int(da.get("offset")):], np.uint32, False)
+        arrays[da.get("Name")] = np.frombuffer(
+            raw, dtype=vtu._VTK_TO_NP[da.get("type")])
+    max_steps = out.y.shape[1]
+    n = out.n_steps.clamp(max=max_steps).cpu().numpy()
+    keep = n >= 2
+    y = out.y.cpu().numpy()
+    want = np.concatenate([y[i, :n[i], :3] for i in np.flatnonzero(keep)])
+    got = arrays["Points"].reshape(-1, 3)
+    check(got.shape == want.shape and np.array_equal(got, want),
+          "write_trace_vtk: the points read back differ from the trace's")
+    check(np.array_equal(arrays["offsets"], np.cumsum(n[keep])),
+          "write_trace_vtk: polyline offsets differ")
+    print(f"io write_trace_vtk: {int(keep.sum())} of {len(n)} lines, "
+          f"{len(got)} points in {write_s:.3f} s ({os.path.getsize(path)} "
+          f"bytes) [{card}]; the points read back equal the trace's")
+    return write_s
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
@@ -1873,35 +2154,52 @@ def main() -> int:
         phase_s[name] = round(time.perf_counter() - t0, 3)
         return out
 
-    b1 = timed_phase("bruteforce", bruteforce_phase, *args)
-    b2 = timed_phase("candidate", candidate_phase, *args)
-    b5 = timed_phase("accurate", accurate_phase, dev, tiu, b2.pop("grid"),
-                     b1.pop("acc_inputs"),
-                     (interp_kernel, cand_kernel, walk_kernel, acc_kernel),
-                     cand_kernel, acc_kernel, walk_kernel, locate)
-    b3 = timed_phase("walk", walk_phase, *args)
-    b4 = timed_phase("trace", trace_phase, dev, tiu, b3.pop("grid"),
-                     (interp_kernel, cand_kernel, walk_kernel, trace_kernel),
-                     walk_kernel, trace_kernel)
-    print("phase seconds: " + json.dumps(phase_s))
+    acc_counters = (interp_kernel, cand_kernel, walk_kernel, acc_kernel)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_io_") as tmp:
+        b1 = timed_phase("bruteforce", bruteforce_phase, *args)
+        b2 = timed_phase("candidate", candidate_phase, *args)
+        io = timed_phase("io", io_phase, dev, tiu, meshgen, b2["grid"], b2,
+                         acc_counters, card, tmp)
+        b5 = timed_phase("accurate", accurate_phase, dev, tiu, b2.pop("grid"),
+                         b1.pop("acc_inputs"), acc_counters, cand_kernel,
+                         acc_kernel, walk_kernel, locate)
+        b3 = timed_phase("walk", walk_phase, *args, io)
+        b4 = timed_phase("trace", trace_phase, dev, tiu, b3.pop("grid"),
+                         (interp_kernel, cand_kernel, walk_kernel,
+                          trace_kernel),
+                         walk_kernel, trace_kernel, tmp, card)
+    print("phase seconds: " + json.dumps(phase_s) + f" [{card}]")
+    ck = cand_kernel.__name__
+    io_n = io["counts"]
+    print("io phase launches on its main paths (B1 on the grids read from "
+          "files, the loaded checkpoint's cold and accurate queries): "
+          + json.dumps({k: v for k, v in io_n.items() if v}))
     gc_launches = {**b3["gc_launches"], "candidate_warm": b2["gc_launches"],
                    "accurate_warm": b5["gc_launches"],
-                   "trace_start_cells": b4["gc_launches"]}
+                   "trace_start_cells": b4["gc_launches"],
+                   "io_checkpoint": io_n[f"{walk_kernel.__name__}:get_cell"]}
     print("B3 get_cell walk launches on the main path: "
           + json.dumps(gc_launches))
-    binned = {x: b2["binned"][x] + b5["binned"][x] for x in b2["binned"]}
+    binned = {x: b2["binned"][x] + b5["binned"][x] + io_n[f"{ck}:{x}"]
+              for x in b2["binned"]}
+    df_pass = b5["df_pass_launches"] + io["df_pass"]
+    df_probe = b5["df_launches"] + io_n[f"{ck}:df"]
+    direct = b2["launches"] + b5["b2_launches"] + io_n[ck]
+    b5_launches = b5["acc_launches"] + io_n[acc_kernel.__name__]
     print("B2 bin-ordered launches on the main path: " + json.dumps(binned)
-          + f"; B2-df: float64 bin pass {b5['df_pass_launches']}, df probe "
-          f"{b5['df_launches']}; direct B2 "
-          f"{b2['launches'] + b5['b2_launches']}; B3 walk_rows "
-          f"{b4['walk_launches']} (the generic trace); B4 {b4['launches']}")
+          + f"; B2-df: float64 bin pass {df_pass}, df probe "
+          f"{df_probe}; direct B2 "
+          f"{direct}; B3 walk_rows "
+          f"{b4['walk_launches']} (the generic trace); B4 {b4['launches']}; "
+          f"B5 {b5_launches}")
 
     pkg = "interpolate_unstructured_tpu_torch"
     kernels = [
         *({"name": f"B1 interp_bruteforce, {row['label']}", "route": "cuda",
            "source": f"{pkg}/csrc/interp_bruteforce.cu",
            "replaces": "interpolate_unstructured_tpu/ops/pallas_interp.py:93",
-           "launches": row["launches"], "max_abs_err": row["max_abs_err"],
+           "launches": row["launches"] + io["b1"][row["label"]],
+           "max_abs_err": row["max_abs_err"],
            "ms": row["ms"], "plain_ms": row["plain_ms"],
            "bound_ms": row["bound"][0], "bound_by": row["bound"][1],
            "library_ms": None}
@@ -1909,8 +2207,7 @@ def main() -> int:
         {"name": "B2 cand_rows direct", "route": "cuda",
          "source": f"{pkg}/csrc/cand_rows.cu",
          "replaces": "interpolate_unstructured_tpu/ops/pallas_cand.py:64",
-         "launches": b2["launches"] + b5["b2_launches"],
-         "max_abs_err": b2["max_abs_err"],
+         "launches": direct, "max_abs_err": b2["max_abs_err"],
          "ms": b2["direct"]["ms"], "plain_ms": b2["direct"]["plain_ms"],
          "bound_ms": b2["direct"]["bound"][0],
          "bound_by": b2["direct"]["bound"][1], "library_ms": None},
@@ -1952,23 +2249,21 @@ def main() -> int:
         {"name": "B2-df bin pass, float64 queries", "route": "cuda",
          "source": f"{pkg}/csrc/cand_rows.cu",
          "replaces": "interpolate_unstructured_tpu/ops/pallas_cand.py:64",
-         "launches": b5["df_pass_launches"], "max_abs_err": b5["pass_err"],
+         "launches": df_pass, "max_abs_err": b5["pass_err"],
          "ms": b5["df_pass"]["ms"], "plain_ms": b5["df_pass"]["plain_ms"],
          "bound_ms": b5["df_pass"]["bound"][0],
          "bound_by": b5["df_pass"]["bound"][1], "library_ms": None},
         {"name": "B2-df probe in bin order", "route": "cuda",
          "source": f"{pkg}/csrc/cand_rows.cu",
          "replaces": "interpolate_unstructured_tpu/ops/pallas_cand.py:64",
-         "launches": b5["df_launches"],
-         "max_abs_err": b5["df"]["max_abs_err"],
+         "launches": df_probe, "max_abs_err": b5["df"]["max_abs_err"],
          "ms": b5["df"]["ms"], "plain_ms": b5["df"]["plain_ms"],
          "bound_ms": b5["df"]["bound"][0], "bound_by": b5["df"]["bound"][1],
          "library_ms": None},
         {"name": "B5 interp_acc", "route": "cuda",
          "source": f"{pkg}/csrc/interp_acc.cu",
          "replaces": "interpolate_unstructured_tpu/ops/pallas_acc.py:40",
-         "launches": b5["acc_launches"],
-         "max_abs_err": b5["b5"]["max_abs_err"],
+         "launches": b5_launches, "max_abs_err": b5["b5"]["max_abs_err"],
          "ms": b5["b5"]["ms"], "plain_ms": b5["b5"]["plain_ms"],
          "bound_ms": b5["b5"]["bound"][0], "bound_by": b5["b5"]["bound"][1],
          "library_ms": None},

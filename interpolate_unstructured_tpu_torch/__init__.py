@@ -11,8 +11,14 @@ lookup (``interpolate_at``, ``interpolate_scalar_at``,
 ``get_icell_scalar_at``); field-line tracing (``integrate_along_field``,
 ``build_trace_table``); and accurate mode, float64-grade values from a
 float32 grid (``prepare_accurate``, ``interpolate_at_acc``,
-``interpolate_at_icell_acc``).  Its kernels are CUDA C++ for ``sm_90a``
-(``csrc/``), built by ``nvcc`` on first use into ``build/kernels/``:
+``interpolate_at_icell_acc``); mesh input and output (``read_grid``
+reads every mesh format the JAX package reads, through the converter
+``io/convert.py`` and its ``.binda`` cache; ``write_vtk``,
+``write_trace_vtk``); grid checkpoints (``save_grid``, ``load_grid``,
+in the JAX package's binda v5 layout, so either package loads what the
+other saved); and ``validate_grid``.  Its kernels are CUDA C++ for
+``sm_90a`` (``csrc/``), built by ``nvcc`` on first use into
+``build/kernels/``:
 
 * B1 ``ops/interp_kernel.py`` — brute-force locate + interpolate
   (meshes of at most ``bruteforce_max_cells`` cells);
@@ -23,9 +29,11 @@ float32 grid (``prepare_accurate``, ``interpolate_at_acc``,
 * B5 ``ops/acc_kernel.py`` — df32 interpolation at known cells.
 
 On CPU tensors each kernel's plain PyTorch version runs instead.
-``build_grid`` and ``build_kdtree`` put their tensors on the CUDA device
-unless they are given ``device="cpu"``.  The package imports torch,
-numpy and scipy, never jax.
+``build_grid``, ``read_grid``, ``load_grid`` and ``build_kdtree`` put
+their tensors on the CUDA device unless they are given ``device="cpu"``.
+The package imports torch, numpy and scipy, never jax; ``h5py`` (XDMF
+sidecars, CGNS) and ``meshio`` (the converter's fallback) only when a
+file needs them.
 """
 
 from .models.grid import (
@@ -38,11 +46,14 @@ from .models.grid import (
     get_icell_data_index,
     get_point_data_index,
     grid_from_numpy,
+    read_grid,
     reserve_cell_data_storage,
     reserve_icell_data_storage,
     reserve_point_data_storage,
     set_point_data,
+    write_vtk,
 )
+from .io.checkpoint import load_grid, save_grid
 from .ops.interp import (
     get_cell_scalar_at,
     get_icell_scalar_at,
@@ -67,8 +78,14 @@ from .ops.interp_acc import (
     prepare_accurate,
 )
 from .ops.kdtree import KdTree, build_kdtree, nearest as kdtree_nearest
-from .trace import TraceResult, build_trace_table, integrate_along_field
+from .trace import (
+    TraceResult,
+    build_trace_table,
+    integrate_along_field,
+    write_trace_vtk,
+)
 from .utils.config import DEFAULT_CONFIG, IUConfig
+from .utils.validate import validate_grid
 
 __all__ = [
     "DEFAULT_CONFIG",
@@ -101,12 +118,18 @@ __all__ = [
     "interpolate_at_icell_acc",
     "interpolate_scalar_at",
     "kdtree_nearest",
+    "load_grid",
     "locate_bruteforce",
     "point_is_inside_cell",
     "prepare_accurate",
+    "read_grid",
     "reserve_cell_data_storage",
     "reserve_icell_data_storage",
     "reserve_point_data_storage",
+    "save_grid",
     "set_point_data",
+    "validate_grid",
     "walk",
+    "write_trace_vtk",
+    "write_vtk",
 ]

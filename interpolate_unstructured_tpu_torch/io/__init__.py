@@ -1,1 +1,4 @@
 """Port subpackage; see the package docstring."""
+
+from . import binda, convert, vtk, vtu
+from . import checkpoint

@@ -146,6 +146,14 @@ class Grid:
         return self.points.device
 
 
+def host_array(t) -> np.ndarray:
+    """A tensor (or array) as a host numpy array: one device -> host
+    copy for a tensor."""
+    if isinstance(t, torch.Tensor):
+        return t.detach().cpu().numpy()
+    return np.asarray(t)
+
+
 def _np_dtype(dtype: torch.dtype) -> np.dtype:
     return torch.empty((), dtype=dtype).numpy().dtype
 
@@ -534,6 +542,77 @@ def grid_from_numpy(leaves: dict, meta: dict, device) -> Grid:
         if key in meta:
             meta[key] = tuple(int(s) for s in meta[key])
     return Grid(**kw, **meta)
+
+
+def read_grid(
+    filename,
+    coord_scale_factor: float | None = None,
+    dtype: torch.dtype | None = None,
+    config: IUConfig = DEFAULT_CONFIG,
+    locate_mode: str = "auto",
+    device: str | torch.device | None = None,
+) -> Grid:
+    """Load a grid from a mesh file (converted and cached to .binda) or
+    a .binda container directly — parity with iu_read_grid (:820-927),
+    in-process instead of shelling out to a converter subprocess.
+
+    The arguments are ``build_grid``'s; ``device`` too: the CUDA device
+    by default, and a process without one raises unless
+    ``device="cpu"`` is passed."""
+    import os
+
+    from ..io.binda import read_binda
+    from ..io.convert import convert_to_binda
+
+    filename = os.fspath(filename)
+    if not filename.endswith(".binda"):
+        filename = convert_to_binda(filename)
+
+    bf = read_binda(filename)
+
+    ix = bf.index("cells")
+    if ix < 0:
+        raise ValueError("cells not found in binda file")
+    # the readers return views of the file's bytes: copy them, so that
+    # no tensor of the grid shares read-only memory
+    cells = np.array(bf.read_int32(ix))
+    cell_type = bf.entries[ix].metadata
+    if cell_type not in geometry.CELL_TYPES:
+        raise ValueError(f"Cell type {cell_type!r} not supported")
+
+    ix = bf.index("points")
+    if ix < 0:
+        raise ValueError("points not found in binda file")
+    points = np.array(bf.read_float64(ix))
+
+    ix = bf.index("cell_neighbors")
+    if ix < 0:
+        raise ValueError("cell_neighbors not found in binda file")
+    neighbors = np.array(bf.read_int32(ix))
+
+    point_data, cell_data, icell_data = {}, {}, {}
+    for i, e in enumerate(bf.entries):
+        if e.name == "point_data":
+            point_data[e.metadata] = np.array(bf.read_float64(i))
+        elif e.name == "cell_data":
+            cell_data[e.metadata] = np.array(bf.read_float64(i))
+        elif e.name == "icell_data":
+            icell_data[e.metadata] = np.array(bf.read_int32(i))
+
+    return build_grid(
+        points,
+        cells,
+        neighbors,
+        cell_type,
+        point_data=point_data,
+        cell_data=cell_data,
+        icell_data=icell_data,
+        coord_scale_factor=coord_scale_factor,
+        dtype=dtype,
+        config=config,
+        locate_mode=locate_mode,
+        device=device,
+    )
 
 
 def _make_cover_ok(cell_type, dtype, config, nv, k_max):
@@ -1023,7 +1102,7 @@ def _build_cand_tables(grid: Grid, nv: int | None = None) -> dict:
     added with ``fuse=False``."""
     k_max = grid.cand_ids.shape[1]
     cap_nv = _cand_capacity_nv(grid)
-    nv = cap_nv if nv is None else min(nv, cap_nv)
+    nv = cap_nv if nv is None or nv < 0 else min(nv, cap_nv)
     quantized = cand_is_quantized(grid.cell_type, grid.dtype, grid.config)
     step = 512 // grid.dtype.itemsize
     if quantized:
@@ -1512,3 +1591,34 @@ def set_point_data(grid: Grid, i_var: int, values) -> Grid:
             grid, acc_table=update_acc_table_column(grid, i_var)
         )
     return _refresh_cand_data(grid, i_var, extend=False)
+
+
+# ---------------------------------------------------------------------------
+# Export
+# ---------------------------------------------------------------------------
+
+
+def write_vtk(grid: Grid, filename) -> None:
+    """Write the grid and all live data arrays to a .vtu file — parity
+    with iu_write_vtk (:929-985); the same bytes as the JAX package's
+    ``write_vtk`` of the same grid."""
+    from ..io.vtk import write_vtu
+
+    write_vtu(
+        filename,
+        host_array(grid.points).astype(np.float64),
+        host_array(grid.cells),
+        grid.cell_type,
+        point_data={
+            name: host_array(grid.point_data[:, i]).astype(np.float64)
+            for i, name in enumerate(grid.point_data_names)
+        },
+        cell_data={
+            name: host_array(grid.cell_data[:, i]).astype(np.float64)
+            for i, name in enumerate(grid.cell_data_names)
+        },
+        icell_data={
+            name: host_array(grid.icell_data[:, i])
+            for i, name in enumerate(grid.icell_data_names)
+        },
+    )

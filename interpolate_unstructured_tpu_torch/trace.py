@@ -299,3 +299,63 @@ def integrate_along_field(
             min_radius=MIN_RADIUS, **loop_kw)
         it += 1
     return TraceResult(*s.result(max_steps))
+
+
+def write_trace_vtk(result: TraceResult, filename, ndim: int = None,
+                    min_points: int = 2):
+    """Export traced field lines as VTK polylines (.vtu), the same bytes
+    as the JAX package's ``write_trace_vtk`` of the same result.
+
+    Each trajectory becomes one VTK_POLY_LINE cell over its valid
+    points; extra ODE variables ("var0", ...), the sampled field
+    components ("field_0", ...), per-vertex arc index ("step") and the
+    trajectory id ("trajectory") ride along as point data.  Beyond the
+    reference (iu_write_vtk exports only the grid) — load next to the
+    grid's .vtu to visualize traces through the mesh.
+
+    Trajectories storing fewer than ``min_points`` points are omitted.
+    The default (2) drops both invalid starts (seed outside the
+    mesh/mask — these store only their seed) and legitimate one-point
+    traces that hit the boundary on their very first step; the two are
+    indistinguishable in a ``TraceResult``.  Pass ``min_points=1`` to
+    keep the latter (they render as single-vertex polylines, i.e.
+    orphan points — including any invalid starts in the batch).
+    """
+    from .io.vtk import write_vtu_polylines
+    from .models.grid import host_array as host
+
+    y = host(result.y)
+    yf = host(result.y_field)
+    b, max_steps, d = y.shape
+    if ndim is None:
+        ndim = yf.shape[2]
+    # n_steps == max_steps + 1 flags an overflowed buffer (:1167-1168)
+    n = np.minimum(host(result.n_steps), max_steps)
+    keep = np.flatnonzero(n >= min_points)
+    n = n[keep]
+
+    idx = [ik * max_steps + np.arange(nk) for ik, nk in zip(keep, n)]
+    idx = (
+        np.concatenate(idx) if idx else np.zeros(0, dtype=np.int64)
+    )
+    pts = y.reshape(b * max_steps, d)[idx][:, :ndim]
+    if ndim < 3:
+        pts = np.pad(pts, ((0, 0), (0, 3 - ndim)))
+    point_data = {
+        f"var{i}": y.reshape(b * max_steps, d)[idx][:, ndim + i]
+        for i in range(d - ndim)
+    }
+    for c in range(yf.shape[2]):
+        point_data[f"field_{c}"] = yf.reshape(b * max_steps, -1)[idx][:, c]
+    ipoint_data = {
+        "trajectory": np.repeat(keep.astype(np.int32), n),
+        "step": np.concatenate(
+            [np.arange(nk, dtype=np.int32) for nk in n]
+        )
+        if len(n)
+        else np.zeros(0, np.int32),
+    }
+    write_vtu_polylines(
+        filename, pts, np.cumsum(n).astype(np.int32),
+        point_data, ipoint_data,
+    )

@@ -262,6 +262,12 @@ def test_port_imports_no_jax():
         "import sys, interpolate_unstructured_tpu_torch as t; "
         "from interpolate_unstructured_tpu_torch.ops import "
         "cand_kernel, interp_kernel, kdtree, locate, walk_kernel, _kernels; "
+        "from interpolate_unstructured_tpu_torch.io import binda, cgns, "
+        "checkpoint, convert, exodus, fem, msh, simple_formats, vtk, "
+        "vtk_legacy, vtu, xdmf; "
+        "from interpolate_unstructured_tpu_torch.utils import validate; "
+        "from interpolate_unstructured_tpu_torch import read_grid, write_vtk, "
+        "save_grid, load_grid, write_trace_vtk, validate_grid; "
         "assert 'jax' not in sys.modules, 'jax imported'; "
         "assert 'interpolate_unstructured_tpu' not in sys.modules"
     )
