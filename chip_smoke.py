@@ -20,7 +20,11 @@ a guess, ``prepare_accurate``, ``interpolate_at_acc``,
    masks and values, and the main path's, torch.equal to the plain
    version on each mesh; ``tools/b1_b5_sweep.py`` sweeps B1's queries a
    thread and threads a block, and B5's threads a block);
-3. candidate phase: the 998,250-tet box of ``bench.py``, 10M uniform cold
+3. candidate phase: the 998,250-tet box of ``bench.py``, built with its
+   candidate lists on the card (kernels D1 and D2 around a stable
+   ``torch.sort``; D1's words, cells and counts and D2's tables torch.equal
+   to their plain versions on the build's own inputs and to the grid's
+   lists, each stage timed), 10M uniform cold
    queries (kernel B2 in bin order: bin pass, scatter, probe, unsort),
    then 10M warm queries guessed by the cold cells plus 1% outside the
    box (B2, then B3's get_cell walk on the misses), and a 10,368-tet box
@@ -29,6 +33,11 @@ a guess, ``prepare_accurate``, ``interpolate_at_acc``,
    new, old), the probe at the lanes a query that ``binned_lanes`` picks
    and at its neighbour (``tools/b2_sweep.py`` sweeps lanes and batch
    sizes);
+   then the builder phase: a 105,456-tet box just above
+   ``cand_build_device_min_cells``, built by ``"auto"`` on the card, whose
+   every host-builder pair lies in its bin's device list; a strongly
+   graded mesh that "auto" hands to the host builder and
+   ``cand_build="device"`` refuses;
 4. io phase: the brute-force meshes written with the port's
    ``write_vtu`` and read back by ``read_grid`` (every leaf against
    ``build_grid`` of the arrays, B1's results torch.equal); the
@@ -36,6 +45,9 @@ a guess, ``prepare_accurate``, ``interpolate_at_acc``,
    the card (no candidate-list rebuild, every leaf bit for bit, the 10M
    cold queries torch.equal, ``prepare_accurate`` of the loaded grid and
    the accurate phase's 10M float64 queries cold and warm torch.equal);
+   a ``load_grid`` of the same file whose rebuild (no cover rows, so
+   another K) runs through D1 and D2, its lists equal to ``build_grid``'s
+   with the same config;
    the 55^3 box written as a .vtu, converted by ``convert_to_binda`` and
    read by ``read_grid`` without candidate tables (every leaf against
    ``build_grid`` of the arrays), the walk and trace phases' grid.  The
@@ -633,8 +645,210 @@ def b2_front_end(dev, grid, r, k, cand_kernel, locate):
     return res
 
 
+def builder_launches(counts):
+    """D1's and D2's launches in a main-path run's counts."""
+    return {x: counts.get(f"interpolate_unstructured_tpu_torch.ops."
+                          f"cand_build_kernel:{x}", 0)
+            for x in ("pairs", "fill")}
+
+
+def builder_inputs(grid, pts, cells, nbrs, dev):
+    """The device candidate builder's stage-1 inputs for ``grid``'s mesh
+    and config, as build_grid hands them over: (PairInputs, host geometry
+    tuple, seconds of the builder's host prelude)."""
+    from interpolate_unstructured_tpu_torch.ops import cand_build, geometry
+
+    cfg = grid.config
+    cp = geometry.gather_cell_points(pts, cells)
+    normals, _ = geometry.face_normals_and_boundary(
+        cp, cells, nbrs, grid.cell_type, len(pts))
+    offs = np.einsum("cki,cki->ck", cp, normals)
+    args = (cp, normals, offs, pts.min(0), pts.max(0),
+            geometry.NDIM_OF_CELL_TYPE[grid.cell_type])
+    t0 = time.perf_counter()
+    p, shape, _, _ = cand_build.prepare_pairs(
+        *args, grid.dtype, cfg.cand_bins_per_cell, cfg.cand_max_bins,
+        2.0 * cfg.eps_inside, dev)
+    torch.cuda.synchronize()
+    prelude_s = time.perf_counter() - t0
+    check(shape == grid.cand_shape, f"builder bins {shape} against the "
+          f"grid's {grid.cand_shape}")
+    return p, args, prelude_s
+
+
+def builder_check(dev, grid, pts, cells, nbrs):
+    """D1 and D2 on the build's own inputs: D1's words, cells and counts
+    and D2's tables torch.equal to their plain versions and to the grid's
+    lists; each stage timed by CUDA events (the two host syncs by the
+    host clock), beside its bound."""
+    from interpolate_unstructured_tpu_torch.ops import cand_build
+    from interpolate_unstructured_tpu_torch.ops import cand_build_kernel as bk
+
+    p, _, prelude_s = builder_inputs(grid, pts, cells, nbrs, dev)
+    word, cell, counts = bk.gen_pairs_cuda(p)
+    for name, a, b in zip(("words", "cells", "counts"),
+                          (word, cell, counts), cand_build.gen_pairs_plain(p)):
+        check(torch.equal(a, b), f"D1's {name} differ from gen_pairs_plain's")
+    check(torch.equal(counts, grid.cand_count),
+          "D1's counts differ from the built grid's")
+    sw, scell = cand_build.sort_pairs(word, cell)
+    sk = (sw >> 32).to(torch.int32)
+    n_bins, k = p.n_bins, grid.cand_ids.shape[1]
+    ext = grid.cand_ext_ids
+    k_ext = 0 if ext is None else ext.shape[1]
+    n_over = int((counts > k).sum())
+    slot = cand_build.ext_slots(counts, k)
+    got = bk.fill_tables_cuda(sw, scell, counts, slot, n_bins, k, k_ext,
+                              n_over)
+    want = cand_build.fill_tables_plain(sk, cand_build.bin_ranks(sk), scell,
+                                        counts, n_bins, k, k_ext, n_over)
+    for name, a, b in zip(("cand_ids", "ext_slot", "ext_ids"), got, want):
+        check(torch.equal(a, b), f"D2's {name} differ from "
+              "fill_tables_plain's")
+    check(torch.equal(got[0], grid.cand_ids)
+          and torch.equal(got[1], grid.cand_ext_slot),
+          "D2's tables differ from the built grid's lists")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    max_count = int(counts.max())
+    t1 = time.perf_counter()
+    int((counts > k).sum())
+    t2 = time.perf_counter()
+    n_kept = int(counts.sum())
+    c, nf = p.offs.shape
+    its = p.offs.element_size()
+    res = {
+        "d1": {"ms": cuda_ms(lambda: bk.gen_pairs_cuda(p), 5),
+               "plain_ms": cuda_ms(lambda: cand_build.gen_pairs_plain(p), 1),
+               "bound": bound(c * nf * 4 * its + c * 24 + p.n_slots * 12
+                              + n_bins * 4,
+                              p.n_slots * (9 + 9 * nf) + c * 6 * nf)},
+        "sort_ms": cuda_ms(lambda: cand_build.sort_pairs(word, cell), 5),
+        "torch_sort_ms": cuda_ms(lambda: torch.sort(word, stable=True), 5),
+        "d2": {"ms": cuda_ms(lambda: bk.fill_tables_cuda(
+                   sw, scell, counts, slot, n_bins, k, k_ext, n_over), 5),
+               "plain_ms": cuda_ms(lambda: cand_build.fill_tables_plain(
+                   sk, cand_build.bin_ranks(sk), scell, counts, n_bins, k,
+                   k_ext, n_over), 2),
+               "bound": bound(n_kept * 12 + n_bins * 8 + n_bins * k * 4
+                              + n_over * k_ext * 4, 0)},
+        "syncs_ms": [(t1 - t0) * 1e3, (t2 - t1) * 1e3],
+        "prelude_s": prelude_s,
+    }
+    print(f"device candidate builder, {c} tets: bins {p.bin_shape}, "
+          f"{p.n_offsets} offsets, {p.n_slots} slots, {n_kept} kept, worst "
+          f"bin {max_count}, K={k}; host prelude (AABBs in bins, inputs "
+          f"to the card) {prelude_s:.3f} s; D1 "
+          f"{res['d1']['ms']:.4f} ms (bound {res['d1']['bound'][0]:.4f}, "
+          f"{res['d1']['bound'][1]}; plain {res['d1']['plain_ms']:.4f}), "
+          f"sort {res['sort_ms']:.4f} ms (torch.sort alone "
+          f"{res['torch_sort_ms']:.4f}), D2 {res['d2']['ms']:.4f} ms (bound "
+          f"{res['d2']['bound'][0]:.4f}, {res['d2']['bound'][1]}; plain "
+          f"{res['d2']['plain_ms']:.4f}), host syncs "
+          f"{res['syncs_ms'][0]:.4f} / {res['syncs_ms'][1]:.4f} ms; D1's "
+          f"words, cells and counts and D2's tables torch.equal to the plain "
+          f"versions and to the grid's lists")
+    return res
+
+
+def builder_phase(dev, tiu, meshgen, counters, card):
+    """The device candidate builder beside the host builder: on a box just
+    above cand_build_device_min_cells every host pair lies in its bin's
+    device list, and "auto" builds that box on the card; a strongly
+    graded mesh goes to the host builder under "auto" (the threshold
+    lowered to its size), and "device" raises on it."""
+    from interpolate_unstructured_tpu_torch.ops import cand_build, geometry
+
+    res = {"launches": {"pairs": 0, "fill": 0}}
+    n = 26
+    pts, cells, nbrs = meshgen.tet_box_mesh(n, n, n)
+    cfg = tiu.IUConfig()
+    check(len(cells) >= cfg.cand_build_device_min_cells,
+          "the containment box is below the device builder's threshold")
+    grid, counts = main_path(lambda: tiu.build_grid(
+        pts, cells, nbrs, "tetra", point_data={"Polynomial": pts.sum(1) + 1.0},
+        dtype=torch.float32, locate_mode="walk", device=dev), counters)
+    launches = builder_launches(counts)
+    check(min(launches.values()) >= 1, f"auto did not build the "
+          f"{len(cells)}-tet box on the card: {launches}")
+    add_counts(res["launches"], launches)
+    _, args, _ = builder_inputs(grid, pts, cells, nbrs, dev)
+    k = 64  # above every bin's count: complete lists on both sides
+    cfg = grid.config
+    kw = dict(bins_per_cell=cfg.cand_bins_per_cell,
+              max_bins=cfg.cand_max_bins, eps=2.0 * cfg.eps_inside)
+    t0 = time.perf_counter()
+    host = geometry.build_candidate_bins(*args, k, **kw)
+    host_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    devb = cand_build.build_candidate_bins_device(*args, k, torch.float32,
+                                                  **kw, device=dev)
+    torch.cuda.synchronize()
+    dev_s = time.perf_counter() - t0
+    check(devb[2] == host[2], "the builders' bin grids differ")
+    h_count, d_count = host[1], devb[1].cpu().numpy()
+    check(max(h_count.max(), d_count.max()) <= k,
+          "a bin overflows the containment check's K")
+    check(bool((d_count >= h_count).all()), "a bin has fewer device "
+          "candidates than host candidates")
+    n_cells = len(cells)
+
+    def pair_codes(ids):
+        b, j = np.nonzero(ids >= 0)
+        return b.astype(np.int64) * n_cells + ids[b, j]
+
+    h_pairs, d_pairs = pair_codes(host[0]), pair_codes(devb[0].cpu().numpy())
+    check(bool(np.isin(h_pairs, d_pairs).all()),
+          "a host pair is missing from its bin's device list")
+    res.update(host_s=host_s, device_s=dev_s, host_pairs=len(h_pairs),
+               device_pairs=len(d_pairs))
+    print(f"builder containment, tet_box_mesh({n},{n},{n}) = {n_cells} tets "
+          f"(auto: D1/D2 launches {json.dumps(launches)}): all "
+          f"{len(h_pairs)} host pairs in their bins' device lists "
+          f"({len(d_pairs)} device pairs); host "
+          f"builder {host_s:.3f} s, device builder {dev_s:.3f} s [{card}]")
+    del grid, devb
+
+    # A strongly graded mesh: one cell spans the whole domain
+    pts, cells, nbrs = meshgen.tet_box_mesh(4, 4, 4)
+    pts = pts.copy()
+    pts[0] = [50.0, 50.0, 50.0]
+    host_calls = []
+    real_host = geometry.build_candidate_bins
+
+    def counting_host(*a, **kw):
+        host_calls.append(1)
+        return real_host(*a, **kw)
+
+    auto = tiu.IUConfig(cand_build_device_min_cells=1)
+    geometry.build_candidate_bins = counting_host
+    try:
+        _, counts = main_path(lambda: tiu.build_grid(
+            pts, cells, nbrs, "tetra", dtype=torch.float32,
+            locate_mode="walk", config=auto, device=dev), counters)
+    finally:
+        geometry.build_candidate_bins = real_host
+    check(host_calls == [1] and not any(builder_launches(counts).values()),
+          "the graded mesh was not built by the host builder under auto")
+    try:
+        tiu.build_grid(pts, cells, nbrs, "tetra", dtype=torch.float32,
+                       locate_mode="walk", device=dev,
+                       config=tiu.IUConfig(cand_build="device"))
+        raised = None
+    except ValueError as e:
+        raised = str(e)
+    check(raised is not None and "offset budget" in raised,
+          "cand_build='device' did not raise on the graded mesh")
+    print(f"builder decline: the graded {len(cells)}-tet mesh built by the "
+          f"host builder under auto (threshold 1), cand_build='device' "
+          f"raised: {raised}")
+    return res
+
+
 def candidate_phase(dev, tiu, meshgen, interp_kernel, locate, cand_kernel,
                     walk_kernel):
+    from interpolate_unstructured_tpu_torch.ops import cand_build_kernel
+
     counters = (interp_kernel, cand_kernel, walk_kernel)
     res = {}
     n = 55
@@ -643,20 +857,27 @@ def candidate_phase(dev, tiu, meshgen, interp_kernel, locate, cand_kernel,
     mesh_s = time.perf_counter() - t0
     timings = {}
     t0 = time.perf_counter()
-    grid = tiu.build_grid(
+    grid, counts = main_path(lambda: tiu.build_grid(
         pts, cells, nbrs, "tetra", point_data={"Polynomial": pts.sum(1) + 1.0},
         dtype=torch.float32, locate_mode="walk", device=dev, timings=timings,
-    )
+    ), counters + (cand_build_kernel,))
     build_s = time.perf_counter() - t0
     res["build_s"], res["timings"] = build_s, timings
+    res["builder_launches"] = builder_launches(counts)
+    check(min(res["builder_launches"].values()) >= 1,
+          f"build_grid of the 998k-tet box did not launch D1 and D2: "
+          f"{res['builder_launches']}")
     k = grid.cand_ids.shape[1]
     print(f"B2 mesh tet_box_mesh({n},{n},{n}): {grid.n_cells} tets, "
           f"meshgen {mesh_s:.3f} s; build_grid {build_s:.3f} s split "
           + json.dumps({kk: round(v, 4) for kk, v in timings.items()})
           + f"; table {tuple(grid.cand_table.shape)} K={k} "
-          f"ext={grid.cand_ext_table is not None} qeps={grid.cand_qeps:.3e}")
+          f"ext={grid.cand_ext_table is not None} qeps={grid.cand_qeps:.3e}; "
+          f"device candidate builder launches "
+          + json.dumps(res["builder_launches"]))
     check(grid.cand_table is not None and grid.cand_ext_covers,
           "998k-tet grid has no covering candidate table")
+    res["builder"] = builder_check(dev, grid, pts, cells, nbrs)
 
     r = torch.from_numpy(
         np.random.default_rng(2).random((N_CAND, 3)).astype(np.float32)
@@ -2032,11 +2253,63 @@ def io_phase(dev, tiu, meshgen, cand_grid, cand_res, counters, card, tmp):
     del pa, pb, r64, r_w, cold, warm, cold_a, warm_a
     torch.cuda.empty_cache()
 
-    # The walk phase's grid from a file: write_vtu, convert_to_binda,
-    # read_grid with the walk phase's config (no candidate tables)
+    # A load whose rebuild takes the device builder: no cover rows, so K
+    # drops to the row capacity and the lists are rebuilt from the stored
+    # geometry, with extension rows; they equal build_grid's with the same
+    # config
+    from interpolate_unstructured_tpu_torch.ops import cand_build_kernel
+
     n = 55
     pts, cells, nbrs = meshgen.tet_box_mesh(n, n, n)
     pd = {"Polynomial": pts.sum(1) + 1.0}
+    cfg = tiu.IUConfig(cand_cover_row_bytes=0)
+    timings = {}
+    t0 = time.perf_counter()
+    rebuilt, counts = main_path(
+        lambda: tiu.load_grid(path, config=cfg, device=dev, timings=timings),
+        counters + (cand_build_kernel,))
+    rebuild_load_s = time.perf_counter() - t0
+    res["builder_launches"] = builder_launches(counts)
+    check(min(res["builder_launches"].values()) >= 1,
+          f"load_grid's rebuild did not launch D1 and D2: "
+          f"{res['builder_launches']}")
+    g_arr = tiu.build_grid(pts, cells, nbrs, "tetra", point_data=pd,
+                           dtype=torch.float32, locate_mode="walk",
+                           config=cfg, device=dev)
+    check(rebuilt.cand_ids.shape[1] != cand_grid.cand_ids.shape[1]
+          and rebuilt.cand_ext_ids is not None,
+          "load_grid did not rebuild the lists with extension rows")
+    for f in ("cand_ids", "cand_count", "cand_ext_ids", "cand_ext_slot",
+              "cand_rmin", "cand_inv_h"):
+        check(same_bits(getattr(rebuilt, f), getattr(g_arr, f)),
+              f"io rebuild: {f} differs from build_grid's")
+    check(rebuilt.cand_shape == g_arr.cand_shape
+          and rebuilt.cand_ext_covers == g_arr.cand_ext_covers,
+          "io rebuild: the bin shape or the cover flag differs")
+    del g_arr
+    r = torch.from_numpy(
+        np.random.default_rng(2).random((N_CAND, 3)).astype(np.float32)
+    ).to(dev)
+    (vals, _, found), counts = main_path(
+        lambda: tiu.interpolate_scalar_at(rebuilt, r, 0, fill_value=0.0),
+        counters)
+    add_counts(res["counts"], counts)
+    check(bool(found.all()), "io rebuild: a cold query was not found")
+    lin = float((vals.double() - (r.double().sum(1) + 1.0)).abs().max())
+    check(lin <= LIN_TOL, f"io rebuild: linear-exactness error {lin}")
+    print(f"io rebuild, load_grid with cand_cover_row_bytes=0: "
+          f"{rebuild_load_s:.3f} s split "
+          + json.dumps({k: round(v, 4) for k, v in timings.items()})
+          + f", the lists rebuilt on the card (D1/D2 launches "
+          f"{json.dumps(res['builder_launches'])}), K="
+          f"{rebuilt.cand_ids.shape[1]} + {rebuilt.cand_ext_ids.shape[1]} "
+          f"extension, equal to build_grid's with the same config; "
+          f"{N_CAND} cold queries all found, linear error {lin:.3e} [{card}]")
+    del rebuilt, r, vals, found
+    torch.cuda.empty_cache()
+
+    # The walk phase's grid from a file: write_vtu, convert_to_binda,
+    # read_grid with the walk phase's config (no candidate tables)
     vtu = os.path.join(tmp, "box55.vtu")
     t0 = time.perf_counter()
     vtk.write_vtu(vtu, pts, cells, "tetra", point_data=pd)
@@ -2120,6 +2393,7 @@ def main() -> int:
     from interpolate_unstructured_tpu_torch.ops import (
         _kernels,
         acc_kernel,
+        cand_build_kernel,
         cand_kernel,
         interp_kernel,
         locate,
@@ -2158,6 +2432,9 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_io_") as tmp:
         b1 = timed_phase("bruteforce", bruteforce_phase, *args)
         b2 = timed_phase("candidate", candidate_phase, *args)
+        bd = timed_phase("builder", builder_phase, dev, tiu, meshgen,
+                         (interp_kernel, cand_kernel, walk_kernel,
+                          cand_build_kernel), card)
         io = timed_phase("io", io_phase, dev, tiu, meshgen, b2["grid"], b2,
                          acc_counters, card, tmp)
         b5 = timed_phase("accurate", accurate_phase, dev, tiu, b2.pop("grid"),
@@ -2186,6 +2463,11 @@ def main() -> int:
     df_probe = b5["df_launches"] + io_n[f"{ck}:df"]
     direct = b2["launches"] + b5["b2_launches"] + io_n[ck]
     b5_launches = b5["acc_launches"] + io_n[acc_kernel.__name__]
+    d_launches = {x: b2["builder_launches"][x] + bd["launches"][x]
+                  + io["builder_launches"][x] for x in ("pairs", "fill")}
+    print("device candidate builder launches on the main path (the 998k "
+          "box's build_grid, the containment box's, the io phase's rebuild): "
+          + json.dumps(d_launches))
     print("B2 bin-ordered launches on the main path: " + json.dumps(binned)
           + f"; B2-df: float64 bin pass {df_pass}, df probe "
           f"{df_probe}; direct B2 "
@@ -2268,6 +2550,20 @@ def main() -> int:
          "bound_ms": b5["b5"]["bound"][0], "bound_by": b5["b5"]["bound"][1],
          "library_ms": None},
     ]
+    cb = b2["builder"]
+    for name, key, part, line in (
+            ("D1 cand_pairs (no Pallas counterpart: XLA _gen_pairs)",
+             "pairs", "d1", 56),
+            ("D2 cand_fill (no Pallas counterpart: XLA _fill_tables)",
+             "fill", "d2", 135)):
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"{pkg}/csrc/cand_build.cu",
+            "replaces": f"interpolate_unstructured_tpu/ops/cand_build.py:{line}",
+            "launches": d_launches[key], "max_abs_err": 0.0,
+            "ms": cb[part]["ms"], "plain_ms": cb[part]["plain_ms"],
+            "bound_ms": cb[part]["bound"][0],
+            "bound_by": cb[part]["bound"][1], "library_ms": None})
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

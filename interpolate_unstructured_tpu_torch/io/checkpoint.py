@@ -10,8 +10,7 @@ The reference's only persistence is the ``.binda`` cache of the
 (normals, volumes, seed tables, candidate lists) reruns on every load.
 Here the whole preprocessed grid state round-trips through the same
 binda container format, so reloading a large grid skips the host
-candidate builder, which is most of ``build_grid``'s time on large
-meshes.
+geometry and the candidate builder.
 
 The container is self-describing: scalar metadata rides in the entry
 metadata strings, data-family names in per-column entries, so the files
@@ -172,7 +171,9 @@ def load_grid(filename, config=None, dtype=None, resave_on_rebuild=False,
 
     When the stored candidate lists no longer match this session's
     config (capacity or bin-shape drift, a dtype change, a pre-v4 file),
-    they are rebuilt on load with the host candidate builder.
+    they are rebuilt on load from the stored geometry by the builder
+    that ``config.cand_build`` picks (``build_candidate_bins_dispatch``,
+    in the load dtype, on ``device``), as the JAX package rebuilds.
     ``resave_on_rebuild`` writes the refreshed grid back to ``filename``
     so the cost is paid once, never across a dtype change.
     """
@@ -350,7 +351,7 @@ def load_grid(filename, config=None, dtype=None, resave_on_rebuild=False,
         # mismatch (row layout/capacity changed since the save) would
         # silently overflow or underfill the packed rows, (c) a pre-v4
         # checkpoint lacks the overflow-extension lists.
-        from ..models.grid import _to, build_candidate_bins_dispatch
+        from ..models.grid import _cand_fields, build_candidate_bins_dispatch
         from ..ops.geometry import NDIM_OF_CELL_TYPE
 
         if "cell_points" not in host_arrays:  # v5 container
@@ -368,27 +369,15 @@ def load_grid(filename, config=None, dtype=None, resave_on_rebuild=False,
             host_arrays["rmax"].astype(np.float64),
             NDIM_OF_CELL_TYPE[cell_type],
             k_max,
+            t_dtype,
             config,
             cover_ok=cover_ok,
+            device=device,
         )
         grid = dataclasses.replace(
             grid,
-            cand_ids=_to(cand_ids, torch.int32, device),
-            cand_count=_to(cand_count, torch.int32, device),
-            cand_shape=cand_shape,
-            cand_rmin=_to(cand_rmin, t_dtype, device),
-            cand_inv_h=_to(cand_inv_h, t_dtype, device),
-            cand_ext_ids=(
-                _to(ext_ids, torch.int32, device) if ext_ids.shape[1]
-                else None
-            ),
-            cand_ext_slot=_to(ext_slot, torch.int32, device),
-            # cand_ids.shape[1], not the capacity k_max: the builder
-            # may have cover-widened K to the worst bin
-            cand_ext_covers=bool(
-                int(np.asarray(cand_count).max(initial=0))
-                <= cand_ids.shape[1] + ext_ids.shape[1]
-            ),
+            **_cand_fields(cand_ids, cand_count, cand_shape, cand_rmin,
+                           cand_inv_h, ext_ids, ext_slot, t_dtype, device),
             # The candidate lists changed, so the checkpointed fused-
             # variable pin no longer describes them: clear it BEFORE the
             # resave below, or the rebuilt file would permanently pin

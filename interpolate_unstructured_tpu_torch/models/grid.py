@@ -211,7 +211,8 @@ def build_grid(
       timings: optional dict, filled with the build's phase split —
         ``host_geometry_s``, ``seed_table_s`` (bin seed table and
         kd-tree), ``transfer_s`` (host arrays -> device, walk rows),
-        ``cand_build_s`` (host candidate lists), ``cand_pack_s`` (row
+        ``cand_build_s`` (candidate lists, by the host builder or on
+        the device by ``ops/cand_build.py``), ``cand_pack_s`` (row
         packing on the device), ``refine_s`` (the bin-seed refine).
     """
     if device is None:
@@ -404,8 +405,9 @@ def build_grid(
 
 def _add_cand_tables(grid, cell_points, normals, face_offsets, rmin, rmax,
                      ndim, mark):
-    """The grid with its candidate lists (host) and packed rows (device),
-    unless the row budget holds no candidate."""
+    """The grid with its candidate lists (host or device builder, as
+    ``config.cand_build`` picks) and packed rows (device), unless the
+    row budget holds no candidate."""
     config, dtype, device = grid.config, grid.dtype, grid.device
     cell_type = grid.cell_type
     k_max, nv = candidate_row_capacity(
@@ -418,12 +420,29 @@ def _add_cand_tables(grid, cell_points, normals, face_offsets, rmin, rmax,
         ext_ids, ext_slot,
     ) = build_candidate_bins_dispatch(
         cell_points, normals, face_offsets, rmin, rmax, ndim, k_max,
-        config, cover_ok=_make_cover_ok(cell_type, dtype, config, nv, k_max),
+        dtype, config,
+        cover_ok=_make_cover_ok(cell_type, dtype, config, nv, k_max),
+        device=device,
     )
     grid = dataclasses.replace(
         grid,
+        **_cand_fields(cand_ids, cand_count, cand_shape, cand_rmin,
+                       cand_inv_h, ext_ids, ext_slot, dtype, device),
+    )
+    mark("cand_build_s")
+    grid = dataclasses.replace(grid, **_build_cand_tables(grid))
+    mark("cand_pack_s")
+    return grid
+
+
+def _cand_fields(cand_ids, cand_count, cand_shape, cand_rmin, cand_inv_h,
+                 ext_ids, ext_slot, dtype, device) -> dict:
+    """The grid fields of a candidate builder's 7-tuple (host arrays or
+    device tensors), on ``device``."""
+    cand_count = _to(cand_count, torch.int32, device)
+    return dict(
         cand_ids=_to(cand_ids, torch.int32, device),
-        cand_count=_to(cand_count, torch.int32, device),
+        cand_count=cand_count,
         cand_shape=cand_shape,
         cand_rmin=_to(cand_rmin, dtype, device),
         cand_inv_h=_to(cand_inv_h, dtype, device),
@@ -434,14 +453,9 @@ def _add_cand_tables(grid, cell_points, normals, face_offsets, rmin, rmax,
         # cand_ids.shape[1], not the capacity k_max: the builder may
         # have cover-widened K to the worst bin
         cand_ext_covers=bool(
-            int(cand_count.max(initial=0))
-            <= cand_ids.shape[1] + ext_ids.shape[1]
+            int(cand_count.max()) <= cand_ids.shape[1] + ext_ids.shape[1]
         ),
     )
-    mark("cand_build_s")
-    grid = dataclasses.replace(grid, **_build_cand_tables(grid))
-    mark("cand_pack_s")
-    return grid
 
 
 def _build_walk_table(grid: Grid) -> torch.Tensor:
@@ -504,11 +518,12 @@ def _refine_bin_seeds(grid: Grid, centers: np.ndarray) -> Grid:
     return dataclasses.replace(grid, bin_table=new_table, bin_pack=new_pack)
 
 
-def _to(a: np.ndarray, dtype: torch.dtype, device) -> torch.Tensor:
-    """Host array -> tensor of ``dtype`` on ``device`` (one transfer)."""
-    return torch.from_numpy(np.ascontiguousarray(a)).to(
-        device=device, dtype=dtype
-    )
+def _to(a, dtype: torch.dtype, device) -> torch.Tensor:
+    """Host array (or tensor) -> tensor of ``dtype`` on ``device`` (one
+    transfer at most)."""
+    if not isinstance(a, torch.Tensor):
+        a = torch.from_numpy(np.ascontiguousarray(a))
+    return a.to(device=device, dtype=dtype)
 
 
 def grid_from_numpy(leaves: dict, meta: dict, device) -> Grid:
@@ -655,30 +670,51 @@ def _make_cover_ok(cell_type, dtype, config, nv, k_max):
 
 def build_candidate_bins_dispatch(
     cell_points, normals, face_offsets, rmin, rmax, ndim, k_max,
-    config, cover_ok=None,
+    dtype, config, cover_ok=None, device="cuda",
 ):
-    """Candidate-bin construction.  Only the host builder
-    (ops/geometry.py) is ported so far, and "auto" takes it at every
-    size; the device builder comes in a later slice.  The build-side
-    eps inflation (2 * eps_inside) strictly dominates the query-side
-    inside tolerance plus rounding, so no containing cell can be
-    filtered out of its bin's candidate list."""
+    """Candidate-bin construction with backend dispatch, as the JAX
+    package dispatches: the device pipeline (ops/cand_build.py, kernels
+    D1 and D2 on a CUDA ``device``) for meshes of at least
+    ``config.cand_build_device_min_cells`` cells under "auto", or always
+    under "device"; the host builder (ops/geometry.py) for smaller
+    meshes or where the device pipeline declines (extreme AABB spans).
+    Both apply the same build-side eps inflation (2 * eps_inside), which
+    strictly dominates the query-side inside tolerance plus rounding, so
+    no containing cell can be filtered out of its bin's candidate list.
+    The device builder's tables are tensors on ``device``, the host
+    builder's numpy arrays."""
+    from ..ops import cand_build
+
     mode = config.cand_build
     if mode not in ("auto", "host", "device"):
         raise ValueError(f"Unknown cand_build mode {mode!r}")
-    if mode == "device":
-        raise NotImplementedError(
-            "cand_build='device' comes with the device candidate builder "
-            "slice of the port; use 'host' or 'auto'"
-        )
-    return geometry.build_candidate_bins(
-        cell_points, normals, face_offsets, rmin, rmax, ndim, k_max,
+    kwargs = dict(
         bins_per_cell=config.cand_bins_per_cell,
         max_bins=config.cand_max_bins,
         eps=2.0 * config.eps_inside,
         ext_max_k=config.cand_ext_max_k,
         cover_ok=cover_ok,
     )
+    res = None
+    if mode == "device" or (
+        mode == "auto"
+        and len(cell_points) >= config.cand_build_device_min_cells
+    ):
+        res = cand_build.build_candidate_bins_device(
+            cell_points, normals, face_offsets, rmin, rmax, ndim, k_max,
+            dtype, device=device, **kwargs,
+        )
+        if res is None and mode == "device":
+            raise ValueError(
+                "cand_build='device' but the mesh exceeds the device "
+                "offset budget (strongly graded cell sizes)"
+            )
+    if res is None:
+        res = geometry.build_candidate_bins(
+            cell_points, normals, face_offsets, rmin, rmax, ndim, k_max,
+            **kwargs,
+        )
+    return res
 
 
 def cand_is_quantized(cell_type: str, dtype, config) -> bool:

@@ -39,6 +39,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _IP = ctypes.POINTER(ctypes.c_int)  # a host int array
+_DP = ctypes.POINTER(ctypes.c_double)  # a host double array
 # name -> (restype, argtypes) of every C entry point
 _SIGNATURES = {
     "iu_interp_bruteforce": (
@@ -80,6 +81,11 @@ _SIGNATURES = {
          _F, _I, _F, _F, _F, _F, _F, _F, _F, _F, _I, _I, _P, _P, _P, _P, _P,
          _P, _P],
     ),
+    "iu_cand_pairs": (
+        _I, [_P, _P, _P, _P, _I, _I, _I, _IP, _I, _I, _I, _DP, _I, _P, _P, _P,
+             _P],
+    ),
+    "iu_cand_fill": (_I, [_P, _P, _I, _P, _P, _I, _I, _I, _P, _P, _P]),
     "iu_error_string": (ctypes.c_char_p, [_I]),
 }
 

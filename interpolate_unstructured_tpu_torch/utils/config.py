@@ -22,8 +22,8 @@ class IUConfig:
 
     The same fields and defaults as the JAX package's ``IUConfig``, so a
     config converts between the packages with ``dataclasses.asdict``.
-    Fields of slices the port does not have yet (tracer, the device
-    candidate builder, the compacted fallback) are carried and not read.
+    Fields of slices the port does not have yet (tracer, the compacted
+    fallback) are carried and not read.
     """
 
     # Inside-test tolerance: point is inside a cell iff
@@ -84,8 +84,9 @@ class IUConfig:
     # exact (no extension table).  0 disables.
     cand_cover_row_bytes: int = 2048
     # Candidate-bin construction backend: "auto", "host" or "device".
-    # The port has the host builder only; "auto" takes it at every size
-    # and "device" raises (device-builder slice).
+    # "auto" takes the device pipeline (ops/cand_build.py) from
+    # cand_build_device_min_cells cells, the host builder below, or
+    # where the device pipeline declines a strongly graded mesh.
     cand_build: str = "auto"
     cand_build_device_min_cells: int = 100_000
     # Compacted fallback buffer size of the JAX package's query path

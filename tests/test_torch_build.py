@@ -244,7 +244,15 @@ def test_build_timings_and_auto_mode():
     assert "refine_s" in timings and g.cand_table is None
     assert tiu.get_point_data_index(g, "P") == 0
     assert tiu.get_point_data_index(g, "Q") == -1
-    with pytest.raises(NotImplementedError):
-        tiu.build_grid(pts, cells, nbrs, "tetra", locate_mode="walk",
-                       config=tiu.IUConfig(cand_build="device"),
-                       device="cpu")
+    # cand_build="device" on the CPU: the device builder's plain
+    # versions, the same counts and the same cells in every bin
+    gd = tiu.build_grid(pts, cells, nbrs, "tetra", locate_mode="walk",
+                        point_data={"P": pts.sum(1)}, dtype=torch.float32,
+                        config=tiu.IUConfig(cand_build="device"),
+                        device="cpu")
+    gh = tiu.build_grid(pts, cells, nbrs, "tetra", locate_mode="walk",
+                        point_data={"P": pts.sum(1)}, dtype=torch.float32,
+                        config=tiu.IUConfig(cand_build="host"), device="cpu")
+    assert gd.cand_table is not None and gd.cand_shape == gh.cand_shape
+    assert torch.equal(gd.cand_count, gh.cand_count)
+    assert torch.equal(gd.cand_ids.sort(1).values, gh.cand_ids.sort(1).values)

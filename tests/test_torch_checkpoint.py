@@ -427,24 +427,67 @@ def test_float64_load_and_downcast(tmp_path):
 
 
 def test_device_builder_rebuild_raises(tmp_path):
-    """A load whose rebuild would need the device candidate builder
-    raises build_grid's NotImplementedError; a load that rebuilds
-    nothing does not need it."""
-    _, tg = _build_port("triangle")
+    """A load whose rebuild takes the device candidate builder
+    (``cand_build="device"``) rebuilds as the JAX package's load of the
+    same file does: the same lists, leaves and queries.  On a strongly
+    graded mesh, which the device builder declines, both loads raise the
+    same ValueError; a load that rebuilds nothing does not need it."""
+    _, jiu = _jax()
+    pts, tg = _build_port("triangle")
     fn = tmp_path / "g.binda"
     tiu.save_grid(tg, fn)
     device_cfg = dataclasses.replace(REBUILD, cand_build="device")
-    with pytest.raises(NotImplementedError, match="cand_build='device'") as e:
-        tiu.load_grid(fn, config=device_cfg, device="cpu")
-    pts, cells, nbrs = meshgen.triangle_rect_mesh(16, 16)
-    with pytest.raises(NotImplementedError) as e_build:
-        tiu.build_grid(pts, cells, nbrs, "triangle", config=device_cfg,
-                       dtype=torch.float32, locate_mode="walk", device="cpu")
-    assert str(e.value) == str(e_build.value)
+    lg = tiu.load_grid(fn, config=device_cfg, device="cpu")
+    ug = jiu.load_grid(fn, config=jiu.IUConfig(
+        **dataclasses.asdict(device_cfg)))
+    assert lg.cand_ids.shape[1] != tg.cand_ids.shape[1]
+    ids = ("cand_ids", "cand_ext_ids")
+    _assert_leaves_equal(ug, lg, fields=[
+        f for f in STORED + DERIVED + list(CAND) if f not in ids])
+    assert lg.cand_ext_covers == ug.cand_ext_covers
+    # the id lists with the device builder's tolerance (tests/
+    # test_torch_cand_build.py), from the stored float32 geometry the
+    # rebuild ran on
+    from test_torch_cand_build import _alike_bins, assert_lists_match
+
+    up = {f: _host(getattr(tg, f)).astype(np.float64)
+          for f in ("points", "face_normals", "face_offsets", "rmin", "rmax")}
+    alike, n_differ = _alike_bins(
+        (up["points"][_host(tg.cells)], up["face_normals"],
+         up["face_offsets"], up["rmin"], up["rmax"], 2), torch.float32,
+        device_cfg.cand_bins_per_cell, device_cfg.cand_max_bins,
+        2.0 * lg.config.eps_inside)
+    no_ext = np.zeros((0, 0), np.int32)
+    assert assert_lists_match(
+        _host(lg.cand_ids), _host(lg.cand_ext_ids) if lg.cand_ext_ids
+        is not None else no_ext, _host(lg.cand_ext_slot), _host(ug.cand_ids),
+        _host(ug.cand_ext_ids) if ug.cand_ext_ids is not None else no_ext,
+        _host(ug.cand_ext_slot), ordered_bins=alike) <= n_differ
+    _assert_close_to_jax(_port_query(lg, _queries(pts)),
+                         _jax_query(ug, _queries(pts), False), False)
     lg = tiu.load_grid(fn, config=dataclasses.replace(
         HOST, cand_build="device"), device="cpu")
     _assert_torch_equal(tg, lg, config=False)
     assert lg.config == dataclasses.replace(tg.config, cand_build="device")
+
+    # one cell spans the whole domain: past the device offset budget
+    pts, cells, nbrs = meshgen.tet_box_mesh(4, 4, 4)
+    pts = pts.copy()
+    pts[0] = [50.0, 50.0, 50.0]
+    graded = tiu.build_grid(pts, cells, nbrs, "tetra", config=HOST,
+                            dtype=torch.float32, locate_mode="walk",
+                            device="cpu")
+    fn = tmp_path / "graded.binda"
+    tiu.save_grid(graded, fn)
+    # another K: a rebuild at the saved bin shape, ~9^3 bins for one cell
+    graded_cfg = dataclasses.replace(HOST, cand_build="device",
+                                     cand_row_bytes=3072)
+    with pytest.raises(ValueError, match="offset budget") as e:
+        tiu.load_grid(fn, config=graded_cfg, device="cpu")
+    with pytest.raises(ValueError) as e_jax:
+        jiu.load_grid(fn, config=jiu.IUConfig(
+            **dataclasses.asdict(graded_cfg)))
+    assert str(e.value) == str(e_jax.value)
 
 
 def test_load_grid_device_default_and_bad_files(tmp_path):

@@ -261,7 +261,8 @@ def test_port_imports_no_jax():
     code = (
         "import sys, interpolate_unstructured_tpu_torch as t; "
         "from interpolate_unstructured_tpu_torch.ops import "
-        "cand_kernel, interp_kernel, kdtree, locate, walk_kernel, _kernels; "
+        "cand_build, cand_build_kernel, cand_kernel, interp_kernel, kdtree, "
+        "locate, walk_kernel, _kernels; "
         "from interpolate_unstructured_tpu_torch.io import binda, cgns, "
         "checkpoint, convert, exodus, fem, msh, simple_formats, vtk, "
         "vtk_legacy, vtu, xdmf; "
