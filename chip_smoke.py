@@ -9,7 +9,8 @@ card through its public entry points (``build_grid``, ``read_grid``,
 ``save_grid``, ``load_grid``, ``interpolate_scalar_at`` with and without
 a guess, ``prepare_accurate``, ``interpolate_at_acc``,
 ``interpolate_at_icell_acc``, ``add_point_data``,
-``integrate_along_field``, ``write_trace_vtk``):
+``integrate_along_field``, ``write_trace_vtk``), on float32 grids and
+then on float64 ones:
 
 1. builds the CUDA kernels from ``interpolate_unstructured_tpu_torch/csrc``
    into ``build/kernels/`` (set-up time; one nvcc process per source,
@@ -83,7 +84,20 @@ a guess, ``prepare_accurate``, ``interpolate_at_acc``,
    through the generic path (B3's explicit walks plus torch); the 1024
    lines' result written by ``write_trace_vtk`` and its points read
    back;
-8. holds each kernel against its plain PyTorch version on the same CUDA
+8. float64 phase, once the float32 grids are freed: the brute-force
+   meshes in float64 with the same 1M + 1% queries (B1 in double, torch.equal
+   to the plain version, linear error at most 1e-14); the 998,250-tet box
+   built in float64 (lists from D1 and D2; K = 7, no fused variable,
+   extension rows in most bins), 10M cold float64 queries (B2 in double in
+   bin order, then the direct kernel on the extension rows, then
+   ``interpolate_at_icell``; each stage torch.equal to its plain version,
+   linear error at most 1e-12); the box's float64 walk grid (no candidate
+   tables) with 10M cold and 10.1M warm queries (1% outside; B3's double
+   get_cell walk, torch.equal to ``get_cell_walk_plain``) and B3's double
+   ``walk_rows``; a generic float64 trace of the helix, 1024 lines (B3's
+   double walks, no B4), every field torch.equal to the same loop with
+   the plain walks; the phase's peak device memory;
+9. holds each kernel against its plain PyTorch version on the same CUDA
    tensors, checks linear exactness and found masks, and times kernel
    and plain version with CUDA events (B4 and B3's walks at the generic
    trace's size, whose launches are short beside the wrapper's host
@@ -94,8 +108,8 @@ right after it; comparison and timing launches are not counted.  The
 last three lines are the card (nvidia-smi name, power limit), a JSON
 line of per-kernel results, and ``{"ok": true, "device": ...}``.  Each
 kernel's ``bound_ms`` is the least time for its bytes at 3.35 TB/s or
-its float32 operations at 67 TFLOP/s (H100 SXM data sheet), whichever
-is larger, counted from this run's inputs (df32 operations as the float32
+its float32 operations at 67 TFLOP/s (float64 ones at 34 TFLOP/s; H100
+SXM data sheet), whichever is larger, counted from this run's inputs (df32 operations as the float32
 operations they are made of): each input byte once and each output byte
 once, so a table row counts once however many queries or walk steps
 read it (the distinct rows from the run's bin indices and cells, and for
@@ -308,9 +322,9 @@ def bf_meshes(meshgen):
     ]
 
 
-def bf_queries(pts, rng, dev):
-    """N_BF float32 queries inside the bounding box of ``pts``, then 1%
-    pushed out of it along x."""
+def bf_queries(pts, rng, dev, dtype=np.float32):
+    """N_BF queries (float32, or ``dtype``) inside the bounding box of
+    ``pts``, then 1% pushed out of it along x."""
     lo, hi = pts.min(0), pts.max(0)
     span = hi - lo
     r_in = lo + rng.random((N_BF, 3)) * span
@@ -320,7 +334,7 @@ def bf_queries(pts, rng, dev):
     r_out[:, 0] = np.where(side < 0, lo[0], hi[0]) + side * (
         0.01 + rng.random(n_out)) * span[0]
     return torch.from_numpy(
-        np.concatenate([r_in, r_out]).astype(np.float32)).to(dev)
+        np.concatenate([r_in, r_out]).astype(dtype)).to(dev)
 
 
 def b1_work(grid):
@@ -1087,14 +1101,15 @@ def old_get_cell_walk(grid, r, start, max_steps, p1, locate, walk_kernel):
     return torch.where(found, ic, torch.clamp_max(ic, -1)), found
 
 
-def gc_bound(grid, r, start, max_steps, p1, walk_kernel):
+def gc_bound(grid, r, start, max_steps, p1, walk_kernel, bound_fn=bound):
     """(bound, rounds, distinct walk rows) of get_cell's walk stage on
     these inputs, each byte once: per query r and its start cell in, ic
     and found out; the nf*5 walk floats of every distinct cell visited;
     the vertex block of every distinct start cell (or the 16-byte
     bin_pack row of every distinct seed bin); ~12 flops per face and
     round.  The rows come from a run of the plain version on a recording
-    table."""
+    table.  Sizes scale with the grid's element size (float64: 8 bytes);
+    ``bound_fn`` takes the operations at the dtype's rate."""
     rec = RowRecorder(grid.walk_table)
     walk_kernel.get_cell_walk_plain(
         dataclasses.replace(grid, walk_table=rec), r, start, max_steps, p1)
@@ -1102,13 +1117,14 @@ def gc_bound(grid, r, start, max_steps, p1, walk_kernel):
     rounds = sum(int(i.numel()) for c, i in rec.seen if c == 0)
     walk_rows = rec.distinct(0)
     n = r.shape[0]
+    e = grid.walk_table.element_size()
     if start is None:
         seeds = walk_kernel.seed_bins(grid, r)
-        n_bytes = n * (12 + 5) + int(torch.unique(seeds).numel()) * 16
+        n_bytes = n * (3 * e + 5) + int(torch.unique(seeds).numel()) * 4 * e
     else:
-        n_bytes = n * (12 + 4 + 5) + rec.distinct(nf * 5) * npc * 3 * 4
-    n_bytes += walk_rows * nf * 5 * 4
-    return bound(n_bytes, rounds * nf * 12), rounds, walk_rows
+        n_bytes = n * (3 * e + 4 + 5) + rec.distinct(nf * 5) * npc * 3 * e
+    n_bytes += walk_rows * nf * 5 * e
+    return bound_fn(n_bytes, rounds * nf * 12), rounds, walk_rows
 
 
 def walk_phase(dev, tiu, meshgen, interp_kernel, locate, cand_kernel,
@@ -2384,6 +2400,531 @@ def trace_vtk_check(tiu, out, tmp, card):
     return write_s
 
 
+# ---------------------------------------------------------------------
+# float64 grids on the card: B1, B2 and B3 in double
+
+LIN_TOL_F64_BF = 1e-14  # float64 linear exactness, the repo's invariant
+LIN_TOL_F64 = 1e-12  # the goldens' tolerance: the 998k box in float64
+F64_FLOPS_S = 34e12  # H100 SXM FP64 rate outside the tensor cores
+
+
+def bound64(n_bytes, n_ops):
+    """(bound_ms, bound_by) of float64 work: the bytes at the memory rate
+    against the operations at the FP64 rate (an FMA counts 2)."""
+    t_bytes = n_bytes / HBM_BYTES_S * 1e3
+    t_ops = n_ops / F64_FLOPS_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def equal_or_fail(name, got, want):
+    """Every output of a kernel torch.equal to its plain version's;
+    returns the number of entries that differ (0)."""
+    n_bad = 0
+    for i, (a, b) in enumerate(zip(got, want)):
+        bad = int((a != b).sum()) if a.shape == b.shape else -1
+        check(a.dtype == b.dtype and torch.equal(a, b),
+              f"{name}: output {i} differs from the plain version on {bad} "
+              "entries")
+        n_bad += max(bad, 0)
+    return n_bad
+
+
+def f64_bruteforce(dev, tiu, meshgen, interp_kernel, counters):
+    """B1 in double on the brute-force phase's meshes, the same 1M + 1%
+    queries in float64."""
+    rows = []
+    rng = np.random.default_rng(1)
+    for cell_type, label, (pts, cells, nbrs) in bf_meshes(meshgen):
+        grid = tiu.build_grid(
+            pts, cells, nbrs, cell_type,
+            point_data={"Polynomial": pts.sum(1) + 1.0}, dtype=torch.float64,
+            device=dev)
+        check(grid.locate_mode == "bruteforce", f"{label} is not brute force")
+        r = bf_queries(pts, rng, dev, np.float64)
+        (vals, ic, found), counts = main_path(
+            lambda: tiu.interpolate_scalar_at(grid, r, 0, fill_value=FILL),
+            counters)
+        n_b1 = counts[interp_kernel.__name__]
+        check(n_b1 >= 1, f"float64 {label}: B1 was not launched")
+        check(vals.dtype == torch.float64, f"float64 {label}: values are "
+              f"{vals.dtype}")
+        check(bool(found[:N_BF].all()), f"float64 {label}: an inside query "
+              "was not found")
+        out = slice(N_BF, None)
+        check(not bool(found[out].any()) and bool((vals[out] == FILL).all()),
+              f"float64 {label}: an outside query was found or lacks the fill")
+        lin = float((vals[found] - (r[found].sum(1) + 1.0)).abs().max())
+        check(lin <= LIN_TOL_F64_BF, f"float64 {label}: linear-exactness "
+              f"error {lin}")
+        pv, pic, pf = interp_kernel.interpolate_bruteforce_plain(grid, r, [0])
+        kout = interp_kernel.interpolate_bruteforce_cuda(grid, r, [0])
+        equal_or_fail(f"B1 float64 {label}", kout, (pv, pic, pf))
+        equal_or_fail(f"B1 float64 {label}, main path", (vals, ic, found),
+                      (torch.where(pf, pv[:, 0], FILL), pic, pf))
+        del pv, pic, pf, kout
+        rb = r[:N_BF]
+        ms_k = cuda_ms(lambda: interp_kernel.interpolate_bruteforce_cuda(
+            grid, rb, [0]), 10)
+        ms_p = cuda_ms(lambda: interp_kernel.interpolate_bruteforce_plain(
+            grid, rb, [0]), 3)
+        e2e = steady_s(lambda: tiu.interpolate_scalar_at(grid, rb, 0), 5)
+        nc, nf = grid.n_cells, grid.n_faces_per_cell
+        npc = grid.n_points_per_cell
+        n_bytes = (N_BF * (24 + 8 + 4 + 1) + nc * nf * 32
+                   + nc * (npc * 3 * 8 + 8 + npc * 4) + grid.n_points * 8)
+        bnd = bound64(n_bytes, N_BF * nc * nf * 7)
+        print(f"B1 float64 {label} ({nc} cells), 1M queries: kernel "
+              f"{ms_k:.4f} ms (CUDA events), plain {ms_p:.4f} ms; "
+              f"interpolate_scalar_at {e2e * 1e3:.4f} ms = "
+              f"{N_BF / e2e:.4e} queries/s; bound {bnd[0]:.4f} ms "
+              f"({bnd[1]}, FP64); linear error {lin:.3e}; ids, found and "
+              f"values torch.equal to the plain version, main path too")
+        rows.append(dict(label=label, launches=n_b1, ms=ms_k, plain_ms=ms_p,
+                         e2e_ms=e2e * 1e3, lin=lin, bound=bnd))
+    return rows
+
+
+def f64_cold(dev, tiu, grid, r, locate, cand_kernel, walk_kernel, counters):
+    """The 998k box's cold float64 queries: the main path, then each B2
+    stage against its plain version on the same inputs, timed, with
+    bounds that count each byte once at the FP64 rate."""
+    from interpolate_unstructured_tpu_torch.models.grid import cand_fused_nv
+    from interpolate_unstructured_tpu_torch.ops import _kernels, geometry
+
+    ck = cand_kernel.__name__
+    gc_key = f"{walk_kernel.__name__}:get_cell"
+    res = {}
+    n = r.shape[0]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    (vals, ic, found), counts = main_path(
+        lambda: tiu.interpolate_scalar_at(grid, r, 0, fill_value=0.0),
+        counters)
+    first_s = time.perf_counter() - t0
+    res["binned"] = {x: counts[f"{ck}:{x}"] for x in
+                     ("bin_pass", "bin_scatter", "binned", "bin_unsort")}
+    res["direct"] = counts[ck]
+    res["gc_launches"] = counts[gc_key]
+    check(min(res["binned"].values()) >= 1,
+          f"float64 cold: the bin-ordered B2 kernels were not all launched: "
+          f"{res['binned']}")
+    check(vals.dtype == torch.float64, "float64 cold values are not float64")
+    check(bool(found.all()), f"float64 cold: {int((~found).sum())} of "
+          f"{n} queries not found")
+    lin = float((vals - (r.sum(1) + 1.0)).abs().max())
+    check(lin <= LIN_TOL_F64, f"float64 cold linear-exactness error {lin}")
+    del vals, ic, found
+    e2e = steady_s(lambda: tiu.interpolate_scalar_at(grid, r, 0,
+                                                     fill_value=0.0), 3)
+    loc = steady_s(lambda: tiu.get_cell(grid, r), 3)
+    res.update(e2e_s=e2e, lin=lin)
+    print(f"float64 cold interpolate_scalar_at, {n} queries: first call "
+          f"{first_s:.4f} s, steady {e2e * 1e3:.4f} ms = {n / e2e:.4e} "
+          f"queries/s (get_cell {loc * 1e3:.4f} ms); all found; linear "
+          f"error {lin:.3e}; launches: bin-ordered {json.dumps(res['binned'])}"
+          f", direct (extension rows) {res['direct']}, get_cell walk "
+          f"{res['gc_launches']}")
+
+    k = grid.cand_ids.shape[1]
+    k_ext = grid.cand_ext_ids.shape[1]
+    var = (0,) if cand_fused_nv(grid) > 0 else ()
+    lay = locate._row_layout(grid, k, var)
+    lay_e = locate._row_layout(grid, k_ext, var)
+    eps = locate._cand_eps(grid)
+    chunk = locate._cand_chunk(grid)
+    chunk_e = locate._cand_chunk(grid, grid.cand_ext_table)
+    bins = (grid.cand_rmin, grid.cand_inv_h, grid.cand_shape)
+    n_bins = int(np.prod(grid.cand_shape))
+    idx, rq = locate._cand_probe_inputs(grid, r)
+    pout = cand_kernel.probe_rows_plain(grid.cand_table, idx, rq, lay, eps,
+                                        k, chunk)
+    b_idx, ends, perm, slot = cand_kernel.bin_order_cuda(r, *bins)
+    arange = torch.arange(n, device=dev, dtype=torch.int32)
+    res["pass_err"] = float(int((b_idx != idx).sum()) + int(
+        (ends.long() != torch.cumsum(torch.bincount(
+            idx.long(), minlength=n_bins), 0)).sum()))
+    check(res["pass_err"] == 0, f"B2 float64 bin pass: {res['pass_err']:.0f} "
+          "bins or counts differ from the plain bin index and bincount")
+    res["scatter_err"] = float(
+        int((torch.sort(perm).values != arange).sum())
+        + int((idx[perm.long()] != idx[cand_kernel.bin_order_plain(idx)])
+              .sum())
+        + int((perm[slot.long()] != arange).sum()))
+    check(res["scatter_err"] == 0, "B2 float64 scatter: perm or slot is not "
+          "the plain grouping and its inverse")
+    lanes = cand_kernel.binned_lanes(n, n_bins)
+    res["binned_err"] = float(equal_or_fail(
+        "B2 float64 probe in bin order + unsort",
+        cand_kernel.cand_rows_binned_cuda(grid.cand_table, r, perm, slot,
+                                          *bins, lay, eps, k, lanes), pout))
+    sel = torch.nonzero(pout[1] >= 0).squeeze(1)
+    n_sel = int(sel.numel())
+    check(n_sel > 0, "no float64 query reached the extension rows")
+    args_e = (grid.cand_ext_table, pout[1][sel].contiguous(),
+              rq[sel].contiguous(), lay_e, eps, k + k_ext)
+    pout_e = cand_kernel.probe_rows_plain(*args_e, chunk_e)
+    res["direct_err"] = float(equal_or_fail(
+        "B2 float64 direct, extension rows", cand_kernel.cand_rows_cuda(
+            *args_e), pout_e))
+    n_walk = int((pout_e[1] >= 0).sum())
+    res.update(n_ext=n_sel, n_walk=n_walk)
+    print(f"B2 float64 stages on the {n} cold queries: the bin pass's bins "
+          f"equal the plain bin index and its counts the bincount, the "
+          f"scatter groups as the stable argsort does, the probe in bin order "
+          f"({lanes} lanes a query) with the unsort and the direct kernel on "
+          f"the extension rows torch.equal to probe_rows_plain; {n_sel} "
+          f"queries ({n_sel / n:.4%}) reached the extension rows, {n_walk} "
+          f"({n_walk / n:.4%}) a walk")
+
+    lib = _kernels.lib()
+    stream = torch.cuda.current_stream().cuda_stream
+    rmin, inv_h = (t.contiguous() for t in bins[:2])
+    counts_b = torch.zeros(n_bins, dtype=torch.int32, device=dev)
+    bin_buf, rank_buf, perm_buf, slot_buf = (
+        torch.empty(n, dtype=torch.int32, device=dev) for _ in range(4))
+
+    def bin_pass():  # with the memset of the counts
+        counts_b.zero_()
+        _kernels.check(lib.iu_cand_bin_pass_f64(
+            r.data_ptr(), n, rmin.data_ptr(), inv_h.data_ptr(),
+            *grid.cand_shape, counts_b.data_ptr(), bin_buf.data_ptr(),
+            rank_buf.data_ptr(), stream), "iu_cand_bin_pass_f64")
+
+    bin_pass()
+    scan = torch.cumsum(counts_b, 0, dtype=torch.int32)
+
+    def scatter():
+        _kernels.check(lib.iu_cand_bin_scatter(
+            bin_buf.data_ptr(), rank_buf.data_ptr(), scan.data_ptr(), n,
+            perm_buf.data_ptr(), slot_buf.data_ptr(), stream),
+            "iu_cand_bin_scatter")
+
+    n_vars = len(lay.var_roles)
+    n_words = 2 * n_vars
+    rec = torch.empty((n, 2 + n_words), dtype=torch.int32, device=dev)
+    vroles = torch.tensor(lay.var_roles, dtype=torch.int32, device=dev)
+    outs = (torch.empty(n, dtype=torch.int32, device=dev),
+            torch.empty(n, dtype=torch.int32, device=dev),
+            torch.empty((n, n_vars), dtype=torch.float64, device=dev))
+
+    def probe():  # the probe kernel alone, records by slot
+        _kernels.check(lib.iu_cand_rows_binned_f64(
+            grid.cand_table.data_ptr(), grid.cand_table.shape[1],
+            r.data_ptr(), perm.data_ptr(), n, lanes, rmin.data_ptr(),
+            inv_h.data_ptr(), *grid.cand_shape, k, lay.nf,
+            cand_kernel._KIND_CODE[lay.kind], lay.id_role, lay.count_col,
+            float(eps), k, n_vars, vroles.data_ptr(), rec.data_ptr(),
+            stream), "iu_cand_rows_binned_f64")
+
+    def unsort():
+        _kernels.check(lib.iu_cand_bin_unsort(
+            rec.data_ptr(), slot.data_ptr(), n, n_words, outs[0].data_ptr(),
+            outs[1].data_ptr(), outs[2].data_ptr(), stream),
+            "iu_cand_bin_unsort")
+
+    def unsort_plain():
+        back = rec[slot.long()]
+        return back[:, 0], back[:, 1], back[:, 2:].view(torch.float64)
+
+    probe()
+    unsort()
+    res["unsort_err"] = float(equal_or_fail("B2 float64 unsort", outs,
+                                            unsort_plain()))
+    t = {
+        "bin_pass": cuda_ms(bin_pass, 10),
+        "bin_scatter": cuda_ms(scatter, 10),
+        "probe": cuda_ms(probe, 10),
+        "bin_unsort": cuda_ms(unsort, 10),
+        "direct": cuda_ms(lambda: cand_kernel.cand_rows_cuda(*args_e), 10),
+    }
+    tp = {
+        "bin_pass": cuda_ms(lambda: torch.bincount(geometry.bin_flat(
+            geometry.bin_ijk(r, *bins, torch.int32), grid.cand_shape).long(),
+            minlength=n_bins), 3),
+        "bin_scatter": cuda_ms(lambda: cand_kernel.bin_order_plain(idx), 3),
+        "probe": cuda_ms(lambda: cand_kernel.probe_rows_plain(
+            grid.cand_table, *cand_kernel.probe_inputs_plain(
+                r, *bins, False), lay, eps, k, chunk), 2),
+        "bin_unsort": cuda_ms(unsort_plain, 3),
+        "direct": cuda_ms(lambda: cand_kernel.probe_rows_plain(
+            *args_e, chunk_e), 3),
+    }
+    lib_ms = {"bin_scatter": cuda_ms(lambda: torch.argsort(idx, stable=True),
+                                     3),
+              "bin_unsort": cuda_ms(lambda: rec[slot.long()], 3)}
+    # bounds, each byte once, FP64: the planes (4 nf roles), ids and count
+    # of every distinct row; per query its inputs and outputs (a record of
+    # 2 + 2 n_vars words between the probe and the unsort)
+    n_rows = int(torch.unique(idx).numel())
+    n_rows_e = int(torch.unique(args_e[1]).numel())
+    row_b = (4 * lay.nf + 1 + lay.nf * n_vars) * k * 8 + 8
+    row_be = (4 * lay.nf + 1 + lay.nf * n_vars) * k_ext * 8 + 8
+    rec_b = 4 * (2 + n_words)
+    ops = n * k * lay.nf * 9
+    bnd = {
+        "bin_pass": bound64(n * (24 + 8) + n_bins * 4, n * 9),
+        "bin_scatter": bound64(n * 16 + n_rows * 4, 0),
+        "probe": bound64(n_rows * row_b + n * (4 + 24 + rec_b), ops),
+        "bin_unsort": bound64(n * (4 + 2 * rec_b), 0),
+        "direct": bound64(n_rows_e * row_be + n_sel * (4 + 24 + 8 + 8 * n_vars),
+                          n_sel * k_ext * lay.nf * 9),
+    }
+    for name in t:
+        print(f"B2 float64 {name}: kernel {t[name]:.4f} ms, plain "
+              f"{tp[name]:.4f} ms"
+              + (f", library call {lib_ms[name]:.4f} ms" if name in lib_ms
+                 else "")
+              + f"; bound {bnd[name][0]:.4f} ms ({bnd[name][1]})")
+    print(f"B2 float64 rows: main K={k} ({row_b} B read a row, {n_rows} "
+          f"distinct rows of {n_bins}), extension k_ext={k_ext} "
+          f"({n_rows_e} distinct rows)")
+    res["stages"] = {name: dict(ms=t[name], plain_ms=tp[name],
+                                library_ms=lib_ms.get(name),
+                                bound=bnd[name]) for name in t}
+    return res
+
+
+def f64_warm(dev, tiu, grid, locate, walk_kernel, counters):
+    """B3 in double on the float64 walk grid of the box: 10M cold queries
+    (bin-seeded walks), the same points moved and guessed by the cold
+    cells plus 1% pushed out of the box, every walk in get_cell's walk
+    stage; both B3 kernels against their plain versions."""
+    gc_key = f"{walk_kernel.__name__}:get_cell"
+    res = {"gc_launches": {}}
+    rng = np.random.default_rng(4)
+    r = torch.from_numpy(0.1 + 0.8 * rng.random((N_CAND, 3))).to(dev)
+    r_warm = r + 0.01 * torch.from_numpy(rng.random((N_CAND, 3))).to(dev)
+    (vals, ic, found), counts = main_path(
+        lambda: tiu.interpolate_scalar_at(grid, r, 0, fill_value=FILL),
+        counters)
+    res["gc_launches"]["cold"] = counts[gc_key]
+    check(counts[gc_key] >= 1, "float64 cold walks: get_cell's walk stage "
+          "was not launched")
+    check(bool(found.all()), f"float64 cold walks: {int((~found).sum())} "
+          "queries not found")
+    lin_c = float((vals - (r.sum(1) + 1.0)).abs().max())
+    check(lin_c <= LIN_TOL_F64, f"float64 cold walks: linear error {lin_c}")
+    r_out = r_warm[:N_OFF].clone()
+    r_out[:, 0] = 1.01 + 0.5 * torch.from_numpy(rng.random(N_OFF)).to(dev)
+    rq = torch.cat([r_warm, r_out])
+    guess = torch.cat([ic, ic[:N_OFF]])
+    del r_out, vals, found
+    (vals, ic_w, found), counts = main_path(
+        lambda: tiu.interpolate_scalar_at(grid, rq, 0, guess=guess,
+                                          fill_value=FILL), counters)
+    res["gc_launches"]["warm"] = counts[gc_key]
+    check(counts[gc_key] >= 1, "float64 warm: get_cell's walk stage was not "
+          "launched")
+    check(bool(found[:N_CAND].all()), "float64 warm: an inside query was "
+          "not found")
+    check(not bool(found[N_CAND:].any()), "float64 warm: an outside query "
+          "was found")
+    check(bool((ic_w[N_CAND:] < 0).all() and (vals[N_CAND:] == FILL).all()),
+          "float64 warm: outside queries lack a boundary code or the fill")
+    lin_w = float((vals[:N_CAND] - (r_warm.sum(1) + 1.0)).abs().max())
+    check(lin_w <= LIN_TOL_F64, f"float64 warm: linear error {lin_w}")
+    del vals, found
+    cold_s = steady_s(lambda: tiu.interpolate_scalar_at(grid, r, 0), 3)
+    warm_s = steady_s(lambda: tiu.interpolate_scalar_at(grid, rq, 0,
+                                                        guess=guess), 3)
+    loc_w = steady_s(lambda: tiu.get_cell(grid, rq, guess), 3)
+    print(f"B3 float64 walk grid, 10M cold interpolate_scalar_at: steady "
+          f"{cold_s * 1e3:.4f} ms = {N_CAND / cold_s:.4e} queries/s, linear "
+          f"error {lin_c:.3e}; {rq.shape[0]} warm (1% outside): steady "
+          f"{warm_s * 1e3:.4f} ms = {rq.shape[0] / warm_s:.4e} queries/s "
+          f"(get_cell {loc_w * 1e3:.4f} ms), inside all found, outside none, "
+          f"linear error {lin_w:.3e}")
+    max_steps = grid.config.max_walk_steps
+    p1 = grid.config.walk_phase1_steps
+    gc_err = 0
+    for label, q, st in (("warm", rq, guess), ("cold", r, None)):
+        gc_err += equal_or_fail(
+            f"B3 float64 get_cell walk, {label}",
+            walk_kernel.get_cell_walk_cuda(grid, q, st, max_steps, p1),
+            walk_kernel.get_cell_walk_plain(grid, q, st, max_steps, p1))
+    ms_gc = cuda_ms(lambda: walk_kernel.get_cell_walk_cuda(
+        grid, rq, guess, max_steps, p1), 10)
+    ms_gc_p = cuda_ms(lambda: walk_kernel.get_cell_walk_plain(
+        grid, rq, guess, max_steps, p1), 1)
+    bnd_gc, rounds, rows = gc_bound(grid, rq, guess, max_steps, p1,
+                                    walk_kernel, bound64)
+    print(f"B3 float64 get_cell walk, {rq.shape[0]} warm queries: (ic, found) "
+          f"torch.equal to get_cell_walk_plain, the 10M cold ones too; kernel "
+          f"{ms_gc:.4f} ms, plain {ms_gc_p:.4f} ms, bound {bnd_gc[0]:.4f} ms "
+          f"({bnd_gc[1]}; {rounds} rounds, {rows} distinct walk rows)")
+    res["gc"] = dict(ms=ms_gc, plain_ms=ms_gc_p, bound=bnd_gc,
+                     max_abs_err=float(gc_err))
+    # the explicit walk (walk_rows) against its plain version on the 10M
+    # warm walks from the cold cells' centers, and timed there
+    r0 = walk_kernel.walk_origin(grid.walk_table, ic, grid.n_faces_per_cell,
+                                 grid.n_points_per_cell)
+    args = locate._walk_args(grid, r0, r_warm, ic)
+    k_out = walk_kernel.walk_cuda(*args)
+    p_out = walk_kernel.walk_plain(*args)
+    res["walk_err"] = float(equal_or_fail("B3 float64 walk_rows", k_out,
+                                          p_out))
+    steps = int(k_out[2].sum())
+    del k_out, p_out
+    ms_w = cuda_ms(lambda: walk_kernel.walk_cuda(*args), 10)
+    ms_wp = cuda_ms(lambda: walk_kernel.walk_plain(*args), 1)
+    rec = RowRecorder(grid.walk_table)
+    walk_kernel.walk_plain(rec, *args[1:])
+    nf = grid.n_faces_per_cell
+    # per lane r0, u, total, active, ic0 in and ic, r_p, steps, status out
+    # (97 B in float64); the nf*5 leading doubles of every distinct row
+    bnd_w = bound64(N_CAND * 97 + rec.distinct() * nf * 5 * 8,
+                    steps * nf * 12)
+    print(f"B3 float64 walk_rows, {N_CAND} warm walks ({steps / N_CAND:.4f} "
+          f"steps a walk, {rec.distinct()} distinct rows): all four outputs "
+          f"torch.equal to walk_plain; kernel {ms_w:.4f} ms, plain "
+          f"{ms_wp:.4f} ms, bound {bnd_w[0]:.4f} ms ({bnd_w[1]})")
+    res["walk"] = dict(ms=ms_w, plain_ms=ms_wp, bound=bnd_w)
+    res.update(cold_s=cold_s, warm_s=warm_s, lin_c=lin_c, lin_w=lin_w)
+    return res
+
+
+def f64_trace(dev, tiu, grid, walk_kernel, trace_kernel, counters):
+    """bench.py's helix on the float64 walk grid, 1024 lines: the generic
+    path (B3's double walk_rows + torch, no B4), every TraceResult field
+    torch.equal to the same loop with the plain walks on the card."""
+    c = grid.points[:, :2] - 0.5
+    fld = (-c[:, 1], c[:, 0], torch.full_like(c[:, 0], 0.25))
+    i_field = []
+    for name, v in zip(("vx", "vy", "vz"), fld):
+        grid, i = tiu.add_point_data(grid, name, v, fuse=False)
+        i_field.append(i)
+    table = tiu.build_trace_table(grid, i_field)
+    y0 = torch.from_numpy(0.3 + 0.4 * np.random.default_rng(3).random(
+        (TRACE_N[0], 3))).to(dev)
+    kw = dict(TRACE_KW, trace_table=table)
+
+    def trace():
+        return tiu.integrate_along_field(grid, y0, i_field, **kw)
+
+    trace()  # warm-up
+    walks = {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with recorded_calls(walk_kernel, "walk_rows", walks):
+        out, counts = main_path(trace, counters)
+    wall = time.perf_counter() - t0
+    n_b4 = counts[trace_kernel.__name__]
+    n_walk = counts[walk_kernel.__name__]
+    n_gc = counts[f"{walk_kernel.__name__}:get_cell"]
+    check(n_b4 == 0, f"the float64 trace launched B4 {n_b4} times")
+    check(n_walk >= 1 and n_gc >= 1, f"the float64 trace launched walk_rows "
+          f"{n_walk} and get_cell's walk {n_gc} times")
+    check(out.y.dtype == torch.float64, "the float64 trace is not float64")
+    with plain_walks(walk_kernel):
+        p_out = trace()
+    for name, a, b in zip(out._fields, out, p_out):
+        check(torch.equal(a, b), f"float64 trace: {name} differs from the "
+              "loop with the plain walks")
+    max_steps = TRACE_KW["max_steps"]
+    steps = int(out.n_steps.clamp(max=max_steps).sum())
+    codes = {int(k): int(v) for k, v in zip(*torch.unique(
+        out.boundary_material, return_counts=True))}
+    check(tiu.trace.BM_STEP_CAP not in codes, "float64 trace: step-cap ends")
+    walls = []
+    for _ in range(TRACE_REPS):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        trace()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t1) * 1e3)
+    med = float(np.median(walls))
+    with plain_walks(walk_kernel):
+        plain_ms = steady_s(trace, 1) * 1e3
+    print(f"float64 generic trace, {TRACE_N[0]} lines: {steps} steps; "
+          f"main-path call {wall * 1e3:.4f} ms, median of {TRACE_REPS} more "
+          f"{med:.4f} ms = {steps / med * 1e3:.4e} trace steps/s (with the "
+          f"plain walks {plain_ms:.4f} ms); launches: walk_rows {n_walk}, "
+          f"get_cell walk {n_gc}, B4 0; walk_rows CUDA events over the "
+          f"call: {sum(walks['ms']):.4f} ms in {len(walks['ms'])} launches; "
+          f"every TraceResult field torch.equal to the loop with the plain "
+          f"walks; boundary codes {json.dumps(codes)}")
+    return dict(walk_launches=n_walk, gc_launches=n_gc, wall_ms=med,
+                steps=steps, walk_ms=sum(walks["ms"]))
+
+
+def float64_phase(dev, tiu, meshgen, interp_kernel, locate, cand_kernel,
+                  walk_kernel, trace_kernel, card):
+    """Float64 grids on the card at full width: B1 in double on the three
+    brute-force meshes; the 998,250-tet box in float64 (lists from D1 and
+    D2), 10M cold queries through B2 in double (bin order, then the
+    direct kernel on the extension rows, then interpolate_at_icell); the
+    box's float64 walk grid (no candidate tables) with 10.1M warm queries
+    through B3's double get_cell walk; a float64 generic trace on it."""
+    from interpolate_unstructured_tpu_torch.ops import cand_build_kernel
+
+    counters = (interp_kernel, cand_kernel, walk_kernel)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    res = {"bf": f64_bruteforce(dev, tiu, meshgen, interp_kernel, counters)}
+
+    n = 55
+    pts, cells, nbrs = meshgen.tet_box_mesh(n, n, n)
+    pdata = {"Polynomial": pts.sum(1) + 1.0}
+    timings = {}
+    t0 = time.perf_counter()
+    grid, counts = main_path(lambda: tiu.build_grid(
+        pts, cells, nbrs, "tetra", point_data=pdata, dtype=torch.float64,
+        locate_mode="walk", device=dev, timings=timings,
+    ), counters + (cand_build_kernel,))
+    build_s = time.perf_counter() - t0
+    d_launches = builder_launches(counts)
+    check(min(d_launches.values()) >= 1, f"float64 build_grid of the box did "
+          f"not launch D1 and D2: {d_launches}")
+    k = grid.cand_ids.shape[1]
+    n_bins = grid.cand_count.numel()
+    n_ext_bins = int((grid.cand_count > k).sum())
+    mem = {name: t.numel() * t.element_size() / 1e9 for name, t in (
+        ("walk rows", grid.walk_table), ("main rows", grid.cand_table),
+        ("extension rows", grid.cand_ext_table))}
+    print(f"float64 box tet_box_mesh({n},{n},{n}): {grid.n_cells} tets, "
+          f"build_grid {build_s:.3f} s split "
+          + json.dumps({kk: round(v, 4) for kk, v in timings.items()})
+          + f"; D1/D2 launches {json.dumps(d_launches)}; K={k}, fused "
+          f"variables {grid.cand_nv}, extension rows k_ext="
+          f"{grid.cand_ext_ids.shape[1]} for {n_ext_bins} of {n_bins} bins; "
+          + ", ".join(f"{a} {b:.3f} GB" for a, b in mem.items()))
+    check(grid.cand_table.dtype == torch.float64
+          and grid.cand_ext_table is not None,
+          "the float64 box has no float64 candidate rows with extension rows")
+    r = torch.from_numpy(np.random.default_rng(2).random((N_CAND, 3))).to(dev)
+    res["cold"] = f64_cold(dev, tiu, grid, r, locate, cand_kernel,
+                           walk_kernel, counters)
+    res["cold"].update(build_s=build_s, timings=timings,
+                       d_launches=d_launches)
+    del grid, r
+    torch.cuda.empty_cache()
+
+    timings = {}
+    t0 = time.perf_counter()
+    wgrid, counts = main_path(lambda: tiu.build_grid(
+        pts, cells, nbrs, "tetra", point_data=pdata, dtype=torch.float64,
+        locate_mode="walk", device=dev, timings=timings,
+        config=tiu.IUConfig(use_candidate_bins=False),
+    ), counters)
+    wbuild_s = time.perf_counter() - t0
+    refine = counts[f"{walk_kernel.__name__}:get_cell"]
+    check(wgrid.cand_table is None and refine >= 1,
+          "the float64 walk grid has candidate tables or no refine walks")
+    print(f"float64 walk grid (no candidate tables): build_grid "
+          f"{wbuild_s:.3f} s split "
+          + json.dumps({kk: round(v, 4) for kk, v in timings.items()})
+          + f"; {int(np.prod(wgrid.bin_shape))} seed bins self-located by "
+          f"the refine ({refine} get_cell walk launches)")
+    res["warm"] = f64_warm(dev, tiu, wgrid, locate, walk_kernel, counters)
+    res["warm"]["gc_launches"]["refine"] = refine
+    res["trace"] = f64_trace(dev, tiu, wgrid, walk_kernel, trace_kernel,
+                             counters + (trace_kernel,))
+    res["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    print(f"float64 phase: torch.cuda.max_memory_allocated "
+          f"{res['peak_gb']:.3f} GB [{card}]")
+    return res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
@@ -2445,6 +2986,7 @@ def main() -> int:
                          (interp_kernel, cand_kernel, walk_kernel,
                           trace_kernel),
                          walk_kernel, trace_kernel, tmp, card)
+    f64 = timed_phase("float64", float64_phase, *args, trace_kernel, card)
     print("phase seconds: " + json.dumps(phase_s) + f" [{card}]")
     ck = cand_kernel.__name__
     io_n = io["counts"]
@@ -2564,6 +3106,55 @@ def main() -> int:
             "ms": cb[part]["ms"], "plain_ms": cb[part]["plain_ms"],
             "bound_ms": cb[part]["bound"][0],
             "bound_by": cb[part]["bound"][1], "library_ms": None})
+    f64_cold, f64_warm = f64["cold"], f64["warm"]
+    f64_gc = {**f64_warm["gc_launches"],
+              "trace_start_cells": f64["trace"]["gc_launches"]}
+    f64_binned = dict(f64_cold["binned"])
+    print("float64 phase launches on its main paths: B1 "
+          + json.dumps({row["label"]: row["launches"] for row in f64["bf"]})
+          + f"; B2 bin-ordered {json.dumps(f64_binned)}, direct "
+          f"{f64_cold['direct']}; B3 get_cell walk {json.dumps(f64_gc)}, "
+          f"walk_rows {f64['trace']['walk_launches']} (the generic trace); "
+          f"D1/D2 {json.dumps(f64_cold['d_launches'])}")
+    kernels += [
+        {"name": f"B1 interp_bruteforce float64, {row['label']}",
+         "route": "cuda", "source": f"{pkg}/csrc/interp_bruteforce.cu",
+         "replaces": "interpolate_unstructured_tpu/ops/pallas_interp.py:93",
+         "launches": row["launches"], "max_abs_err": 0.0, "ms": row["ms"],
+         "plain_ms": row["plain_ms"], "bound_ms": row["bound"][0],
+         "bound_by": row["bound"][1], "library_ms": None}
+        for row in f64["bf"]]
+    for label, part, launches, err in (
+            ("bin pass", "bin_pass", f64_binned["bin_pass"], "pass_err"),
+            ("bin scatter", "bin_scatter", f64_binned["bin_scatter"],
+             "scatter_err"),
+            ("probe in bin order", "probe", f64_binned["binned"],
+             "binned_err"),
+            ("unsort", "bin_unsort", f64_binned["bin_unsort"], "unsort_err"),
+            ("direct (extension rows)", "direct", f64_cold["direct"],
+             "direct_err")):
+        st = f64_cold["stages"][part]
+        kernels.append({
+            "name": f"B2 float64 {label}", "route": "cuda",
+            "source": f"{pkg}/csrc/cand_rows.cu",
+            "replaces": "interpolate_unstructured_tpu/ops/pallas_cand.py:64",
+            "launches": launches, "max_abs_err": f64_cold[err],
+            "ms": st["ms"], "plain_ms": st["plain_ms"],
+            "bound_ms": st["bound"][0], "bound_by": st["bound"][1],
+            "library_ms": st["library_ms"]})
+    for label, part, launches, err in (
+            ("get_cell walk", "gc", sum(f64_gc.values()),
+             f64_warm["gc"]["max_abs_err"]),
+            ("walk_rows", "walk", f64["trace"]["walk_launches"],
+             f64_warm["walk_err"])):
+        st = f64_warm[part]
+        kernels.append({
+            "name": f"B3 float64 {label}", "route": "cuda",
+            "source": f"{pkg}/csrc/walk.cu",
+            "replaces": "interpolate_unstructured_tpu/ops/pallas_walk.py:84",
+            "launches": launches, "max_abs_err": err, "ms": st["ms"],
+            "plain_ms": st["plain_ms"], "bound_ms": st["bound"][0],
+            "bound_by": st["bound"][1], "library_ms": None})
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

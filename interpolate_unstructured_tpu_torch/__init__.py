@@ -28,6 +28,9 @@ other saved); and ``validate_grid``.  Its kernels are CUDA C++ for
 * B4 ``ops/trace_kernel.py`` — the fused stages of a tracer iteration;
 * B5 ``ops/acc_kernel.py`` — df32 interpolation at known cells.
 
+B1, B2 and B3 also take float64 grids, in double (the JAX package's
+float64 route); accurate mode (B2-df, B5) and the fused tracer (B4)
+take float32 grids, and a float64 trace takes the generic path.
 On CPU tensors each kernel's plain PyTorch version runs instead.
 ``build_grid``, ``read_grid``, ``load_grid`` and ``build_kdtree`` put
 their tensors on the CUDA device unless they are given ``device="cpu"``.

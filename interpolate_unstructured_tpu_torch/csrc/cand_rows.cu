@@ -69,6 +69,20 @@
 // qn/qd roles are read through an int pointer and unpacked with integer
 // shifts only.  Plain PyTorch version: ops/cand_kernel.py:probe_rows_plain,
 // whose rounding order this kernel follows (built with --fmad=false).
+//
+// A float64 grid's rows are never quantized: they take layouts 1 and 2 in
+// double (the JAX package's float64 route, its XLA _probe_rows_xla,
+// ops/locate.py:562).  The direct kernel, the bin pass and the probe in
+// bin order are templates on the rows' type T, instantiated for float and
+// for double (the *_f64 entry points, scalars in double); the bin pass of
+// a float64 grid bins each query in double against the grid's float64
+// origin and inverse sizes, where accurate mode's bin pass on a float32
+// grid bins float64 queries by their float32 rounding.  The scatter and
+// the unsort move 4-byte words, whatever they hold: a double value is two
+// words of a record.  The double probe reads each candidate's roles one
+// element at a time (no 16-byte path); with the default row budget a
+// float64 tet grid has K = 7 and no fused variable, so its records are id
+// and aux alone.
 
 #include <cuda_runtime.h>
 
@@ -125,13 +139,13 @@ __device__ __forceinline__ float quant_margin(const QuantWords<NF>& q,
   return padding ? -1e30f : m;
 }
 
-// Margin of an f32 candidate (layouts 1 and 2) from its unit planes g:
-// normals x (g[f]), y (g[NF + f]), z (g[2 NF + f]), offsets g[3 NF + f].
-template <int NF>
-__device__ __forceinline__ float plane_margin(const float (&g)[4 * NF],
-                                              float rx, float ry, float rz,
-                                              float (&mf)[NF]) {
-  float m = 0.0f;
+// Margin of a float or double candidate (layouts 1 and 2) from its unit
+// planes g: normals x (g[f]), y (g[NF + f]), z (g[2 NF + f]), offsets
+// g[3 NF + f].
+template <int NF, typename T>
+__device__ __forceinline__ T plane_margin(const T (&g)[4 * NF], T rx, T ry,
+                                          T rz, T (&mf)[NF]) {
+  T m = T(0);
 #pragma unroll
   for (int f = 0; f < NF; ++f) {
     mf[f] = g[3 * NF + f] - ((g[f] * rx + g[NF + f] * ry) + g[2 * NF + f] * rz);
@@ -141,12 +155,10 @@ __device__ __forceinline__ float plane_margin(const float (&g)[4 * NF],
 }
 
 // Margin of candidate k of a row, read in place.
-template <int NF, int LAYOUT>
-__device__ __forceinline__ float row_margin(const float* __restrict__ row,
-                                            int K, int k, int id_role,
-                                            float rx, float ry, float rz,
-                                            float qinv, float ds,
-                                            float (&mf)[NF]) {
+template <int NF, int LAYOUT, typename T>
+__device__ __forceinline__ T row_margin(const T* __restrict__ row, int K,
+                                        int k, int id_role, T rx, T ry, T rz,
+                                        float qinv, T ds, T (&mf)[NF]) {
   if constexpr (LAYOUT == 0 || LAYOUT == 3) {
     const int* rowi = reinterpret_cast<const int*>(row);
     QuantWords<NF> q;
@@ -157,7 +169,7 @@ __device__ __forceinline__ float row_margin(const float* __restrict__ row,
     return quant_margin<NF>(q, row[id_role * K + k] < 0.0f, rx, ry, rz, qinv,
                             ds, mf);
   } else {
-    float g[4 * NF];
+    T g[4 * NF];
 #pragma unroll
     for (int j = 0; j < 4 * NF; ++j) g[j] = row[j * K + k];
     return plane_margin<NF>(g, rx, ry, rz, mf);
@@ -169,18 +181,18 @@ __device__ __forceinline__ float row_margin(const float* __restrict__ row,
 // extension slot, -1 exact miss) and the fused values, written at
 // position q: out_id[q * stride], out_aux[q * stride] and the values
 // from out_vals + q * vstride (the direct kernel's separate arrays:
-// stride 1, vstride n_vars; the bin-ordered probe's records: both
-// 2 + n_vars, layout 3 2 + 2 n_vars).  rq_lo: the lo parts of r_local
-// and out_vals_lo the lo values (layout 3), else null.
-template <int NF, int LAYOUT>
+// stride 1, vstride n_vars; the bin-ordered probe's records: stride
+// 2 + n_vars words, layout 3 2 + 2 n_vars, double values 2 + 2 n_vars,
+// and vstride the same in values).  rq_lo: the lo parts of r_local and
+// out_vals_lo the lo values (layout 3), else null.
+template <int NF, int LAYOUT, typename T>
 __device__ __forceinline__ void write_winner(
-    const float* __restrict__ row, int K, int k, float wm,
-    const float (&mf)[NF], float rx, float ry, float rz,
-    const float* __restrict__ rq_lo, int q, int id_role, int count_col,
-    float eps, int ovf_base, int n_vars, const int* __restrict__ vroles,
-    int* __restrict__ out_id, int* __restrict__ out_aux,
-    float* __restrict__ out_vals, float* __restrict__ out_vals_lo,
-    int stride, int vstride) {
+    const T* __restrict__ row, int K, int k, T wm, const T (&mf)[NF], T rx,
+    T ry, T rz, const float* __restrict__ rq_lo, int q, int id_role,
+    int count_col, T eps, int ovf_base, int n_vars,
+    const int* __restrict__ vroles, int* __restrict__ out_id,
+    int* __restrict__ out_aux, T* __restrict__ out_vals,
+    float* __restrict__ out_vals_lo, int stride, int vstride) {
   constexpr int NPC = NF;
   const int id_best = (int)row[id_role * K + k];
   const int cnt = (int)row[count_col];
@@ -190,7 +202,7 @@ __device__ __forceinline__ void write_winner(
   out_aux[(size_t)q * stride] =
       found ? -2 : (ovf_miss ? cnt - (ovf_base + 1) : -1);
 
-  float* vals = out_vals + (size_t)q * vstride;
+  T* vals = out_vals + (size_t)q * vstride;
   if constexpr (LAYOUT == 3) {
     // df32 value planes: the winner's (g hi, g lo, c_loc hi, c_loc lo)
     // roles, acc = c_loc + sum_d g_d * r_local_d in df32
@@ -219,7 +231,7 @@ __device__ __forceinline__ void write_winner(
   } else if constexpr (LAYOUT == 1) {
     for (int iv = 0; iv < n_vars; ++iv) {
       const int dr = vroles[iv];
-      float acc = mf[1 % NPC] * row[dr * K + k];
+      T acc = mf[1 % NPC] * row[dr * K + k];
 #pragma unroll
       for (int v = 1; v < NPC; ++v) {
         acc = acc + mf[(v + 1) % NPC] * row[(dr + v) * K + k];
@@ -227,18 +239,18 @@ __device__ __forceinline__ void write_winner(
       vals[iv] = acc;
     }
   } else {
-    float p[4][3];
+    T p[4][3];
 #pragma unroll
     for (int v = 0; v < 4; ++v) {
 #pragma unroll
       for (int d = 0; d < 3; ++d) p[v][d] = row[(4 * NF + v * 3 + d) * K + k];
     }
-    const float qr[3] = {rx, ry, rz};
-    float w[4];
-    iu::quad_weights(p, qr, 8.0f * 1.1920928955078125e-07f, w);
+    const T qr[3] = {rx, ry, rz};
+    T w[4];
+    iu::quad_weights(p, qr, iu::quad_rel_eps<T>(), w);
     for (int iv = 0; iv < n_vars; ++iv) {
       const int dr = vroles[iv];
-      float acc = w[0] * row[dr * K + k];
+      T acc = w[0] * row[dr * K + k];
 #pragma unroll
       for (int v = 1; v < 4; ++v) acc = acc + w[v] * row[(dr + v) * K + k];
       vals[iv] = acc;
@@ -249,23 +261,22 @@ __device__ __forceinline__ void write_winner(
 // The probe of one query by one warp: lanes over the K candidates of its
 // row, a butterfly argmax, and the winner's lane writes the results.
 // rx, ry, rz: the query (r_local when quantized).
-template <int NF, int LAYOUT>
+template <int NF, int LAYOUT, typename T>
 __device__ __forceinline__ void probe_row(
-    const float* __restrict__ row, int lane, int q, float rx, float ry,
-    float rz, int K, int id_role, int count_col, float eps, int ovf_base,
-    float qinv, int n_vars, const int* __restrict__ vroles,
-    int* __restrict__ out_id, int* __restrict__ out_aux,
-    float* __restrict__ out_vals) {
+    const T* __restrict__ row, int lane, int q, T rx, T ry, T rz, int K,
+    int id_role, int count_col, T eps, int ovf_base, float qinv, int n_vars,
+    const int* __restrict__ vroles, int* __restrict__ out_id,
+    int* __restrict__ out_aux, T* __restrict__ out_vals) {
   constexpr bool kQuant = LAYOUT == 0;
-  const float ds = kQuant ? row[count_col + 1] : 0.0f;
+  const T ds = kQuant ? row[count_col + 1] : T(0);
 
-  float best_m = 0.0f;
+  T best_m = T(0);
   int best_k = -1;
-  float best_mf[NF];
+  T best_mf[NF];
   for (int k = lane; k < K; k += 32) {
-    float mf[NF];
-    const float m = row_margin<NF, LAYOUT>(row, K, k, id_role, rx, ry, rz,
-                                           qinv, ds, mf);
+    T mf[NF];
+    const T m = row_margin<NF, LAYOUT>(row, K, k, id_role, rx, ry, rz, qinv,
+                                       ds, mf);
     if (best_k < 0 || m > best_m) {
       best_m = m;
       best_k = k;
@@ -276,11 +287,11 @@ __device__ __forceinline__ void probe_row(
 
   // Butterfly argmax over the warp: larger margin wins, lower k on ties
   // (lanes without a candidate carry k = -1 and never win).
-  float wm = best_m;
+  T wm = best_m;
   int wk = best_k;
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) {
-    const float om = __shfl_xor_sync(0xffffffffu, wm, off);
+    const T om = __shfl_xor_sync(0xffffffffu, wm, off);
     const int ok = __shfl_xor_sync(0xffffffffu, wk, off);
     if (ok >= 0 && (wk < 0 || om > wm || (om == wm && ok < wk))) {
       wm = om;
@@ -296,14 +307,14 @@ __device__ __forceinline__ void probe_row(
 // Direct probe: one warp per query in query order, each reading the row
 // of its given bin index (the first design, kept for the extension-table
 // probe).
-template <int NF, int LAYOUT>
+template <int NF, int LAYOUT, typename T>
 __global__ void cand_rows_kernel(
-    const float* __restrict__ table, int W, const int* __restrict__ idx,
-    const float* __restrict__ rq,  // (B, 3): r, or r_local when quantized
-    int n_queries, int K, int id_role, int count_col, float eps,
-    int ovf_base, float qinv, int n_vars, const int* __restrict__ vroles,
+    const T* __restrict__ table, int W, const int* __restrict__ idx,
+    const T* __restrict__ rq,  // (B, 3): r, or r_local when quantized
+    int n_queries, int K, int id_role, int count_col, T eps, int ovf_base,
+    float qinv, int n_vars, const int* __restrict__ vroles,
     int* __restrict__ out_id, int* __restrict__ out_aux,
-    float* __restrict__ out_vals)  // (B, V)
+    T* __restrict__ out_vals)  // (B, V)
 {
   const int q = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
   const int lane = threadIdx.x & 31;
@@ -314,14 +325,14 @@ __global__ void cand_rows_kernel(
                         out_vals);
 }
 
-template <int NF, int LAYOUT>
-void launch(const float* table, int W, const int* idx, const float* rq,
-            int n_queries, int K, int id_role, int count_col, float eps,
+template <int NF, int LAYOUT, typename T>
+void launch(const T* table, int W, const int* idx, const T* rq,
+            int n_queries, int K, int id_role, int count_col, T eps,
             int ovf_base, float qinv, int n_vars, const int* vroles,
-            int* out_id, int* out_aux, float* out_vals, cudaStream_t s) {
+            int* out_id, int* out_aux, T* out_vals, cudaStream_t s) {
   const long long threads = (long long)n_queries * 32;
   const int blocks = (int)((threads + kThreads - 1) / kThreads);
-  cand_rows_kernel<NF, LAYOUT><<<blocks, kThreads, 0, s>>>(
+  cand_rows_kernel<NF, LAYOUT, T><<<blocks, kThreads, 0, s>>>(
       table, W, idx, rq, n_queries, K, id_role, count_col, eps, ovf_base,
       qinv, n_vars, vroles, out_id, out_aux, out_vals);
 }
@@ -331,27 +342,36 @@ void launch(const float* table, int W, const int* idx, const float* rq,
 // order, the unsort.
 constexpr int kOrderThreads = 256;
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(double x) { return __double2float_rn(x); }
+// A query coordinate of type R in the bin grid's type T: as it is, or a
+// float64 coordinate rounded to float32 for a float32 grid's bins.
+template <typename T, typename R>
+__device__ __forceinline__ T bin_arg(R x) {
+  if constexpr (sizeof(T) < sizeof(R)) {
+    return __double2float_rn(x);
+  } else {
+    return x;
+  }
+}
 
 // Bin pass: each query's flat candidate bin (ops/geometry.py:bin_ijk and
 // bin_flat) and its rank among its bin's queries, from an
 // atomic count per bin.  The 1.9M+ bin counts of the main path do not
 // fit in shared memory (8 MB), so they are counted in device memory,
-// where they stay L2-resident.  T: float, or double for float64 queries,
-// binned by their float32 rounding hi = f32(r) (a hi/lo pair is binned
-// by its hi, as float queries).
-template <typename T>
-__global__ void cand_bin_pass_kernel(const T* __restrict__ r, int n,
-                                     iu::BinGrid bins,
+// where they stay L2-resident.  R: the queries' type; T: the bins',
+// float for a float32 grid, which bins float64 queries by their float32
+// rounding hi = f32(r) (a hi/lo pair is binned by its hi, as float
+// queries), or double for a float64 grid, which bins them in double.
+template <typename R, typename T>
+__global__ void cand_bin_pass_kernel(const R* __restrict__ r, int n,
+                                     iu::BinGrid<T> bins,
                                      int* __restrict__ counts,
                                      int* __restrict__ bin_out,
                                      int* __restrict__ rank_out) {
   const int q = blockIdx.x * blockDim.x + threadIdx.x;
   if (q >= n) return;
   int i, j, k;
-  iu::bin_ijk(bins, to_f32(r[3 * q + 0]), to_f32(r[3 * q + 1]),
-              to_f32(r[3 * q + 2]), i, j, k);
+  iu::bin_ijk(bins, bin_arg<T>(r[3 * q + 0]), bin_arg<T>(r[3 * q + 1]),
+              bin_arg<T>(r[3 * q + 2]), i, j, k);
   const int b = iu::bin_flat(bins, i, j, k);
   bin_out[q] = b;
   rank_out[q] = atomicAdd(counts + b, 1);
@@ -387,15 +407,17 @@ __global__ void cand_bin_scatter_kernel(const int* __restrict__ bin,
 // frame (F64: r is float64 (B, 3); else r is the float32 hi and r_lo the
 // lo, or null for zeros).  The winner's lane writes the query's record
 // (id, aux, values: 2 + n_vars words; layout 3: 2 + 2 n_vars, hi values
-// then lo) at its slot, next to its neighbours' records;
-// cand_bin_unsort_kernel puts the records back in query order.
-template <int NF, int LAYOUT, bool VEC, bool F64>
+// then lo; double values: 2 + 2 n_vars) at its slot, next to its
+// neighbours' records; cand_bin_unsort_kernel puts the records back in
+// query order.  T: the rows' type, float or double (a float64 grid's
+// rows, layouts 1 and 2, queries in double, VEC and F64 false).
+template <int NF, int LAYOUT, bool VEC, bool F64, typename T>
 __global__ void __launch_bounds__(kOrderThreads)
 cand_rows_binned_kernel(
-    const float* __restrict__ table, int W, const void* __restrict__ r,
+    const T* __restrict__ table, int W, const void* __restrict__ r,
     const float* __restrict__ r_lo, const int* __restrict__ perm,
-    int n_queries, int log2_g, iu::BinGrid bins, int K, int id_role,
-    int count_col, float eps, int ovf_base, float qinv, int n_vars,
+    int n_queries, int log2_g, iu::BinGrid<T> bins, int K, int id_role,
+    int count_col, T eps, int ovf_base, float qinv, int n_vars,
     const int* __restrict__ vroles, int* __restrict__ rec) {
   constexpr bool kQuant = LAYOUT == 0 || LAYOUT == 3;
   constexpr int NW = kQuant ? QuantWords<NF>::SN + QuantWords<NF>::DN : 4 * NF;
@@ -407,7 +429,7 @@ cand_rows_binned_kernel(
   // last query probe query perm[0] and write nothing
   const bool live = slot < n_queries;
   const int q = perm[live ? slot : 0];
-  float hi[3], lo[3] = {0.0f, 0.0f, 0.0f};
+  T hi[3], lo[3] = {T(0), T(0), T(0)};
 #pragma unroll
   for (int d = 0; d < 3; ++d) {
     if constexpr (F64) {
@@ -415,14 +437,14 @@ cand_rows_binned_kernel(
       hi[d] = __double2float_rn(x);
       lo[d] = __double2float_rn(x - (double)hi[d]);
     } else {
-      hi[d] = static_cast<const float*>(r)[3 * q + d];
+      hi[d] = static_cast<const T*>(r)[3 * q + d];
       if (LAYOUT == 3 && r_lo != nullptr) lo[d] = r_lo[3 * q + d];
     }
   }
   int i, j, k;
   iu::bin_ijk(bins, hi[0], hi[1], hi[2], i, j, k);
-  const float* row = table + (size_t)iu::bin_flat(bins, i, j, k) * W;
-  float rx = hi[0], ry = hi[1], rz = hi[2];
+  const T* row = table + (size_t)iu::bin_flat(bins, i, j, k) * W;
+  T rx = hi[0], ry = hi[1], rz = hi[2];
   float rq_lo[3] = {0.0f, 0.0f, 0.0f};
   if constexpr (LAYOUT == 0) {
     rx = rx - iu::bin_center(bins, 0, i);
@@ -442,12 +464,12 @@ cand_rows_binned_kernel(
     ry = rl[1];
     rz = rl[2];
   }
-  const float ds = kQuant ? row[count_col + 1] : 0.0f;
+  const T ds = kQuant ? row[count_col + 1] : T(0);
 
-  float best_m = 0.0f;
+  T best_m = T(0);
   int best_k = -1;
-  float best_mf[NF];
-  auto take = [&](float m, int kc, const float (&mf)[NF]) {
+  T best_mf[NF];
+  auto take = [&](T m, int kc, const T (&mf)[NF]) {
     if (best_k < 0 || m > best_m) {
       best_m = m;
       best_k = kc;
@@ -466,8 +488,8 @@ cand_rows_binned_kernel(
       if constexpr (kQuant) ids = __ldg(row4 + id_role * k4 + c);
 #pragma unroll
       for (int u = 0; u < 4; ++u) {
-        float mf[NF];
-        float m;
+        T mf[NF];
+        T m;
         if constexpr (kQuant) {
           QuantWords<NF> qw;
 #pragma unroll
@@ -480,7 +502,7 @@ cand_rows_binned_kernel(
           m = quant_margin<NF>(qw, __int_as_float(id) < 0.0f, rx, ry, rz,
                                qinv, ds, mf);
         } else {
-          float g[4 * NF];
+          T g[4 * NF];
 #pragma unroll
           for (int s = 0; s < NW; ++s) {
             g[s] = __int_as_float(u == 0 ? w[s].x : u == 1 ? w[s].y
@@ -493,19 +515,19 @@ cand_rows_binned_kernel(
     }
   } else {
     for (int kc = lane; kc < K; kc += G) {
-      float mf[NF];
-      const float m = row_margin<NF, LAYOUT>(row, K, kc, id_role, rx, ry, rz,
-                                             qinv, ds, mf);
+      T mf[NF];
+      const T m = row_margin<NF, LAYOUT>(row, K, kc, id_role, rx, ry, rz,
+                                         qinv, ds, mf);
       take(m, kc, mf);
     }
   }
 
   // Butterfly argmax over the group (lanes without a candidate carry
   // k = -1 and never win)
-  float wm = best_m;
+  T wm = best_m;
   int wk = best_k;
   for (int off = G >> 1; off > 0; off >>= 1) {
-    const float om = __shfl_xor_sync(0xffffffffu, wm, off);
+    const T om = __shfl_xor_sync(0xffffffffu, wm, off);
     const int ok = __shfl_xor_sync(0xffffffffu, wk, off);
     if (ok >= 0 && (wk < 0 || om > wm || (om == wm && ok < wk))) {
       wm = om;
@@ -513,13 +535,14 @@ cand_rows_binned_kernel(
     }
   }
   if (!live || wk < 0 || best_k != wk) return;  // the winner's lane finishes
-  const int stride = 2 + (LAYOUT == 3 ? 2 : 1) * n_vars;
-  float* vals = reinterpret_cast<float*>(rec + 2);
-  write_winner<NF, LAYOUT>(row, K, wk, wm, best_mf, rx, ry, rz, rq_lo, slot,
-                           id_role, count_col, eps, ovf_base, n_vars, vroles,
-                           rec, rec + 1, vals,
-                           LAYOUT == 3 ? vals + n_vars : nullptr, stride,
-                           stride);
+  constexpr int kWords = (int)sizeof(T) / 4;  // record words a value
+  const int stride = 2 + (LAYOUT == 3 ? 2 : kWords) * n_vars;
+  T* vals = reinterpret_cast<T*>(rec + 2);
+  write_winner<NF, LAYOUT>(
+      row, K, wk, wm, best_mf, rx, ry, rz, rq_lo, slot, id_role, count_col,
+      eps, ovf_base, n_vars, vroles, rec, rec + 1, vals,
+      LAYOUT == 3 ? reinterpret_cast<float*>(vals) + n_vars : nullptr, stride,
+      kWords == 1 ? stride : stride / kWords);
 }
 
 // Unsort: query q's record, read back from its slot, into the outputs
@@ -541,32 +564,31 @@ __global__ void cand_bin_unsort_kernel(const int* __restrict__ rec,
   }
 }
 
-}  // namespace
-
-// Plain C entry point (bound with ctypes).  layout: 0 quantized simplex,
-// 1 f32 simplex, 2 quad; nf 3 or 4.  vroles: (n_vars,) device int32, the
-// first role column of each fused variable.  Returns the cudaError_t of
-// the launch.
-extern "C" int iu_cand_rows(const float* table, int W, const int* idx,
-                            const float* rq, int n_queries, int K, int nf,
-                            int layout, int id_role, int count_col, float eps,
-                            int ovf_base, float qinv, int n_vars,
-                            const int* vroles, int* out_id, int* out_aux,
-                            float* out_vals, void* stream) {
+template <typename T>
+int cand_rows(const T* table, int W, const int* idx, const T* rq,
+              int n_queries, int K, int nf, int layout, int id_role,
+              int count_col, T eps, int ovf_base, float qinv, int n_vars,
+              const int* vroles, int* out_id, int* out_aux, T* out_vals,
+              void* stream) {
   if (n_queries <= 0) return (int)cudaSuccess;
   if (K <= 0 || n_vars < 0) {
     return (int)cudaErrorInvalidValue;
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define IU_CAND_LAUNCH(NF_, L_)                                            \
-  launch<NF_, L_>(table, W, idx, rq, n_queries, K, id_role, count_col, eps, \
-                  ovf_base, qinv, n_vars, vroles, out_id, out_aux, out_vals, \
-                  s)
-  if (layout == 0 && nf == 3) {
-    IU_CAND_LAUNCH(3, 0);
-  } else if (layout == 0 && nf == 4) {
-    IU_CAND_LAUNCH(4, 0);
-  } else if (layout == 1 && nf == 3) {
+  launch<NF_, L_, T>(table, W, idx, rq, n_queries, K, id_role, count_col,  \
+                     eps, ovf_base, qinv, n_vars, vroles, out_id, out_aux, \
+                     out_vals, s)
+  if constexpr (sizeof(T) == 4) {
+    if (layout == 0 && nf == 3) {
+      IU_CAND_LAUNCH(3, 0);
+      return (int)cudaGetLastError();
+    } else if (layout == 0 && nf == 4) {
+      IU_CAND_LAUNCH(4, 0);
+      return (int)cudaGetLastError();
+    }
+  }
+  if (layout == 1 && nf == 3) {
     IU_CAND_LAUNCH(3, 1);
   } else if (layout == 1 && nf == 4) {
     IU_CAND_LAUNCH(4, 1);
@@ -579,10 +601,118 @@ extern "C" int iu_cand_rows(const float* table, int W, const int* idx,
   return (int)cudaGetLastError();
 }
 
+template <typename T>
+int cand_rows_binned(const T* table, int W, const void* r, const float* r_lo,
+                     int f64, const int* perm, int n_queries, int lanes,
+                     const T* bin_rmin, const T* bin_inv_h, int nbx, int nby,
+                     int nbz, int K, int nf, int layout, int id_role,
+                     int count_col, T eps, int ovf_base, float qinv,
+                     int n_vars, const int* vroles, int* rec, void* stream) {
+  if (n_queries <= 0) return (int)cudaSuccess;
+  if (K <= 0 || n_vars < 0 || lanes < 1 || lanes > 32 ||
+      (lanes & (lanes - 1)) != 0) {
+    return (int)cudaErrorInvalidValue;
+  }
+  if (layout != 3 && (f64 || r_lo != nullptr)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const iu::BinGrid<T> bins{bin_rmin, bin_inv_h, nbx, nby, nbz};
+  const int log2_g = __builtin_ctz(lanes);
+  const long long threads = (long long)n_queries * lanes;
+  const int blocks = (int)((threads + kOrderThreads - 1) / kOrderThreads);
+#define IU_BINNED_KERNEL(NF_, L_, V_, D_)                                    \
+  cand_rows_binned_kernel<NF_, L_, V_, D_, T>                                \
+      <<<blocks, kOrderThreads, 0, s>>>(table, W, r, r_lo, perm, n_queries,  \
+                                        log2_g, bins, K, id_role, count_col, \
+                                        eps, ovf_base, qinv, n_vars, vroles, \
+                                        rec)
+  if constexpr (sizeof(T) == 8) {
+    // a float64 grid's rows: layouts 1 and 2, one element at a time
+    if (layout == 1 && nf == 3) {
+      IU_BINNED_KERNEL(3, 1, false, false);
+    } else if (layout == 1 && nf == 4) {
+      IU_BINNED_KERNEL(4, 1, false, false);
+    } else if (layout == 2 && nf == 4) {
+      IU_BINNED_KERNEL(4, 2, false, false);
+    } else {
+      return (int)cudaErrorInvalidValue;
+    }
+  } else {
+    // 16-byte loads along the candidates when every role starts aligned
+    const bool vec = K % 4 == 0 && W % 4 == 0 &&
+                     reinterpret_cast<uintptr_t>(table) % 16 == 0;
+#define IU_BINNED_LAUNCH(NF_, L_, D_)        \
+  do {                                       \
+    if (vec) {                               \
+      IU_BINNED_KERNEL(NF_, L_, true, D_);   \
+    } else {                                 \
+      IU_BINNED_KERNEL(NF_, L_, false, D_);  \
+    }                                        \
+  } while (0)
+    if (layout == 0 && nf == 3) {
+      IU_BINNED_LAUNCH(3, 0, false);
+    } else if (layout == 0 && nf == 4) {
+      IU_BINNED_LAUNCH(4, 0, false);
+    } else if (layout == 1 && nf == 3) {
+      IU_BINNED_LAUNCH(3, 1, false);
+    } else if (layout == 1 && nf == 4) {
+      IU_BINNED_LAUNCH(4, 1, false);
+    } else if (layout == 2 && nf == 4) {
+      IU_BINNED_LAUNCH(4, 2, false);
+    } else if (layout == 3 && nf == 3 && f64) {
+      IU_BINNED_LAUNCH(3, 3, true);
+    } else if (layout == 3 && nf == 3) {
+      IU_BINNED_LAUNCH(3, 3, false);
+    } else if (layout == 3 && nf == 4 && f64) {
+      IU_BINNED_LAUNCH(4, 3, true);
+    } else if (layout == 3 && nf == 4) {
+      IU_BINNED_LAUNCH(4, 3, false);
+    } else {
+      return (int)cudaErrorInvalidValue;
+    }
+#undef IU_BINNED_LAUNCH
+  }
+#undef IU_BINNED_KERNEL
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// Plain C entry points (bound with ctypes).  iu_cand_rows: a float32
+// table and queries, layout 0 quantized simplex, 1 f32 simplex, 2 quad;
+// iu_cand_rows_f64: a float64 grid's table and queries (layouts 1 and 2,
+// eps in double).  nf 3 or 4.  vroles: (n_vars,) device int32, the first
+// role column of each fused variable.  Returns the cudaError_t of the
+// launch.
+extern "C" int iu_cand_rows(const float* table, int W, const int* idx,
+                            const float* rq, int n_queries, int K, int nf,
+                            int layout, int id_role, int count_col, float eps,
+                            int ovf_base, float qinv, int n_vars,
+                            const int* vroles, int* out_id, int* out_aux,
+                            float* out_vals, void* stream) {
+  return cand_rows<float>(table, W, idx, rq, n_queries, K, nf, layout,
+                          id_role, count_col, eps, ovf_base, qinv, n_vars,
+                          vroles, out_id, out_aux, out_vals, stream);
+}
+
+extern "C" int iu_cand_rows_f64(const double* table, int W, const int* idx,
+                                const double* rq, int n_queries, int K,
+                                int nf, int layout, int id_role,
+                                int count_col, double eps, int ovf_base,
+                                int n_vars, const int* vroles, int* out_id,
+                                int* out_aux, double* out_vals,
+                                void* stream) {
+  return cand_rows<double>(table, W, idx, rq, n_queries, K, nf, layout,
+                           id_role, count_col, eps, ovf_base, 0.0f, n_vars,
+                           vroles, out_id, out_aux, out_vals, stream);
+}
+
 // Plain C entry points of the bin-ordered probe (bound with ctypes).  r:
 // (B, 3) queries, float32, or float64 where f64 is nonzero (the df-plane
 // rows only); bin_rmin, bin_inv_h: (3,) float32 on the device; nbx, nby,
-// nbz: the candidate bins per axis.
+// nbz: the candidate bins per axis.  The *_f64 entry points take a
+// float64 grid's queries, bin grid ((3,) float64) and rows.
 //
 // iu_cand_bin_pass: counts ((n_bins,) int32, zeroed by the caller) gets
 // the queries per bin, bin_out and rank_out ((B,) int32) each query's
@@ -592,18 +722,33 @@ extern "C" int iu_cand_bin_pass(const void* r, int f64, int n_queries,
                                 int nbx, int nby, int nbz, int* counts,
                                 int* bin_out, int* rank_out, void* stream) {
   if (n_queries <= 0) return (int)cudaSuccess;
-  const iu::BinGrid bins{bin_rmin, bin_inv_h, nbx, nby, nbz};
+  const iu::BinGrid<float> bins{bin_rmin, bin_inv_h, nbx, nby, nbz};
   const int blocks = (n_queries + kOrderThreads - 1) / kOrderThreads;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (f64) {
-    cand_bin_pass_kernel<double><<<blocks, kOrderThreads, 0, s>>>(
+    cand_bin_pass_kernel<double, float><<<blocks, kOrderThreads, 0, s>>>(
         static_cast<const double*>(r), n_queries, bins, counts, bin_out,
         rank_out);
   } else {
-    cand_bin_pass_kernel<float><<<blocks, kOrderThreads, 0, s>>>(
+    cand_bin_pass_kernel<float, float><<<blocks, kOrderThreads, 0, s>>>(
         static_cast<const float*>(r), n_queries, bins, counts, bin_out,
         rank_out);
   }
+  return (int)cudaGetLastError();
+}
+
+extern "C" int iu_cand_bin_pass_f64(const double* r, int n_queries,
+                                    const double* bin_rmin,
+                                    const double* bin_inv_h, int nbx,
+                                    int nby, int nbz, int* counts,
+                                    int* bin_out, int* rank_out,
+                                    void* stream) {
+  if (n_queries <= 0) return (int)cudaSuccess;
+  const iu::BinGrid<double> bins{bin_rmin, bin_inv_h, nbx, nby, nbz};
+  const int blocks = (n_queries + kOrderThreads - 1) / kOrderThreads;
+  cand_bin_pass_kernel<double, double>
+      <<<blocks, kOrderThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+          r, n_queries, bins, counts, bin_out, rank_out);
   return (int)cudaGetLastError();
 }
 
@@ -630,6 +775,8 @@ extern "C" int iu_cand_bin_scatter(const int* bin, const int* rank,
 // the float32 lo parts of float32 queries, layout 3 only (null: zeros).
 // rec: (B, 2 + n_vars) int32 (layout 3: 2 + 2 n_vars), one record per
 // slot: id, aux, then the values' float bits (layout 3: hi, then lo).
+// iu_cand_rows_binned_f64: a float64 grid's rows (layouts 1 and 2),
+// queries and bin grid; rec (B, 2 + 2 n_vars), the values as doubles.
 extern "C" int iu_cand_rows_binned(const float* table, int W, const void* r,
                                    const float* r_lo, int f64,
                                    const int* perm, int n_queries, int lanes,
@@ -640,64 +787,30 @@ extern "C" int iu_cand_rows_binned(const float* table, int W, const void* r,
                                    int ovf_base, float qinv, int n_vars,
                                    const int* vroles, int* rec,
                                    void* stream) {
-  if (n_queries <= 0) return (int)cudaSuccess;
-  if (K <= 0 || n_vars < 0 || lanes < 1 || lanes > 32 ||
-      (lanes & (lanes - 1)) != 0) {
-    return (int)cudaErrorInvalidValue;
-  }
-  if (layout != 3 && (f64 || r_lo != nullptr)) {
-    return (int)cudaErrorInvalidValue;
-  }
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const iu::BinGrid bins{bin_rmin, bin_inv_h, nbx, nby, nbz};
-  const int log2_g = __builtin_ctz(lanes);
-  const long long threads = (long long)n_queries * lanes;
-  const int blocks = (int)((threads + kOrderThreads - 1) / kOrderThreads);
-  // 16-byte loads along the candidates when every role starts aligned
-  const bool vec = K % 4 == 0 && W % 4 == 0 &&
-                   reinterpret_cast<uintptr_t>(table) % 16 == 0;
-#define IU_BINNED_KERNEL(NF_, L_, V_, D_)                                     \
-  cand_rows_binned_kernel<NF_, L_, V_, D_><<<blocks, kOrderThreads, 0, s>>>(  \
-      table, W, r, r_lo, perm, n_queries, log2_g, bins, K, id_role,           \
-      count_col, eps, ovf_base, qinv, n_vars, vroles, rec)
-#define IU_BINNED_LAUNCH(NF_, L_, D_)        \
-  do {                                       \
-    if (vec) {                               \
-      IU_BINNED_KERNEL(NF_, L_, true, D_);   \
-    } else {                                 \
-      IU_BINNED_KERNEL(NF_, L_, false, D_);  \
-    }                                        \
-  } while (0)
-  if (layout == 0 && nf == 3) {
-    IU_BINNED_LAUNCH(3, 0, false);
-  } else if (layout == 0 && nf == 4) {
-    IU_BINNED_LAUNCH(4, 0, false);
-  } else if (layout == 1 && nf == 3) {
-    IU_BINNED_LAUNCH(3, 1, false);
-  } else if (layout == 1 && nf == 4) {
-    IU_BINNED_LAUNCH(4, 1, false);
-  } else if (layout == 2 && nf == 4) {
-    IU_BINNED_LAUNCH(4, 2, false);
-  } else if (layout == 3 && nf == 3 && f64) {
-    IU_BINNED_LAUNCH(3, 3, true);
-  } else if (layout == 3 && nf == 3) {
-    IU_BINNED_LAUNCH(3, 3, false);
-  } else if (layout == 3 && nf == 4 && f64) {
-    IU_BINNED_LAUNCH(4, 3, true);
-  } else if (layout == 3 && nf == 4) {
-    IU_BINNED_LAUNCH(4, 3, false);
-  } else {
-    return (int)cudaErrorInvalidValue;
-  }
-#undef IU_BINNED_LAUNCH
-#undef IU_BINNED_KERNEL
-  return (int)cudaGetLastError();
+  return cand_rows_binned<float>(table, W, r, r_lo, f64, perm, n_queries,
+                                 lanes, bin_rmin, bin_inv_h, nbx, nby, nbz, K,
+                                 nf, layout, id_role, count_col, eps,
+                                 ovf_base, qinv, n_vars, vroles, rec, stream);
+}
+
+extern "C" int iu_cand_rows_binned_f64(
+    const double* table, int W, const double* r, const int* perm,
+    int n_queries, int lanes, const double* bin_rmin,
+    const double* bin_inv_h, int nbx, int nby, int nbz, int K, int nf,
+    int layout, int id_role, int count_col, double eps, int ovf_base,
+    int n_vars, const int* vroles, int* rec, void* stream) {
+  return cand_rows_binned<double>(table, W, r, nullptr, 0, perm, n_queries,
+                                  lanes, bin_rmin, bin_inv_h, nbx, nby, nbz,
+                                  K, nf, layout, id_role, count_col, eps,
+                                  ovf_base, 0.0f, n_vars, vroles, rec,
+                                  stream);
 }
 
 // iu_cand_bin_unsort: the probe's records ((B, 2 + n_vars) int32 by
 // slot) back in query order through slot: out_id, out_aux (B,) int32,
-// out_vals (B, n_vars) float32 (the df-plane records: n_vars = 2V, hi
-// columns then lo).
+// out_vals (B, n_vars) 4-byte words (the df-plane records: n_vars = 2V,
+// hi columns then lo; a float64 grid's: n_vars = 2V, the words of V
+// doubles).
 extern "C" int iu_cand_bin_unsort(const int* rec, const int* slot,
                                   int n_queries, int n_vars, int* out_id,
                                   int* out_aux, float* out_vals,

@@ -44,6 +44,17 @@
 //
 // Plain PyTorch version: ops/interp_kernel.py:interpolate_bruteforce_plain,
 // whose rounding order this kernel follows (built with --fmad=false).
+//
+// The kernels are templates on the grid's type T: float
+// (iu_interp_bruteforce) and double (iu_interp_bruteforce_f64), a
+// float64 grid, the JAX package's float64 route (its XLA
+// _interpolate_bruteforce, ops/interp.py:281-292).  A double plane is
+// 32 bytes, so the whole table of bruteforce_max_cells = 1024 tets takes
+// 128 KB of the 227 KB a block may have, and the tiles of a larger one
+// hold half as many cells.  PTX has no NaN-propagating min and max for
+// double: min_nan and max_nan test for NaN themselves.  FP64 runs at
+// half the FP32 rate on the H100 (34 TFLOP/s), so the double kernel is
+// bound by operations as the float one is.
 
 #include <cuda_runtime.h>
 
@@ -52,22 +63,47 @@
 
 namespace {
 
-constexpr int kTableBytes = 64 * 1024;  // a block's shared plane table
+constexpr int kTableBytes = 64 * 1024;  // a block's shared plane tile
 constexpr int kMaxThreads = 512;
 
+// One face plane (nx, ny, nz, d) as kept in shared memory: a float4, or
+// four doubles in two 16-byte halves.
+struct alignas(16) double4a {
+  double x, y, z, w;
+};
+template <typename T>
+struct PlaneOf;
+template <>
+struct PlaneOf<float> {
+  using type = float4;
+};
+template <>
+struct PlaneOf<double> {
+  using type = double4a;
+};
+template <typename T>
+using Plane = typename PlaneOf<T>::type;
+
+// The largest plane table staged whole: kTableBytes of float planes, and
+// as many cells in double planes (bruteforce_max_cells = 1024 tets fit
+// either way).
+template <typename T>
+constexpr int kWholeBytes = kTableBytes / 4 * (int)sizeof(T);
+
+template <typename T>
 struct Args {
-  const float* normals;      // (C, NPC, 3) outward unit face normals
-  const float* offsets;      // (C, NPC) face offsets d
-  const float* cell_points;  // (C, NPC, 3)
-  const float* volume;       // (C,) area (2D) / signed volume (3D)
+  const T* normals;          // (C, NPC, 3) outward unit face normals
+  const T* offsets;          // (C, NPC) face offsets d
+  const T* cell_points;      // (C, NPC, 3)
+  const T* volume;           // (C,) area (2D) / signed volume (3D)
   const int* cells;          // (C, NPC) vertex ids
-  const float* point_data;   // (P, pd_stride)
+  const T* point_data;       // (P, pd_stride)
   int pd_stride;
   iu::VarSlots vars;         // point_data columns to interpolate
-  const float* r;            // (B, 3)
+  const T* r;                // (B, 3)
   int n_queries, n_cells;
-  float eps;
-  float* vals;               // (B, out_stride), columns [0, vars.n)
+  T eps;
+  T* vals;                   // (B, out_stride), columns [0, vars.n)
   int out_stride;
   int* ic;                   // (B,)
   unsigned char* found;      // (B,)
@@ -85,19 +121,36 @@ __device__ __forceinline__ float max_nan(float a, float b) {
   return m;
 }
 
-__device__ __forceinline__ float face_margin(float4 p, float rx, float ry,
-                                             float rz) {
+// NaN if either is NaN, else the least (greatest) of the two.
+__device__ __forceinline__ double min_nan(double a, double b) {
+  return (a != a || b != b) ? a + b : fmin(a, b);
+}
+
+__device__ __forceinline__ double max_nan(double a, double b) {
+  return (a != a || b != b) ? a + b : fmax(a, b);
+}
+
+__device__ __forceinline__ float neg_inf(float) {
+  return __int_as_float(0xff800000);
+}
+__device__ __forceinline__ double neg_inf(double) {
+  return __longlong_as_double(0xfff0000000000000ULL);
+}
+
+template <typename P, typename T>
+__device__ __forceinline__ T face_margin(P p, T rx, T ry, T rz) {
   return p.w - ((p.x * rx + p.y * ry) + p.z * rz);
 }
 
-__device__ __forceinline__ float4 plane(const Args& a, size_t face) {
-  return make_float4(a.normals[3 * face], a.normals[3 * face + 1],
-                     a.normals[3 * face + 2], a.offsets[face]);
+template <typename T>
+__device__ __forceinline__ Plane<T> plane(const Args<T>& a, size_t face) {
+  return Plane<T>{a.normals[3 * face], a.normals[3 * face + 1],
+                  a.normals[3 * face + 2], a.offsets[face]};
 }
 
 // Planes of cells [c0, c0 + nc) into shared memory, (nx, ny, nz, d).
-template <int NPC>
-__device__ __forceinline__ void stage(const Args& a, float4* sp, int c0,
+template <int NPC, typename T>
+__device__ __forceinline__ void stage(const Args<T>& a, Plane<T>* sp, int c0,
                                       int nc) {
   for (int i = threadIdx.x; i < nc * NPC; i += blockDim.x) {
     sp[i] = plane(a, (size_t)c0 * NPC + i);
@@ -105,10 +158,9 @@ __device__ __forceinline__ void stage(const Args& a, float4* sp, int c0,
 }
 
 // One cell's margin: the minimum over its faces, NaN first (as amin).
-template <int NPC>
-__device__ __forceinline__ float cell_margin(const float4* p, float rx,
-                                             float ry, float rz) {
-  float m = face_margin(p[0], rx, ry, rz);
+template <int NPC, typename P, typename T>
+__device__ __forceinline__ T cell_margin(const P* p, T rx, T ry, T rz) {
+  T m = face_margin(p[0], rx, ry, rz);
 #pragma unroll
   for (int f = 1; f < NPC; ++f) m = min_nan(m, face_margin(p[f], rx, ry, rz));
   return m;
@@ -116,20 +168,19 @@ __device__ __forceinline__ float cell_margin(const float4* p, float rx,
 
 // The margins of cells [c0, c0 + nc), planes in sp, for Q queries,
 // folded into each query's running best (bm, bi).
-template <int NPC, int Q>
-__device__ __forceinline__ void scan(const float4* __restrict__ sp, int c0,
-                                     int nc, const float (&rx)[Q],
-                                     const float (&ry)[Q],
-                                     const float (&rz)[Q], float (&bm)[Q],
-                                     int (&bi)[Q]) {
+template <int NPC, int Q, typename T>
+__device__ __forceinline__ void scan(const Plane<T>* __restrict__ sp, int c0,
+                                     int nc, const T (&rx)[Q],
+                                     const T (&ry)[Q], const T (&rz)[Q],
+                                     T (&bm)[Q], int (&bi)[Q]) {
 #pragma unroll 2
   for (int c = 0; c < nc; ++c) {
-    float4 p[NPC];
+    Plane<T> p[NPC];
 #pragma unroll
     for (int f = 0; f < NPC; ++f) p[f] = sp[c * NPC + f];
 #pragma unroll
     for (int j = 0; j < Q; ++j) {
-      const float m = cell_margin<NPC>(p, rx[j], ry[j], rz[j]);
+      const T m = cell_margin<NPC>(p, rx[j], ry[j], rz[j]);
       // m > best, or a NaN: once the best is NaN the index runs on, and
       // finish() looks up the first NaN cell
       bi[j] = !(m <= bm[j]) ? c0 + c : bi[j];
@@ -138,13 +189,13 @@ __device__ __forceinline__ void scan(const float4* __restrict__ sp, int c0,
   }
 }
 
-template <int NPC>
-__device__ int first_nan_cell(const Args& a, float rx, float ry, float rz) {
+template <int NPC, typename T>
+__device__ int first_nan_cell(const Args<T>& a, T rx, T ry, T rz) {
   for (int c = 0; c < a.n_cells; ++c) {
-    float4 p[NPC];
+    Plane<T> p[NPC];
 #pragma unroll
     for (int f = 0; f < NPC; ++f) p[f] = plane(a, (size_t)c * NPC + f);
-    const float m = cell_margin<NPC>(p, rx, ry, rz);
+    const T m = cell_margin<NPC>(p, rx, ry, rz);
     if (m != m) return c;
   }
   return 0;
@@ -152,34 +203,34 @@ __device__ int first_nan_cell(const Args& a, float rx, float ry, float rz) {
 
 // The verdict and the winner's interpolated values of query q.
 // cell_type: 0 triangle, 1 quad, 2 tetra.
-template <int NPC, int CT>
-__device__ __noinline__ void finish(const Args& a, int q, float rx, float ry,
-                                    float rz, float bm, int best) {
+template <int NPC, int CT, typename T>
+__device__ __noinline__ void finish(const Args<T>& a, int q, T rx, T ry,
+                                    T rz, T bm, int best) {
   if (bm != bm) best = first_nan_cell<NPC>(a, rx, ry, rz);
   const bool is_found = bm >= -a.eps;
-  const float* g = a.cell_points + (size_t)best * NPC * 3;
-  float v[NPC][3];
+  const T* g = a.cell_points + (size_t)best * NPC * 3;
+  T v[NPC][3];
 #pragma unroll
   for (int k = 0; k < NPC; ++k) {
 #pragma unroll
     for (int d = 0; d < 3; ++d) v[k][d] = g[3 * k + d];
   }
-  const float qr[3] = {rx, ry, rz};
-  float w[NPC];
+  const T qr[3] = {rx, ry, rz};
+  T w[NPC];
   if constexpr (CT == 0) {
-    float a2[3];
+    T a2[3];
     iu::triangle_areas2(v, qr, a2);
-    const float inv = 0.5f / a.volume[best];
+    const T inv = T(0.5) / a.volume[best];
 #pragma unroll
     for (int k = 0; k < 3; ++k) w[k] = a2[k] * inv;
   } else if constexpr (CT == 2) {
-    float t[4];
+    T t[4];
     iu::tetra_triples(v, qr, t);
-    const float inv = 1.0f / (6.0f * a.volume[best]);
+    const T inv = T(1) / (T(6) * a.volume[best]);
 #pragma unroll
     for (int k = 0; k < 4; ++k) w[k] = t[k] * inv;
   } else {
-    iu::quad_weights(v, qr, 8.0f * 1.1920928955078125e-07f, w);
+    iu::quad_weights(v, qr, iu::quad_rel_eps<T>(), w);
   }
 
   size_t row[NPC];
@@ -187,10 +238,10 @@ __device__ __noinline__ void finish(const Args& a, int q, float rx, float ry,
   for (int k = 0; k < NPC; ++k) {
     row[k] = (size_t)a.cells[(size_t)best * NPC + k] * a.pd_stride;
   }
-  float* out = a.vals + (size_t)q * a.out_stride;
+  T* out = a.vals + (size_t)q * a.out_stride;
   for (int iv = 0; iv < a.vars.n; ++iv) {
-    const float* pd = a.point_data + a.vars.s[iv];
-    float acc = w[0] * pd[row[0]];
+    const T* pd = a.point_data + a.vars.s[iv];
+    T acc = w[0] * pd[row[0]];
 #pragma unroll
     for (int k = 1; k < NPC; ++k) acc = acc + w[k] * pd[row[k]];
     out[iv] = acc;
@@ -201,18 +252,18 @@ __device__ __noinline__ void finish(const Args& a, int q, float rx, float ry,
 
 // Queries q0, q0 + step, ..., q0 + (Q - 1) * step (all in range) against
 // the whole table in sp.
-template <int NPC, int CT, int Q>
-__device__ __forceinline__ void run(const Args& a, const float4* sp,
+template <int NPC, int CT, int Q, typename T>
+__device__ __forceinline__ void run(const Args<T>& a, const Plane<T>* sp,
                                     long long q0, long long step) {
-  float rx[Q], ry[Q], rz[Q], bm[Q];
+  T rx[Q], ry[Q], rz[Q], bm[Q];
   int bi[Q];
 #pragma unroll
   for (int j = 0; j < Q; ++j) {
-    const float* rq = a.r + 3 * (q0 + j * step);
+    const T* rq = a.r + 3 * (q0 + j * step);
     rx[j] = rq[0];
     ry[j] = rq[1];
     rz[j] = rq[2];
-    bm[j] = __int_as_float(0xff800000);  // -inf
+    bm[j] = neg_inf(T(0));
     bi[j] = 0;
   }
   scan<NPC, Q>(sp, 0, a.n_cells, rx, ry, rz, bm, bi);
@@ -225,10 +276,11 @@ __device__ __forceinline__ void run(const Args& a, const float4* sp,
 
 // The whole plane table in shared memory, staged once; persistent blocks,
 // each thread its own queries.
-template <int NPC, int CT, int Q>
+template <int NPC, int CT, int Q, typename T>
 __global__ void __launch_bounds__(kMaxThreads)
-    whole_table_kernel(const __grid_constant__ Args a) {
-  extern __shared__ float4 sp[];
+    whole_table_kernel(const __grid_constant__ Args<T> a) {
+  extern __shared__ float4 smem[];
+  Plane<T>* sp = reinterpret_cast<Plane<T>*>(smem);
   stage<NPC>(a, sp, 0, a.n_cells);
   __syncthreads();
   const long long n = a.n_queries;
@@ -254,33 +306,34 @@ __global__ void __launch_bounds__(kMaxThreads)
   }
 }
 
-template <int NPC>
-constexpr int kTileCells = kTableBytes / (NPC * 16);
+template <int NPC, typename T>
+constexpr int kTileCells = kTableBytes / (NPC * (int)sizeof(Plane<T>));
 
-// A table larger than kTableBytes, in tiles: the block takes Q queries a
-// thread at a time and stages every tile for them.
-template <int NPC, int CT, int Q>
+// A table larger than kWholeBytes, in tiles of kTableBytes: the block
+// takes Q queries a thread at a time and stages every tile for them.
+template <int NPC, int CT, int Q, typename T>
 __global__ void __launch_bounds__(kMaxThreads)
-    tiled_kernel(const __grid_constant__ Args a) {
-  extern __shared__ float4 sp[];
+    tiled_kernel(const __grid_constant__ Args<T> a) {
+  extern __shared__ float4 smem[];
+  Plane<T>* sp = reinterpret_cast<Plane<T>*>(smem);
   const long long n = a.n_queries;
   const long long step = (long long)gridDim.x * blockDim.x * Q;
   for (long long base = (long long)blockIdx.x * blockDim.x * Q; base < n;
        base += step) {
-    float rx[Q], ry[Q], rz[Q], bm[Q];
+    T rx[Q], ry[Q], rz[Q], bm[Q];
     int bi[Q];
 #pragma unroll
     for (int j = 0; j < Q; ++j) {
       const long long q = base + (long long)j * blockDim.x + threadIdx.x;
-      const float* rq = a.r + 3 * (q < n ? q : 0);
+      const T* rq = a.r + 3 * (q < n ? q : 0);
       rx[j] = rq[0];
       ry[j] = rq[1];
       rz[j] = rq[2];
-      bm[j] = __int_as_float(0xff800000);  // -inf
+      bm[j] = neg_inf(T(0));
       bi[j] = 0;
     }
-    for (int c0 = 0; c0 < a.n_cells; c0 += kTileCells<NPC>) {
-      const int nc = min(kTileCells<NPC>, a.n_cells - c0);
+    for (int c0 = 0; c0 < a.n_cells; c0 += kTileCells<NPC, T>) {
+      const int nc = min(kTileCells<NPC, T>, a.n_cells - c0);
       __syncthreads();
       stage<NPC>(a, sp, c0, nc);
       __syncthreads();
@@ -296,12 +349,13 @@ __global__ void __launch_bounds__(kMaxThreads)
   }
 }
 
-template <int NPC, int CT, int Q>
-int launch(const Args& a, int threads, cudaStream_t stream) {
-  const bool whole = a.n_cells <= kTileCells<NPC>;
-  const int smem = (whole ? a.n_cells : kTileCells<NPC>) * NPC * 16;
-  void (*kern)(Args) = tiled_kernel<NPC, CT, Q>;
-  if (whole) kern = whole_table_kernel<NPC, CT, Q>;
+template <int NPC, int CT, int Q, typename T>
+int launch(const Args<T>& a, int threads, cudaStream_t stream) {
+  constexpr int kPlaneBytes = NPC * (int)sizeof(Plane<T>);
+  const bool whole = (long long)a.n_cells * kPlaneBytes <= kWholeBytes<T>;
+  const int smem = (whole ? a.n_cells : kTileCells<NPC, T>) * kPlaneBytes;
+  void (*kern)(Args<T>) = tiled_kernel<NPC, CT, Q, T>;
+  if (whole) kern = whole_table_kernel<NPC, CT, Q, T>;
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;
@@ -324,8 +378,8 @@ int launch(const Args& a, int threads, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
-template <int NPC, int CT>
-int launch_q(const Args& a, int q, int threads, cudaStream_t stream) {
+template <int NPC, int CT, typename T>
+int launch_q(const Args<T>& a, int q, int threads, cudaStream_t stream) {
   switch (q) {
     case 1:
       return launch<NPC, CT, 1>(a, threads, stream);
@@ -340,26 +394,19 @@ int launch_q(const Args& a, int q, int threads, cudaStream_t stream) {
   }
 }
 
-}  // namespace
-
-// Plain C entry point (bound with ctypes).  cell_type 0 triangle, 1
-// quad, 2 tetra; slots: host array of n_vars point_data columns (at most
-// iu::kMaxVarSlots); vals (B, out_stride) gets columns [0, n_vars).
-// q: queries a thread (1, 2, 4 or 8); threads: a block's threads (a
-// multiple of 32, at most 512).  Returns the cudaError_t of the launch.
-extern "C" int iu_interp_bruteforce(
-    const float* normals, const float* offsets, const float* cell_points,
-    const float* volume, const int* cells, const float* point_data,
-    int pd_stride, const int* slots, int n_vars, const float* r,
-    int n_queries, int n_cells, int cell_type, float eps, float* vals,
-    int out_stride, int* ic, unsigned char* found, int q, int threads,
-    void* stream) {
+template <typename T>
+int bruteforce(const T* normals, const T* offsets, const T* cell_points,
+               const T* volume, const int* cells, const T* point_data,
+               int pd_stride, const int* slots, int n_vars, const T* r,
+               int n_queries, int n_cells, int cell_type, T eps, T* vals,
+               int out_stride, int* ic, unsigned char* found, int q,
+               int threads, void* stream) {
   if (n_queries <= 0) return (int)cudaSuccess;
   if (n_cells <= 0 || n_vars < 0 || n_vars > iu::kMaxVarSlots ||
       threads < 32 || threads > kMaxThreads || threads % 32) {
     return (int)cudaErrorInvalidValue;
   }
-  Args a;
+  Args<T> a;
   a.normals = normals;
   a.offsets = offsets;
   a.cell_points = cell_points;
@@ -387,6 +434,41 @@ extern "C" int iu_interp_bruteforce(
     default:
       return (int)cudaErrorInvalidValue;
   }
+}
+
+}  // namespace
+
+// Plain C entry points (bound with ctypes): iu_interp_bruteforce for a
+// float32 grid and queries, iu_interp_bruteforce_f64 for float64 ones
+// (eps in double).  cell_type 0 triangle, 1 quad, 2 tetra; slots: host
+// array of n_vars point_data columns (at most iu::kMaxVarSlots); vals
+// (B, out_stride) gets columns [0, n_vars).  q: queries a thread (1, 2,
+// 4 or 8); threads: a block's threads (a multiple of 32, at most 512).
+// Returns the cudaError_t of the launch.
+extern "C" int iu_interp_bruteforce(
+    const float* normals, const float* offsets, const float* cell_points,
+    const float* volume, const int* cells, const float* point_data,
+    int pd_stride, const int* slots, int n_vars, const float* r,
+    int n_queries, int n_cells, int cell_type, float eps, float* vals,
+    int out_stride, int* ic, unsigned char* found, int q, int threads,
+    void* stream) {
+  return bruteforce<float>(normals, offsets, cell_points, volume, cells,
+                           point_data, pd_stride, slots, n_vars, r, n_queries,
+                           n_cells, cell_type, eps, vals, out_stride, ic,
+                           found, q, threads, stream);
+}
+
+extern "C" int iu_interp_bruteforce_f64(
+    const double* normals, const double* offsets, const double* cell_points,
+    const double* volume, const int* cells, const double* point_data,
+    int pd_stride, const int* slots, int n_vars, const double* r,
+    int n_queries, int n_cells, int cell_type, double eps, double* vals,
+    int out_stride, int* ic, unsigned char* found, int q, int threads,
+    void* stream) {
+  return bruteforce<double>(normals, offsets, cell_points, volume, cells,
+                            point_data, pd_stride, slots, n_vars, r,
+                            n_queries, n_cells, cell_type, eps, vals,
+                            out_stride, ic, found, q, threads, stream);
 }
 
 extern "C" const char* iu_error_string(int code) {

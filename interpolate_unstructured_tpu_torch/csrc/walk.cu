@@ -55,11 +55,22 @@
 // and 40 for NF = 3, no spills, so 5 and 6 blocks of 256 threads, 1280
 // and 1536 of an SM's 2048 threads, are resident.  Plain PyTorch
 // version: ops/walk_kernel.py:get_cell_walk_plain.
+//
+// Both kernels are templates on the rows' type T, instantiated for float
+// (iu_walk, iu_get_cell_walk) and for double, a float64 grid's rows
+// (iu_walk_f64, iu_get_cell_walk_f64), the JAX package's float64 route
+// (its XLA walk loop, ops/locate.py:146-327).  A float64 walk row is 64
+// doubles, the same 512 bytes, read with 16-byte loads as double2; the
+// seed bin_pack row is 4 doubles; the tolerances come in as doubles.
+// On the H100 FP64 runs at half the FP32 rate (34 TFLOP/s), and a round
+// reads twice the bytes, still one dependent row read a round, so the
+// double walk is bound by the same latency.
 
 #include <cuda_runtime.h>
 
 #include "bins.cuh"
 #include "walk.cuh"
+#include "wkern.cuh"
 
 namespace {
 
@@ -68,15 +79,14 @@ constexpr int kGetCellThreads = 256;
 
 // Unit direction and length of the walk from p to r (degenerate walks,
 // shorter than tiny, stay put), in _walk_args' rounding order.
-__device__ __forceinline__ void walk_direction(float px, float py, float pz,
-                                               float rx, float ry, float rz,
-                                               float tiny, float& ux,
-                                               float& uy, float& uz,
-                                               iu::WalkState& s) {
-  const float dx = rx - px, dy = ry - py, dz = rz - pz;
-  const float total = sqrtf((dx * dx + dy * dy) + dz * dz);
+template <typename T>
+__device__ __forceinline__ void walk_direction(T px, T py, T pz, T rx, T ry,
+                                               T rz, T tiny, T& ux, T& uy,
+                                               T& uz, iu::WalkState<T>& s) {
+  const T dx = rx - px, dy = ry - py, dz = rz - pz;
+  const T total = iu::sqrt_t((dx * dx + dy * dy) + dz * dz);
   const bool degenerate = total < tiny;
-  const float d = degenerate ? 1.0f : total;
+  const T d = degenerate ? T(1) : total;
   ux = dx / d;
   uy = dy / d;
   uz = dz / d;
@@ -89,59 +99,90 @@ __device__ __forceinline__ void walk_direction(float px, float py, float pz,
   s.active = !degenerate;
 }
 
-// Columns [4 * C0, 4 * C1) of a 16-byte aligned row, as float4 loads.
-template <int C0, int C1>
-__device__ __forceinline__ void load_cols(const float* __restrict__ row,
-                                          float (&out)[4 * (C1 - C0)]) {
-  const float4* row4 = reinterpret_cast<const float4*>(row);
+// One 16-byte load: 4 floats or 2 doubles.
+__device__ __forceinline__ void load16(const float* __restrict__ p,
+                                       float* out) {
+  const float4 v = __ldg(reinterpret_cast<const float4*>(p));
+  out[0] = v.x;
+  out[1] = v.y;
+  out[2] = v.z;
+  out[3] = v.w;
+}
+
+__device__ __forceinline__ void load16(const double* __restrict__ p,
+                                       double* out) {
+  const double2 v = __ldg(reinterpret_cast<const double2*>(p));
+  out[0] = v.x;
+  out[1] = v.y;
+}
+
+// Elements of T in one 16-byte load.
+template <typename T>
+constexpr int kVec = 16 / (int)sizeof(T);
+
+// Columns [kVec * C0, kVec * C1) of a 16-byte aligned row, as 16-byte
+// loads.
+template <int C0, int C1, typename T>
+__device__ __forceinline__ void load_cols(const T* __restrict__ row,
+                                          T (&out)[kVec<T> * (C1 - C0)]) {
 #pragma unroll
   for (int c = C0; c < C1; ++c) {
-    const float4 v = __ldg(row4 + c);
-    out[4 * (c - C0) + 0] = v.x;
-    out[4 * (c - C0) + 1] = v.y;
-    out[4 * (c - C0) + 2] = v.z;
-    out[4 * (c - C0) + 3] = v.w;
+    load16(row + kVec<T> * c, out + kVec<T> * (c - C0));
   }
 }
 
-template <int NF>
-__device__ __forceinline__ void walk_rounds(const float* __restrict__ table,
+template <int NF, typename T>
+__device__ __forceinline__ void walk_rounds(const T* __restrict__ table,
                                             int n_rows, int W, int n_max,
-                                            float ux, float uy, float uz,
-                                            float nudge, float eps_arrive,
-                                            float big, iu::WalkState& s) {
-  constexpr int kChunks = (NF * 5 + 3) / 4;
+                                            T ux, T uy, T uz, T nudge,
+                                            T eps_arrive, T big,
+                                            iu::WalkState<T>& s) {
+  constexpr int L = kVec<T>;
+  constexpr int kChunks = (NF * 5 + L - 1) / L;
   for (int n = 0; n < n_max && s.active; ++n) {
-    float g[4 * kChunks];
+    T g[L * kChunks];
     load_cols<0, kChunks>(table + (size_t)iu::clamp_row(s.ic, n_rows) * W, g);
     iu::walk_round_row<NF>(g, ux, uy, uz, nudge, eps_arrive, big, nullptr, 0,
                            s);
   }
 }
 
-template <int NF>
+// A seed bin's packed row (seed id as T | seed center xyz), 16-byte
+// aligned.
+__device__ __forceinline__ void seed_row(const float* __restrict__ pack,
+                                         int b, float (&g)[4]) {
+  load16(pack + 4 * (size_t)b, g);
+}
+
+__device__ __forceinline__ void seed_row(const double* __restrict__ pack,
+                                         int b, double (&g)[4]) {
+  load16(pack + 4 * (size_t)b, g);
+  load16(pack + 4 * (size_t)b + 2, g + 2);
+}
+
+template <int NF, typename T>
 __global__ void __launch_bounds__(kGetCellThreads)
-get_cell_walk_kernel(const float* __restrict__ table, int n_rows, int W,
-                     const float* __restrict__ r,
+get_cell_walk_kernel(const T* __restrict__ table, int n_rows, int W,
+                     const T* __restrict__ r,
                      const int* __restrict__ start,
-                     const float* __restrict__ bin_pack,
+                     const T* __restrict__ bin_pack,
                      const int* __restrict__ bin_table,
-                     iu::BinGrid bins, int n_queries, float nudge,
-                     float eps_arrive, float big, float tiny, int max_steps,
-                     int p1,
+                     iu::BinGrid<T> bins, int n_queries, T nudge,
+                     T eps_arrive, T big, T tiny, int max_steps, int p1,
                      int* __restrict__ out_ic,
                      unsigned char* __restrict__ out_found) {
   constexpr int NPC = NF;  // triangles, quads and tets
+  constexpr int L = kVec<T>;
   constexpr int V0 = NF * 5;  // vertex block [V0, V0 + NPC * 3)
-  constexpr int C0 = V0 / 4, C1 = (V0 + NPC * 3 + 3) / 4;
+  constexpr int C0 = V0 / L, C1 = (V0 + NPC * 3 + L - 1) / L;
   const int q = blockIdx.x * blockDim.x + threadIdx.x;
   if (q >= n_queries) return;
-  const float rx = r[3 * q + 0];
-  const float ry = r[3 * q + 1];
-  const float rz = r[3 * q + 2];
+  const T rx = r[3 * q + 0];
+  const T ry = r[3 * q + 1];
+  const T rz = r[3 * q + 2];
 
   int ic0 = start != nullptr ? start[q] : -1;
-  float ox = 0.0f, oy = 0.0f, oz = 0.0f;
+  T ox = T(0), oy = T(0), oz = T(0);
   if (start == nullptr ||
       (bin_table != nullptr && (ic0 < 0 || ic0 >= n_rows))) {
     int i, j, k;
@@ -149,20 +190,21 @@ get_cell_walk_kernel(const float* __restrict__ table, int n_rows, int W,
     const int b = iu::bin_flat(bins, i, j, k);
     if (start == nullptr) {
       // pure cold start: seed id and origin from one packed row
-      const float4 g = __ldg(reinterpret_cast<const float4*>(bin_pack) + b);
-      ic0 = (int)g.x;
-      ox = g.y;
-      oy = g.z;
-      oz = g.w;
+      T g[4];
+      seed_row(bin_pack, b, g);
+      ic0 = (int)g[0];
+      ox = g[1];
+      oy = g[2];
+      oz = g[3];
     } else {
       ic0 = bin_table[b];  // an out-of-range guess reseeds cold
     }
   }
   if (start != nullptr) {
     // the start cell's center, summed in vertex order
-    float v[4 * (C1 - C0)];
+    T v[L * (C1 - C0)];
     load_cols<C0, C1>(table + (size_t)iu::clamp_row(ic0, n_rows) * W, v);
-    constexpr int o = V0 - 4 * C0;
+    constexpr int o = V0 - L * C0;
     ox = v[o + 0];
     oy = v[o + 1];
     oz = v[o + 2];
@@ -172,13 +214,13 @@ get_cell_walk_kernel(const float* __restrict__ table, int n_rows, int W,
       oy = oy + v[o + 3 * k + 1];
       oz = oz + v[o + 3 * k + 2];
     }
-    ox = ox / (float)NPC;
-    oy = oy / (float)NPC;
-    oz = oz / (float)NPC;
+    ox = ox / (T)NPC;
+    oy = oy / (T)NPC;
+    oz = oz / (T)NPC;
   }
 
-  iu::WalkState s;
-  float ux, uy, uz;
+  iu::WalkState<T> s;
+  T ux, uy, uz;
   walk_direction(ox, oy, oz, rx, ry, rz, tiny, ux, uy, uz, s);
   s.ic = ic0;
   s.steps = 0;
@@ -195,25 +237,24 @@ get_cell_walk_kernel(const float* __restrict__ table, int n_rows, int W,
   out_found[q] = found ? 1 : 0;
 }
 
-template <int NF>
-__global__ void walk_kernel(const float* __restrict__ table, int n_rows,
-                            int W, const float* __restrict__ r0,
-                            const float* __restrict__ u,
-                            const float* __restrict__ total,
+template <int NF, typename T>
+__global__ void walk_kernel(const T* __restrict__ table, int n_rows, int W,
+                            const T* __restrict__ r0,
+                            const T* __restrict__ u,
+                            const T* __restrict__ total,
                             const unsigned char* __restrict__ active0,
                             const int* __restrict__ ic0,
                             const int* __restrict__ mask, int n_queries,
-                            float nudge, float eps_arrive, float big,
-                            int max_steps, int* __restrict__ out_ic,
-                            float* __restrict__ out_rp,
+                            T nudge, T eps_arrive, T big, int max_steps,
+                            int* __restrict__ out_ic, T* __restrict__ out_rp,
                             int* __restrict__ out_steps,
                             int* __restrict__ out_status) {
   const int q = blockIdx.x * blockDim.x + threadIdx.x;
   if (q >= n_queries) return;
-  const float ux = u[3 * q + 0];
-  const float uy = u[3 * q + 1];
-  const float uz = u[3 * q + 2];
-  iu::WalkState s;
+  const T ux = u[3 * q + 0];
+  const T uy = u[3 * q + 1];
+  const T uz = u[3 * q + 2];
+  iu::WalkState<T> s;
   s.px = r0[3 * q + 0];
   s.py = r0[3 * q + 1];
   s.pz = r0[3 * q + 2];
@@ -236,77 +277,49 @@ __global__ void walk_kernel(const float* __restrict__ table, int n_rows,
   out_status[q] = s.active ? iu::kStatusStepCap : s.status;
 }
 
-template <int NF>
-void launch(const float* table, int n_rows, int W, const float* r0,
-            const float* u, const float* total, const unsigned char* active0,
-            const int* ic0, const int* mask, int n_queries, float nudge,
-            float eps_arrive, float big, int max_steps, int* out_ic,
-            float* out_rp, int* out_steps, int* out_status, cudaStream_t s) {
-  const int blocks = (n_queries + kThreads - 1) / kThreads;
-  walk_kernel<NF><<<blocks, kThreads, 0, s>>>(
-      table, n_rows, W, r0, u, total, active0, ic0, mask, n_queries, nudge,
-      eps_arrive, big, max_steps, out_ic, out_rp, out_steps, out_status);
-}
-
-}  // namespace
-
-// Plain C entry point (bound with ctypes).  table: (n_rows, W) float32
-// walk rows; r0, u, out_rp: (B, 3); total: (B,); active0: (B,) bool, the
-// lanes that walk (not degenerate); ic0: (B,) int32; mask: (n_rows,)
-// int32 per-cell mask values, or null for a walk without a mask; nf: 3
-// or 4.  Returns the cudaError_t of the launch.
-extern "C" int iu_walk(const float* table, int n_rows, int W, int nf,
-                       const float* r0, const float* u, const float* total,
-                       const unsigned char* active0, const int* ic0,
-                       const int* mask, int n_queries, float nudge,
-                       float eps_arrive, float big, int max_steps,
-                       int* out_ic, float* out_rp,
-                       int* out_steps, int* out_status, void* stream) {
+template <typename T>
+int walk_launch(const T* table, int n_rows, int W, int nf, const T* r0,
+                const T* u, const T* total, const unsigned char* active0,
+                const int* ic0, const int* mask, int n_queries, T nudge,
+                T eps_arrive, T big, int max_steps, int* out_ic, T* out_rp,
+                int* out_steps, int* out_status, void* stream) {
   if (n_queries <= 0) return (int)cudaSuccess;
   if (n_rows <= 0 || W < 5 * nf) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int blocks = (n_queries + kThreads - 1) / kThreads;
+#define IU_WALK(NF_)                                                         \
+  walk_kernel<NF_, T><<<blocks, kThreads, 0, s>>>(                           \
+      table, n_rows, W, r0, u, total, active0, ic0, mask, n_queries, nudge, \
+      eps_arrive, big, max_steps, out_ic, out_rp, out_steps, out_status)
   if (nf == 3) {
-    launch<3>(table, n_rows, W, r0, u, total, active0, ic0, mask, n_queries,
-              nudge, eps_arrive, big, max_steps, out_ic, out_rp, out_steps,
-              out_status, s);
+    IU_WALK(3);
   } else if (nf == 4) {
-    launch<4>(table, n_rows, W, r0, u, total, active0, ic0, mask, n_queries,
-              nudge, eps_arrive, big, max_steps, out_ic, out_rp, out_steps,
-              out_status, s);
+    IU_WALK(4);
   } else {
     return (int)cudaErrorInvalidValue;
   }
+#undef IU_WALK
   return (int)cudaGetLastError();
 }
 
-// Plain C entry point of get_cell's walk stage (bound with ctypes).
-// table: (n_rows, W) float32 walk rows, W a multiple of 4, 16-byte
-// aligned; r: (B, 3) queries; start: (B,) int32 start cells, or null for
-// a pure cold start from bin_pack ((n_bins, 4) float32: seed id | seed
-// center); bin_table: (n_bins,) int32 seeds that replace start cells
-// outside [0, n_rows), or null to take start as given; bin_rmin,
-// bin_inv_h: (3,) float32 on the device; p1: phase-1 rounds (0: one
-// phase of max_steps rounds).  out_ic: (B,) int32, out_found: (B,) bool.
-// Returns the cudaError_t of the launch.
-extern "C" int iu_get_cell_walk(const float* table, int n_rows, int W, int nf,
-                                const float* r, const int* start,
-                                const float* bin_pack, const int* bin_table,
-                                const float* bin_rmin, const float* bin_inv_h,
-                                int nbx, int nby, int nbz, int n_queries,
-                                float nudge, float eps_arrive, float big,
-                                float tiny, int max_steps, int p1,
-                                int* out_ic, unsigned char* out_found,
-                                void* stream) {
+template <typename T>
+int get_cell_walk_launch(const T* table, int n_rows, int W, int nf,
+                         const T* r, const int* start, const T* bin_pack,
+                         const int* bin_table, const T* bin_rmin,
+                         const T* bin_inv_h, int nbx, int nby, int nbz,
+                         int n_queries, T nudge, T eps_arrive, T big, T tiny,
+                         int max_steps, int p1, int* out_ic,
+                         unsigned char* out_found, void* stream) {
   if (n_queries <= 0) return (int)cudaSuccess;
-  if (n_rows <= 0 || W % 4 != 0 || W < 8 * nf || p1 < 0 ||
+  if (n_rows <= 0 || W % kVec<T> != 0 || W < 8 * nf || p1 < 0 ||
       (start == nullptr && bin_pack == nullptr)) {
     return (int)cudaErrorInvalidValue;
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const iu::BinGrid bins{bin_rmin, bin_inv_h, nbx, nby, nbz};
+  const iu::BinGrid<T> bins{bin_rmin, bin_inv_h, nbx, nby, nbz};
   const int blocks = (n_queries + kGetCellThreads - 1) / kGetCellThreads;
 #define IU_GET_CELL_WALK(NF_)                                               \
-  get_cell_walk_kernel<NF_><<<blocks, kGetCellThreads, 0, s>>>(             \
+  get_cell_walk_kernel<NF_, T><<<blocks, kGetCellThreads, 0, s>>>(          \
       table, n_rows, W, r, start, bin_pack, bin_table, bins, n_queries,      \
       nudge, eps_arrive, big, tiny, max_steps, p1, out_ic, out_found)
   if (nf == 3) {
@@ -318,4 +331,77 @@ extern "C" int iu_get_cell_walk(const float* table, int n_rows, int W, int nf,
   }
 #undef IU_GET_CELL_WALK
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// Plain C entry points (bound with ctypes).  table: (n_rows, W) walk
+// rows, float32 (iu_walk) or float64 (iu_walk_f64, with the positions,
+// directions, distances and tolerances in double); r0, u, out_rp: (B,
+// 3); total: (B,); active0: (B,) bool, the lanes that walk (not
+// degenerate); ic0: (B,) int32; mask: (n_rows,) int32 per-cell mask
+// values, or null for a walk without a mask; nf: 3 or 4.  Returns the
+// cudaError_t of the launch.
+extern "C" int iu_walk(const float* table, int n_rows, int W, int nf,
+                       const float* r0, const float* u, const float* total,
+                       const unsigned char* active0, const int* ic0,
+                       const int* mask, int n_queries, float nudge,
+                       float eps_arrive, float big, int max_steps,
+                       int* out_ic, float* out_rp,
+                       int* out_steps, int* out_status, void* stream) {
+  return walk_launch<float>(table, n_rows, W, nf, r0, u, total, active0, ic0,
+                            mask, n_queries, nudge, eps_arrive, big,
+                            max_steps, out_ic, out_rp, out_steps, out_status,
+                            stream);
+}
+
+extern "C" int iu_walk_f64(const double* table, int n_rows, int W, int nf,
+                           const double* r0, const double* u,
+                           const double* total, const unsigned char* active0,
+                           const int* ic0, const int* mask, int n_queries,
+                           double nudge, double eps_arrive, double big,
+                           int max_steps, int* out_ic, double* out_rp,
+                           int* out_steps, int* out_status, void* stream) {
+  return walk_launch<double>(table, n_rows, W, nf, r0, u, total, active0,
+                             ic0, mask, n_queries, nudge, eps_arrive, big,
+                             max_steps, out_ic, out_rp, out_steps, out_status,
+                             stream);
+}
+
+// Plain C entry points of get_cell's walk stage (bound with ctypes).
+// table: (n_rows, W) walk rows, float32 (iu_get_cell_walk) or float64
+// (iu_get_cell_walk_f64, every float argument in double), W * the
+// element size a multiple of 16 bytes, 16-byte aligned; r: (B, 3)
+// queries; start: (B,) int32 start cells, or null for a pure cold start
+// from bin_pack ((n_bins, 4): seed id | seed center); bin_table:
+// (n_bins,) int32 seeds that replace start cells outside [0, n_rows), or
+// null to take start as given; bin_rmin, bin_inv_h: (3,) on the device;
+// p1: phase-1 rounds (0: one phase of max_steps rounds).  out_ic: (B,)
+// int32, out_found: (B,) bool.  Returns the cudaError_t of the launch.
+extern "C" int iu_get_cell_walk(const float* table, int n_rows, int W, int nf,
+                                const float* r, const int* start,
+                                const float* bin_pack, const int* bin_table,
+                                const float* bin_rmin, const float* bin_inv_h,
+                                int nbx, int nby, int nbz, int n_queries,
+                                float nudge, float eps_arrive, float big,
+                                float tiny, int max_steps, int p1,
+                                int* out_ic, unsigned char* out_found,
+                                void* stream) {
+  return get_cell_walk_launch<float>(
+      table, n_rows, W, nf, r, start, bin_pack, bin_table, bin_rmin,
+      bin_inv_h, nbx, nby, nbz, n_queries, nudge, eps_arrive, big, tiny,
+      max_steps, p1, out_ic, out_found, stream);
+}
+
+extern "C" int iu_get_cell_walk_f64(
+    const double* table, int n_rows, int W, int nf, const double* r,
+    const int* start, const double* bin_pack, const int* bin_table,
+    const double* bin_rmin, const double* bin_inv_h, int nbx, int nby,
+    int nbz, int n_queries, double nudge, double eps_arrive, double big,
+    double tiny, int max_steps, int p1, int* out_ic,
+    unsigned char* out_found, void* stream) {
+  return get_cell_walk_launch<double>(
+      table, n_rows, W, nf, r, start, bin_pack, bin_table, bin_rmin,
+      bin_inv_h, nbx, nby, nbz, n_queries, nudge, eps_arrive, big, tiny,
+      max_steps, p1, out_ic, out_found, stream);
 }

@@ -8,7 +8,9 @@
 // (NF); only those NF*5 leading floats are read.  Every sum of three
 // products is taken as (x + y) + z, as the plain PyTorch version
 // (ops/walk_kernel.py:walk_plain) computes it; build with --fmad=false so
-// that nothing is contracted into an FMA.
+// that nothing is contracted into an FMA.  T is the walk rows' type:
+// float, or double for a float64 grid (the tracer's kernel, float32
+// only, takes float).
 #pragma once
 
 namespace iu {
@@ -19,9 +21,10 @@ constexpr int kStatusMaskChanged = 1;
 constexpr int kStatusStepCap = 2;
 
 // Per-query walk state kept in registers across rounds.
+template <typename T>
 struct WalkState {
-  float px, py, pz;  // current position r_p
-  float dist_left;   // distance left to the target along u
+  T px, py, pz;      // current position r_p
+  T dist_left;       // distance left to the target along u
   int ic;            // current cell
   int prev;          // cell left by the last continuing hop (-1: none)
   int status;        // kStatus* code of the last round
@@ -36,24 +39,22 @@ struct WalkState {
 // runner-up is taken instead (ops/locate.py:253-266 of the JAX package).
 // Returns the distance clamped at 0 and the neighbor across that face;
 // *hit is false when no face had path . n > 0.
-template <int NF>
-__device__ __forceinline__ float face_round(const float* __restrict__ row,
-                                            float ux, float uy, float uz,
-                                            float px, float py, float pz,
-                                            int prev, float big, int* ic_next,
-                                            bool* hit) {
-  float d1 = big, d2 = big;
+template <int NF, typename T>
+__device__ __forceinline__ T face_round(const T* __restrict__ row, T ux, T uy,
+                                        T uz, T px, T py, T pz, int prev,
+                                        T big, int* ic_next, bool* hit) {
+  T d1 = big, d2 = big;
   int n1 = -1, n2 = -1;
 #pragma unroll
   for (int f = 0; f < NF; ++f) {
-    const float nx = row[f * 3 + 0];
-    const float ny = row[f * 3 + 1];
-    const float nz = row[f * 3 + 2];
-    const float off = row[NF * 3 + f];
+    const T nx = row[f * 3 + 0];
+    const T ny = row[f * 3 + 1];
+    const T nz = row[f * 3 + 2];
+    const T off = row[NF * 3 + f];
     const int nbr = (int)row[NF * 4 + f];
-    const float pdn = (nx * ux + ny * uy) + nz * uz;
-    const float rpn = (nx * px + ny * py) + nz * pz;
-    const float dist = pdn > 0.0f ? (off - rpn) / pdn : big;
+    const T pdn = (nx * ux + ny * uy) + nz * uz;
+    const T rpn = (nx * px + ny * py) + nz * pz;
+    const T dist = pdn > T(0) ? (off - rpn) / pdn : big;
     if (dist < d1) {
       d2 = d1;
       n2 = n1;
@@ -65,10 +66,10 @@ __device__ __forceinline__ float face_round(const float* __restrict__ row,
     }
   }
   const bool backtrack = (n1 == prev) && (prev >= 0);
-  float face_dist = backtrack ? d2 : d1;
+  T face_dist = backtrack ? d2 : d1;
   *ic_next = backtrack ? n2 : n1;
-  *hit = face_dist < 0.5f * big;
-  return face_dist < 0.0f ? 0.0f : face_dist;  // never step backwards
+  *hit = face_dist < T(0.5) * big;
+  return face_dist < T(0) ? T(0) : face_dist;  // never step backwards
 }
 
 // Row index clamped into [0, n_rows), as an XLA gather clamps it.
@@ -82,17 +83,15 @@ __device__ __forceinline__ int clamp_row(int ic, int n_rows) {
 // With a per-cell mask column (mask != nullptr), a hop into a cell whose
 // value differs from mask0, the start cell's, stops on the face in that
 // cell with kStatusMaskChanged (the JAX package's ops/locate.py:279-308).
-template <int NF>
-__device__ __forceinline__ void walk_round_row(const float* row, float ux,
-                                               float uy, float uz,
-                                               float nudge, float eps_arrive,
-                                               float big,
+template <int NF, typename T>
+__device__ __forceinline__ void walk_round_row(const T* row, T ux, T uy, T uz,
+                                               T nudge, T eps_arrive, T big,
                                                const int* __restrict__ mask,
-                                               int mask0, WalkState& s) {
+                                               int mask0, WalkState<T>& s) {
   int ic_next;
   bool hit;
-  const float face_dist = face_round<NF>(row, ux, uy, uz, s.px, s.py, s.pz,
-                                         s.prev, big, &ic_next, &hit);
+  const T face_dist = face_round<NF>(row, ux, uy, uz, s.px, s.py, s.pz,
+                                     s.prev, big, &ic_next, &hit);
   // Arrival is eps-tolerant: a target within eps_arrive past the exit
   // face still counts as arrived in the current cell.
   const bool crossing = hit && (s.dist_left - face_dist > eps_arrive);
@@ -102,7 +101,7 @@ __device__ __forceinline__ void walk_round_row(const float* row, float ux,
   const bool continuing = crossing && !out_of_domain && !mask_changed;
   // Continuing hops overshoot the face by `nudge`; terminating hops stay
   // exactly on it.  No face hit: stay put.
-  const float advance = face_dist + (continuing ? nudge : 0.0f);
+  const T advance = face_dist + (continuing ? nudge : T(0));
   if (hit) {
     s.px = s.px + advance * ux;
     s.py = s.py + advance * uy;
@@ -119,13 +118,12 @@ __device__ __forceinline__ void walk_round_row(const float* row, float ux,
 }
 
 // walk_round_row on the table row of the current cell, read in place.
-template <int NF>
-__device__ __forceinline__ void walk_round(const float* __restrict__ table,
-                                           int n_rows, int W, float ux,
-                                           float uy, float uz, float nudge,
-                                           float eps_arrive, float big,
+template <int NF, typename T>
+__device__ __forceinline__ void walk_round(const T* __restrict__ table,
+                                           int n_rows, int W, T ux, T uy,
+                                           T uz, T nudge, T eps_arrive, T big,
                                            const int* __restrict__ mask,
-                                           int mask0, WalkState& s) {
+                                           int mask0, WalkState<T>& s) {
   walk_round_row<NF>(table + (size_t)clamp_row(s.ic, n_rows) * W, ux, uy, uz,
                      nudge, eps_arrive, big, mask, mask0, s);
 }

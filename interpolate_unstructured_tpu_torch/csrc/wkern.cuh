@@ -1,6 +1,7 @@
 // Per-cell interpolation weight formulas, one definition for every
 // CUDA kernel of the port (brute-force interpolate, candidate-row
-// probe, and later the walk and tracer kernels).
+// probe, the tracer), templated on the scalar type T: float, or double
+// for a float64 grid.
 //
 // Operation for operation the same as ops/wkern.py (which ports the JAX
 // package's ops/wkern.py): triangle m_interp_unstructured.f90:529-551,
@@ -12,42 +13,64 @@
 
 namespace iu {
 
-__device__ __forceinline__ void cross_c(float ax, float ay, float az,
-                                        float bx, float by, float bz,
-                                        float& cx, float& cy, float& cz) {
+__device__ __forceinline__ float sqrt_t(float x) { return sqrtf(x); }
+__device__ __forceinline__ double sqrt_t(double x) { return sqrt(x); }
+__device__ __forceinline__ float abs_t(float x) { return fabsf(x); }
+__device__ __forceinline__ double abs_t(double x) { return fabs(x); }
+__device__ __forceinline__ float max_t(float a, float b) { return fmaxf(a, b); }
+__device__ __forceinline__ double max_t(double a, double b) {
+  return fmax(a, b);
+}
+
+// The quad weights' relative threshold, 8 * the type's machine epsilon
+// (ops/wkern.py:Plain.rel_eps).
+template <typename T>
+__host__ __device__ constexpr T quad_rel_eps();
+template <>
+__host__ __device__ constexpr float quad_rel_eps<float>() {
+  return 8.0f * 1.1920928955078125e-07f;
+}
+template <>
+__host__ __device__ constexpr double quad_rel_eps<double>() {
+  return 8.0 * 2.220446049250313e-16;
+}
+
+template <typename T>
+__device__ __forceinline__ void cross_c(T ax, T ay, T az, T bx, T by, T bz,
+                                        T& cx, T& cy, T& cz) {
   cx = ay * bz - az * by;
   cy = az * bx - ax * bz;
   cz = ax * by - ay * bx;
 }
 
-__device__ __forceinline__ float dot3_c(float ax, float ay, float az,
-                                        float bx, float by, float bz) {
+template <typename T>
+__device__ __forceinline__ T dot3_c(T ax, T ay, T az, T bx, T by, T bz) {
   return (ax * bx + ay * by) + az * bz;
 }
 
 // Twice the opposite sub-triangle areas |cross(q - v_j, q - v_k)| for
 // (j, k) = (1,2), (2,0), (0,1); callers normalize by the cell area.
-__device__ __forceinline__ void triangle_areas2(const float v[][3],
-                                                const float q[3],
-                                                float out[3]) {
+template <typename T>
+__device__ __forceinline__ void triangle_areas2(const T v[][3], const T q[3],
+                                                T out[3]) {
   const int jj[3] = {1, 2, 0};
   const int kk[3] = {2, 0, 1};
 #pragma unroll
   for (int i = 0; i < 3; ++i) {
     const int j = jj[i], k = kk[i];
-    float ex = q[0] - v[j][0], ey = q[1] - v[j][1], ez = q[2] - v[j][2];
-    float fx = q[0] - v[k][0], fy = q[1] - v[k][1], fz = q[2] - v[k][2];
-    float cx, cy, cz;
+    T ex = q[0] - v[j][0], ey = q[1] - v[j][1], ez = q[2] - v[j][2];
+    T fx = q[0] - v[k][0], fy = q[1] - v[k][1], fz = q[2] - v[k][2];
+    T cx, cy, cz;
     cross_c(ex, ey, ez, fx, fy, fz, cx, cy, cz);
-    out[i] = sqrtf(dot3_c(cx, cy, cz, cx, cy, cz));
+    out[i] = sqrt_t(dot3_c(cx, cy, cz, cx, cy, cz));
   }
 }
 
 // Signed scalar triple products; callers divide by 6 * volume.
-__device__ __forceinline__ void tetra_triples(const float v[][3],
-                                              const float q[3],
-                                              float out[4]) {
-  float v1r[3], v2r[3], e13[3], e12[3], e02[3], e03[3], e01[3];
+template <typename T>
+__device__ __forceinline__ void tetra_triples(const T v[][3], const T q[3],
+                                              T out[4]) {
+  T v1r[3], v2r[3], e13[3], e12[3], e02[3], e03[3], e01[3];
 #pragma unroll
   for (int d = 0; d < 3; ++d) {
     v1r[d] = q[d] - v[0][d];
@@ -58,7 +81,7 @@ __device__ __forceinline__ void tetra_triples(const float v[][3],
     e03[d] = v[3][d] - v[0][d];
     e01[d] = v[1][d] - v[0][d];
   }
-  float cx, cy, cz;
+  T cx, cy, cz;
   cross_c(e13[0], e13[1], e13[2], e12[0], e12[1], e12[2], cx, cy, cz);
   out[0] = dot3_c(v2r[0], v2r[1], v2r[2], cx, cy, cz);
   cross_c(e02[0], e02[1], e02[2], e03[0], e03[1], e03[2], cx, cy, cz);
@@ -71,11 +94,11 @@ __device__ __forceinline__ void tetra_triples(const float v[][3],
 
 // Inverse-bilinear quad weights, branch-free (see quad_weights_generic
 // in ops/wkern.py for the derivation).  v in the reference's
-// (1,2)-(4,3) vertex order; rel_eps = 8 * FLT_EPSILON.
-__device__ __forceinline__ void quad_weights(const float v[][3],
-                                             const float q[3],
-                                             float rel_eps, float out[4]) {
-  float qv[3], b1[3], b2[3], b3[3];
+// (1,2)-(4,3) vertex order; rel_eps = quad_rel_eps<T>().
+template <typename T>
+__device__ __forceinline__ void quad_weights(const T v[][3], const T q[3],
+                                             T rel_eps, T out[4]) {
+  T qv[3], b1[3], b2[3], b3[3];
 #pragma unroll
   for (int d = 0; d < 3; ++d) {
     qv[d] = q[d] - v[0][d];
@@ -83,41 +106,40 @@ __device__ __forceinline__ void quad_weights(const float v[][3],
     b2[d] = v[3][d] - v[0][d];
     b3[d] = ((v[0][d] - v[1][d]) - v[3][d]) + v[2][d];
   }
-  const float qa = b2[0] * b3[1] - b2[1] * b3[0];
-  const float qb = (b3[0] * qv[1] - b3[1] * qv[0]) -
-                   (b1[0] * b2[1] - b1[1] * b2[0]);
-  const float qc = b1[0] * qv[1] - b1[1] * qv[0];
-  const float disc = qb * qb - 4.0f * (qa * qc);
-  const float root = sqrtf(disc < 0.0f ? 0.0f : disc);
+  const T qa = b2[0] * b3[1] - b2[1] * b3[0];
+  const T qb = (b3[0] * qv[1] - b3[1] * qv[0]) -
+               (b1[0] * b2[1] - b1[1] * b2[0]);
+  const T qc = b1[0] * qv[1] - b1[1] * qv[0];
+  const T disc = qb * qb - T(4) * (qa * qc);
+  const T root = sqrt_t(disc < T(0) ? T(0) : disc);
 
-  const bool pos = qb >= 0.0f;
-  const float qq = -0.5f * (qb + (pos ? root : -root));
-  const bool tiny_qa = fabsf(qa) <= rel_eps * fabsf(qb);
+  const bool pos = qb >= T(0);
+  const T qq = T(-0.5) * (qb + (pos ? root : -root));
+  const bool tiny_qa = abs_t(qa) <= rel_eps * abs_t(qb);
   const bool linear = pos && tiny_qa;
-  const float qa_safe = tiny_qa ? 1.0f : qa;
-  const float qb_safe = !(fabsf(qb) > 0.0f) ? 1.0f : qb;
-  const float qq_safe = (qq == 0.0f) ? 1.0f : qq;
-  const float mu = linear ? (-qc) / qb_safe
-                          : (pos ? qq / qa_safe : qc / qq_safe);
+  const T qa_safe = tiny_qa ? T(1) : qa;
+  const T qb_safe = !(abs_t(qb) > T(0)) ? T(1) : qb;
+  const T qq_safe = (qq == T(0)) ? T(1) : qq;
+  const T mu = linear ? (-qc) / qb_safe : (pos ? qq / qa_safe : qc / qq_safe);
 
-  float d3[3];
+  T d3[3];
 #pragma unroll
   for (int d = 0; d < 3; ++d) d3[d] = b1[d] + mu * b3[d];
-  const float a0 = fabsf(d3[0]), a1 = fabsf(d3[1]), a2 = fabsf(d3[2]);
+  const T a0 = abs_t(d3[0]), a1 = abs_t(d3[1]), a2 = abs_t(d3[2]);
   // First-occurrence maxloc over the 3 components (:628-632)
   const bool use0 = a0 >= a1;
-  const float d01 = use0 ? d3[0] : d3[1];
-  const float q01 = use0 ? qv[0] : qv[1];
-  const float b01 = use0 ? b2[0] : b2[1];
-  const bool use01 = fmaxf(a0, a1) >= a2;
-  float dd = use01 ? d01 : d3[2];
-  const float qd = use01 ? q01 : qv[2];
-  const float bd = use01 ? b01 : b2[2];
-  dd = (dd == 0.0f) ? 1.0f : dd;
-  const float lam = (qd - bd * mu) / dd;
+  const T d01 = use0 ? d3[0] : d3[1];
+  const T q01 = use0 ? qv[0] : qv[1];
+  const T b01 = use0 ? b2[0] : b2[1];
+  const bool use01 = max_t(a0, a1) >= a2;
+  T dd = use01 ? d01 : d3[2];
+  const T qd = use01 ? q01 : qv[2];
+  const T bd = use01 ? b01 : b2[2];
+  dd = (dd == T(0)) ? T(1) : dd;
+  const T lam = (qd - bd * mu) / dd;
 
-  const float il = 1.0f - lam;
-  const float im = 1.0f - mu;
+  const T il = T(1) - lam;
+  const T im = T(1) - mu;
   out[0] = il * im;
   out[1] = lam * im;
   out[2] = lam * mu;

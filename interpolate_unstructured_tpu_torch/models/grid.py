@@ -202,7 +202,9 @@ def build_grid(
       point_data/cell_data/icell_data: name -> 1D array registries.
       coord_scale_factor: optional scaling of coordinates (:858-860).
       dtype: float dtype of the grid; defaults to
-        ``torch.get_default_dtype()``.  CUDA kernels take float32 grids.
+        ``torch.get_default_dtype()``.  On the card the kernels of
+        both dtypes answer the queries (float64: B1, B2 and B3 in
+        double; accurate mode and the fused tracer take float32 grids).
       locate_mode: "auto" picks brute force for meshes of at most
         ``config.bruteforce_max_cells`` cells, walks (seeded by candidate
         rows, bins or the kd-tree) above.

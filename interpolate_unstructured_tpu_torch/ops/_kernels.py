@@ -11,7 +11,9 @@ with a plain C interface, bound with ``ctypes``:
 The library lands in ``build/kernels/`` at the repository root, named
 by a hash of the sources and flags, so a changed source rebuilds and an
 unchanged one loads at once.  ``--fmad=false`` keeps the kernels'
-rounding order equal to their plain PyTorch versions'.  The build runs
+rounding order equal to their plain PyTorch versions'.  The kernels of
+B1, B2 and B3 have a second entry point each for float64 grids
+(``*_f64``), whose scalars are passed as C doubles.  The build runs
 on first use, never at import; a failed build raises with nvcc's
 output.  ``nvcc -Xptxas -v`` output (registers, shared memory, spills)
 is kept beside the library as ``<lib>.log``.
@@ -38,6 +40,7 @@ NVCC_FLAGS = (
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_D = ctypes.c_double  # the scalars of a float64 grid's entry points
 _IP = ctypes.POINTER(ctypes.c_int)  # a host int array
 _DP = ctypes.POINTER(ctypes.c_double)  # a host double array
 # name -> (restype, argtypes) of every C entry point
@@ -47,10 +50,20 @@ _SIGNATURES = {
         [_P, _P, _P, _P, _P, _P, _I, _IP, _I, _P, _I, _I, _I, _F, _P, _I, _P,
          _P, _I, _I, _P],
     ),
+    "iu_interp_bruteforce_f64": (
+        _I,
+        [_P, _P, _P, _P, _P, _P, _I, _IP, _I, _P, _I, _I, _I, _D, _P, _I, _P,
+         _P, _I, _I, _P],
+    ),
     "iu_cand_rows": (
         _I,
         [_P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _F, _I, _P, _P,
          _P, _P, _P],
+    ),
+    "iu_cand_rows_f64": (
+        _I,
+        [_P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _D, _I, _I, _P, _P, _P,
+         _P, _P],
     ),
     "iu_interp_acc": (
         _I, [_P, _I, _P, _P, _P, _I, _I, _I, _IP, _I, _P, _P, _I, _I, _P],
@@ -60,19 +73,37 @@ _SIGNATURES = {
         [_P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _I, _F, _F, _F, _I, _P, _P,
          _P, _P, _P],
     ),
+    "iu_walk_f64": (
+        _I,
+        [_P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _I, _D, _D, _D, _I, _P, _P,
+         _P, _P, _P],
+    ),
     "iu_get_cell_walk": (
         _I,
         [_P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F,
          _F, _I, _I, _P, _P, _P],
     ),
+    "iu_get_cell_walk_f64": (
+        _I,
+        [_P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _D, _D, _D,
+         _D, _I, _I, _P, _P, _P],
+    ),
     "iu_cand_bin_pass": (
         _I, [_P, _I, _I, _P, _P, _I, _I, _I, _P, _P, _P, _P],
+    ),
+    "iu_cand_bin_pass_f64": (
+        _I, [_P, _I, _P, _P, _I, _I, _I, _P, _P, _P, _P],
     ),
     "iu_cand_bin_scatter": (_I, [_P, _P, _P, _I, _P, _P, _P]),
     "iu_cand_rows_binned": (
         _I,
         [_P, _I, _P, _P, _I, _P, _I, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I,
          _I, _F, _I, _F, _I, _P, _P, _P],
+    ),
+    "iu_cand_rows_binned_f64": (
+        _I,
+        [_P, _I, _P, _P, _I, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _D,
+         _I, _I, _P, _P, _P],
     ),
     "iu_cand_bin_unsort": (_I, [_P, _P, _I, _I, _P, _P, _P, _P]),
     "iu_trace_loop": (

@@ -33,6 +33,14 @@ launches, ``bin_pass_launches``, ``bin_scatter_launches`` and
 ``bin_unsort_launches`` those of the bin-ordered front end (both row
 kinds), ``binned_launches`` the probe in bin order of the f32 layouts and
 ``df_launches`` that of the df-plane rows.
+
+A float64 grid's rows ("simplex" and "quad" in float64, never quantized)
+take the same direct kernel, bin pass, probe and unsort, instantiated for
+double (the ``*_f64`` entry points, scalars as C doubles): the bin pass
+bins the float64 queries in double against the grid's float64 origin and
+inverse sizes, and a record carries each double value as two int32
+words, which the unsort moves as it moves any word.  They count in the
+same counters.
 """
 
 from __future__ import annotations
@@ -319,15 +327,17 @@ def cand_rows_df_plain(table, r, r_lo, rmin, inv_h, shape, lay, eps,
 
 
 def cand_rows_cuda(table, idx, rq, lay, eps, ovf_base):
-    """Launch B2's direct kernel on CUDA tensors: float32 table, int32
-    idx, float32 rq.  The kernel reads each query's row from the table
+    """Launch B2's direct kernel on CUDA tensors: a float32 or float64
+    table (float64: "simplex" or "quad" rows), int32 idx, rq of the
+    table's dtype.  The kernel reads each query's row from the table
     itself.  Returns (id_best, aux, values)."""
     global launches
     if lay.kind not in ("quantized", "simplex", "quad"):
         raise ValueError(f"{lay.kind!r} rows are probed in bin order")
-    if table.dtype != torch.float32 or rq.dtype != torch.float32:
+    _check_table(table, lay)
+    if rq.dtype != table.dtype:
         raise TypeError(
-            "the CUDA candidate kernel takes float32 tables and queries, "
+            "the CUDA candidate kernel takes queries of the table's dtype, "
             f"got {table.dtype} / {rq.dtype}"
         )
     if idx.dtype != torch.int32:
@@ -352,17 +362,20 @@ def cand_rows_cuda(table, idx, rq, lay, eps, ovf_base):
     vroles = _var_roles(lay.var_roles, dev)
     out_id = torch.empty(b, dtype=torch.int32, device=dev)
     out_aux = torch.empty(b, dtype=torch.int32, device=dev)
-    vals = torch.empty((b, n_vars), dtype=torch.float32, device=dev)
+    vals = torch.empty((b, n_vars), dtype=table.dtype, device=dev)
     if b == 0:
         return out_id, out_aux, vals
-    with torch.cuda.device(dev):
-        code = _kernels.lib().iu_cand_rows(
-            table.data_ptr(), table.shape[1], idx.data_ptr(), rq.data_ptr(),
+    args = (table.data_ptr(), table.shape[1], idx.data_ptr(), rq.data_ptr(),
             b, lay.k, lay.nf, _KIND_CODE[lay.kind], lay.id_role,
-            lay.count_col, float(eps), int(ovf_base), QINV, n_vars,
-            vroles.data_ptr(), out_id.data_ptr(), out_aux.data_ptr(),
-            vals.data_ptr(), torch.cuda.current_stream().cuda_stream,
-        )
+            lay.count_col, float(eps), int(ovf_base))
+    outs = (n_vars, vroles.data_ptr(), out_id.data_ptr(),
+            out_aux.data_ptr(), vals.data_ptr(),
+            torch.cuda.current_stream().cuda_stream)
+    with torch.cuda.device(dev):
+        if table.dtype == torch.float64:
+            code = _kernels.lib().iu_cand_rows_f64(*args, *outs)
+        else:
+            code = _kernels.lib().iu_cand_rows(*args, QINV, *outs)
     _kernels.check(code, "iu_cand_rows")
     launches += 1
     return out_id, out_aux, vals
@@ -389,24 +402,31 @@ def binned_lanes(n_queries, n_bins):
     return 2 if n_queries >= 2 * n_bins else 4
 
 
-def _check_table(table):
-    if table.dtype != torch.float32:
-        raise TypeError(f"the CUDA candidate kernel takes float32 tables, got "
-                        f"{table.dtype}")
+def _check_table(table, lay):
+    """The kernels take float32 tables, and a float64 grid's "simplex"
+    and "quad" rows in float64."""
+    if table.dtype == torch.float32 or (
+            table.dtype == torch.float64 and lay.kind in ("simplex", "quad")):
+        return
+    raise TypeError(f"the CUDA candidate kernel takes float32 tables, or "
+                    f"float64 simplex and quad rows, got {table.dtype} "
+                    f"{lay.kind!r} rows")
 
 
 def _check_bins(r, rmin, inv_h, shape):
-    """Check the queries (float32, or float64) and bin grid of a
-    bin-ordered launch; returns the contiguous (r, rmin, inv_h) and the
-    number of bins."""
+    """Check the queries (float32, or float64) and bin grid (float32, or
+    float64 with float64 queries: a float64 grid's) of a bin-ordered
+    launch; returns the contiguous (r, rmin, inv_h) and the number of
+    bins."""
     if (r.dtype not in (torch.float32, torch.float64) or r.ndim != 2
             or r.shape[1] != 3):
         raise TypeError(f"queries must be float32 or float64 (B, 3), got "
                         f"{r.dtype} {tuple(r.shape)}")
     for t in (rmin, inv_h):
-        if t.dtype != torch.float32 or t.shape != (3,):
+        if t.dtype != rmin.dtype or t.shape != (3,) or not (
+                t.dtype == torch.float32 or t.dtype == r.dtype):
             raise ValueError("bin origin and inverse sizes must be float32 "
-                             "(3,)")
+                             "(3,), or float64 with float64 queries")
     if not r.device == rmin.device == inv_h.device:
         raise ValueError("queries and bin grid must share one device")
     n_bins = int(np.prod(shape))
@@ -417,8 +437,10 @@ def _check_bins(r, rmin, inv_h, shape):
 
 def bin_order_cuda(r, rmin, inv_h, shape):
     """Launch the bin pass and the scatter on CUDA tensors: (B, 3) float32
-    queries (or float64, binned by their float32 rounding), the (3,)
-    float32 bin origin and inverse sizes, the bins per axis.  Returns (idx (B,) int32 flat bins, ends (n_bins,) int32 the
+    queries (or float64, binned by their float32 rounding) with the (3,)
+    float32 bin origin and inverse sizes, or a float64 grid's float64
+    queries and bin grid (binned in double); the bins per axis.  Returns
+    (idx (B,) int32 flat bins, ends (n_bins,) int32 the
     inclusive scan of the queries per bin, perm (B,) int32: the queries
     grouped by bin, in ascending bin order, bin b in slots
     [ends[b - 1], ends[b]), in a bin in no fixed order; slot (B,) int32:
@@ -433,11 +455,16 @@ def bin_order_cuda(r, rmin, inv_h, shape):
     if b == 0:
         return idx, counts, perm, slot  # no query: the scan of the counts is 0
     stream = torch.cuda.current_stream(dev).cuda_stream
+    outs = (counts.data_ptr(), idx.data_ptr(), rank.data_ptr(), stream)
     with torch.cuda.device(dev):
-        code = _kernels.lib().iu_cand_bin_pass(
-            r.data_ptr(), int(r.dtype == torch.float64), b, rmin.data_ptr(),
-            inv_h.data_ptr(), *shape,
-            counts.data_ptr(), idx.data_ptr(), rank.data_ptr(), stream)
+        if rmin.dtype == torch.float64:
+            code = _kernels.lib().iu_cand_bin_pass_f64(
+                r.data_ptr(), b, rmin.data_ptr(), inv_h.data_ptr(), *shape,
+                *outs)
+        else:
+            code = _kernels.lib().iu_cand_bin_pass(
+                r.data_ptr(), int(r.dtype == torch.float64), b,
+                rmin.data_ptr(), inv_h.data_ptr(), *shape, *outs)
         _kernels.check(code, "iu_cand_bin_pass")
         bin_pass_launches += 1
         ends = torch.cumsum(counts, 0, dtype=torch.int32)
@@ -453,7 +480,8 @@ def cand_rows_binned_cuda(table, r, perm, slot, rmin, inv_h, shape, lay, eps,
                           ovf_base, lanes=None, r_lo=None):
     """Launch the probe in bin order and the unsort on CUDA tensors:
     float32 table (one row per bin) and (B, 3) queries ``r`` (the kernel
-    computes their bins and, for quantized rows, their local frame);
+    computes their bins and, for quantized rows, their local frame), or a
+    float64 grid's float64 table, queries and bin grid;
     ``perm`` and ``slot`` the int32 grouping of the queries by bin and its
     inverse (:func:`bin_order_cuda`).  A group of ``lanes`` lanes (None:
     :func:`binned_lanes`) probes each query, in the order of ``perm``, and
@@ -467,7 +495,12 @@ def cand_rows_binned_cuda(table, r, perm, slot, rmin, inv_h, shape, lay, eps,
     if lay.kind not in ("quantized", "simplex", "quad", "qdf"):
         raise ValueError(f"unknown row kind {lay.kind!r}")
     r, rmin, inv_h, n_bins = _check_bins(r, rmin, inv_h, shape)
-    f64 = r.dtype == torch.float64
+    _check_table(table, lay)
+    grid64 = table.dtype == torch.float64  # a float64 grid's rows
+    if grid64 != (rmin.dtype == torch.float64):
+        raise TypeError("a float64 table takes a float64 bin grid, a float32 "
+                        "table a float32 one")
+    f64 = r.dtype == torch.float64 and not grid64
     if f64 and (not df or r_lo is not None):
         raise TypeError("float64 queries are taken by the df-plane rows only, "
                         "without r_lo")
@@ -479,7 +512,6 @@ def cand_rows_binned_cuda(table, r, perm, slot, rmin, inv_h, shape, lay, eps,
             raise ValueError("r and r_lo must share one device")
         r_lo = r_lo.contiguous()
     b = r.shape[0]
-    _check_table(table)
     for name, t in (("perm", perm), ("slot", slot)):
         if t.dtype != torch.int32 or t.shape != (b,):
             raise ValueError(f"{name} must be an int32 (B,) tensor")
@@ -498,24 +530,36 @@ def cand_rows_binned_cuda(table, r, perm, slot, rmin, inv_h, shape, lay, eps,
     perm, slot = perm.contiguous(), slot.contiguous()
     dev = table.device
     n_vars = len(lay.var_roles)
-    n_words = 2 * n_vars if df else n_vars  # values a record carries
+    # 4-byte words of values a record carries: hi and lo floats of the
+    # df-plane rows, the two words of a double
+    n_words = 2 * n_vars if df or grid64 else n_vars
     vroles = _var_roles(lay.var_roles, dev)
     out_id = torch.empty(b, dtype=torch.int32, device=dev)
     out_aux = torch.empty(b, dtype=torch.int32, device=dev)
-    vals = torch.empty((b, n_words), dtype=torch.float32, device=dev)
+    vals = torch.empty((b, n_vars if grid64 else n_words), dtype=table.dtype,
+                       device=dev)
     if b == 0:
         return out_id, out_aux, vals
     rec = torch.empty((b, 2 + n_words), dtype=torch.int32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
-        code = _kernels.lib().iu_cand_rows_binned(
-            table.data_ptr(), table.shape[1], r.data_ptr(),
-            None if r_lo is None else r_lo.data_ptr(), int(f64),
-            perm.data_ptr(), b, lanes, rmin.data_ptr(), inv_h.data_ptr(),
-            *shape, lay.k, lay.nf, _KIND_CODE[lay.kind], lay.id_role,
-            lay.count_col, float(eps), int(ovf_base), QINV, n_vars,
-            vroles.data_ptr(), rec.data_ptr(), stream,
-        )
+        if grid64:
+            code = _kernels.lib().iu_cand_rows_binned_f64(
+                table.data_ptr(), table.shape[1], r.data_ptr(),
+                perm.data_ptr(), b, lanes, rmin.data_ptr(), inv_h.data_ptr(),
+                *shape, lay.k, lay.nf, _KIND_CODE[lay.kind], lay.id_role,
+                lay.count_col, float(eps), int(ovf_base), n_vars,
+                vroles.data_ptr(), rec.data_ptr(), stream,
+            )
+        else:
+            code = _kernels.lib().iu_cand_rows_binned(
+                table.data_ptr(), table.shape[1], r.data_ptr(),
+                None if r_lo is None else r_lo.data_ptr(), int(f64),
+                perm.data_ptr(), b, lanes, rmin.data_ptr(), inv_h.data_ptr(),
+                *shape, lay.k, lay.nf, _KIND_CODE[lay.kind], lay.id_role,
+                lay.count_col, float(eps), int(ovf_base), QINV, n_vars,
+                vroles.data_ptr(), rec.data_ptr(), stream,
+            )
         _kernels.check(code, "iu_cand_rows_binned")
         if df:
             df_launches += 1
@@ -539,7 +583,7 @@ def cand_rows_binned_query(table, r, rmin, inv_h, shape, lay, eps, ovf_base,
     order (a query's result does not depend on the order).  Returns
     (id_best (B,) int32, aux (B,) int32, values (B, V)) in query order."""
     if table.device.type == "cuda":
-        _check_table(table)  # before the bin pass, which takes float64 r
+        _check_table(table, lay)  # before the bin pass
         _, _, perm, slot = bin_order_cuda(r, rmin, inv_h, shape)
         return cand_rows_binned_cuda(table, r, perm, slot, rmin, inv_h, shape,
                                      lay, eps, ovf_base)
@@ -560,7 +604,7 @@ def cand_rows_df_query(table, r, r_lo, rmin, inv_h, shape, lay, eps,
     the plain version, :func:`cand_rows_df_plain`.  Returns (id_best,
     aux, vals_hi (B, V), vals_lo (B, V)) in query order."""
     if table.device.type == "cuda":
-        _check_table(table)
+        _check_table(table, lay)
         _, _, perm, slot = bin_order_cuda(r, rmin, inv_h, shape)
         id_best, aux, vals = cand_rows_binned_cuda(
             table, r, perm, slot, rmin, inv_h, shape, lay, eps, ovf_base,

@@ -7,7 +7,8 @@ then the winner's tri/tet/quad weights contracted with its vertex
 values (m_interp_unstructured.f90:412-527).
 
 :func:`interpolate_bruteforce` launches the CUDA kernel
-(``csrc/interp_bruteforce.cu``) on CUDA tensors and runs
+(``csrc/interp_bruteforce.cu``, for a float32 grid or, through its
+double entry point, a float64 one) on CUDA tensors and runs
 :func:`interpolate_bruteforce_plain`, the plain PyTorch version, on CPU
 tensors.  ``launches`` counts kernel launches.  The kernel reads the
 grid's own tensors (face planes, winner geometry, point data), so a
@@ -24,11 +25,18 @@ from .interp import _static_slots, _weights_from_geometry
 launches = 0
 
 # Queries a thread and threads a block of the kernel, from the sweep of
-# tools/b1_b5_sweep.py on the smoke's three meshes (PERF.md §6)
+# tools/b1_b5_sweep.py on the smoke's three meshes (PERF.md §6).  The
+# double kernel takes 4 queries a thread: at 8 its 512 threads a block
+# cap it at 128 registers and it spills (nvcc -Xptxas -v on sm_90a).
 QUERIES_PER_THREAD = 8
+QUERIES_PER_THREAD_F64 = 4
 THREADS = 512
 
 _CELL_TYPE_CODE = {"triangle": 0, "quad": 1, "tetra": 2}
+# the kernel's entry point by the grid's dtype (a float64 grid's takes a
+# C double eps)
+_ENTRY = {torch.float32: "iu_interp_bruteforce",
+          torch.float64: "iu_interp_bruteforce_f64"}
 
 
 def _payload(grid, i_vars):
@@ -100,16 +108,17 @@ def _var_columns(grid, i_vars):
     return cols
 
 
-def interpolate_bruteforce_cuda(grid, r, i_vars, *, q=QUERIES_PER_THREAD,
-                                threads=THREADS):
-    """Launch B1 on CUDA tensors (float32 grid and queries).  ``q`` and
-    ``threads`` are the kernel's queries a thread and threads a block,
-    for the sweep; callers keep the defaults."""
+def interpolate_bruteforce_cuda(grid, r, i_vars, *, q=None, threads=THREADS):
+    """Launch B1 on CUDA tensors (a float32 or float64 grid, queries of
+    its dtype).  ``q`` and ``threads`` are the kernel's queries a thread
+    and threads a block, for the sweep; callers keep the defaults (``q``
+    None: QUERIES_PER_THREAD, or QUERIES_PER_THREAD_F64 for a float64
+    grid)."""
     global launches
-    if grid.dtype != torch.float32 or r.dtype != torch.float32:
+    if grid.dtype not in _ENTRY or r.dtype != grid.dtype:
         raise TypeError(
-            "the CUDA brute-force kernel takes float32 grids and queries, "
-            f"got {grid.dtype} / {r.dtype}"
+            "the CUDA brute-force kernel takes float32 or float64 grids "
+            f"with queries of their dtype, got {grid.dtype} / {r.dtype}"
         )
     if r.device != grid.device:
         raise ValueError(f"queries on {r.device}, grid on {grid.device}")
@@ -118,6 +127,9 @@ def interpolate_bruteforce_cuda(grid, r, i_vars, *, q=QUERIES_PER_THREAD,
     if grid.cells.dtype != torch.int32:
         raise TypeError(f"grid cells must be int32, got {grid.cells.dtype}")
     cols = _var_columns(grid, i_vars)
+    if q is None:
+        q = (QUERIES_PER_THREAD if grid.dtype == torch.float32
+             else QUERIES_PER_THREAD_F64)
     r = r.contiguous()
     normals, offsets, cell_points, volume, cells = (
         t.contiguous() for t in (grid.face_normals, grid.face_offsets,
@@ -127,21 +139,22 @@ def interpolate_bruteforce_cuda(grid, r, i_vars, *, q=QUERIES_PER_THREAD,
     if pd.stride(1) != 1:
         pd = pd.contiguous()
     b, n_vars = r.shape[0], len(cols)
-    vals = torch.empty((b, n_vars), dtype=torch.float32, device=r.device)
+    vals = torch.empty((b, n_vars), dtype=grid.dtype, device=r.device)
     ic = torch.empty(b, dtype=torch.int32, device=r.device)
     found = torch.empty(b, dtype=torch.bool, device=r.device)
     if b == 0:
         return vals, ic, found
-    lib = _kernels.lib()
+    fn = getattr(_kernels.lib(), _ENTRY[grid.dtype])
     with torch.cuda.device(r.device):
         stream = torch.cuda.current_stream().cuda_stream
         for g, slots, n in _kernels.var_slot_groups(cols):
-            code = lib.iu_interp_bruteforce(
+            code = fn(
                 normals.data_ptr(), offsets.data_ptr(),
                 cell_points.data_ptr(), volume.data_ptr(), cells.data_ptr(),
                 pd.data_ptr(), pd.stride(0), slots, n, r.data_ptr(), b,
                 grid.n_cells, _CELL_TYPE_CODE[grid.cell_type],
-                float(grid.config.eps_inside), vals.data_ptr() + 4 * g,
+                float(grid.config.eps_inside),
+                vals.data_ptr() + vals.element_size() * g,
                 n_vars, ic.data_ptr(), found.data_ptr(), q, threads, stream,
             )
             _kernels.check(code, "iu_interp_bruteforce")

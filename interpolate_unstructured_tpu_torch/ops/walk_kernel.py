@@ -13,7 +13,8 @@ cell whose mask value differs from the start cell's stops on the face
 with ``STATUS_MASK_CHANGED``, in that cell (:706-719).
 
 :func:`walk_rows` launches the CUDA kernel (``csrc/walk.cu``, one thread
-per query walking to its end) on CUDA tensors and runs
+per query walking to its end; float32, or float64 for a float64 grid,
+whose entry points take double tolerances) on CUDA tensors and runs
 :func:`walk_plain`, the plain PyTorch version (the round loop, rows
 gathered per round), on CPU tensors.  ``launches`` counts kernel
 launches.  It serves explicit walks: the public ``walk()``, masked
@@ -40,6 +41,22 @@ from ..utils.config import huge_distance, tiny_distance, walk_tolerances
 
 launches = 0  # launches of the explicit walk (walk_rows)
 get_cell_launches = 0  # launches of get_cell's walk stage (get_cell_walk)
+
+# the kernels' entry points by the rows' dtype: float32 rows take C float
+# tolerances, a float64 grid's rows C doubles
+_WALK_ENTRY = {torch.float32: "iu_walk", torch.float64: "iu_walk_f64"}
+_GET_CELL_ENTRY = {torch.float32: "iu_get_cell_walk",
+                   torch.float64: "iu_get_cell_walk_f64"}
+
+
+def _entry(entries, what, *tensors):
+    """The name of the entry point of ``entries`` for the dtype that every
+    one of ``tensors`` has; raises for any other dtype, or for a mix."""
+    dtypes = {t.dtype for t in tensors}
+    if len(dtypes) != 1 or next(iter(dtypes)) not in entries:
+        raise TypeError(f"the CUDA {what} takes float32 or float64 tensors "
+                        f"of one dtype, got {sorted(map(str, dtypes))}")
+    return entries[dtypes.pop()]
 
 STATUS_ARRIVED = 0
 STATUS_BOUNDARY = -1
@@ -142,23 +159,18 @@ def walk_plain(table, r0, u, total, active, ic0, nudge, eps_arrive, big,
 
 def walk_cuda(table, r0, u, total, active, ic0, nudge, eps_arrive, big,
               max_steps, nf, mask=None):
-    """Launch B3 on CUDA tensors: float32 table and positions, bool
-    ``active``, int32 ``ic0`` and ``mask`` (None: no mask).  One thread
-    per query walks to its end."""
+    """Launch B3 on CUDA tensors: a float32 or float64 table with
+    positions, directions and lengths of its dtype, bool ``active``, int32
+    ``ic0`` and ``mask`` (None: no mask).  One thread per query walks to
+    its end."""
     global launches
-    if table.dtype != torch.float32 or r0.dtype != torch.float32:
-        raise TypeError(
-            "the CUDA walk kernel takes float32 tables and positions, "
-            f"got {table.dtype} / {r0.dtype}"
-        )
     b = r0.shape[0]
     if not (r0.shape == u.shape == (b, 3) and total.shape == active.shape
             == ic0.shape == (b,)):
         raise ValueError(
             "walk inputs must be r0, u (B, 3) and total, active, ic0 (B,)"
         )
-    if u.dtype != torch.float32 or total.dtype != torch.float32:
-        raise TypeError("u and total must be float32")
+    entry = _entry(_WALK_ENTRY, "walk kernel", table, r0, u, total)
     if active.dtype != torch.bool or ic0.dtype != torch.int32:
         raise TypeError("active must be bool and ic0 int32")
     if len({t.device for t in (table, r0, u, total, active, ic0)}) != 1:
@@ -177,13 +189,13 @@ def walk_cuda(table, r0, u, total, active, ic0, nudge, eps_arrive, big,
     active, ic0 = active.contiguous(), ic0.contiguous()
     dev = table.device
     out_ic = torch.empty(b, dtype=torch.int32, device=dev)
-    out_rp = torch.empty((b, 3), dtype=torch.float32, device=dev)
+    out_rp = torch.empty((b, 3), dtype=table.dtype, device=dev)
     out_steps = torch.empty(b, dtype=torch.int32, device=dev)
     out_status = torch.empty(b, dtype=torch.int32, device=dev)
     if b == 0:
         return out_ic, out_rp, out_steps, out_status
     with torch.cuda.device(dev):
-        code = _kernels.lib().iu_walk(
+        code = getattr(_kernels.lib(), entry)(
             table.data_ptr(), table.shape[0], table.shape[1], nf,
             r0.data_ptr(), u.data_ptr(), total.data_ptr(), active.data_ptr(),
             ic0.data_ptr(), None if mask is None else mask.data_ptr(), b,
@@ -192,7 +204,7 @@ def walk_cuda(table, r0, u, total, active, ic0, nudge, eps_arrive, big,
             out_steps.data_ptr(), out_status.data_ptr(),
             torch.cuda.current_stream().cuda_stream,
         )
-    _kernels.check(code, "iu_walk")
+    _kernels.check(code, entry)
     launches += 1
     return out_ic, out_rp, out_steps, out_status
 
@@ -303,18 +315,16 @@ def _aligned(t):
 
 
 def get_cell_walk_cuda(grid, r, start, max_steps, p1):
-    """Launch ``get_cell_walk_kernel`` on CUDA tensors: float32 walk rows
-    (a width divisible by 4, 16-byte aligned) and queries, int32 start
+    """Launch ``get_cell_walk_kernel`` on CUDA tensors: float32 or float64
+    walk rows (16-byte aligned, a whole number of 16-byte words wide),
+    with queries, seed rows and bin grid of their dtype, and int32 start
     cells or None.  One thread per query, from its origin to (ic,
     found)."""
     global get_cell_launches
     table = grid.walk_table
     nf, npc = grid.n_faces_per_cell, grid.n_points_per_cell
-    if table.dtype != torch.float32 or r.dtype != torch.float32:
-        raise TypeError(
-            "the CUDA get_cell walk takes float32 walk rows and queries, "
-            f"got {table.dtype} / {r.dtype}"
-        )
+    entry = _entry(_GET_CELL_ENTRY, "get_cell walk", table, r, grid.bin_rmin,
+                   grid.bin_inv_h)
     b = r.shape[0]
     if r.ndim != 2 or r.shape[1] != 3:
         raise ValueError(f"queries must be (B, 3), got {tuple(r.shape)}")
@@ -327,29 +337,31 @@ def get_cell_walk_cuda(grid, r, start, max_steps, p1):
     if len({t.device for t in tensors}) != 1:
         raise ValueError("get_cell walk inputs must share one device")
     if (table.ndim != 2 or not table.is_contiguous() or table.shape[0] < 1
-            or table.shape[1] % 4 or not _aligned(table)):
+            or table.shape[1] * table.element_size() % 16
+            or not _aligned(table)):
         raise ValueError(
-            "walk rows must be a contiguous, non-empty (n, W) tensor with W "
-            "divisible by 4 and 16-byte aligned rows"
+            "walk rows must be a contiguous, non-empty (n, W) tensor with "
+            "16-byte aligned rows"
         )
     if nf not in (3, 4) or npc != nf or table.shape[1] < 8 * nf:
         raise ValueError(f"rows of width {table.shape[1]} hold no nf={nf} "
                          f"faces and npc={npc} vertices")
     if start is None:
         pack = grid.bin_pack
-        if (pack is None or pack.dtype != torch.float32
+        if (pack is None or pack.dtype != table.dtype
                 or pack.shape[1:] != (4,) or not pack.is_contiguous()
                 or not _aligned(pack)):
             raise ValueError("a cold start needs a contiguous, 16-byte "
-                             "aligned float32 (n_bins, 4) bin_pack")
+                             "aligned (n_bins, 4) bin_pack of the walk "
+                             "rows' dtype")
     bin_table = grid.bin_table
     if bin_table is not None:
         if bin_table.dtype != torch.int32:
             raise TypeError("bin_table must be int32")
         bin_table = bin_table.contiguous()
     for t in (grid.bin_rmin, grid.bin_inv_h):
-        if t.dtype != torch.float32 or t.shape != (3,):
-            raise ValueError("bin_rmin and bin_inv_h must be float32 (3,)")
+        if t.shape != (3,):
+            raise ValueError("bin_rmin and bin_inv_h must be (3,)")
     rmin, inv_h = grid.bin_rmin.contiguous(), grid.bin_inv_h.contiguous()
     r = r.contiguous()
     if start is not None:
@@ -359,14 +371,14 @@ def get_cell_walk_cuda(grid, r, start, max_steps, p1):
     out_found = torch.empty(b, dtype=torch.bool, device=dev)
     if b == 0:
         return out_ic, out_found
-    nudge, eps_arrive, big, tiny = _tolerances(grid, torch.float32)
+    nudge, eps_arrive, big, tiny = _tolerances(grid, table.dtype)
     nbx, nby, nbz = grid.bin_shape
 
     def ptr(t):
         return None if t is None else t.data_ptr()
 
     with torch.cuda.device(dev):
-        code = _kernels.lib().iu_get_cell_walk(
+        code = getattr(_kernels.lib(), entry)(
             table.data_ptr(), table.shape[0], table.shape[1], nf,
             r.data_ptr(), ptr(start),
             ptr(grid.bin_pack if start is None else None), ptr(bin_table),
@@ -375,7 +387,7 @@ def get_cell_walk_cuda(grid, r, start, max_steps, p1):
             int(max_steps), int(p1), out_ic.data_ptr(), out_found.data_ptr(),
             torch.cuda.current_stream().cuda_stream,
         )
-    _kernels.check(code, "iu_get_cell_walk")
+    _kernels.check(code, entry)
     get_cell_launches += 1
     return out_ic, out_found
 

@@ -35,6 +35,8 @@ kernel B4, one launch in which each line runs all its RK iterations
 advance the line's stage machine).  The generic path keeps a host loop
 over RK iterations: it walks each stage with kernel B3 on the trace
 table (``ops/locate.walk(..., table=)``) and interpolates in torch.  A
+float64 grid takes the generic path, as in the JAX package, its walks
+in B3's double instantiation.  A
 lane whose earlier sub-step failed (or that is done) aims its later
 walks at their own start, which makes them no-ops, so one pass through
 the body computes what the reference's goto-laden loop does.  Both paths
@@ -173,9 +175,6 @@ def integrate_along_field(
     if max_iterations is None:
         max_iterations = 50 * max_steps + 1000
     dtype, dev = grid.dtype, grid.device
-    if dev.type == "cuda" and dtype != torch.float32:
-        raise TypeError(
-            f"the tracer's CUDA kernels take float32 grids, got {dtype}")
     y0 = torch.as_tensor(y0).to(dtype=dtype, device=dev)
     if y0.ndim != 2 or y0.shape[1] != ndim + nvar:
         raise ValueError(f"y0 must have shape (B, {ndim + nvar})")

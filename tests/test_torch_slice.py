@@ -303,13 +303,35 @@ def test_cuda_slice_matches_cpu(cuda, mesh):
 
 @pytest.mark.cuda
 def test_cuda_rejects_float64(cuda):
-    for cell_type, gen, mode in (
-        ("tetra", BRUTE["tetra"][1], "auto"),
-        ("triangle", WALK["triangle"][1], "walk"),
+    """Float64 grids on the card (the name is from when the card refused
+    them): the brute-force grid launches B1's double kernel, the
+    candidate grid B2's, and both answer as the CPU does (ids and found
+    identical, values within 1e-13)."""
+    from interpolate_unstructured_tpu_torch.ops import (
+        cand_kernel,
+        interp_kernel,
+    )
+
+    for cell_type, gen, mode, counter in (
+        ("tetra", BRUTE["tetra"][1], "auto", (interp_kernel, "launches")),
+        ("triangle", WALK["triangle"][1], "walk",
+         (cand_kernel, "binned_launches")),
     ):
         pts, cells, nbrs = gen()
-        g = tiu.build_grid(pts, cells, nbrs, cell_type, dtype=torch.float64,
-                           point_data=_point_data(pts), locate_mode=mode,
-                           config=HOST, device=cuda)
-        with pytest.raises(TypeError, match="float32"):
-            tiu.interpolate_scalar_at(g, _queries(pts, 100), 0)
+        r = _queries(pts, 2000)
+        if cell_type != "tetra":
+            r[:, 2] = 0.0
+        out = []
+        for dev in ("cpu", cuda):
+            g = tiu.build_grid(pts, cells, nbrs, cell_type,
+                               dtype=torch.float64,
+                               point_data=_point_data(pts), locate_mode=mode,
+                               config=HOST, device=dev)
+            before = getattr(*counter)
+            out.append(tiu.interpolate_scalar_at(g, r, 0, fill_value=0.0))
+            torch.cuda.synchronize()
+            assert (getattr(*counter) > before) == (dev == cuda)
+        (cv, cic, cf), (gv, gic, gf) = out
+        assert gv.dtype == torch.float64 and cf.any() and not cf.all()
+        assert torch.equal(gf.cpu(), cf) and torch.equal(gic.cpu(), cic)
+        assert (gv.cpu() - cv).abs().max().item() <= 1e-13

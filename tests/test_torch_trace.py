@@ -440,7 +440,9 @@ def _assert_close_runs(ra, rb, max_steps):
 @pytest.mark.cuda
 def test_cuda_trace_launches_b4_and_rejects_float64(cuda):
     """float32 without a mask runs B4 on the card and gives the CPU's
-    answers; float64 raises (the kernels take float32)."""
+    answers; float64 (which the card once refused, hence the name) takes
+    the generic path, B3's double walks and no B4, with the CPU's
+    answers."""
     pts, cells, nbrs = meshgen.tet_box_mesh(6, 6, 6)
     fld = _field_3d(pts)
     pd = {"vx": fld[0], "vy": fld[1], "vz": fld[2]}
@@ -454,10 +456,17 @@ def test_cuda_trace_launches_b4_and_rejects_float64(cuda):
         torch.cuda.synchronize()
         assert (trace_kernel.launches > before) == (dev == cuda)
     _assert_close_runs(*out, TRACE_KW["max_steps"])
-    g64 = tiu.build_grid(pts, cells, nbrs, "tetra", point_data=pd,
-                         dtype=torch.float64, device=cuda)
-    with pytest.raises(TypeError, match="float32"):
-        tiu.integrate_along_field(g64, y0, (0, 1, 2), **TRACE_KW)
+    out = []
+    for dev in ("cpu", cuda):
+        g64 = tiu.build_grid(pts, cells, nbrs, "tetra", point_data=pd,
+                             dtype=torch.float64, device=dev)
+        before = trace_kernel.launches, walk_kernel.launches
+        out.append(tiu.integrate_along_field(g64, y0, (0, 1, 2), **TRACE_KW))
+        torch.cuda.synchronize()
+        assert trace_kernel.launches == before[0]
+        assert (walk_kernel.launches > before[1]) == (dev == cuda)
+    assert out[1].y.dtype == torch.float64
+    _assert_close_runs(*out, TRACE_KW["max_steps"])
 
 
 @pytest.mark.cuda
