@@ -9,8 +9,10 @@ card through its public entry points (``build_grid``, ``read_grid``,
 ``save_grid``, ``load_grid``, ``interpolate_scalar_at`` with and without
 a guess, ``prepare_accurate``, ``interpolate_at_acc``,
 ``interpolate_at_icell_acc``, ``add_point_data``,
-``integrate_along_field``, ``write_trace_vtk``), on float32 grids and
-then on float64 ones:
+``integrate_along_field``, ``write_trace_vtk``, and
+``parallel/sharding.py``'s ``make_mesh``, ``shard_batch``,
+``distribute_queries``, the ``sharded_*`` functions and
+``collect_results``), on float32 grids and then on float64 ones:
 
 1. builds the CUDA kernels from ``interpolate_unstructured_tpu_torch/csrc``
    into ``build/kernels/`` (set-up time; one nvcc process per source,
@@ -54,7 +56,24 @@ then on float64 ones:
    ``build_grid`` of the arrays), the walk and trace phases' grid.  The
    .vtu stores coordinates as Float32, as the reference's writer does,
    so the arrays are meshgen's points rounded to float32;
-5. accurate phase, ``bench.py``'s accurate protocol on the candidate
+5. sharded phase, ``parallel/sharding.py`` in the io phase's temporary
+   directory: ``sharded_interpolate_at`` in this process on two shards
+   of the card for the 750-tet brute-force mesh (B1), and on
+   ``make_mesh()`` and two shards for the 998k box's 10M cold and 10.1M
+   warm queries (the warm guesses the collected cold cells), each
+   torch.equal to the single-device call; then spawned ranks, two over
+   gloo on the card (6M and 4M of each batch) and one a card over NCCL,
+   each loading the io phase's ``box.binda`` and a checkpoint of the
+   walk grid with the helix field, running ``distribute_queries``, the
+   sharded cold, warm, ``get_cell``, both cell lookups, accurate mode
+   without and with df-plane rows (B5, B2-df) and a trace of 65,536
+   helix lines (B4), and ``collect_results`` of every output, each
+   collected array's sha256 equal to the single-device result's (the
+   trace's taken block by block as the ranks hold them: get_cell's
+   two-phase rule from 65,536 queries moves a start cell on a shared
+   face, which the phase counts); then ``examples/torch_port/0*.py`` in
+   subprocesses on the card;
+6. accurate phase, ``bench.py``'s accurate protocol on the candidate
    phase's grid: ``prepare_accurate`` (acc table, float64 plane solve,
    df-plane rows), 10M float64 queries from default_rng(2) cold (one
    df-plane row each: kernel B2-df in bin order, the bin pass, scatter,
@@ -64,7 +83,7 @@ then on float64 ones:
    the misses, then B5), gated at 1e-10; the cold call and the get_cell
    + B5 route timed in turns; then B5 through
    ``interpolate_at_icell_acc`` on the brute-force meshes;
-6. walk phase, ``bench.py``'s warm protocol on the same box without
+7. walk phase, ``bench.py``'s warm protocol on the same box without
    candidate tables, as the io phase read it (``read_grid``'s refine
    walks every seed bin center), 10M cold queries (bin-seeded walks), the
    same points
@@ -73,7 +92,7 @@ then on float64 ones:
    stage; that stage and the earlier composition it replaces
    (``walk_origin``, ``_walk_args``, two ``walk_cuda`` launches) timed
    in turns, and B3's explicit walk (``walk_rows``) on its own;
-7. trace phase, ``bench.py``'s ``trace_at_scale`` protocol on the walk
+8. trace phase, ``bench.py``'s ``trace_at_scale`` protocol on the walk
    phase's grid: the helical field (-(y-0.5), x-0.5, 0.25) added with
    ``add_point_data(..., fuse=False)``, ``build_trace_table`` once, then
    ``integrate_along_field`` (min_dx 1e-4, max_dx 0.05, 256 steps, rtol =
@@ -84,7 +103,7 @@ then on float64 ones:
    through the generic path (B3's explicit walks plus torch); the 1024
    lines' result written by ``write_trace_vtk`` and its points read
    back;
-8. float64 phase, once the float32 grids are freed: the brute-force
+9. float64 phase, once the float32 grids are freed: the brute-force
    meshes in float64 with the same 1M + 1% queries (B1 in double, torch.equal
    to the plain version, linear error at most 1e-14); the 998,250-tet box
    built in float64 (lists from D1 and D2; K = 7, no fused variable,
@@ -97,7 +116,7 @@ then on float64 ones:
    ``walk_rows``; a generic float64 trace of the helix, 1024 lines (B3's
    double walks, no B4), every field torch.equal to the same loop with
    the plain walks; the phase's peak device memory;
-9. holds each kernel against its plain PyTorch version on the same CUDA
+10. holds each kernel against its plain PyTorch version on the same CUDA
    tensors, checks linear exactness and found masks, and times kernel
    and plain version with CUDA events (B4 and B3's walks at the generic
    trace's size, whose launches are short beside the wrapper's host
@@ -2925,6 +2944,498 @@ def float64_phase(dev, tiu, meshgen, interp_kernel, locate, cand_kernel,
     return res
 
 
+SHARD_TRACE_N = TRACE_N[1]  # lines of the sharded trace
+SHARD_TIMEOUT_S = 600  # a group of ranks must end within this
+SHARD_OUT = {  # the sharded sequence's steps and their outputs
+    "cold": ("values", "i_cell", "found"),
+    "warm": ("values", "i_cell", "found"),
+    "get_cell": ("i_cell", "found"),
+    "cell_scalar": ("values", "i_cell", "found"),
+    "icell_scalar": ("values", "i_cell", "found"),
+    "acc_b5": ("vals_hi", "vals_lo", "found", "i_cell"),
+    "acc_df": ("vals_hi", "vals_lo", "found", "i_cell"),
+    "trace": ("y", "y_field", "n_steps", "boundary_material",
+              "n_iterations"),
+}
+
+
+def rank_block(n, rank, world):
+    """Rank's rows [lo, hi) of ``n``: unequal shares world + 1 - rank (6M
+    and 4M of 10M for two ranks)."""
+    w = np.arange(world + 1, 1, -1)
+    cuts = np.concatenate([[0], np.cumsum(w)]) * n // w.sum()
+    return int(cuts[rank]), int(cuts[rank + 1])
+
+
+def digest(a):
+    """[dtype, shape, sha256 of the bytes] of a host array or a tensor:
+    equal digests are equal arrays, bit for bit."""
+    import hashlib
+
+    if isinstance(a, torch.Tensor):
+        a = a.cpu().numpy()
+    a = np.ascontiguousarray(a)
+    return [str(a.dtype), list(a.shape),
+            hashlib.sha256(a.tobytes()).hexdigest()]
+
+
+def trace_seeds(n):
+    """The trace phase's seeds, in float32."""
+    return (0.3 + 0.4 * np.random.default_rng(3).random((n, 3))).astype(
+        np.float32)
+
+
+def with_cell_data(tiu, grid):
+    """The grid with the cell lookups' data: rho (cell data), mat (icell
+    data).  Returns (grid, i_rho, i_mat)."""
+    n = grid.n_cells
+    grid, icd = tiu.add_cell_data(grid, "rho", np.arange(n) + 0.5)
+    grid, iicd = tiu.add_icell_data(grid, "mat", 7 - np.arange(n))
+    return grid, icd, iicd
+
+
+def warm_guess(ic, n_warm):
+    """The warm queries' guesses: the cold cells, then those of the
+    queries pushed out of the box (the first ones, moved)."""
+    cat = torch.cat if isinstance(ic, torch.Tensor) else np.concatenate
+    return cat([ic, ic[:n_warm - ic.shape[0]]])
+
+
+def trace_blocks(tiu, helix, i_field, y0, world):
+    """The single-device trace of each rank's block of ``y0`` as the rank
+    holds it (padded with its last line to the largest block, as
+    distribute_queries pads for one card a rank), the valid lines
+    concatenated in rank order: the five batch fields.  Also the start
+    cells get_cell gives each padded block (the tracer's first call)."""
+    blocks = [rank_block(y0.shape[0], rank, world) for rank in range(world)]
+    per = max(hi - lo for lo, hi in blocks)
+    fields, cells = [], []
+    for lo, hi in blocks:
+        y = y0[lo:hi]
+        y = torch.cat([y, y[-1:].expand(per - (hi - lo), -1)])
+        res = tiu.integrate_along_field(helix, y, i_field, **TRACE_KW)
+        fields.append([x[:hi - lo] for x in res[:5]])
+        cells.append(tiu.get_cell(helix, y)[0][:hi - lo])
+    return [torch.cat(x) for x in zip(*fields)], torch.cat(cells)
+
+
+def trace_refs(tiu, helix, i_field, worlds, dev, card):
+    """{world: {"trace/<field>": digest}}: the single-device trace of
+    SHARD_TRACE_N helix lines taken block by block as ``world`` ranks
+    hold them.  get_cell on a walk grid walks in two phases from
+    walk_compact_min_batch queries on (the JAX package's rule), so a
+    block's start cells may differ from the whole batch's where a seed
+    lies on a face two cells share; the blocks of two ranks are held
+    against the whole batch: every field bit for bit, but the start
+    field y_field[:, 0] of the lines whose start cell differs, which
+    must agree to LIN_TOL_ICELL."""
+    y0 = torch.from_numpy(trace_seeds(SHARD_TRACE_N)).to(dev)
+    whole = tiu.integrate_along_field(helix, y0, i_field, **TRACE_KW)
+    refs = {}
+    for world in worlds:
+        fields, cells = trace_blocks(tiu, helix, i_field, y0, world)
+        refs[world] = {f"trace/{f}": digest(x)
+                       for f, x in zip(SHARD_OUT["trace"], fields)}
+        if world == 1:
+            continue
+        moved = cells != tiu.get_cell(helix, y0)[0]
+        for f, a, b in zip(SHARD_OUT["trace"], fields, whole):
+            if f == "y_field":
+                check(same_bits(a[:, 1:], b[:, 1:]), "trace blocks: y_field "
+                      "past the start differs from the whole batch's")
+                a, b = a[:, 0], b[:, 0]
+                differ = (a != b).any(1)
+                check(not bool((differ & ~moved).any()), "trace blocks: a "
+                      "start field differs where the start cell does not")
+                err = float((a - b).abs().max())
+                check(err <= LIN_TOL_ICELL, f"trace blocks: start fields "
+                      f"differ by {err}")
+            else:
+                check(same_bits(a, b), f"trace blocks: {f} differs from the "
+                      "whole batch's")
+        print(f"sharded trace reference, {world} blocks of "
+              f"{SHARD_TRACE_N} lines against the whole batch: "
+              f"{int(moved.sum())} start cells differ (seeds on a shared "
+              f"face; the whole batch walks in two phases, the blocks in "
+              f"one), {int(differ.sum())} start fields differ by at most "
+              f"{err:.3e}; every other field bit for bit [{card}]")
+    return refs
+
+
+def shard_refs(tiu, grid, r64, warm_r, dev):
+    """The single-device results of the sharded sequence's query steps on
+    the same inputs: {step/output: digest}."""
+    refs = {}
+
+    def keep(name, res):
+        for f, a in zip(SHARD_OUT[name], res):
+            refs[f"{name}/{f}"] = digest(a)
+
+    r = torch.from_numpy(r64.astype(np.float32)).to(dev)
+    rw = torch.from_numpy(warm_r).to(dev)
+    cold = tiu.interpolate_at(grid, r, [0])
+    keep("cold", cold)
+    guess = warm_guess(cold[1], rw.shape[0])
+    keep("warm", tiu.interpolate_at(grid, rw, [0], guess))
+    gc, icd, iicd = with_cell_data(tiu, grid)
+    keep("get_cell", tiu.get_cell(gc, rw, guess))
+    keep("cell_scalar", tiu.get_cell_scalar_at(gc, r, icd))
+    keep("icell_scalar", tiu.get_icell_scalar_at(gc, r, iicd))
+    del gc, cold, guess, rw
+    r = torch.from_numpy(r64).to(dev)
+    for name, build_df in (("acc_b5", False), ("acc_df", True)):
+        grid = tiu.prepare_accurate(grid, build_df=build_df)
+        keep(name, tiu.interpolate_at_acc(grid, r, (0,)))
+    return refs
+
+
+def shard_sequence(rank, world, tmp):
+    """One rank's sharded sequence: its unequal block of each batch
+    through distribute_queries, the sharded call, then collect_results of
+    every output; the warm guesses are the collected cold cells.  Returns
+    {"digests": {step/output: digest}, "ms": {step: {"call", "collect"}},
+    "counts": {step: launches}, "n_rounds", "peak_gb", "device"}."""
+    import os
+
+    import interpolate_unstructured_tpu_torch as tiu
+    from interpolate_unstructured_tpu_torch.ops import (
+        acc_kernel,
+        cand_kernel,
+        trace_kernel,
+        walk_kernel,
+    )
+    from interpolate_unstructured_tpu_torch.parallel import sharding as ps
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    counters = (cand_kernel, walk_kernel, trace_kernel, acc_kernel)
+    mesh = ps.make_mesh()
+    with open(os.path.join(tmp, "shard_inputs.json")) as f:
+        meta = json.load(f)
+    r64 = np.load(os.path.join(tmp, "r64.npy"), mmap_mode="r")
+    warm_r = np.load(os.path.join(tmp, "warm_r.npy"), mmap_mode="r")
+
+    def block(a):
+        lo, hi = rank_block(a.shape[0], rank, world)
+        return np.array(a[lo:hi])
+
+    grid = tiu.load_grid(os.path.join(tmp, "box.binda"), device=dev)
+    helix = tiu.load_grid(os.path.join(tmp, "walk_helix.binda"),
+                          config=tiu.IUConfig(**meta["walk_config"]),
+                          device=dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    out = {"digests": {}, "ms": {}, "counts": {}, "device": str(dev)}
+
+    def step(name, fn, local_b):
+        t0 = time.perf_counter()
+        res, counts = main_path(fn, counters)
+        call_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        got = [ps.collect_results(x, local_b)
+               for x in res[:len(SHARD_OUT[name])]]
+        out["ms"][name] = {"call": call_ms,
+                           "collect": (time.perf_counter() - t0) * 1e3}
+        out["counts"][name] = {k: v for k, v in counts.items() if v}
+        for f, a in zip(SHARD_OUT[name], got):
+            out["digests"][f"{name}/{f}"] = digest(a)
+        return res, got
+
+    r_sh, b = ps.distribute_queries(block(r64).astype(np.float32), mesh)
+    interp = ps.sharded_interpolate_at(mesh)
+    g = ps.replicate_grid(grid, mesh)
+    _, cold = step("cold", lambda: interp(g, r_sh, [0]), b)
+    w_sh, bw = ps.distribute_queries(block(warm_r), mesh)
+    guess, _ = ps.distribute_queries(
+        block(warm_guess(cold[1], warm_r.shape[0])), mesh)
+    step("warm", lambda: interp(g, w_sh, [0], guess), bw)
+    gc, icd, iicd = with_cell_data(tiu, grid)
+    gc = ps.replicate_grid(gc, mesh)
+    step("get_cell", lambda: ps.sharded_get_cell(mesh)(gc, w_sh, guess), bw)
+    step("cell_scalar",
+         lambda: ps.sharded_get_cell_scalar_at(mesh)(gc, r_sh, icd), b)
+    step("icell_scalar",
+         lambda: ps.sharded_get_icell_scalar_at(mesh)(gc, r_sh, iicd), b)
+    del g, gc, w_sh, guess
+    r_sh, _ = ps.distribute_queries(block(r64), mesh)
+    acc = ps.sharded_interpolate_at_acc(mesh)
+    for name, build_df in (("acc_b5", False), ("acc_df", True)):
+        grid = tiu.prepare_accurate(grid, build_df=build_df)
+        g = ps.replicate_grid(grid, mesh)
+        step(name, lambda: acc(g, r_sh, [0]), b)
+    del grid, g, r_sh
+    y_sh, by = ps.distribute_queries(block(trace_seeds(SHARD_TRACE_N)), mesh)
+    h = ps.replicate_grid(helix, mesh)
+    tracer = ps.sharded_trace(mesh, **TRACE_KW)
+    res, _ = step("trace", lambda: tracer(h, y_sh, meta["i_field"]), by)
+    out["n_rounds"] = int(res.n_rounds)
+    out["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+    return out
+
+
+def shard_rank(rank, world, backend, port, tmp):
+    """One rank: its card, the process group, the sequence; the report
+    goes to ``tmp/shard_<backend>_<rank>.json``."""
+    import os
+
+    import torch.distributed as dist
+
+    torch.cuda.set_device(rank % torch.cuda.device_count())
+    dist.init_process_group(backend, init_method=f"tcp://127.0.0.1:{port}",
+                            world_size=world, rank=rank)
+    try:
+        out = shard_sequence(rank, world, tmp)
+    finally:
+        dist.destroy_process_group()
+    with open(os.path.join(tmp, f"shard_{backend}_{rank}.json"), "w") as f:
+        json.dump(out, f)
+
+
+def free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def run_ranks(world, backend, tmp):
+    """Spawn ``world`` ranks of :func:`shard_rank` and wait for them all.
+    A rank that fails, or ranks still running after SHARD_TIMEOUT_S,
+    raise, and every rank still running is stopped.  Returns (the ranks'
+    reports, seconds)."""
+    import os
+
+    t0 = time.perf_counter()
+    ctx = torch.multiprocessing.start_processes(
+        shard_rank, args=(world, backend, free_port(), tmp), nprocs=world,
+        join=False, start_method="spawn")
+    try:
+        while not ctx.join(timeout=5):
+            check(time.perf_counter() - t0 < SHARD_TIMEOUT_S,
+                  f"{backend} ranks still running after {SHARD_TIMEOUT_S} s")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.terminate()
+            p.join()
+    reports = []
+    for rank in range(world):
+        with open(os.path.join(tmp, f"shard_{backend}_{rank}.json")) as f:
+            reports.append(json.load(f))
+    return reports, time.perf_counter() - t0
+
+
+def in_process_shards(ps, label, mesh, grid, args, b, refs, counters):
+    """sharded_interpolate_at(mesh)(grid's copies, *args), counted, its
+    outputs collected (trimmed to ``b``) and held against ``refs`` bit for
+    bit.  Returns (ms of that call, steady ms, launches, the outputs)."""
+    grid_r = ps.replicate_grid(grid, mesh)
+    call = ps.sharded_interpolate_at(mesh)
+    t0 = time.perf_counter()
+    res, counts = main_path(lambda: call(grid_r, *args), counters)
+    ms = (time.perf_counter() - t0) * 1e3
+    for f, x, want in zip(SHARD_OUT["cold"], res, refs):
+        got = torch.from_numpy(ps.collect_results(x, b))
+        check(same_bits(got, want.cpu()), f"sharded {label}: {f} differs "
+              "from the single-device call")
+    steady = steady_s(lambda: call(grid_r, *args), 3) * 1e3
+    return ms, steady, counts, res
+
+
+def rank_launches(counts, kernels):
+    """B2, B3, B4 and B5 launches of a rank's report, summed over its
+    steps."""
+    cand_kernel, walk_kernel, trace_kernel, acc_kernel = kernels
+    ck, wk = cand_kernel.__name__, walk_kernel.__name__
+    total = {}
+    for c in counts.values():
+        add_counts(total, c)
+    return {
+        "B2 in bin order": total.get(f"{ck}:binned", 0),
+        "B2 direct": total.get(ck, 0),
+        "B2-df": total.get(f"{ck}:df", 0),
+        "B3 get_cell walk": total.get(f"{wk}:get_cell", 0),
+        "B3 walk_rows": total.get(wk, 0),
+        "B4": total.get(trace_kernel.__name__, 0),
+        "B5": total.get(acc_kernel.__name__, 0),
+    }
+
+
+def sharded_phase(dev, tiu, meshgen, cand_grid, walk_grid, counters, card,
+                  tmp):
+    """parallel/sharding.py on the card.  In this process,
+    sharded_interpolate_at on two shards of the card for the 750-tet
+    brute-force mesh (B1), and on make_mesh() and two shards for the
+    998k box's 10M cold and 10.1M warm queries; then the whole sharded
+    sequence in spawned ranks, two over gloo on one card and one a card
+    over NCCL, every collected result held against the single-device
+    call bit for bit; then the port's examples on the card."""
+    import os
+
+    from interpolate_unstructured_tpu_torch.parallel import sharding as ps
+
+    interp_kernel, cand_kernel, walk_kernel, acc_kernel, trace_kernel = counters
+    ck, gk = cand_kernel.__name__, f"{walk_kernel.__name__}:get_cell"
+    res = {"counts": {}}
+    torch.cuda.reset_peak_memory_stats()
+    two = ps.make_mesh([dev, dev])
+    meshes = {"make_mesh()": ps.make_mesh(), "two shards of cuda:0": two}
+    print(f"sharded: make_mesh() = {[str(d) for d in meshes['make_mesh()']]}"
+          f", {torch.cuda.device_count()} visible card(s) [{card}]")
+
+    # B1: the 750-tet brute-force mesh, 1M + 1% queries on two shards
+    cell_type, label, (pts, cells, nbrs) = bf_meshes(meshgen)[2]
+    g_bf = tiu.build_grid(pts, cells, nbrs, cell_type, dtype=torch.float32,
+                          point_data={"Polynomial": pts.sum(1) + 1.0},
+                          device=dev)
+    r = bf_queries(pts, np.random.default_rng(1), dev)
+    r_sh, b = ps.shard_batch(r, two)
+    ms, steady, counts, _ = in_process_shards(
+        ps, f"B1 {label}, two shards", two, g_bf, (r_sh, [0]), b,
+        tiu.interpolate_at(g_bf, r, [0]), counters)
+    check(counts[interp_kernel.__name__] >= 1, "sharded interpolation on "
+          "the brute-force mesh did not launch B1")
+    add_counts(res["counts"], counts)
+    print(f"sharded in process, B1 {label}: {r.shape[0]} queries on two "
+          f"shards torch.equal to the single-device call; the counted call "
+          f"{ms:.4f} ms, steady {steady:.4f} ms; launches "
+          + json.dumps({k: v for k, v in counts.items() if v}))
+    del g_bf, r, r_sh
+
+    # The 998k box: 10M cold, then 10.1M warm (1% outside) guessed by the
+    # cold cells, built as the candidate phase builds them
+    r64 = np.random.default_rng(2).random((N_CAND, 3))
+    r = torch.from_numpy(r64.astype(np.float32)).to(dev)
+    rng = np.random.default_rng(5)
+    vel = torch.from_numpy(rng.random((N_CAND, 3)).astype(np.float32)).to(dev)
+    r_in = 0.005 + 0.98 * r + 0.01 * vel
+    n_out = N_CAND // 100
+    r_out = r_in[:n_out].clone()
+    r_out[:, 1] = 1.01 + 0.5 * torch.from_numpy(
+        rng.random(n_out).astype(np.float32)).to(dev)
+    rw = torch.cat([r_in, r_out])
+    del vel, r_in, r_out
+    cold_ref = tiu.interpolate_at(cand_grid, r, [0])
+    guess = warm_guess(cold_ref[1], rw.shape[0])
+    warm_ref = tiu.interpolate_at(cand_grid, rw, [0], guess)
+    single = {
+        "cold_ms": steady_s(lambda: tiu.interpolate_at(cand_grid, r, [0]),
+                            3) * 1e3,
+        "warm_ms": steady_s(lambda: tiu.interpolate_at(
+            cand_grid, rw, [0], guess), 3) * 1e3}
+    res["in_process"] = {"single device": single}
+    for label, mesh in meshes.items():
+        r_sh, b = ps.shard_batch(r, mesh)
+        cold = in_process_shards(ps, f"10M cold, {label}", mesh, cand_grid,
+                                 (r_sh, [0]), b, cold_ref, counters)
+        check(cold[2][f"{ck}:binned"] >= 1, f"sharded cold queries on "
+              f"{label} did not launch B2 in bin order")
+        # the sharded cold cells, collected, are the warm guesses
+        ic = torch.from_numpy(ps.collect_results(cold[3][1], b)).to(dev)
+        rw_sh, bw = ps.shard_batch(rw, mesh)
+        g_sh, _ = ps.shard_batch(warm_guess(ic, rw.shape[0]), mesh)
+        warm = in_process_shards(ps, f"10.1M warm, {label}", mesh, cand_grid,
+                                 (rw_sh, [0], g_sh), bw, warm_ref, counters)
+        check(warm[2][gk] >= 1, f"sharded warm queries on {label} did not "
+              "launch get_cell's walk")
+        add_counts(res["counts"], cold[2])
+        add_counts(res["counts"], warm[2])
+        res["in_process"][label] = {"cold_ms": cold[1], "warm_ms": warm[1]}
+        print(f"sharded in process, {label} ({len(mesh)} shards): {N_CAND} "
+              f"cold and {rw.shape[0]} warm queries, values, cells and found "
+              f"masks torch.equal to the single-device calls; the counted "
+              f"calls {cold[0]:.4f} / {warm[0]:.4f} ms, steady "
+              f"{cold[1]:.4f} / {warm[1]:.4f} ms (single device, steady: "
+              f"{single['cold_ms']:.4f} / {single['warm_ms']:.4f} ms) [{card}]")
+        del r_sh, rw_sh, g_sh, ic, cold, warm
+    res["in_process_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    warm_r = rw.cpu().numpy()
+    del r, rw, cold_ref, warm_ref, guess
+
+    # The ranks' inputs: the queries, the helix walk grid's checkpoint
+    t0 = time.perf_counter()
+    np.save(os.path.join(tmp, "r64.npy"), r64)
+    np.save(os.path.join(tmp, "warm_r.npy"), warm_r)
+    helix = walk_grid
+    c = helix.points[:, :2] - 0.5
+    i_field = []
+    for name, v in zip(("vx", "vy", "vz"),
+                       (-c[:, 1], c[:, 0], torch.full_like(c[:, 0], 0.25))):
+        helix, i = tiu.add_point_data(helix, name, v, fuse=False)
+        i_field.append(i)
+    del c
+    path = os.path.join(tmp, "walk_helix.binda")
+    tiu.save_grid(helix, path)
+    check_same_grid("load_grid of the helix walk grid", helix,
+                    tiu.load_grid(path, config=helix.config, device=dev))
+    with open(os.path.join(tmp, "shard_inputs.json"), "w") as f:
+        json.dump({"i_field": i_field,
+                   "walk_config": dataclasses.asdict(helix.config)}, f)
+    refs = shard_refs(tiu, cand_grid, r64, warm_r, dev)
+    ranks = (("gloo", 2), ("nccl", torch.cuda.device_count()))
+    t_refs = trace_refs(tiu, helix, i_field, {w for _, w in ranks}, dev, card)
+    del helix, r64, warm_r
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    res["inputs_s"] = time.perf_counter() - t0
+    print(f"sharded: the ranks' inputs saved and the single-device "
+          f"references taken in {res['inputs_s']:.3f} s; this process's "
+          f"peak {res['in_process_peak_gb']:.3f} GB")
+
+    # The ranks: two over gloo on one card, then one a card over NCCL
+    kernels = (cand_kernel, walk_kernel, trace_kernel, acc_kernel)
+    res["ranks"] = {}
+    for backend, world in ranks:
+        reports, secs = run_ranks(world, backend, tmp)
+        want = {**refs, **t_refs[world]}
+        for rank, rep in enumerate(reports):
+            check(set(rep["digests"]) == set(want), f"{backend} rank {rank} "
+                  "collected other outputs than the sequence's")
+            bad = [k for k, v in rep["digests"].items() if v != want[k]]
+            check(not bad, f"{backend} rank {rank}: collected {bad} differ "
+                  "from the single-device results")
+            lo_hi = {n: rank_block(n, rank, world)
+                     for n in (N_CAND, SHARD_TRACE_N)}
+            print(f"sharded {backend} rank {rank}/{world} on {rep['device']}"
+                  f" (rows {lo_hi[N_CAND]} of the 10M, lines "
+                  f"{lo_hi[SHARD_TRACE_N]}): host-clock ms "
+                  + json.dumps({k: {kk: round(vv, 4) for kk, vv in v.items()}
+                                for k, v in rep["ms"].items()})
+                  + f"; peak {rep['peak_gb']:.3f} GB; n_rounds "
+                  f"{rep['n_rounds']}; every collected array equal to the "
+                  f"single-device result [{card}]")
+        launches = rank_launches(reports[0]["counts"], kernels)
+        for name in ("B2 in bin order", "B2-df", "B3 get_cell walk", "B4",
+                     "B5"):
+            check(launches[name] >= 1, f"{backend} rank 0 did not launch "
+                  f"{name} on the sharded path")
+        res["ranks"][backend] = {"world": world, "s": secs,
+                                 "launches": launches, "reports": reports}
+        print(f"sharded {backend}, {world} rank(s): {secs:.3f} s with the "
+              f"spawn; rank 0's launches " + json.dumps(launches))
+
+    # The port's examples on the card, each in its own process
+    ex_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                          "examples", "torch_port")
+    work = os.path.join(tmp, "examples")
+    os.makedirs(work)
+    res["examples"] = {}
+    for name in sorted(os.listdir(ex_dir)):
+        if not name.endswith(".py"):
+            continue
+        t0 = time.perf_counter()
+        run = subprocess.run([sys.executable, os.path.join(ex_dir, name)],
+                             cwd=work, capture_output=True, text=True,
+                             timeout=300)
+        secs = time.perf_counter() - t0
+        check(run.returncode == 0, f"example {name} exited "
+              f"{run.returncode}:\n{run.stdout[-2000:]}{run.stderr[-2000:]}")
+        res["examples"][name] = secs
+        last = run.stdout.strip().splitlines()[-1]
+        print(f"example {name} on the card: exit 0 in {secs:.3f} s; {last}")
+    check(len(res["examples"]) >= 4, "fewer than 4 examples ran")
+    return res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
@@ -2978,6 +3489,8 @@ def main() -> int:
                           cand_build_kernel), card)
         io = timed_phase("io", io_phase, dev, tiu, meshgen, b2["grid"], b2,
                          acc_counters, card, tmp)
+        timed_phase("sharded", sharded_phase, dev, tiu, meshgen, b2["grid"],
+                    io["walk_grid"], acc_counters + (trace_kernel,), card, tmp)
         b5 = timed_phase("accurate", accurate_phase, dev, tiu, b2.pop("grid"),
                          b1.pop("acc_inputs"), acc_counters, cand_kernel,
                          acc_kernel, walk_kernel, locate)

@@ -145,6 +145,17 @@ class Grid:
     def device(self) -> torch.device:
         return self.points.device
 
+    def to(self, device) -> "Grid":
+        """The grid with every tensor leaf on ``device`` (dtypes, bits,
+        None leaves and metadata kept); ``self`` if it is there
+        already."""
+        device = torch.device(device)
+        if self.device == device:
+            return self
+        return dataclasses.replace(self, **{
+            f: getattr(self, f).to(device) for f in DATA_FIELDS
+            if getattr(self, f) is not None})
+
 
 def host_array(t) -> np.ndarray:
     """A tensor (or array) as a host numpy array: one device -> host

@@ -132,7 +132,7 @@ def interp_acc_cuda(table, ic, r_hi, r_lo, cell_type, npc, nv, slots, *,
     r_lo = r_lo.contiguous()
     lib = _kernels.lib()
     with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
+        stream = torch.cuda.current_stream(dev).cuda_stream
         for g, sl, n in _kernels.var_slot_groups(slots):
             code = lib.iu_interp_acc(
                 table.data_ptr(), width, ic.data_ptr(), r_hi.data_ptr(),

@@ -58,7 +58,7 @@ def gen_pairs_cuda(p):
             span.data_ptr(), c, nf, int(normals.dtype == torch.float64),
             smax, nby, nbz, n_bins, frame, int(p.use_zc), word.data_ptr(),
             cell.data_ptr(), counts.data_ptr(),
-            torch.cuda.current_stream().cuda_stream,
+            torch.cuda.current_stream(dev).cuda_stream,
         )
     _kernels.check(code, "iu_cand_pairs")
     pairs_launches += 1
@@ -97,7 +97,7 @@ def fill_tables_cuda(sw, scell, counts, ext_slot, n_bins, k_max, k_ext,
         code = _kernels.lib().iu_cand_fill(
             sw.data_ptr(), scell.data_ptr(), sw.numel(), start.data_ptr(),
             ext_slot.data_ptr(), n_bins, k_max, k_ext, cand_ids.data_ptr(),
-            ext_ids.data_ptr(), torch.cuda.current_stream().cuda_stream,
+            ext_ids.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
         )
     _kernels.check(code, "iu_cand_fill")
     fill_launches += 1

@@ -370,7 +370,7 @@ def cand_rows_cuda(table, idx, rq, lay, eps, ovf_base):
             lay.count_col, float(eps), int(ovf_base))
     outs = (n_vars, vroles.data_ptr(), out_id.data_ptr(),
             out_aux.data_ptr(), vals.data_ptr(),
-            torch.cuda.current_stream().cuda_stream)
+            torch.cuda.current_stream(dev).cuda_stream)
     with torch.cuda.device(dev):
         if table.dtype == torch.float64:
             code = _kernels.lib().iu_cand_rows_f64(*args, *outs)

@@ -146,7 +146,7 @@ def interpolate_bruteforce_cuda(grid, r, i_vars, *, q=None, threads=THREADS):
         return vals, ic, found
     fn = getattr(_kernels.lib(), _ENTRY[grid.dtype])
     with torch.cuda.device(r.device):
-        stream = torch.cuda.current_stream().cuda_stream
+        stream = torch.cuda.current_stream(r.device).cuda_stream
         for g, slots, n in _kernels.var_slot_groups(cols):
             code = fn(
                 normals.data_ptr(), offsets.data_ptr(),

@@ -504,7 +504,7 @@ def trace_loop_cuda(table, y0, field0, ic0, done, bm, *, cell_type, ndim,
                 int(max_steps), int(max_iterations), y_buf.data_ptr(),
                 yf_buf.data_ptr(), n_steps.data_ptr(), bm_out.data_ptr(),
                 iters.data_ptr(), rounds.data_ptr(),
-                torch.cuda.current_stream().cuda_stream,
+                torch.cuda.current_stream(dev).cuda_stream,
             )
         _kernels.check(code, "iu_trace_loop")
         launches += 1

@@ -202,7 +202,7 @@ def walk_cuda(table, r0, u, total, active, ic0, nudge, eps_arrive, big,
             float(nudge), float(eps_arrive), float(big),
             int(max_steps), out_ic.data_ptr(), out_rp.data_ptr(),
             out_steps.data_ptr(), out_status.data_ptr(),
-            torch.cuda.current_stream().cuda_stream,
+            torch.cuda.current_stream(dev).cuda_stream,
         )
     _kernels.check(code, entry)
     launches += 1
@@ -385,7 +385,7 @@ def get_cell_walk_cuda(grid, r, start, max_steps, p1):
             rmin.data_ptr(), inv_h.data_ptr(), nbx, nby, nbz, b,
             float(nudge), float(eps_arrive), float(big), float(tiny),
             int(max_steps), int(p1), out_ic.data_ptr(), out_found.data_ptr(),
-            torch.cuda.current_stream().cuda_stream,
+            torch.cuda.current_stream(dev).cuda_stream,
         )
     _kernels.check(code, entry)
     get_cell_launches += 1
