@@ -89,16 +89,20 @@ a guess, ``prepare_accurate``, ``interpolate_at_acc``,
    same points
    advected by 0.01 * velocity with the cold cells as guesses, and 100k
    warm queries pushed out of the box, every walk in B3's get_cell walk
-   stage; that stage and the earlier composition it replaces
-   (``walk_origin``, ``_walk_args``, two ``walk_cuda`` launches) timed
-   in turns, and B3's explicit walk (``walk_rows``) on its own;
+   stage, every value from kernel E1 (``interpolate_at_icell``); that
+   stage and the earlier composition it replaces (``walk_origin``,
+   ``_walk_args``, two ``walk_cuda`` launches) timed in turns, B3's
+   explicit walk (``walk_rows``) on its own, and E1 torch.equal to
+   ``interpolate_at_icell_plain`` on the 10M warm queries, the two timed
+   in turns;
 8. trace phase, ``bench.py``'s ``trace_at_scale`` protocol on the walk
    phase's grid: the helical field (-(y-0.5), x-0.5, 0.25) added with
    ``add_point_data(..., fuse=False)``, ``build_trace_table`` once, then
    ``integrate_along_field`` (min_dx 1e-4, max_dx 0.05, 256 steps, rtol =
    atol = 1e-3) from 0.3 + 0.4 * default_rng(3).random((n, 3)) for n =
    1024 and 65,536 lines (B3's get_cell walk for the start cells, then
-   one launch of B4 running every line's RK loop), each held field by
+   one E1 launch for the start field, then one launch of B4 running
+   every line's RK loop), each held field by
    field against the plain loop on the card, and the 1024 lines again
    through the generic path (B3's explicit walks plus torch); the 1024
    lines' result written by ``write_trace_vtk`` and its points read
@@ -109,8 +113,9 @@ a guess, ``prepare_accurate``, ``interpolate_at_acc``,
    built in float64 (lists from D1 and D2; K = 7, no fused variable,
    extension rows in most bins), 10M cold float64 queries (B2 in double in
    bin order, then the direct kernel on the extension rows, then
-   ``interpolate_at_icell``; each stage torch.equal to its plain version,
-   linear error at most 1e-12); the box's float64 walk grid (no candidate
+   ``interpolate_at_icell``, E1 in double; each stage torch.equal to its
+   plain version, E1 timed against it in turns, linear error at most
+   1e-12); the box's float64 walk grid (no candidate
    tables) with 10M cold and 10.1M warm queries (1% outside; B3's double
    get_cell walk, torch.equal to ``get_cell_walk_plain``) and B3's double
    ``walk_rows``; a generic float64 trace of the helix, 1024 lines (B3's
@@ -880,9 +885,12 @@ def builder_phase(dev, tiu, meshgen, counters, card):
 
 def candidate_phase(dev, tiu, meshgen, interp_kernel, locate, cand_kernel,
                     walk_kernel):
-    from interpolate_unstructured_tpu_torch.ops import cand_build_kernel
+    from interpolate_unstructured_tpu_torch.ops import (
+        cand_build_kernel,
+        icell_kernel,
+    )
 
-    counters = (interp_kernel, cand_kernel, walk_kernel)
+    counters = (interp_kernel, cand_kernel, walk_kernel, icell_kernel)
     res = {}
     n = 55
     t0 = time.perf_counter()
@@ -969,9 +977,10 @@ def candidate_phase(dev, tiu, meshgen, interp_kernel, locate, cand_kernel,
     )
     n_b2 = counts[f"{ck}:binned"]
     n_b3 = counts[f"{walk_kernel.__name__}:get_cell"]
-    check(n_b2 >= 1 and n_b3 >= 1,
+    res["e1_launches"] = counts[icell_kernel.__name__]
+    check(n_b2 >= 1 and n_b3 >= 1 and res["e1_launches"] >= 1,
           f"candidate warm path launched B2 in bin order {n_b2}, get_cell's "
-          f"walk {n_b3} times")
+          f"walk {n_b3}, E1 {res['e1_launches']} times")
     for x in res["binned"]:
         res["binned"][x] += counts[f"{ck}:{x}"]
     res["launches"] += counts[ck]
@@ -989,8 +998,8 @@ def candidate_phase(dev, tiu, meshgen, interp_kernel, locate, cand_kernel,
     print(f"B2+B3 candidate grid, {rq_all.shape[0]} warm queries (1% "
           f"outside): steady {e2e_w * 1e3:.4f} ms = "
           f"{rq_all.shape[0] / e2e_w:.4e} queries/s; B2 bin-ordered probe "
-          f"launches {n_b2}, get_cell walk launches {n_b3}; linear error "
-          f"{lin:.3e}")
+          f"launches {n_b2}, get_cell walk launches {n_b3}, E1 launches "
+          f"{res['e1_launches']}; linear error {lin:.3e}")
     res["grid"] = grid  # the accurate phase prepares it
     del vals, ic, ic_w, found, r, r_in, rq_all, guess, grid
     torch.cuda.empty_cache()
@@ -1146,16 +1155,73 @@ def gc_bound(grid, r, start, max_steps, p1, walk_kernel, bound_fn=bound):
     return bound_fn(n_bytes, rounds * nf * 12), rounds, walk_rows
 
 
+# Operations of E1 a query before its sums, and a variable's sum (npc
+# products, npc - 1 additions), by cell type: the tet's 21 differences,
+# four triple products of 14, the reciprocal of 6 * volume and 4
+# products; the triangle's three areas of 21 (with the square root),
+# the reciprocal times 0.5 and 3 products; the quad weights of wkern.cuh
+E1_OPS = {"tetra": (83, 7), "triangle": (68, 5), "quad": (57, 7)}
+
+
+def e1_phase(label, grid, r, slots, ic, bound_fn):
+    """Kernel E1 against interpolate_at_icell_plain on these inputs,
+    torch.equal, then both timed by CUDA events in turns (plain, kernel,
+    kernel, plain), and E1's bound, each byte once: per query its
+    position and cell in and its values out; the connectivity of every
+    distinct cell and its volume (none for a quad, whose weights do not
+    read it); the coordinates and the requested data of every distinct
+    vertex (the walk rows' vertex coordinates are copies of these).
+    Returns {"max_abs_err", "ms", "plain_ms", "turns", "bound",
+    "cells", "points"}."""
+    from interpolate_unstructured_tpu_torch.ops import icell_kernel
+    from interpolate_unstructured_tpu_torch.ops.interp import (
+        interpolate_at_icell_plain,
+    )
+
+    got = icell_kernel.interpolate_at_icell_cuda(grid, r, slots, ic)
+    want = interpolate_at_icell_plain(grid, r, slots, ic)
+    n_bad = equal_or_fail(f"E1 {label}", (got,), (want,))
+    del got, want
+    t = turns({
+        "plain": lambda: interpolate_at_icell_plain(grid, r, slots, ic),
+        "kernel": lambda: icell_kernel.interpolate_at_icell_cuda(
+            grid, r, slots, ic),
+    }, 5)
+    cells = torch.unique(ic.clamp_min(0))
+    n_cells = int(cells.numel())
+    n_points = int(torch.unique(grid.cells[cells.long()]).numel())
+    npc = grid.n_points_per_cell
+    e = grid.point_data.element_size()
+    b, v = r.shape[0], len(slots)
+    vol = 0 if grid.cell_type == "quad" else e
+    n_bytes = (b * (3 * e + 4 + v * e) + n_cells * (vol + npc * 4)
+               + n_points * (3 + v) * e)
+    per, per_var = E1_OPS[grid.cell_type]
+    bnd = bound_fn(n_bytes, b * (per + per_var * v))
+    res = dict(max_abs_err=float(n_bad), ms=sum(t["kernel"]) / 2,
+               plain_ms=sum(t["plain"]) / 2, turns=t, bound=bnd,
+               cells=n_cells, points=n_points)
+    print(f"E1 interp_icell, {label}: {b} queries, {v} variable(s), "
+          f"{n_cells} distinct cells, {n_points} distinct vertices; "
+          f"torch.equal to interpolate_at_icell_plain; CUDA events in turns: "
+          f"plain {t['plain'][0]:.4f} / {t['plain'][1]:.4f} ms, kernel "
+          f"{t['kernel'][0]:.4f} / {t['kernel'][1]:.4f} ms; bound "
+          f"{bnd[0]:.4f} ms ({bnd[1]})")
+    return res
+
+
 def walk_phase(dev, tiu, meshgen, interp_kernel, locate, cand_kernel,
                walk_kernel, io_res):
     """bench.py's warm protocol on the 998,250-tet box without candidate
     tables, the grid that the io phase read from its file: every query
-    walks (get_cell's walk stage, kernel B3)."""
-    from interpolate_unstructured_tpu_torch.ops import wkern
+    walks (get_cell's walk stage, kernel B3), then interpolates in the
+    cell it reached (kernel E1)."""
+    from interpolate_unstructured_tpu_torch.ops import icell_kernel, wkern
 
-    counters = (interp_kernel, cand_kernel, walk_kernel)
+    counters = (interp_kernel, cand_kernel, walk_kernel, icell_kernel)
     gc_key = f"{walk_kernel.__name__}:get_cell"
-    res = {"gc_launches": {}}
+    ik = icell_kernel.__name__
+    res = {"gc_launches": {}, "e1_launches": {}}
     grid = io_res.pop("walk_grid")
     check(grid.cand_table is None, "walk grid has candidate tables")
     res["gc_launches"]["refine"] = io_res["refine_launches"]
@@ -1179,8 +1245,9 @@ def walk_phase(dev, tiu, meshgen, interp_kernel, locate, cand_kernel,
         lambda: tiu.interpolate_scalar_at(grid, r, 0, fill_value=FILL),
         counters)
     res["gc_launches"]["cold"] = counts[gc_key]
-    check(res["gc_launches"]["cold"] >= 1,
-          "get_cell's walk stage was not launched on the cold call")
+    res["e1_launches"]["cold"] = counts[ik]
+    check(res["gc_launches"]["cold"] >= 1 and counts[ik] >= 1,
+          "get_cell's walk stage or E1 was not launched on the cold call")
     check(bool(found.all()), f"{int((~found).sum())} cold queries not found")
     lin_c = float((vals.double() - truth(r)).abs().max())
     check(lin_c <= LIN_TOL_ICELL, f"cold walk linear-exactness error {lin_c}")
@@ -1191,8 +1258,9 @@ def walk_phase(dev, tiu, meshgen, interp_kernel, locate, cand_kernel,
                                           fill_value=FILL),
         counters)
     res["gc_launches"]["warm"] = counts[gc_key]
-    check(res["gc_launches"]["warm"] >= 1,
-          "get_cell's walk stage was not launched on the warm call")
+    res["e1_launches"]["warm"] = counts[ik]
+    check(res["gc_launches"]["warm"] >= 1 and counts[ik] >= 1,
+          "get_cell's walk stage or E1 was not launched on the warm call")
     check(bool(found.all()), f"{int((~found).sum())} warm queries not found")
     lin_w = float((vals.double() - truth(r_warm)).abs().max())
     check(lin_w <= LIN_TOL_ICELL, f"warm walk linear-exactness error {lin_w}")
@@ -1215,7 +1283,7 @@ def walk_phase(dev, tiu, meshgen, interp_kernel, locate, cand_kernel,
     del cp, v, t, vv, t_sum, acc
     print(f"B3 warm linear error {lin_w:.3e} with the reference's tetra "
           f"weights, {lin_sum:.3e} with the triple products over their sum")
-    # split: locate (seed + walk stage) and interpolate_at_icell (torch)
+    # split: locate (seed + walk stage) and interpolate_at_icell (E1)
     loc_c = steady_s(lambda: tiu.get_cell(grid, r), 3)
     loc_w = steady_s(lambda: tiu.get_cell(grid, r_warm, ic), 3)
     icell = steady_s(lambda: tiu.interpolate_at_icell(grid, r_warm, [0], ic_w),
@@ -1252,6 +1320,7 @@ def walk_phase(dev, tiu, meshgen, interp_kernel, locate, cand_kernel,
                                           fill_value=FILL),
         counters)
     res["gc_launches"]["off_domain"] = counts[gc_key]
+    res["e1_launches"]["off_domain"] = counts[ik]
     check(not bool(f_off.any()), "an off-domain query was found")
     check(bool((ic_off < 0).all() and (v_off == FILL).all()),
           "off-domain queries lack a boundary code or the fill")
@@ -1311,6 +1380,10 @@ def walk_phase(dev, tiu, meshgen, interp_kernel, locate, cand_kernel,
     res["gc"] = dict(ms=sum(t_gc["warm"]["new"]) / 2, turns=t_gc,
                      plain_ms=ms_gc_p, bound=bnd_w, bound_cold=bnd_c,
                      max_abs_err=float(gc_err))
+    # E1 against its plain version on the 10M warm queries in the cells
+    # the warm call found
+    res["e1"] = e1_phase("walk grid, 10M warm, float32", grid, r_warm, (0,),
+                         ic_w, bound)
 
     # the explicit walk (walk_rows) against its plain version on the
     # first 1M warm lanes, then both timed on all 10M warm lanes (one
@@ -1504,8 +1577,11 @@ def trace_phase(dev, tiu, grid, counters, walk_kernel, trace_kernel, tmp,
                 card):
     """bench.py's trace_at_scale protocol on the walk phase's grid; the
     1024-line result then goes through write_trace_vtk."""
-    res = {"launches": 0, "gc_launches": 0}
+    from interpolate_unstructured_tpu_torch.ops import icell_kernel
+
+    res = {"launches": 0, "gc_launches": 0, "e1_launches": 0}
     gc_key = f"{walk_kernel.__name__}:get_cell"
+    ik = icell_kernel.__name__
     t0 = time.perf_counter()
     c = grid.points[:, :2] - 0.5
     fld = (-c[:, 1], c[:, 0], torch.full_like(c[:, 0], 0.25))
@@ -1545,8 +1621,11 @@ def trace_phase(dev, tiu, grid, counters, walk_kernel, trace_kernel, tmp,
               "not one")
         check(n_b3 >= 1, f"{n} lines: get_cell's walk stage was not "
               "launched for the start cells")
+        check(counts[ik] == 1, f"{n} lines: {counts[ik]} E1 launches for "
+              "the start field, not one")
         res["launches"] += n_b4
         res["gc_launches"] += n_b3
+        res["e1_launches"] += counts[ik]
         rec = {}
         with recorded_calls(trace_kernel, "trace_loop", rec):
             out2 = trace(y0)
@@ -1581,7 +1660,8 @@ def trace_phase(dev, tiu, grid, counters, walk_kernel, trace_kernel, tmp,
         print(f"B4 {n} lines: {steps} steps in {wall * 1e3:.4f} ms = "
               f"{steps / wall:.4e} trace steps/s; RK iterations "
               f"{int(out.n_iterations.max())}, n_rounds {int(out.n_rounds)}, "
-              f"B4 launches {n_b4}, get_cell walk launches {n_b3}; every "
+              f"B4 launches {n_b4}, get_cell walk launches {n_b3}, E1 "
+              f"launches {counts[ik]}; every "
               f"TraceResult field torch.equal to trace_loop_plain on the "
               f"card; trace_loop CUDA events {b4_ms:.4f} ms "
               f"({b4_ms / (wall * 1e3):.2%} of the wall time); mean steps "
@@ -1665,6 +1745,9 @@ def trace_phase(dev, tiu, grid, counters, walk_kernel, trace_kernel, tmp,
     res["walk_launches"] = counts[walk_kernel.__name__]
     check(res["walk_launches"] >= 1,
           "the generic trace did not launch B3's explicit walk")
+    check(counts[ik] == 1, f"the generic trace launched E1 {counts[ik]} "
+          "times for its start field, not once")
+    res["e1_launches"] += counts[ik]
     fu = small["out"]
     differ = (fu.n_steps != gen.n_steps) | (
         fu.boundary_material != gen.boundary_material)
@@ -2154,7 +2237,7 @@ def io_phase(dev, tiu, meshgen, cand_grid, cand_res, counters, card, tmp):
     from interpolate_unstructured_tpu_torch.io import convert, vtk
     from interpolate_unstructured_tpu_torch.models import grid as tgrid
 
-    interp_kernel, cand_kernel, walk_kernel, acc_kernel = counters
+    interp_kernel, cand_kernel, walk_kernel, acc_kernel, _ = counters
     gc_key = f"{walk_kernel.__name__}:get_cell"
     res = {"b1": {}, "counts": {}}
 
@@ -2508,7 +2591,11 @@ def f64_cold(dev, tiu, grid, r, locate, cand_kernel, walk_kernel, counters):
     stage against its plain version on the same inputs, timed, with
     bounds that count each byte once at the FP64 rate."""
     from interpolate_unstructured_tpu_torch.models.grid import cand_fused_nv
-    from interpolate_unstructured_tpu_torch.ops import _kernels, geometry
+    from interpolate_unstructured_tpu_torch.ops import (
+        _kernels,
+        geometry,
+        icell_kernel,
+    )
 
     ck = cand_kernel.__name__
     gc_key = f"{walk_kernel.__name__}:get_cell"
@@ -2524,15 +2611,22 @@ def f64_cold(dev, tiu, grid, r, locate, cand_kernel, walk_kernel, counters):
                      ("bin_pass", "bin_scatter", "binned", "bin_unsort")}
     res["direct"] = counts[ck]
     res["gc_launches"] = counts[gc_key]
+    res["e1_launches"] = counts[icell_kernel.__name__]
     check(min(res["binned"].values()) >= 1,
           f"float64 cold: the bin-ordered B2 kernels were not all launched: "
           f"{res['binned']}")
+    check(res["e1_launches"] >= 1, "float64 cold: E1 was not launched")
     check(vals.dtype == torch.float64, "float64 cold values are not float64")
     check(bool(found.all()), f"float64 cold: {int((~found).sum())} of "
           f"{n} queries not found")
     lin = float((vals - (r.sum(1) + 1.0)).abs().max())
     check(lin <= LIN_TOL_F64, f"float64 cold linear-exactness error {lin}")
-    del vals, ic, found
+    del vals, found
+    # E1 against its plain version on the 10M cold queries in the cells
+    # the main path found (K = 7 rows fuse no variable: every value is E1's)
+    res["e1"] = e1_phase("998k box in float64, 10M cold", grid, r, (0,), ic,
+                         bound64)
+    del ic
     e2e = steady_s(lambda: tiu.interpolate_scalar_at(grid, r, 0,
                                                      fill_value=0.0), 3)
     loc = steady_s(lambda: tiu.get_cell(grid, r), 3)
@@ -2542,7 +2636,7 @@ def f64_cold(dev, tiu, grid, r, locate, cand_kernel, walk_kernel, counters):
           f"queries/s (get_cell {loc * 1e3:.4f} ms); all found; linear "
           f"error {lin:.3e}; launches: bin-ordered {json.dumps(res['binned'])}"
           f", direct (extension rows) {res['direct']}, get_cell walk "
-          f"{res['gc_launches']}")
+          f"{res['gc_launches']}, E1 {res['e1_launches']}")
 
     k = grid.cand_ids.shape[1]
     k_ext = grid.cand_ext_ids.shape[1]
@@ -2707,9 +2801,12 @@ def f64_warm(dev, tiu, grid, locate, walk_kernel, counters):
     """B3 in double on the float64 walk grid of the box: 10M cold queries
     (bin-seeded walks), the same points moved and guessed by the cold
     cells plus 1% pushed out of the box, every walk in get_cell's walk
-    stage; both B3 kernels against their plain versions."""
+    stage, then E1; both B3 kernels against their plain versions."""
+    from interpolate_unstructured_tpu_torch.ops import icell_kernel
+
     gc_key = f"{walk_kernel.__name__}:get_cell"
-    res = {"gc_launches": {}}
+    ik = icell_kernel.__name__
+    res = {"gc_launches": {}, "e1_launches": {}}
     rng = np.random.default_rng(4)
     r = torch.from_numpy(0.1 + 0.8 * rng.random((N_CAND, 3))).to(dev)
     r_warm = r + 0.01 * torch.from_numpy(rng.random((N_CAND, 3))).to(dev)
@@ -2717,8 +2814,9 @@ def f64_warm(dev, tiu, grid, locate, walk_kernel, counters):
         lambda: tiu.interpolate_scalar_at(grid, r, 0, fill_value=FILL),
         counters)
     res["gc_launches"]["cold"] = counts[gc_key]
-    check(counts[gc_key] >= 1, "float64 cold walks: get_cell's walk stage "
-          "was not launched")
+    res["e1_launches"]["cold"] = counts[ik]
+    check(counts[gc_key] >= 1 and counts[ik] >= 1, "float64 cold walks: "
+          "get_cell's walk stage or E1 was not launched")
     check(bool(found.all()), f"float64 cold walks: {int((~found).sum())} "
           "queries not found")
     lin_c = float((vals - (r.sum(1) + 1.0)).abs().max())
@@ -2732,8 +2830,9 @@ def f64_warm(dev, tiu, grid, locate, walk_kernel, counters):
         lambda: tiu.interpolate_scalar_at(grid, rq, 0, guess=guess,
                                           fill_value=FILL), counters)
     res["gc_launches"]["warm"] = counts[gc_key]
-    check(counts[gc_key] >= 1, "float64 warm: get_cell's walk stage was not "
-          "launched")
+    res["e1_launches"]["warm"] = counts[ik]
+    check(counts[gc_key] >= 1 and counts[ik] >= 1, "float64 warm: "
+          "get_cell's walk stage or E1 was not launched")
     check(bool(found[:N_CAND].all()), "float64 warm: an inside query was "
           "not found")
     check(not bool(found[N_CAND:].any()), "float64 warm: an outside query "
@@ -2806,6 +2905,8 @@ def f64_trace(dev, tiu, grid, walk_kernel, trace_kernel, counters):
     """bench.py's helix on the float64 walk grid, 1024 lines: the generic
     path (B3's double walk_rows + torch, no B4), every TraceResult field
     torch.equal to the same loop with the plain walks on the card."""
+    from interpolate_unstructured_tpu_torch.ops import icell_kernel
+
     c = grid.points[:, :2] - 0.5
     fld = (-c[:, 1], c[:, 0], torch.full_like(c[:, 0], 0.25))
     i_field = []
@@ -2830,7 +2931,10 @@ def f64_trace(dev, tiu, grid, walk_kernel, trace_kernel, counters):
     n_b4 = counts[trace_kernel.__name__]
     n_walk = counts[walk_kernel.__name__]
     n_gc = counts[f"{walk_kernel.__name__}:get_cell"]
+    n_e1 = counts[icell_kernel.__name__]
     check(n_b4 == 0, f"the float64 trace launched B4 {n_b4} times")
+    check(n_e1 == 1, f"the float64 trace launched E1 {n_e1} times for its "
+          "start field, not once")
     check(n_walk >= 1 and n_gc >= 1, f"the float64 trace launched walk_rows "
           f"{n_walk} and get_cell's walk {n_gc} times")
     check(out.y.dtype == torch.float64, "the float64 trace is not float64")
@@ -2858,12 +2962,13 @@ def f64_trace(dev, tiu, grid, walk_kernel, trace_kernel, counters):
           f"main-path call {wall * 1e3:.4f} ms, median of {TRACE_REPS} more "
           f"{med:.4f} ms = {steps / med * 1e3:.4e} trace steps/s (with the "
           f"plain walks {plain_ms:.4f} ms); launches: walk_rows {n_walk}, "
-          f"get_cell walk {n_gc}, B4 0; walk_rows CUDA events over the "
-          f"call: {sum(walks['ms']):.4f} ms in {len(walks['ms'])} launches; "
+          f"get_cell walk {n_gc}, E1 {n_e1}, B4 0; walk_rows CUDA events "
+          f"over the call: {sum(walks['ms']):.4f} ms in "
+          f"{len(walks['ms'])} launches; "
           f"every TraceResult field torch.equal to the loop with the plain "
           f"walks; boundary codes {json.dumps(codes)}")
-    return dict(walk_launches=n_walk, gc_launches=n_gc, wall_ms=med,
-                steps=steps, walk_ms=sum(walks["ms"]))
+    return dict(walk_launches=n_walk, gc_launches=n_gc, e1_launches=n_e1,
+                wall_ms=med, steps=steps, walk_ms=sum(walks["ms"]))
 
 
 def float64_phase(dev, tiu, meshgen, interp_kernel, locate, cand_kernel,
@@ -2874,9 +2979,12 @@ def float64_phase(dev, tiu, meshgen, interp_kernel, locate, cand_kernel,
     direct kernel on the extension rows, then interpolate_at_icell); the
     box's float64 walk grid (no candidate tables) with 10.1M warm queries
     through B3's double get_cell walk; a float64 generic trace on it."""
-    from interpolate_unstructured_tpu_torch.ops import cand_build_kernel
+    from interpolate_unstructured_tpu_torch.ops import (
+        cand_build_kernel,
+        icell_kernel,
+    )
 
-    counters = (interp_kernel, cand_kernel, walk_kernel)
+    counters = (interp_kernel, cand_kernel, walk_kernel, icell_kernel)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     res = {"bf": f64_bruteforce(dev, tiu, meshgen, interp_kernel, counters)}
@@ -3101,13 +3209,15 @@ def shard_sequence(rank, world, tmp):
     from interpolate_unstructured_tpu_torch.ops import (
         acc_kernel,
         cand_kernel,
+        icell_kernel,
         trace_kernel,
         walk_kernel,
     )
     from interpolate_unstructured_tpu_torch.parallel import sharding as ps
 
     dev = torch.device("cuda", torch.cuda.current_device())
-    counters = (cand_kernel, walk_kernel, trace_kernel, acc_kernel)
+    counters = (cand_kernel, walk_kernel, trace_kernel, acc_kernel,
+                icell_kernel)
     mesh = ps.make_mesh()
     with open(os.path.join(tmp, "shard_inputs.json")) as f:
         meta = json.load(f)
@@ -3242,9 +3352,9 @@ def in_process_shards(ps, label, mesh, grid, args, b, refs, counters):
 
 
 def rank_launches(counts, kernels):
-    """B2, B3, B4 and B5 launches of a rank's report, summed over its
+    """B2, B3, B4, B5 and E1 launches of a rank's report, summed over its
     steps."""
-    cand_kernel, walk_kernel, trace_kernel, acc_kernel = kernels
+    cand_kernel, walk_kernel, trace_kernel, acc_kernel, icell_kernel = kernels
     ck, wk = cand_kernel.__name__, walk_kernel.__name__
     total = {}
     for c in counts.values():
@@ -3257,6 +3367,7 @@ def rank_launches(counts, kernels):
         "B3 walk_rows": total.get(wk, 0),
         "B4": total.get(trace_kernel.__name__, 0),
         "B5": total.get(acc_kernel.__name__, 0),
+        "E1": total.get(icell_kernel.__name__, 0),
     }
 
 
@@ -3273,7 +3384,8 @@ def sharded_phase(dev, tiu, meshgen, cand_grid, walk_grid, counters, card,
 
     from interpolate_unstructured_tpu_torch.parallel import sharding as ps
 
-    interp_kernel, cand_kernel, walk_kernel, acc_kernel, trace_kernel = counters
+    (interp_kernel, cand_kernel, walk_kernel, acc_kernel, icell_kernel,
+     trace_kernel) = counters
     ck, gk = cand_kernel.__name__, f"{walk_kernel.__name__}:get_cell"
     res = {"counts": {}}
     torch.cuda.reset_peak_memory_stats()
@@ -3335,8 +3447,9 @@ def sharded_phase(dev, tiu, meshgen, cand_grid, walk_grid, counters, card,
         g_sh, _ = ps.shard_batch(warm_guess(ic, rw.shape[0]), mesh)
         warm = in_process_shards(ps, f"10.1M warm, {label}", mesh, cand_grid,
                                  (rw_sh, [0], g_sh), bw, warm_ref, counters)
-        check(warm[2][gk] >= 1, f"sharded warm queries on {label} did not "
-              "launch get_cell's walk")
+        check(warm[2][gk] >= 1 and warm[2][icell_kernel.__name__] >= 1,
+              f"sharded warm queries on {label} did not launch get_cell's "
+              "walk and E1")
         add_counts(res["counts"], cold[2])
         add_counts(res["counts"], warm[2])
         res["in_process"][label] = {"cold_ms": cold[1], "warm_ms": warm[1]}
@@ -3382,7 +3495,8 @@ def sharded_phase(dev, tiu, meshgen, cand_grid, walk_grid, counters, card,
           f"peak {res['in_process_peak_gb']:.3f} GB")
 
     # The ranks: two over gloo on one card, then one a card over NCCL
-    kernels = (cand_kernel, walk_kernel, trace_kernel, acc_kernel)
+    kernels = (cand_kernel, walk_kernel, trace_kernel, acc_kernel,
+               icell_kernel)
     res["ranks"] = {}
     for backend, world in ranks:
         reports, secs = run_ranks(world, backend, tmp)
@@ -3405,7 +3519,7 @@ def sharded_phase(dev, tiu, meshgen, cand_grid, walk_grid, counters, card,
                   f"single-device result [{card}]")
         launches = rank_launches(reports[0]["counts"], kernels)
         for name in ("B2 in bin order", "B2-df", "B3 get_cell walk", "B4",
-                     "B5"):
+                     "B5", "E1"):
             check(launches[name] >= 1, f"{backend} rank 0 did not launch "
                   f"{name} on the sharded path")
         res["ranks"][backend] = {"world": world, "s": secs,
@@ -3447,6 +3561,7 @@ def main() -> int:
         acc_kernel,
         cand_build_kernel,
         cand_kernel,
+        icell_kernel,
         interp_kernel,
         locate,
         trace_kernel,
@@ -3480,7 +3595,8 @@ def main() -> int:
         phase_s[name] = round(time.perf_counter() - t0, 3)
         return out
 
-    acc_counters = (interp_kernel, cand_kernel, walk_kernel, acc_kernel)
+    acc_counters = (interp_kernel, cand_kernel, walk_kernel, acc_kernel,
+                    icell_kernel)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_io_") as tmp:
         b1 = timed_phase("bruteforce", bruteforce_phase, *args)
         b2 = timed_phase("candidate", candidate_phase, *args)
@@ -3497,7 +3613,7 @@ def main() -> int:
         b3 = timed_phase("walk", walk_phase, *args, io)
         b4 = timed_phase("trace", trace_phase, dev, tiu, b3.pop("grid"),
                          (interp_kernel, cand_kernel, walk_kernel,
-                          trace_kernel),
+                          trace_kernel, icell_kernel),
                          walk_kernel, trace_kernel, tmp, card)
     f64 = timed_phase("float64", float64_phase, *args, trace_kernel, card)
     print("phase seconds: " + json.dumps(phase_s) + f" [{card}]")
@@ -3523,12 +3639,15 @@ def main() -> int:
     print("device candidate builder launches on the main path (the 998k "
           "box's build_grid, the containment box's, the io phase's rebuild): "
           + json.dumps(d_launches))
+    e1_launches = {**b3["e1_launches"], "candidate_warm": b2["e1_launches"],
+                   "trace_start_field": b4["e1_launches"],
+                   "io": io_n[icell_kernel.__name__]}
     print("B2 bin-ordered launches on the main path: " + json.dumps(binned)
           + f"; B2-df: float64 bin pass {df_pass}, df probe "
           f"{df_probe}; direct B2 "
           f"{direct}; B3 walk_rows "
           f"{b4['walk_launches']} (the generic trace); B4 {b4['launches']}; "
-          f"B5 {b5_launches}")
+          f"B5 {b5_launches}; E1 {json.dumps(e1_launches)}")
 
     pkg = "interpolate_unstructured_tpu_torch"
     kernels = [
@@ -3606,6 +3725,16 @@ def main() -> int:
          "library_ms": None},
     ]
     cb = b2["builder"]
+    e1 = b3["e1"]
+    kernels.append({
+        "name": "E1 interp_icell (no Pallas counterpart: XLA "
+                "ops/interp.py:177)", "route": "cuda",
+        "source": f"{pkg}/csrc/interp_icell.cu",
+        "replaces": "interpolate_unstructured_tpu/ops/interp.py:177",
+        "launches": sum(e1_launches.values()),
+        "max_abs_err": e1["max_abs_err"], "ms": e1["ms"],
+        "plain_ms": e1["plain_ms"], "bound_ms": e1["bound"][0],
+        "bound_by": e1["bound"][1], "library_ms": None})
     for name, key, part, line in (
             ("D1 cand_pairs (no Pallas counterpart: XLA _gen_pairs)",
              "pairs", "d1", 56),
@@ -3623,11 +3752,16 @@ def main() -> int:
     f64_gc = {**f64_warm["gc_launches"],
               "trace_start_cells": f64["trace"]["gc_launches"]}
     f64_binned = dict(f64_cold["binned"])
+    f64_e1 = {"box_cold": f64_cold["e1_launches"],
+              **{f"walk_grid_{k}": v
+                 for k, v in f64_warm["e1_launches"].items()},
+              "trace_start_field": f64["trace"]["e1_launches"]}
     print("float64 phase launches on its main paths: B1 "
           + json.dumps({row["label"]: row["launches"] for row in f64["bf"]})
           + f"; B2 bin-ordered {json.dumps(f64_binned)}, direct "
           f"{f64_cold['direct']}; B3 get_cell walk {json.dumps(f64_gc)}, "
           f"walk_rows {f64['trace']['walk_launches']} (the generic trace); "
+          f"E1 {json.dumps(f64_e1)}; "
           f"D1/D2 {json.dumps(f64_cold['d_launches'])}")
     kernels += [
         {"name": f"B1 interp_bruteforce float64, {row['label']}",
@@ -3668,6 +3802,15 @@ def main() -> int:
             "launches": launches, "max_abs_err": err, "ms": st["ms"],
             "plain_ms": st["plain_ms"], "bound_ms": st["bound"][0],
             "bound_by": st["bound"][1], "library_ms": None})
+    e1 = f64_cold["e1"]
+    kernels.append({
+        "name": "E1 interp_icell float64", "route": "cuda",
+        "source": f"{pkg}/csrc/interp_icell.cu",
+        "replaces": "interpolate_unstructured_tpu/ops/interp.py:177",
+        "launches": sum(f64_e1.values()), "max_abs_err": e1["max_abs_err"],
+        "ms": e1["ms"], "plain_ms": e1["plain_ms"],
+        "bound_ms": e1["bound"][0], "bound_by": e1["bound"][1],
+        "library_ms": None})
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -12,7 +12,7 @@ The library lands in ``build/kernels/`` at the repository root, named
 by a hash of the sources and flags, so a changed source rebuilds and an
 unchanged one loads at once.  ``--fmad=false`` keeps the kernels'
 rounding order equal to their plain PyTorch versions'.  The kernels of
-B1, B2 and B3 have a second entry point each for float64 grids
+B1, B2, B3 and E1 have a second entry point each for float64 grids
 (``*_f64``), whose scalars are passed as C doubles.  The build runs
 on first use, never at import; a failed build raises with nvcc's
 output.  ``nvcc -Xptxas -v`` output (registers, shared memory, spills)
@@ -117,6 +117,12 @@ _SIGNATURES = {
              _P],
     ),
     "iu_cand_fill": (_I, [_P, _P, _I, _P, _P, _I, _I, _I, _P, _P, _P]),
+    "iu_interp_icell": (
+        _I, [_P, _I, _P, _I, _I, _P, _I, _IP, _I, _P, _P, _I, _P, _I, _P],
+    ),
+    "iu_interp_icell_f64": (
+        _I, [_P, _I, _P, _I, _I, _P, _I, _IP, _I, _P, _P, _I, _P, _I, _P],
+    ),
     "iu_error_string": (ctypes.c_char_p, [_I]),
 }
 

@@ -12,7 +12,7 @@ one of three routes:
   -> the candidate-row probe, kernel B2 (``ops/locate._candidates_query``);
 * everything else (a warm guess, an unfused variable, a grid without
   candidate tables) -> ``ops/locate.get_cell`` (walks run kernel B3),
-  then ``interpolate_at_icell``.
+  then ``interpolate_at_icell`` (kernel E1, ``ops/icell_kernel.py``).
 
 Values are (B, V), as at the public API of the JAX package; the (V, B)
 layout its internals used for the TPU is not carried over.  Every
@@ -94,18 +94,41 @@ def cell_weights(grid, r, i_cell):
 def interpolate_at_icell(grid, r, i_vars, i_cell):
     """Interpolate point-data variables inside known cells (:497-527).
 
+    A CUDA grid runs kernel E1 (``ops/icell_kernel.py``), a CPU grid the
+    plain version, :func:`interpolate_at_icell_plain`; the two give the
+    same values.  A CUDA grid whose kernel cannot build or launch raises.
+
+    Args:
+      r: (B, 3) positions (moved to the grid's device and dtype).
+      i_vars: (V,) point-data variable indices.
+      i_cell: (B,) containing cell per position (not validated; a
+        negative one reads cell 0; on a CUDA grid one of ``n_cells`` or
+        more reads the last cell, where the plain version raises).
+    Returns:
+      (B, V) interpolated values.
+    """
+    r = torch.as_tensor(r, dtype=grid.dtype, device=grid.device)
+    if grid.device.type == "cuda":
+        from . import icell_kernel
+
+        return icell_kernel.interpolate_at_icell_cuda(
+            grid, r, _static_slots(i_vars), i_cell)
+    if grid.device.type == "cpu":
+        return interpolate_at_icell_plain(grid, r, i_vars, i_cell)
+    raise ValueError(f"no known-cell interpolation for device {grid.device}")
+
+
+def interpolate_at_icell_plain(grid, r, i_vars, i_cell):
+    """Plain PyTorch version of :func:`interpolate_at_icell` (and of
+    kernel E1), on any device.
+
     Two gather routes, as in the JAX package: a batch of at least a
     quarter as many queries as cells assembles a per-call row table
     (vertex coords | volume | vertex data) and reads one row per query;
     a smaller one reads the geometry from the walk rows and the vertex
-    data through the connectivity.  Both give the same values.
-
-    Args:
-      r: (B, 3) positions.
-      i_vars: (V,) point-data variable indices.
-      i_cell: (B,) containing cell per position (not validated).
-    Returns:
-      (B, V) interpolated values.
+    data through the connectivity.  Both give the same values.  No
+    variables give (B, 0) (the JAX package's row-table route raises
+    there: it cannot reshape zero data columns).
     """
     r = torch.as_tensor(r, dtype=grid.dtype, device=grid.device)
     i_vars = torch.as_tensor(_static_slots(i_vars), dtype=torch.long,
@@ -117,6 +140,8 @@ def interpolate_at_icell(grid, r, i_vars, i_cell):
     nf = grid.n_faces_per_cell
     v = i_vars.shape[0]
     pd_sel = grid.point_data[:, i_vars]  # (P, V)
+    if v == 0:
+        return r.new_zeros((b, 0))
 
     k_cols = npc * 3 + 1 + npc * v
     if b * 4 >= n_cells and k_cols <= 512 // grid.dtype.itemsize:
