@@ -1170,9 +1170,10 @@ def e1_phase(label, grid, r, slots, ic, bound_fn):
     position and cell in and its values out; the connectivity of every
     distinct cell and its volume (none for a quad, whose weights do not
     read it); the coordinates and the requested data of every distinct
-    vertex (the walk rows' vertex coordinates are copies of these).
-    Returns {"max_abs_err", "ms", "plain_ms", "turns", "bound",
-    "cells", "points"}."""
+    vertex.  Prints the bytes of the tables E1 reads (connectivity,
+    volumes, points, the requested point-data columns) beside the
+    card's L2.  Returns {"max_abs_err", "ms", "plain_ms", "turns",
+    "bound", "cells", "points", "table_bytes"}."""
     from interpolate_unstructured_tpu_torch.ops import icell_kernel
     from interpolate_unstructured_tpu_torch.ops.interp import (
         interpolate_at_icell_plain,
@@ -1198,15 +1199,26 @@ def e1_phase(label, grid, r, slots, ic, bound_fn):
                + n_points * (3 + v) * e)
     per, per_var = E1_OPS[grid.cell_type]
     bnd = bound_fn(n_bytes, b * (per + per_var * v))
+    # the tables E1 reads at random, whole, beside the card's L2
+    tables = {"cells": grid.cells.numel() * 4,
+              "cell_volume": 0 if vol == 0 else grid.n_cells * e,
+              "points": grid.points.numel() * e,
+              "point_data": grid.n_points * v * e}
+    l2 = getattr(torch.cuda.get_device_properties(r.device),
+                 "L2_cache_size", 0)
     res = dict(max_abs_err=float(n_bad), ms=sum(t["kernel"]) / 2,
                plain_ms=sum(t["plain"]) / 2, turns=t, bound=bnd,
-               cells=n_cells, points=n_points)
+               cells=n_cells, points=n_points, table_bytes=tables)
     print(f"E1 interp_icell, {label}: {b} queries, {v} variable(s), "
           f"{n_cells} distinct cells, {n_points} distinct vertices; "
           f"torch.equal to interpolate_at_icell_plain; CUDA events in turns: "
           f"plain {t['plain'][0]:.4f} / {t['plain'][1]:.4f} ms, kernel "
           f"{t['kernel'][0]:.4f} / {t['kernel'][1]:.4f} ms; bound "
-          f"{bnd[0]:.4f} ms ({bnd[1]})")
+          f"{bnd[0]:.4f} ms ({bnd[1]}); tables read "
+          + ", ".join(f"{k} {x / 1e6:.3f}" for k, x in tables.items())
+          + f" = {sum(tables.values()) / 1e6:.3f} MB against the L2's "
+          f"{l2 / 1e6:.3f} MB (walk rows, not read: "
+          f"{grid.walk_table.numel() * e / 1e6:.3f} MB)")
     return res
 
 

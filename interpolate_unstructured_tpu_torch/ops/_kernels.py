@@ -118,10 +118,10 @@ _SIGNATURES = {
     ),
     "iu_cand_fill": (_I, [_P, _P, _I, _P, _P, _I, _I, _I, _P, _P, _P]),
     "iu_interp_icell": (
-        _I, [_P, _I, _P, _I, _I, _P, _I, _IP, _I, _P, _P, _I, _P, _I, _P],
+        _I, [_P, _P, _P, _I, _I, _P, _I, _IP, _I, _P, _P, _I, _P, _I, _P],
     ),
     "iu_interp_icell_f64": (
-        _I, [_P, _I, _P, _I, _I, _P, _I, _IP, _I, _P, _P, _I, _P, _I, _P],
+        _I, [_P, _P, _P, _I, _I, _P, _I, _IP, _I, _P, _P, _I, _P, _I, _P],
     ),
     "iu_error_string": (ctypes.c_char_p, [_I]),
 }

@@ -4,11 +4,14 @@ The CUDA body of ``interpolate_at_icell`` (``ops/interp.py``), which
 the JAX package runs in XLA (its ``ops/interp.py:177``; no Pallas
 counterpart).  For each query: its cell clamped to ``[0, n_cells)`` (a
 memory guard: the plain version reads cell 0 for a negative id too,
-but raises for one of ``n_cells`` or more), the cell's vertices and volume read from its walk row (the geometry segment
-at column nf*5), the tri / tet / quad weights of ``csrc/wkern.cuh``, and
-the weighted sum of the requested point-data columns at the cell's
-vertices (m_interp_unstructured.f90:497-527).  Nothing is assembled per
-call.
+but raises for one of ``n_cells`` or more), the cell's vertex ids from
+``grid.cells`` and its volume from ``grid.cell_volume``, each vertex's
+coordinates from ``grid.points``, the tri / tet / quad weights of
+``csrc/wkern.cuh``, and the weighted sum of the requested point-data
+columns at the cell's vertices (m_interp_unstructured.f90:497-527).
+Those tables fit in the card's L2 on the meshes the smoke runs; the
+walk rows are not read, so a grid without them answers too.  Nothing
+is assembled per call.
 
 :func:`interpolate_at_icell_cuda` launches the kernel
 (``csrc/interp_icell.cu``, for a float32 grid or, through its double
@@ -38,8 +41,11 @@ def interpolate_at_icell_cuda(grid, r, slots, ic):
     raises), (B,) cells (int32 or int64, a tensor or an array; not
     validated: a negative one reads cell 0, one of ``n_cells`` or more
     the last cell, where the plain version raises).  Reads
-    ``grid.point_data`` as the grid holds it at the call, which must be
-    contiguous.  Returns (B, V) values."""
+    ``grid.point_data``, ``grid.points``, ``grid.cells`` and
+    ``grid.cell_volume`` as the grid holds them at the call: each must be
+    contiguous, of the grid's dtype (``cells`` int32, starting on a
+    16-byte boundary), or the call raises; nothing is copied.  Returns
+    (B, V) values."""
     global launches
     if not (grid.device.type == "cuda" and grid.dtype in _ENTRY
             and grid.cell_type in _CELL_TYPE_CODE
@@ -66,26 +72,29 @@ def interpolate_at_icell_cuda(grid, r, slots, ic):
     if not pd.is_contiguous():
         raise ValueError("grid.point_data must be contiguous: the kernel "
                          "reads the tensor the grid holds")
-    if grid.cells.dtype != torch.int32 or not grid.cells.is_contiguous():
-        raise TypeError("grid cells must be a contiguous int32 tensor")
-    wt = grid.walk_table
-    if wt is None or wt.dtype != grid.dtype or not wt.is_contiguous():
-        raise ValueError("the kernel reads the cells' geometry from the "
-                         "grid's walk rows, a contiguous (n_cells, W) tensor "
-                         "of its dtype")
+    for name, want in (("points", grid.dtype), ("cells", torch.int32),
+                       ("cell_volume", grid.dtype)):
+        t = getattr(grid, name)
+        if t.dtype != want or not t.is_contiguous():
+            raise TypeError(f"grid.{name} must be a contiguous {want} "
+                            "tensor: the kernel reads the tensor the grid "
+                            "holds")
+    if grid.points.shape[1] != 3 or grid.cells.data_ptr() % 16:
+        raise ValueError("the kernel reads (P, 3) points and cells that "
+                         "start on a 16-byte boundary")
     vals = torch.empty((b, len(cols)), dtype=grid.dtype, device=grid.device)
     if b == 0 or not cols:
         return vals
     ic = ic.to(torch.int32).contiguous()
     r = r.contiguous()
-    item = wt.element_size()
-    geo = wt.data_ptr() + grid.n_faces_per_cell * 5 * item
+    item = vals.element_size()
     fn = getattr(_kernels.lib(), _ENTRY[grid.dtype])
     with torch.cuda.device(grid.device):
         stream = torch.cuda.current_stream(grid.device).cuda_stream
         for g, sl, n in _kernels.var_slot_groups(cols):
             code = fn(
-                geo, wt.shape[1], grid.cells.data_ptr(), grid.n_cells,
+                grid.points.data_ptr(), grid.cells.data_ptr(),
+                grid.cell_volume.data_ptr(), grid.n_cells,
                 _CELL_TYPE_CODE[grid.cell_type], pd.data_ptr(), pd.stride(0),
                 sl, n, r.data_ptr(), ic.data_ptr(), b,
                 vals.data_ptr() + item * g, len(cols), stream,

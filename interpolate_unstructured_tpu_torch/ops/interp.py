@@ -125,8 +125,9 @@ def interpolate_at_icell_plain(grid, r, i_vars, i_cell):
     Two gather routes, as in the JAX package: a batch of at least a
     quarter as many queries as cells assembles a per-call row table
     (vertex coords | volume | vertex data) and reads one row per query;
-    a smaller one reads the geometry from the walk rows and the vertex
-    data through the connectivity.  Both give the same values.  No
+    a smaller one reads the geometry from the walk rows (on a grid
+    without them, from ``cell_points`` and ``cell_volume``) and the
+    vertex data through the connectivity.  All give the same values.  No
     variables give (B, 0) (the JAX package's row-table route raises
     there: it cannot reshape zero data columns).
     """
@@ -158,9 +159,12 @@ def interpolate_at_icell_plain(grid, r, i_vars, i_cell):
         w = _weights_from_geometry(grid.cell_type, cp, g[:, npc * 3], r)
         vertex_vals = g[:, npc * 3 + 1:].reshape(-1, npc, v)
     else:
-        g = grid.walk_table[ic, nf * 5: nf * 5 + npc * 3 + 1]
-        cp = g[:, : npc * 3].reshape(-1, npc, 3)
-        w = _weights_from_geometry(grid.cell_type, cp, g[:, npc * 3], r)
+        if grid.walk_table is not None:
+            g = grid.walk_table[ic, nf * 5: nf * 5 + npc * 3 + 1]
+            cp = g[:, : npc * 3].reshape(-1, npc, 3)
+            w = _weights_from_geometry(grid.cell_type, cp, g[:, npc * 3], r)
+        else:
+            w = cell_weights(grid, r, ic)
         vertex_vals = pd_sel[grid.cells[ic].long()]  # (B, npc, V)
     acc = w[:, 0, None] * vertex_vals[:, 0]
     for k in range(1, npc):

@@ -21,7 +21,8 @@ the plain version on the same CUDA tensors, for every cell type, both
 dtypes and both of the plain version's routes, with one launch a call;
 they check its refusals and its clamp of the cells (a negative id reads
 cell 0, one of n_cells or more the last cell, where the plain version
-raises); then on the paths that reach it: a warm and a cold
+raises) and its answer on a grid without walk rows; then on the paths
+that reach it: a warm and a cold
 ``interpolate_at`` on a walk grid, a float64 cold call on a tet box
 whose K = 7 rows fuse no variable, and a trace's start field.  Those tests use the port alone,
 so that on a machine without jax they run with
@@ -253,8 +254,11 @@ def test_cuda_icell_equals_plain(cuda, mesh, dtype, route):
 
 @pytest.mark.cuda
 def test_cuda_icell_refuses(cuda):
-    """Out-of-range slots, a non-contiguous point_data and a grid
-    without walk rows raise; no slots give (B, 0) without a launch."""
+    """Out-of-range slots and a non-contiguous point_data raise, as do
+    points, cells or cell_volume that are strided, cells or volumes of
+    another dtype, or cells off a 16-byte boundary: nothing is copied; a grid without
+    walk rows answers as the plain version; no slots give (B, 0)
+    without a launch."""
     grid = _cuda_grid("tetra", torch.float32, cuda)
     r, ic = _inputs(grid, 500)
     rt = torch.from_numpy(r).to(cuda, torch.float32)
@@ -266,9 +270,23 @@ def test_cuda_icell_refuses(cuda):
     assert not strided.point_data.is_contiguous()
     with pytest.raises(ValueError, match="contiguous"):
         tiu.interpolate_at_icell(strided, rt, [0], ic)
-    with pytest.raises(ValueError, match="walk rows"):
-        tiu.interpolate_at_icell(dataclasses.replace(grid, walk_table=None),
-                                 rt, [0], ic)
+    for name, t in (
+            ("points", torch.cat([grid.points] * 2, dim=1)[:, ::2]),
+            ("cells", grid.cells.long()),
+            ("cells", torch.cat([grid.cells] * 2, dim=1)[:, ::2]),
+            ("cell_volume", torch.stack([grid.cell_volume] * 2, 1)[:, 0]),
+            ("cell_volume", grid.cell_volume.double())):
+        with pytest.raises(TypeError, match=name):
+            tiu.interpolate_at_icell(dataclasses.replace(grid, **{name: t}),
+                                     rt, [0], ic)
+    shifted = torch.cat([grid.cells.new_zeros(1), grid.cells.reshape(-1)])
+    off = dataclasses.replace(grid, cells=shifted[1:].reshape(-1, 4))
+    assert off.cells.is_contiguous() and off.cells.data_ptr() % 16
+    with pytest.raises(ValueError, match="16-byte"):
+        tiu.interpolate_at_icell(off, rt, [0], ic)
+    bare = _e1(dataclasses.replace(grid, walk_table=None), rt, [0, 2], ic)
+    assert torch.equal(bare, interpolate_at_icell_plain(
+        grid, rt, [0, 2], torch.from_numpy(ic).to(cuda)))
     assert _e1(grid, rt, [], ic).shape == (500, 0)
 
 
