@@ -24,10 +24,14 @@ a guess, ``prepare_accurate``, ``interpolate_at_acc``,
    version on each mesh; ``tools/b1_b5_sweep.py`` sweeps B1's queries a
    thread and threads a block, and B5's threads a block);
 3. candidate phase: the 998,250-tet box of ``bench.py``, built with its
-   candidate lists on the card (kernels D1 and D2 around a stable
-   ``torch.sort``; D1's words, cells and counts and D2's tables torch.equal
-   to their plain versions on the build's own inputs and to the grid's
-   lists, each stage timed), 10M uniform cold
+   candidate lists on the card (the prelude's float64 AABBs on the card,
+   kernel D1's count pass, a scan, D1's write pass into each bin's
+   bucket, kernel D2 ordering each bucket into the tables; each stage
+   torch.equal to its plain version on the build's own inputs, the write
+   pass after canonical ordering inside each bucket, and to the grid's
+   lists; the prelude's steps, each stage and the chain timed beside
+   their bounds, the builder's peak memory, and a profiled build that
+   launches no sort), 10M uniform cold
    queries (kernel B2 in bin order: bin pass, scatter, probe, unsort),
    then 10M warm queries guessed by the cold cells plus 1% outside the
    box (B2, then B3's get_cell walk on the misses), and a 10,368-tet box
@@ -38,7 +42,11 @@ a guess, ``prepare_accurate``, ``interpolate_at_acc``,
    sizes);
    then the builder phase: a 105,456-tet box just above
    ``cand_build_device_min_cells``, built by ``"auto"`` on the card, whose
-   every host-builder pair lies in its bin's device list; a strongly
+   every host-builder pair lies in its bin's device list (D1 and D2 held
+   to their plain versions there, as on the io phase's rebuild and the
+   float64 box); a heavy-bin soup (34,992 small tets inside one bin of a
+   6,000-tet box: D2's route past shared memory) built on the card,
+   every stage torch.equal to its plain version; a strongly
    graded mesh that "auto" hands to the host builder and
    ``cand_build="device"`` refuses;
 4. io phase: the brute-force meshes written with the port's
@@ -683,121 +691,360 @@ def b2_front_end(dev, grid, r, k, cand_kernel, locate):
     return res
 
 
+BUILDER_KERNELS = ("count", "write", "order")  # D1's two passes, D2
+SOUP_N = 18  # the heavy-bin soup's small box: 34,992 tets in one bin
+SOUP_KW = dict(bins_per_cell=0.25, max_bins=1 << 22, eps=2e-10,
+               ext_max_k=32)
+SOUP_K = 10
+
+
 def builder_launches(counts):
     """D1's and D2's launches in a main-path run's counts."""
     return {x: counts.get(f"interpolate_unstructured_tpu_torch.ops."
                           f"cand_build_kernel:{x}", 0)
-            for x in ("pairs", "fill")}
+            for x in BUILDER_KERNELS}
 
 
-def builder_inputs(grid, pts, cells, nbrs, dev):
-    """The device candidate builder's stage-1 inputs for ``grid``'s mesh
-    and config, as build_grid hands them over: (PairInputs, host geometry
-    tuple, seconds of the builder's host prelude)."""
-    from interpolate_unstructured_tpu_torch.ops import cand_build, geometry
+def host_geometry(pts, cells, nbrs, cell_type):
+    """The candidate builder's host inputs for a mesh, as build_grid
+    hands them over: (cell points, normals, offsets, rmin, rmax,
+    ndim)."""
+    from interpolate_unstructured_tpu_torch.ops import geometry
 
-    cfg = grid.config
     cp = geometry.gather_cell_points(pts, cells)
     normals, _ = geometry.face_normals_and_boundary(
-        cp, cells, nbrs, grid.cell_type, len(pts))
+        cp, cells, nbrs, cell_type, len(pts))
     offs = np.einsum("cki,cki->ck", cp, normals)
-    args = (cp, normals, offs, pts.min(0), pts.max(0),
-            geometry.NDIM_OF_CELL_TYPE[grid.cell_type])
+    return (cp, normals, offs, pts.min(0), pts.max(0),
+            geometry.NDIM_OF_CELL_TYPE[cell_type])
+
+
+def builder_inputs(grid, pts, cells, nbrs, dev, timings=None):
+    """The device candidate builder's inputs for ``grid``'s mesh and
+    config, as build_grid hands them over: (PairInputs, host geometry
+    tuple, builder keywords, seconds of the prelude).  ``timings`` gets
+    the prelude's steps."""
+    from interpolate_unstructured_tpu_torch.ops import cand_build
+
+    cfg = grid.config
+    args = host_geometry(pts, cells, nbrs, grid.cell_type)
+    kw = dict(bins_per_cell=cfg.cand_bins_per_cell,
+              max_bins=cfg.cand_max_bins, eps=2.0 * cfg.eps_inside)
+    torch.cuda.synchronize()
     t0 = time.perf_counter()
     p, shape, _, _ = cand_build.prepare_pairs(
-        *args, grid.dtype, cfg.cand_bins_per_cell, cfg.cand_max_bins,
-        2.0 * cfg.eps_inside, dev)
+        *args, grid.dtype, kw["bins_per_cell"], kw["max_bins"], kw["eps"],
+        dev, timings=timings)
     torch.cuda.synchronize()
     prelude_s = time.perf_counter() - t0
     check(shape == grid.cand_shape, f"builder bins {shape} against the "
           f"grid's {grid.cand_shape}")
-    return p, args, prelude_s
+    return p, args, kw, prelude_s
 
 
-def builder_check(dev, grid, pts, cells, nbrs):
-    """D1 and D2 on the build's own inputs: D1's words, cells and counts
-    and D2's tables torch.equal to their plain versions and to the grid's
-    lists; each stage timed by CUDA events (the two host syncs by the
-    host clock), beside its bound."""
+def bucket_canonical(rec, counts):
+    """Records bucket by bucket, each bucket in ascending order (the
+    order of bin_pairs_plain)."""
+    from interpolate_unstructured_tpu_torch.ops import cand_build
+
+    keys = torch.repeat_interleave(
+        torch.arange(counts.shape[0], device=counts.device), counts.long())
+    return keys, rec[cand_build.bucket_order(keys, rec)]
+
+
+def builder_match(label, p, k, ext_max_k, grid_tables=None):
+    """D1's count pass, its write pass (canonically ordered inside each
+    bucket) and D2 (on the write pass's records and on the records with
+    each bucket shuffled) torch.equal to their plain versions on the
+    card, for K = ``k``; D2's tables torch.equal to ``grid_tables``
+    (cand_ids, cand_count, ext_slot, ext_ids or None) where given.
+    Returns the stages' tensors and sizes."""
     from interpolate_unstructured_tpu_torch.ops import cand_build
     from interpolate_unstructured_tpu_torch.ops import cand_build_kernel as bk
 
-    p, _, prelude_s = builder_inputs(grid, pts, cells, nbrs, dev)
-    word, cell, counts = bk.gen_pairs_cuda(p)
-    for name, a, b in zip(("words", "cells", "counts"),
-                          (word, cell, counts), cand_build.gen_pairs_plain(p)):
-        check(torch.equal(a, b), f"D1's {name} differ from gen_pairs_plain's")
-    check(torch.equal(counts, grid.cand_count),
-          "D1's counts differ from the built grid's")
-    sw, scell = cand_build.sort_pairs(word, cell)
-    sk = (sw >> 32).to(torch.int32)
-    n_bins, k = p.n_bins, grid.cand_ids.shape[1]
-    ext = grid.cand_ext_ids
-    k_ext = 0 if ext is None else ext.shape[1]
+    counts = bk.count_pairs_cuda(p)
+    want_counts, want_rec = cand_build.bin_pairs_plain(p)
+    check(torch.equal(counts, want_counts), f"{label}: D1's count pass "
+          "differs from bin_pairs_plain's counts")
+    start = torch.cumsum(counts, 0, dtype=torch.int32) - counts
+    n_kept, max_count = int(counts.sum()), int(counts.max())
+    rec = bk.write_pairs_cuda(p, start, n_kept)
+    keys, canon = bucket_canonical(rec, counts)
+    check(torch.equal(canon, want_rec), f"{label}: D1's write pass, "
+          "ordered inside each bucket, differs from bin_pairs_plain's "
+          "records")
     n_over = int((counts > k).sum())
+    k_ext = min(max_count - k, ext_max_k) if n_over and ext_max_k else 0
     slot = cand_build.ext_slots(counts, k)
-    got = bk.fill_tables_cuda(sw, scell, counts, slot, n_bins, k, k_ext,
-                              n_over)
-    want = cand_build.fill_tables_plain(sk, cand_build.bin_ranks(sk), scell,
-                                        counts, n_bins, k, k_ext, n_over)
-    for name, a, b in zip(("cand_ids", "ext_slot", "ext_ids"), got, want):
-        check(torch.equal(a, b), f"D2's {name} differ from "
-              "fill_tables_plain's")
-    check(torch.equal(got[0], grid.cand_ids)
-          and torch.equal(got[1], grid.cand_ext_slot),
-          "D2's tables differ from the built grid's lists")
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    max_count = int(counts.max())
-    t1 = time.perf_counter()
-    int((counts > k).sum())
-    t2 = time.perf_counter()
-    n_kept = int(counts.sum())
+    n_cells = p.normals.shape[0]
+    want = cand_build.fill_tables_plain(want_rec, counts, n_cells, k, k_ext,
+                                        n_over)
+    g = torch.Generator().manual_seed(7)
+    noise = torch.randperm(n_kept, generator=g).to(rec.device)
+    shuffled = rec[cand_build.bucket_order(keys, noise)]
+    for name, r in (("its records", rec), ("shuffled records", shuffled)):
+        got = bk.order_tables_cuda(r, start, counts, slot, n_cells, k, k_ext,
+                                   n_over, max_count)
+        for part, a, b in zip(("cand_ids", "ext_slot", "ext_ids"), got,
+                              want):
+            check(torch.equal(a, b), f"{label}: D2's {part} from {name} "
+                  "differ from fill_tables_plain's")
+    if grid_tables is not None:
+        ids, count, g_slot, g_ext = grid_tables
+        g_ext = (torch.zeros((0, 0), dtype=torch.int32, device=ids.device)
+                 if g_ext is None else g_ext)
+        check(torch.equal(counts, count) and torch.equal(want[0], ids)
+              and torch.equal(want[1], g_slot) and torch.equal(want[2], g_ext),
+              f"{label}: the plain tables differ from the built grid's")
+    del want_rec, shuffled, canon, keys, noise
+    return dict(counts=counts, start=start, rec=rec, slot=slot,
+                n_kept=n_kept, max_count=max_count, n_over=n_over,
+                k=k, k_ext=k_ext)
+
+
+def builder_grid_match(label, grid, pts, cells, nbrs, dev):
+    """builder_match on a grid built (or rebuilt) with the device builder:
+    the stages on the grid's own inputs, and the tables equal to the
+    grid's lists."""
+    p, *_ = builder_inputs(grid, pts, cells, nbrs, dev)
+    ext = grid.cand_ext_ids
+    m = builder_match(label, p, grid.cand_ids.shape[1],
+                      0 if ext is None else ext.shape[1],
+                      (grid.cand_ids, grid.cand_count, grid.cand_ext_slot,
+                       ext))
+    print(f"{label}: D1's count and write passes and D2 torch.equal to "
+          f"bin_pairs_plain and fill_tables_plain ({m['n_kept']} kept "
+          f"pairs, worst bin {m['max_count']}, K={m['k']}, k_ext="
+          f"{m['k_ext']} for {m['n_over']} bins), the plain tables "
+          f"torch.equal to the grid's lists")
+    del m
+
+
+def builder_bounds(p, m):
+    """The bounds of D1's passes, D2 and the chain on ``p`` and the
+    stages ``m``: each input and output byte once; operations of the
+    slots inside the cells' spans (9 for the bin center, 7 a face for the
+    separation test, 2 more a face for the score)."""
     c, nf = p.offs.shape
     its = p.offs.element_size()
-    res = {
-        "d1": {"ms": cuda_ms(lambda: bk.gen_pairs_cuda(p), 5),
-               "plain_ms": cuda_ms(lambda: cand_build.gen_pairs_plain(p), 1),
-               "bound": bound(c * nf * 4 * its + c * 24 + p.n_slots * 12
-                              + n_bins * 4,
-                              p.n_slots * (9 + 9 * nf) + c * 6 * nf)},
-        "sort_ms": cuda_ms(lambda: cand_build.sort_pairs(word, cell), 5),
-        "torch_sort_ms": cuda_ms(lambda: torch.sort(word, stable=True), 5),
-        "d2": {"ms": cuda_ms(lambda: bk.fill_tables_cuda(
-                   sw, scell, counts, slot, n_bins, k, k_ext, n_over), 5),
-               "plain_ms": cuda_ms(lambda: cand_build.fill_tables_plain(
-                   sk, cand_build.bin_ranks(sk), scell, counts, n_bins, k,
-                   k_ext, n_over), 2),
-               "bound": bound(n_kept * 12 + n_bins * 8 + n_bins * k * 4
-                              + n_over * k_ext * 4, 0)},
-        "syncs_ms": [(t1 - t0) * 1e3, (t2 - t1) * 1e3],
-        "prelude_s": prelude_s,
+    n_bins = p.n_bins
+    cells_b = c * nf * 4 * its + c * 24  # normals, offsets, b0, span
+    valid = int(p.span.to(torch.int64).prod(dim=1).sum())
+    tables_b = n_bins * m["k"] * 4 + m["n_over"] * m["k_ext"] * 4
+    return {
+        "count": bound(cells_b + n_bins * 4,
+                       valid * (9 + 7 * nf) + c * 6 * nf),
+        "write": bound(cells_b + n_bins * 4 + m["n_kept"] * 8,
+                       valid * (9 + 9 * nf) + c * 6 * nf),
+        "order": bound(m["n_kept"] * 8 + n_bins * 12 + tables_b, 0),
+        "chain": bound(cells_b + n_bins * 4 + tables_b,
+                       valid * (9 + 9 * nf) + c * 6 * nf),
     }
-    print(f"device candidate builder, {c} tets: bins {p.bin_shape}, "
-          f"{p.n_offsets} offsets, {p.n_slots} slots, {n_kept} kept, worst "
-          f"bin {max_count}, K={k}; host prelude (AABBs in bins, inputs "
-          f"to the card) {prelude_s:.3f} s; D1 "
-          f"{res['d1']['ms']:.4f} ms (bound {res['d1']['bound'][0]:.4f}, "
-          f"{res['d1']['bound'][1]}; plain {res['d1']['plain_ms']:.4f}), "
-          f"sort {res['sort_ms']:.4f} ms (torch.sort alone "
-          f"{res['torch_sort_ms']:.4f}), D2 {res['d2']['ms']:.4f} ms (bound "
-          f"{res['d2']['bound'][0]:.4f}, {res['d2']['bound'][1]}; plain "
-          f"{res['d2']['plain_ms']:.4f}), host syncs "
-          f"{res['syncs_ms'][0]:.4f} / {res['syncs_ms'][1]:.4f} ms; D1's "
-          f"words, cells and counts and D2's tables torch.equal to the plain "
-          f"versions and to the grid's lists")
+
+
+def peak_gb(fn):
+    """GB of device memory that ``fn`` allocated at its peak beyond what
+    was allocated before it (what it returns included)."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = fn()
+    torch.cuda.synchronize()
+    peak = (torch.cuda.max_memory_allocated() - base) / 1e9
+    del out
+    torch.cuda.empty_cache()
+    return peak
+
+
+def builder_check(dev, grid, pts, cells, nbrs):
+    """The device candidate builder on the 998k box's own inputs: the
+    prelude's steps by the host clock; D1's passes and D2 against their
+    plain versions and the grid's lists; each stage and the chain after
+    the prelude timed by CUDA events beside its bound; the builder's peak
+    device memory; no aten::sort under the profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from interpolate_unstructured_tpu_torch.ops import cand_build
+    from interpolate_unstructured_tpu_torch.ops import cand_build_kernel as bk
+
+    prelude = {}
+    p, args, kw, prelude_s = builder_inputs(grid, pts, cells, nbrs, dev,
+                                            prelude)
+    ext = grid.cand_ext_ids
+    k, k_ext = grid.cand_ids.shape[1], 0 if ext is None else ext.shape[1]
+    m = builder_match("998k box", p, k, k_ext,
+                      (grid.cand_ids, grid.cand_count, grid.cand_ext_slot,
+                       ext))
+    counts, start, rec, slot = m["counts"], m["start"], m["rec"], m["slot"]
+    n_kept, max_count, n_over = m["n_kept"], m["max_count"], m["n_over"]
+    c = p.offs.shape[0]
+    chain = cand_build.candidate_tables(p, k, ext_max_k=k_ext)
+    for part, a, b in zip(("cand_ids", "cand_count", "ext_ids", "ext_slot"),
+                          chain, (grid.cand_ids, grid.cand_count, ext,
+                                  grid.cand_ext_slot)):
+        same = a.numel() == 0 if b is None else torch.equal(a, b)
+        check(same, f"candidate_tables' {part} differ from the grid's")
+    del chain
+
+    def order():
+        return bk.order_tables_cuda(rec, start, counts, slot, c, k,
+                                    m["k_ext"], n_over, max_count)
+
+    def host_read():
+        return torch.stack((
+            counts.max().to(torch.int64), counts.sum(dtype=torch.int64),
+            (counts > k).sum())).tolist()
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(10):
+        host_read()
+    read_ms = (time.perf_counter() - t0) * 100
+    bounds = builder_bounds(p, m)
+    res = {
+        "count": {"ms": cuda_ms(lambda: bk.count_pairs_cuda(p), 10)},
+        "write": {"ms": cuda_ms(
+            lambda: bk.write_pairs_cuda(p, start, n_kept), 10)},
+        "order": {"ms": cuda_ms(order, 10)},
+        "scan_ms": cuda_ms(
+            lambda: torch.cumsum(counts, 0, dtype=torch.int32) - counts, 10),
+        "read_ms": read_ms,
+        "chain_ms": cuda_ms(
+            lambda: cand_build.candidate_tables(p, k, ext_max_k=k_ext), 10),
+        "prelude_s": prelude_s, "prelude": prelude,
+    }
+    plain_pairs = cuda_ms(lambda: cand_build.bin_pairs_plain(p), 2)
+    _, want_rec = cand_build.bin_pairs_plain(p)
+    res["order"]["plain_ms"] = cuda_ms(lambda: cand_build.fill_tables_plain(
+        want_rec, counts, c, k, m["k_ext"], n_over), 2)
+    del want_rec
+    for part in ("count", "write", "order"):
+        res[part]["bound"] = bounds[part]
+        res[part]["library_ms"] = None
+    res["count"]["plain_ms"] = res["write"]["plain_ms"] = plain_pairs
+    res["chain_bound"] = bounds["chain"]
+
+    # Peak device memory of the chain and of one whole
+    # build_candidate_bins_device call beyond what was allocated before
+    # it (its outputs included)
+    del m, rec, start, slot
+    res["chain_peak_gb"] = peak_gb(
+        lambda: cand_build.candidate_tables(p, k, ext_max_k=k_ext))
+    shape, n_offsets, n_slots = p.bin_shape, p.n_offsets, p.n_slots
+    del p
+    t0 = time.perf_counter()
+    res["peak_gb"] = peak_gb(lambda: cand_build.build_candidate_bins_device(
+        *args, k, grid.dtype, **kw, ext_max_k=k_ext, device=dev))
+    res["builder_s"] = time.perf_counter() - t0
+    n0 = tuple(getattr(bk, f"{x}_launches") for x in BUILDER_KERNELS)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        cand_build.build_candidate_bins_device(
+            *args, k, grid.dtype, **kw, ext_max_k=k_ext, device=dev)
+        torch.cuda.synchronize()
+    names = sorted({e.key for e in prof.key_averages()})
+    sorts = [x for x in names if "sort" in x.lower()]
+    check(not sorts, f"build_candidate_bins_device launched a sort: {sorts}")
+    dn = [getattr(bk, f"{x}_launches") - a
+          for x, a in zip(BUILDER_KERNELS, n0)]
+    check(dn == [1, 1, 1], f"the profiled build launched D1/D2 {dn} times")
+    res["profiled_kernels"] = [x for x in names if "cand_" in x]
+    torch.cuda.empty_cache()
+
+    print(f"device candidate builder, {c} tets: bins {shape}, "
+          f"{n_offsets} offsets, {n_slots} slots, {n_kept} kept, worst "
+          f"bin {max_count}, K={k}; prelude (bin grid, float64 AABBs in "
+          f"bins on the card, inputs to the card) {prelude_s:.4f} s split "
+          + json.dumps({x: round(v, 4) for x, v in prelude.items()})
+          + f"; D1 count pass {res['count']['ms']:.4f} ms (bound "
+          f"{bounds['count'][0]:.4f}, {bounds['count'][1]}), scan "
+          f"{res['scan_ms']:.4f} ms, host read of 3 scalars "
+          f"{read_ms:.4f} ms, D1 write pass {res['write']['ms']:.4f} ms "
+          f"(bound {bounds['write'][0]:.4f}, {bounds['write'][1]}), D2 "
+          f"{res['order']['ms']:.4f} ms (bound {bounds['order'][0]:.4f}, "
+          f"{bounds['order'][1]}); plain versions: bin_pairs_plain "
+          f"{plain_pairs:.4f} ms, fill_tables_plain "
+          f"{res['order']['plain_ms']:.4f} ms; the chain after the prelude "
+          f"(candidate_tables) {res['chain_ms']:.4f} ms (bound "
+          f"{bounds['chain'][0]:.4f}, {bounds['chain'][1]}); "
+          f"build_candidate_bins_device {res['builder_s']:.4f} s; peak "
+          f"device memory beyond what was allocated before: the chain "
+          f"{res['chain_peak_gb']:.4f} GB, the whole builder "
+          f"{res['peak_gb']:.4f} GB (outputs included); profiled call: no "
+          f"sort, kernels {res['profiled_kernels']}")
     return res
+
+
+def heavy_soup(meshgen, n):
+    """The cells of tet_box_mesh(10, 10, 10) on the unit box and of
+    tet_box_mesh(n, n, n) scaled to side 0.01 and centred on one bin's
+    center (SOUP_KW's bin grid): the builder's host inputs."""
+    from interpolate_unstructured_tpu_torch.ops import geometry
+
+    big = meshgen.tet_box_mesh(10, 10, 10)
+    n_target = min(int(SOUP_KW["bins_per_cell"] * (len(big[1]) + 6 * n ** 3)),
+                   SOUP_KW["max_bins"])
+    _, h, _, _ = geometry._bin_grid_shape(np.zeros(3), np.ones(3), 3,
+                                          n_target)
+    center = (np.floor(np.array([0.53, 0.47, 0.51]) / h) + 0.5) * h
+    pts, cells, nbrs = meshgen.tet_box_mesh(n, n, n)
+    small = (center - 0.005 + 0.01 * pts, cells, nbrs)
+    parts = [host_geometry(*mesh, "tetra")[:3] for mesh in (big, small)]
+    cp, normals, offs = (np.concatenate(a) for a in zip(*parts))
+    return cp, normals, offs, np.zeros(3), np.ones(3), 3
+
+
+def soup_check(dev, meshgen, counters, card):
+    """The heavy-bin soup on the card: build_candidate_bins_device (the
+    main path) with one bin past D2's shared-memory route, its tables
+    torch.equal to the plain versions' and each stage to its plain
+    version.  Returns the main path's launches."""
+    from interpolate_unstructured_tpu_torch.ops import cand_build
+    from interpolate_unstructured_tpu_torch.ops import cand_build_kernel as bk
+
+    args = heavy_soup(meshgen, SOUP_N)
+    out, counts = main_path(lambda: cand_build.build_candidate_bins_device(
+        *args, SOUP_K, torch.float32, **SOUP_KW, device=dev), counters)
+    launches = builder_launches(counts)
+    check(launches == {x: 1 for x in BUILDER_KERNELS},
+          f"the soup's build launched D1/D2 {launches}")
+    p, *_ = cand_build.prepare_pairs(
+        *args, torch.float32, SOUP_KW["bins_per_cell"],
+        SOUP_KW["max_bins"], SOUP_KW["eps"], dev)
+    m = builder_match("heavy-bin soup", p, SOUP_K, SOUP_KW["ext_max_k"],
+                      (out[0], out[1], out[6], out[5]))
+    check(m["max_count"] > 16384, "the soup's worst bin fits D2's shared "
+          "memory route")
+    k_ext = m["k_ext"]
+
+    def order():
+        return bk.order_tables_cuda(m["rec"], m["start"], m["counts"],
+                                    m["slot"], len(args[0]), SOUP_K, k_ext,
+                                    m["n_over"], m["max_count"])
+
+    ms = cuda_ms(order, 5)
+    print(f"heavy-bin soup: tet_box_mesh(10,10,10) + tet_box_mesh({SOUP_N},"
+          f"{SOUP_N},{SOUP_N}) at side 0.01 in one bin, {len(args[0])} tets, "
+          f"bins {p.bin_shape}, {m['n_kept']} kept pairs, worst bin "
+          f"{m['max_count']} (D2's rank route), "
+          f"{int((m['counts'] > 32).sum())} bins above 32; build launches "
+          f"{json.dumps(launches)}; D2 {ms:.4f} ms; every stage and the "
+          f"built tables torch.equal to the plain versions [{card}]")
+    del out, m
+    return launches
 
 
 def builder_phase(dev, tiu, meshgen, counters, card):
     """The device candidate builder beside the host builder: on a box just
     above cand_build_device_min_cells every host pair lies in its bin's
-    device list, and "auto" builds that box on the card; a strongly
+    device list, and "auto" builds that box on the card, its stages held
+    to their plain versions; the heavy-bin soup on the card; a strongly
     graded mesh goes to the host builder under "auto" (the threshold
     lowered to its size), and "device" raises on it."""
     from interpolate_unstructured_tpu_torch.ops import cand_build, geometry
 
-    res = {"launches": {"pairs": 0, "fill": 0}}
+    res = {"launches": {x: 0 for x in BUILDER_KERNELS}}
     n = 26
     pts, cells, nbrs = meshgen.tet_box_mesh(n, n, n)
     cfg = tiu.IUConfig()
@@ -810,7 +1057,9 @@ def builder_phase(dev, tiu, meshgen, counters, card):
     check(min(launches.values()) >= 1, f"auto did not build the "
           f"{len(cells)}-tet box on the card: {launches}")
     add_counts(res["launches"], launches)
-    _, args, _ = builder_inputs(grid, pts, cells, nbrs, dev)
+    builder_grid_match(f"builder box, {len(cells)} tets", grid, pts, cells,
+                       nbrs, dev)
+    args = host_geometry(pts, cells, nbrs, "tetra")
     k = 64  # above every bin's count: complete lists on both sides
     cfg = grid.config
     kw = dict(bins_per_cell=cfg.cand_bins_per_cell,
@@ -846,6 +1095,8 @@ def builder_phase(dev, tiu, meshgen, counters, card):
           f"({len(d_pairs)} device pairs); host "
           f"builder {host_s:.3f} s, device builder {dev_s:.3f} s [{card}]")
     del grid, devb
+    res["soup_launches"] = soup_check(dev, meshgen, counters, card)
+    add_counts(res["launches"], res["soup_launches"])
 
     # A strongly graded mesh: one cell spans the whole domain
     pts, cells, nbrs = meshgen.tet_box_mesh(4, 4, 4)
@@ -2417,6 +2668,7 @@ def io_phase(dev, tiu, meshgen, cand_grid, cand_res, counters, card, tmp):
           and rebuilt.cand_ext_covers == g_arr.cand_ext_covers,
           "io rebuild: the bin shape or the cover flag differs")
     del g_arr
+    builder_grid_match("io rebuild", rebuilt, pts, cells, nbrs, dev)
     r = torch.from_numpy(
         np.random.default_rng(2).random((N_CAND, 3)).astype(np.float32)
     ).to(dev)
@@ -3030,6 +3282,7 @@ def float64_phase(dev, tiu, meshgen, interp_kernel, locate, cand_kernel,
     check(grid.cand_table.dtype == torch.float64
           and grid.cand_ext_table is not None,
           "the float64 box has no float64 candidate rows with extension rows")
+    builder_grid_match("float64 box", grid, pts, cells, nbrs, dev)
     r = torch.from_numpy(np.random.default_rng(2).random((N_CAND, 3))).to(dev)
     res["cold"] = f64_cold(dev, tiu, grid, r, locate, cand_kernel,
                            walk_kernel, counters)
@@ -3647,10 +3900,10 @@ def main() -> int:
     direct = b2["launches"] + b5["b2_launches"] + io_n[ck]
     b5_launches = b5["acc_launches"] + io_n[acc_kernel.__name__]
     d_launches = {x: b2["builder_launches"][x] + bd["launches"][x]
-                  + io["builder_launches"][x] for x in ("pairs", "fill")}
+                  + io["builder_launches"][x] for x in BUILDER_KERNELS}
     print("device candidate builder launches on the main path (the 998k "
-          "box's build_grid, the containment box's, the io phase's rebuild): "
-          + json.dumps(d_launches))
+          "box's build_grid, the containment box's, the heavy-bin soup's, "
+          "the io phase's rebuild): " + json.dumps(d_launches))
     e1_launches = {**b3["e1_launches"], "candidate_warm": b2["e1_launches"],
                    "trace_start_field": b4["e1_launches"],
                    "io": io_n[icell_kernel.__name__]}
@@ -3747,19 +4000,21 @@ def main() -> int:
         "max_abs_err": e1["max_abs_err"], "ms": e1["ms"],
         "plain_ms": e1["plain_ms"], "bound_ms": e1["bound"][0],
         "bound_by": e1["bound"][1], "library_ms": None})
-    for name, key, part, line in (
-            ("D1 cand_pairs (no Pallas counterpart: XLA _gen_pairs)",
-             "pairs", "d1", 56),
-            ("D2 cand_fill (no Pallas counterpart: XLA _fill_tables)",
-             "fill", "d2", 135)):
+    for name, key, line in (
+            ("D1 cand_bin count pass (no Pallas counterpart: XLA "
+             "_gen_pairs)", "count", 56),
+            ("D1 cand_bin write pass (no Pallas counterpart: XLA "
+             "_gen_pairs, lax.sort)", "write", 56),
+            ("D2 cand_order (no Pallas counterpart: XLA lax.sort, "
+             "_fill_tables)", "order", 135)):
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"{pkg}/csrc/cand_build.cu",
             "replaces": f"interpolate_unstructured_tpu/ops/cand_build.py:{line}",
             "launches": d_launches[key], "max_abs_err": 0.0,
-            "ms": cb[part]["ms"], "plain_ms": cb[part]["plain_ms"],
-            "bound_ms": cb[part]["bound"][0],
-            "bound_by": cb[part]["bound"][1], "library_ms": None})
+            "ms": cb[key]["ms"], "plain_ms": cb[key]["plain_ms"],
+            "bound_ms": cb[key]["bound"][0],
+            "bound_by": cb[key]["bound"][1], "library_ms": None})
     f64_cold, f64_warm = f64["cold"], f64["warm"]
     f64_gc = {**f64_warm["gc_launches"],
               "trace_start_cells": f64["trace"]["gc_launches"]}

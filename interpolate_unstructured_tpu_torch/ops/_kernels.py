@@ -112,11 +112,13 @@ _SIGNATURES = {
          _F, _I, _F, _F, _F, _F, _F, _F, _F, _F, _I, _I, _P, _P, _P, _P, _P,
          _P, _P],
     ),
-    "iu_cand_pairs": (
-        _I, [_P, _P, _P, _P, _I, _I, _I, _IP, _I, _I, _I, _DP, _I, _P, _P, _P,
+    "iu_cand_bin": (
+        _I, [_P, _P, _P, _P, _I, _I, _I, _IP, _I, _I, _DP, _I, _I, _P, _P,
              _P],
     ),
-    "iu_cand_fill": (_I, [_P, _P, _I, _P, _P, _I, _I, _I, _P, _P, _P]),
+    "iu_cand_order": (
+        _I, [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _I, _P],
+    ),
     "iu_interp_icell": (
         _I, [_P, _P, _P, _I, _I, _P, _I, _IP, _I, _P, _P, _I, _P, _I, _P],
     ),

@@ -1,15 +1,17 @@
-"""Kernels D1 and D2: the device candidate builder's pair words and id
+"""Kernels D1 and D2: the device candidate builder's bin buckets and id
 tables.
 
 No Pallas kernel is their counterpart: the JAX package builds the lists
 in XLA (``ops/cand_build.py``: ``_gen_pairs``, ``lax.sort``,
-``_fill_tables``).  :func:`gen_pairs_cuda` launches D1
-(``csrc/cand_build.cu`` ``cand_pairs_kernel``) and
-:func:`fill_tables_cuda` launches D2 (``cand_fill_kernel``) on CUDA
-tensors; their plain versions, ``gen_pairs_plain`` and
-``fill_tables_plain``, live in ``ops/cand_build.py`` beside the builder,
-which runs them on CPU tensors.  ``pairs_launches`` and
-``fill_launches`` count kernel launches.
+``_fill_tables``).  D1 (``csrc/cand_build.cu`` ``cand_bin_kernel``) runs
+twice: :func:`count_pairs_cuda` counts each bin's kept pairs and
+:func:`write_pairs_cuda` writes each kept pair's record into its bin's
+bucket.  :func:`order_tables_cuda` launches D2 (``cand_order_*_kernel``),
+which orders each bucket and writes the tables.  Their plain versions,
+``bin_pairs_plain`` and ``fill_tables_plain``, live in
+``ops/cand_build.py`` beside the builder, which runs them on CPU
+tensors.  ``count_launches``, ``write_launches`` and ``order_launches``
+count kernel launches.
 """
 
 from __future__ import annotations
@@ -20,15 +22,18 @@ import torch
 
 from . import _kernels
 
-pairs_launches = 0  # launches of D1
-fill_launches = 0  # launches of D2
+count_launches = 0  # launches of D1's count pass
+write_launches = 0  # launches of D1's write pass
+order_launches = 0  # launches of D2
+
+# D2 sorts buckets above this many records in shared memory, a block a
+# bin; smaller ones in a warp (csrc/cand_build.cu)
+WARP_RECORDS = 32
 
 
-def gen_pairs_cuda(p):
-    """Launch D1 on a :class:`.cand_build.PairInputs` whose tensors lie on
-    one CUDA device.  Returns (word int64, cell int32, counts int32):
-    each slot's sort word and cell id, and the kept pairs of each bin."""
-    global pairs_launches
+def _bin(p, counter, rec, write):
+    """One launch of D1 on a :class:`.cand_build.PairInputs` whose
+    tensors lie on one CUDA device."""
     normals, offs, b0, span = p.normals, p.offs, p.b0, p.span
     if normals.dtype not in (torch.float32, torch.float64):
         raise TypeError(f"D1 takes float32 or float64 grids, got "
@@ -45,60 +50,91 @@ def gen_pairs_cuda(p):
         raise ValueError("D1's inputs must lie on one CUDA device")
     if not all(t.is_contiguous() for t in (normals, offs, b0, span)):
         raise ValueError("D1's inputs must be contiguous")
-    n_slots, n_bins = p.n_slots, p.n_bins
-    word = torch.empty(n_slots, dtype=torch.int64, device=dev)
-    cell = torch.empty(n_slots, dtype=torch.int32, device=dev)
-    counts = torch.zeros(n_bins, dtype=torch.int32, device=dev)
+    if p.n_slots >= 1 << 31:
+        raise ValueError("D1 takes fewer than 2^31 slots")
     smax = (ctypes.c_int * 3)(*p.smax)
     frame = (ctypes.c_double * 11)(*p.half, *p.rmin, *p.h, p.eps, p.zc)
     _, nby, nbz = p.bin_shape
     with torch.cuda.device(dev):
-        code = _kernels.lib().iu_cand_pairs(
+        code = _kernels.lib().iu_cand_bin(
             normals.data_ptr(), offs.data_ptr(), b0.data_ptr(),
             span.data_ptr(), c, nf, int(normals.dtype == torch.float64),
-            smax, nby, nbz, n_bins, frame, int(p.use_zc), word.data_ptr(),
-            cell.data_ptr(), counts.data_ptr(),
+            smax, nby, nbz, frame, int(p.use_zc), int(write),
+            counter.data_ptr(), 0 if rec is None else rec.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream,
         )
-    _kernels.check(code, "iu_cand_pairs")
-    pairs_launches += 1
-    return word, cell, counts
+    _kernels.check(code, "iu_cand_bin")
 
 
-def fill_tables_cuda(sw, scell, counts, ext_slot, n_bins, k_max, k_ext,
-                     n_over):
-    """Launch D2 on CUDA tensors: ``sw`` the sorted words (int64),
-    ``scell`` their cells (int32), ``counts`` and ``ext_slot`` (n_bins,)
-    int32 (``cand_build.ext_slots``).  Returns (cand_ids (n_bins, k_max),
-    ext_slot, ext_ids (n_over, k_ext) or (0, 0)), int32, as
-    ``fill_tables_plain``."""
-    global fill_launches
-    dev = sw.device
+def count_pairs_cuda(p):
+    """D1's count pass: (n_bins,) int32, the kept pairs of each bin."""
+    global count_launches
+    counts = torch.zeros(p.n_bins, dtype=torch.int32,
+                         device=p.normals.device)
+    _bin(p, counts, None, write=False)
+    count_launches += 1
+    return counts
+
+
+def write_pairs_cuda(p, start, n_kept):
+    """D1's write pass: (n_kept,) int64 records ``(score_order << 32) |
+    slot``, bin by bin from ``start`` ((n_bins,) int32, the exclusive
+    scan of the count pass's counts), in an order the atomics choose
+    inside each bin."""
+    global write_launches
+    dev = p.normals.device
+    if (start.device != dev or start.dtype != torch.int32
+            or start.shape != (p.n_bins,)):
+        raise ValueError("D1's write pass takes (n_bins,) int32 starts on "
+                         "the inputs' device")
+    nxt = start.clone()
+    rec = torch.empty(n_kept, dtype=torch.int64, device=dev)
+    _bin(p, nxt, rec, write=True)
+    write_launches += 1
+    return rec
+
+
+def order_tables_cuda(rec, start, counts, ext_slot, n_cells, k_max, k_ext,
+                      n_over, max_count):
+    """Launch D2 on CUDA tensors: ``rec`` the write pass's records,
+    ``start``, ``counts`` and ``ext_slot`` (n_bins,) int32
+    (``cand_build.ext_slots``), ``max_count`` the largest count.
+    Returns (cand_ids (n_bins, k_max), ext_slot, ext_ids (n_over, k_ext)
+    or (0, 0)), int32, as ``fill_tables_plain``."""
+    global order_launches
+    dev = rec.device
+    n_bins = counts.shape[0]
     if dev.type != "cuda" or any(
-            t.device != dev for t in (scell, counts, ext_slot)):
+            t.device != dev for t in (start, counts, ext_slot)):
         raise ValueError("D2's inputs must lie on one CUDA device")
-    if (sw.dtype != torch.int64 or scell.dtype != torch.int32
-            or counts.dtype != torch.int32 or ext_slot.dtype != torch.int32
-            or sw.shape != scell.shape or counts.shape != (n_bins,)
-            or ext_slot.shape != (n_bins,)):
-        raise ValueError("D2 takes sorted int64 words, int32 cells of the "
-                         "same length and (n_bins,) int32 counts and slots")
-    if sw.numel() >= 1 << 31:
-        raise ValueError("D2 takes fewer than 2^31 slots")
-    sw, scell = sw.contiguous(), scell.contiguous()
-    ext_slot = ext_slot.contiguous()
-    start = torch.cumsum(counts, 0, dtype=torch.int32) - counts
-    cand_ids = torch.full((n_bins, k_max), -1, dtype=torch.int32, device=dev)
+    if (rec.dtype != torch.int64 or rec.dim() != 1
+            or any(t.dtype != torch.int32 or t.shape != (n_bins,)
+                   for t in (start, counts, ext_slot))):
+        raise ValueError("D2 takes int64 records and (n_bins,) int32 "
+                         "starts, counts and slots")
+    if not all(t.is_contiguous() for t in (rec, start, counts, ext_slot)):
+        raise ValueError("D2's inputs must be contiguous")
+    if not 0 < n_cells < 1 << 31 or rec.numel() >= 1 << 31:
+        raise ValueError("D2 takes 1 to 2^31 - 1 cells and fewer than 2^31 "
+                         "records")
+    cand_ids = torch.empty((n_bins, k_max), dtype=torch.int32, device=dev)
     if not (k_ext and n_over):
         k_ext = 0
-    ext_ids = torch.full((n_over, k_ext) if k_ext else (0, 0), -1,
-                         dtype=torch.int32, device=dev)
+    ext_ids = torch.empty((n_over, k_ext) if k_ext else (0, 0),
+                          dtype=torch.int32, device=dev)
+    work, cap = None, 0
+    if max_count > WARP_RECORDS:
+        cap = min(n_bins, rec.numel() // (WARP_RECORDS + 1) + 1)
+        work = torch.empty(2 + 2 * cap, dtype=torch.int32, device=dev)
+        work[:2].zero_()
     with torch.cuda.device(dev):
-        code = _kernels.lib().iu_cand_fill(
-            sw.data_ptr(), scell.data_ptr(), sw.numel(), start.data_ptr(),
-            ext_slot.data_ptr(), n_bins, k_max, k_ext, cand_ids.data_ptr(),
-            ext_ids.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
+        code = _kernels.lib().iu_cand_order(
+            rec.data_ptr(), start.data_ptr(), counts.data_ptr(),
+            ext_slot.data_ptr(), n_bins, n_cells, k_max, k_ext, max_count,
+            cand_ids.data_ptr(), ext_ids.data_ptr(),
+            0 if work is None else work.data_ptr(), cap,
+            torch.cuda.current_stream(dev).cuda_stream,
         )
-    _kernels.check(code, "iu_cand_fill")
-    fill_launches += 1
+    _kernels.check(code, "iu_cand_order")
+    order_launches += 1
     return cand_ids, ext_slot, ext_ids

@@ -1,7 +1,8 @@
 """The port's device candidate builder (``ops/cand_build.py``, kernels D1
 and D2) against the JAX package's ``ops/cand_build.py``.
 
-On the CPU the port runs the plain versions of D1 and D2.  Both
+On the CPU the port runs the plain versions of D1 and D2
+(``bin_pairs_plain``, ``fill_tables_plain``).  Both
 packages take the same float64 host geometry and compute stage 1 in the
 grid dtype.  XLA on the CPU contracts the JAX package's products and
 sums into FMAs, torch rounds each operation (ROADMAP C5), so:
@@ -18,8 +19,12 @@ sums into FMAs, torch rounds each operation (ROADMAP C5), so:
 
 Grids built end to end with ``cand_build="device"`` are compared with
 the tolerances of ``tests/test_torch_slice.py`` (float32 found masks and
-cell ids identical, values within 2e-6).  The ``cuda`` case holds D1 and
-D2 ``torch.equal`` to their plain versions on the card.
+cell ids identical, values within 2e-6).  The heavy-bin soups put
+1,296 or 34,992 small tets inside one bin of a 6,000-tet box, so that
+one bucket takes D2's block route or its rank route (past shared
+memory).  The ``cuda`` cases hold D1's count and write passes and D2
+``torch.equal`` to their plain versions on the card, the write pass's
+records after canonical ordering inside each bucket.
 
 The file imports jax only inside the tests that compare with the JAX
 package, so that the card, which has no jax, collects its ``cuda`` test
@@ -54,6 +59,17 @@ EPS32 = float(np.finfo(np.float32).eps)
 DEVICE = tiu.IUConfig(cand_build="device")
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _warm_cpu_sqrt():
+    """Run torch.sqrt once on every intra-op thread before the tests: on
+    some virtualized hosts the first float32 torch.sqrt a worker thread
+    runs in a process is off by ~1e-4 relative (PERF.md §7), and the
+    grids built end to end take square roots."""
+    x = torch.rand(1 << 20) + 0.5
+    for _ in range(2):
+        torch.sqrt(x)
+
+
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
@@ -85,6 +101,52 @@ def _args(mesh):
     pts, cells, nbrs = make()
     cp, normals, offs = _geometry(pts, cells, nbrs, cell_type)
     return (cp, normals, offs, pts.min(0), pts.max(0), ndim)
+
+
+# The heavy-bin soups: k_max, ext_max_k, bins a cell, and the cover
+# budget (the n = 6 soup's worst bin widens K, the n = 18 soup's does not)
+SOUP_KW = dict(bins_per_cell=0.25, max_bins=1 << 22, eps=2e-10,
+               ext_max_k=32)
+SOUP_K = 10
+SOUP_COVER = 4096
+
+
+def _soup(n):
+    """The cells of tet_box_mesh(10, 10, 10) on the unit box and of
+    tet_box_mesh(n, n, n) scaled to side 0.01 and centred on the center
+    of one bin of the soup's bin grid: the stage-1 inputs (cell points,
+    normals, offsets, rmin, rmax, ndim)."""
+    big = meshgen.tet_box_mesh(10, 10, 10)
+    n_cells = len(big[1]) + 6 * n ** 3
+    n_target = min(int(SOUP_KW["bins_per_cell"] * n_cells),
+                   SOUP_KW["max_bins"])
+    _, h, _, _ = geometry._bin_grid_shape(np.zeros(3), np.ones(3), 3,
+                                          n_target)
+    center = (np.floor(np.array([0.53, 0.47, 0.51]) / h) + 0.5) * h
+    pts, cells, nbrs = meshgen.tet_box_mesh(n, n, n)
+    small = (center - 0.005 + 0.01 * pts, cells, nbrs)
+    parts = [_geometry(*m, "tetra") for m in (big, small)]
+    cp, normals, offs = (np.concatenate(a) for a in zip(*parts))
+    return (cp, normals, offs, np.zeros(3), np.ones(3), 3)
+
+
+def _bucket_keys(counts):
+    """Each record's bin, records bucket by bucket."""
+    return torch.repeat_interleave(
+        torch.arange(counts.shape[0], device=counts.device),
+        counts.to(torch.int64))
+
+
+def _canonical(rec, counts):
+    """Records bucket by bucket, each bucket in ascending order."""
+    return rec[cand_build.bucket_order(_bucket_keys(counts), rec)]
+
+
+def _shuffled(rec, counts, seed):
+    """The records with each bucket in a random order."""
+    g = torch.Generator().manual_seed(seed)
+    noise = torch.randperm(rec.shape[0], generator=g).to(rec.device)
+    return rec[cand_build.bucket_order(_bucket_keys(counts), noise)]
 
 
 def _jax_stage1(p, args, dtype):
@@ -144,11 +206,14 @@ def _row_lists(ids, ext, slot):
 
 
 def assert_lists_match(t_ids, t_ext, t_slot, j_ids, j_ext, j_slot,
-                       ordered_bins=None):
+                       ordered_bins=None, cut=None):
     """Candidate tables of the port's device builder against the JAX
     package's: the same shapes and extension slots; each bin's list the
     same cells; the same order in every bin of ``ordered_bins`` (all
-    bins if None).  Returns how many bins rank their cells otherwise."""
+    bins if None).  ``cut(b, port list, jax list)``, where given, checks
+    instead the bins whose lists hold other cells (lists cut short of
+    their bins' counts, whose near-tied cells at the cut may differ).
+    Returns how many bins rank their cells otherwise."""
     t_ids, t_ext, t_slot = (np.asarray(a) for a in (t_ids, t_ext, t_slot))
     j_ids, j_ext, j_slot = (np.asarray(a) for a in (j_ids, j_ext, j_slot))
     assert t_ids.shape == j_ids.shape and t_ext.shape == j_ext.shape
@@ -156,6 +221,9 @@ def assert_lists_match(t_ids, t_ext, t_slot, j_ids, j_ext, j_slot,
     tl, jl = _row_lists(t_ids, t_ext, t_slot), _row_lists(j_ids, j_ext, j_slot)
     reordered = [b for b in range(len(tl)) if tl[b] != jl[b]]
     for b in reordered:
+        if cut is not None and sorted(tl[b]) != sorted(jl[b]):
+            cut(b, tl[b], jl[b])
+            continue
         assert sorted(tl[b]) == sorted(jl[b]), f"bin {b}: {tl[b]} != {jl[b]}"
     if ordered_bins is None:
         assert not reordered, f"bins ranked otherwise: {reordered[:10]}"
@@ -169,8 +237,9 @@ def assert_lists_match(t_ids, t_ext, t_slot, j_ids, j_ext, j_slot,
 @pytest.mark.parametrize("mesh", list(MESHES))
 def test_stage1_matches_jax(mesh, dtype):
     """Stage 1 on the port's prelude against the JAX package's
-    _gen_pairs: the same keys and cells, scores within 4 ulp; the sort
-    words carry the keys and scores."""
+    _gen_pairs: the same keys and cells, scores within 4 ulp; D1's plain
+    records lie in their slots' bins, in canonical order, and carry the
+    cells and scores; the sort words carry the keys and scores."""
     dtype = DTYPES[dtype]
     args = _args(mesh)
     p, *_ = cand_build.prepare_pairs(*args, dtype, KW["bins_per_cell"],
@@ -182,11 +251,19 @@ def test_stage1_matches_jax(mesh, dtype):
     assert 0 < kept.sum() < len(kept)
     d = np.abs(score.numpy() - jscore)[kept]
     assert (d <= _score_tol(jscore[kept], dtype, args)).all(), d.max()
-    word, cell, counts = cand_build.gen_pairs_plain(p)
-    np.testing.assert_array_equal(cell.numpy(), jcell)
+    counts, rec = cand_build.bin_pairs_plain(p)
     np.testing.assert_array_equal(
         counts.numpy(), np.bincount(jkey[kept], minlength=p.n_bins))
-    wkey, wscore = _word_key_score(word)
+    # each record sits in its slot's bin and carries its cell and score
+    slot = (rec & 0xFFFFFFFF).numpy()
+    assert len(slot) == kept.sum()
+    np.testing.assert_array_equal(
+        jkey[slot], np.repeat(np.arange(p.n_bins), counts.numpy()))
+    np.testing.assert_array_equal(jcell[slot], slot % len(args[0]))
+    assert torch.equal((rec >> 32) & 0xFFFFFFFF,
+                       cand_build.score_order(score[slot]))
+    assert torch.equal(rec, _canonical(rec, counts))
+    wkey, wscore = _word_key_score(cand_build.sort_word(key, score))
     assert torch.equal(wkey, key) and torch.equal(wscore, score)
 
 
@@ -372,9 +449,11 @@ def test_device_built_grid_matches_jax(case):
 
 
 def test_word_order_is_the_jax_sort_order():
-    """Sorting the words reproduces lax.sort((key, -score, cell),
+    """Records (score_order << 32 | slot) in canonical order, buckets by
+    key and each ascending, reproduce lax.sort((key, -score, cell),
     num_keys=2, is_stable=True): keys ascending, scores descending, -0.0
-    equal to +0.0 and NaN after every number, ties in slot order."""
+    equal to +0.0 and NaN after every number, ties in slot order.  The
+    sort words carry the same order bits."""
     jnp, _ = _jax()
     from jax import lax
 
@@ -388,45 +467,237 @@ def test_word_order_is_the_jax_sort_order():
     _, _, jcell = lax.sort(
         (jnp.asarray(key), -jnp.asarray(score), jnp.asarray(cell)),
         num_keys=2, is_stable=True)
-    word = cand_build.sort_word(torch.from_numpy(key), torch.from_numpy(score))
-    _, tcell = cand_build.sort_pairs(word, torch.from_numpy(cell))
+    order = cand_build.score_order(torch.from_numpy(score))
+    rec = (order << 32) | torch.from_numpy(cell).to(torch.int64)
+    tkey = torch.from_numpy(key)
+    tcell = rec[cand_build.bucket_order(tkey, rec)] & 0xFFFFFFFF
     np.testing.assert_array_equal(tcell.numpy(), np.asarray(jcell))
+    word = cand_build.sort_word(tkey, torch.from_numpy(score))
+    assert torch.equal(word & 0xFFFFFFFF, order)
+
+
+def _numpy_prelude(cp, rmin, rmax, ndim, bins_per_cell, max_bins, eps):
+    """The JAX package's prelude lines (its ops/cand_build.py:203-213) in
+    numpy: (b0 int64, span int32, smax) of every cell."""
+    rmin = np.asarray(rmin, np.float64)
+    n_target = min(max(int(bins_per_cell * len(cp)), 1), max_bins)
+    bin_shape, _, inv_h, _ = geometry._bin_grid_shape(rmin, rmax, ndim,
+                                                      n_target)
+    pad = eps + 1e-300
+    lo = cp.min(axis=1) - pad
+    hi = cp.max(axis=1) + pad
+    b0 = np.clip(
+        np.floor((lo - rmin) * inv_h).astype(np.int64), 0, bin_shape - 1
+    )
+    b1 = np.clip(
+        np.floor((hi - rmin) * inv_h).astype(np.int64), 0, bin_shape - 1
+    )
+    span = (b1 - b0 + 1).astype(np.int32)
+    return b0, span, span.max(axis=0)
+
+
+def _jittered():
+    """A tet box moved off the origin with jittered vertices, so that
+    AABB edges fall near bin edges."""
+    pts, cells, nbrs = meshgen.tet_box_mesh(6, 5, 7)
+    rng = np.random.default_rng(5)
+    pts = pts * [3.1, 0.7, 1.9] + [-3.7, 12.1, 0.3]
+    pts = pts + rng.uniform(-0.02, 0.02, pts.shape)
+    cp, normals, offs = _geometry(pts, cells, nbrs, "tetra")
+    return (cp, normals, offs, pts.min(0), pts.max(0), 3)
+
+
+def _case(name):
+    """Stage-1 inputs and builder keywords of a named case."""
+    if name.startswith("soup"):
+        return _soup(int(name[4:])), SOUP_KW
+    if name == "jittered":
+        return _jittered(), KW
+    return _args(name), KW
+
+
+@pytest.mark.parametrize("case", [*MESHES, "jittered", "soup6", "soup18"])
+def test_prelude_matches_numpy(case):
+    """The prelude's b0, span and smax, computed by torch on the cell
+    points, equal the JAX package's numpy lines bit for bit."""
+    args, kw = _case(case)
+    p, *_ = cand_build.prepare_pairs(*args, torch.float32,
+                                     kw["bins_per_cell"], kw["max_bins"],
+                                     kw["eps"], "cpu")
+    b0, span, smax = _numpy_prelude(args[0], *args[3:],
+                                    kw["bins_per_cell"], kw["max_bins"],
+                                    kw["eps"])
+    assert p.b0.dtype == p.span.dtype == torch.int32
+    np.testing.assert_array_equal(p.b0.numpy(), b0)
+    np.testing.assert_array_equal(p.span.numpy(), span)
+    assert p.smax == tuple(int(s) for s in smax)
+
+
+@pytest.mark.parametrize("case", [*MESHES, "soup6", "soup18"])
+def test_fill_tables_any_bucket_order(case):
+    """fill_tables_plain gives identical tables for the canonical records
+    and for the records with each bucket shuffled."""
+    args, kw = _case(case)
+    p, *_ = cand_build.prepare_pairs(*args, torch.float32,
+                                     kw["bins_per_cell"], kw["max_bins"],
+                                     kw["eps"], "cpu")
+    counts, rec = cand_build.bin_pairs_plain(p)
+    k_max = 2 if case in MESHES else SOUP_K
+    n_over = int((counts > k_max).sum())
+    k_ext = min(int(counts.max()) - k_max, 32)
+    assert n_over and k_ext
+    n_cells = len(args[0])
+    want = cand_build.fill_tables_plain(rec, counts, n_cells, k_max, k_ext,
+                                        n_over)
+    for seed in (0, 1):
+        shuffled = _shuffled(rec, counts, seed)
+        assert not torch.equal(shuffled, rec)
+        got = cand_build.fill_tables_plain(shuffled, counts, n_cells, k_max,
+                                           k_ext, n_over)
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("cover", [False, True])
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("n", [6, 18])
+def test_heavy_bin_soup_matches_jax(n, dtype, cover):
+    """A soup whose worst bin holds a whole small tet box (1,296 or
+    34,992 cells: D2's block route, or its rank route past shared
+    memory) against the JAX package's builder: bin grid, counts and
+    extension slots exact, ordered lists equal in every bin whose stage-1
+    scores agree bit for bit, the same cells elsewhere but at the cut of
+    a list shorter than its bin, where near-tied cells may differ
+    (ROADMAP C5).  ``cover``: K widens to the worst bin where it is at
+    most SOUP_COVER (n = 6)."""
+    jnp, jcb = _jax()
+    dtype = DTYPES[dtype]
+    jdt = jnp.float64 if dtype == torch.float64 else jnp.float32
+    args = _soup(n)
+    kw = dict(SOUP_KW,
+              cover_ok=(lambda m: m <= SOUP_COVER) if cover else None)
+    t = cand_build.build_candidate_bins_device(*args, SOUP_K, dtype, **kw,
+                                               device="cpu")
+    j = jcb.build_candidate_bins_device(*args, SOUP_K, dtype=jdt, **kw)
+    assert t[2] == j[2]
+    for a, b in ((t[3], j[3]), (t[4], j[4])):
+        np.testing.assert_array_equal(a, b)
+    np.testing.assert_array_equal(t[1].numpy(), np.asarray(j[1]))
+    max_count = int(t[1].max())
+    assert max_count >= 6 * n ** 3
+    if cover and max_count <= SOUP_COVER:
+        assert t[0].shape[1] == max_count and t[5].numel() == 0
+    else:
+        assert t[0].shape[1] == SOUP_K and t[5].shape[1] == 32
+    alike, n_differ = _alike_bins(args, dtype, SOUP_KW["bins_per_cell"],
+                                  SOUP_KW["max_bins"], SOUP_KW["eps"])
+    p, *_ = cand_build.prepare_pairs(*args, dtype, SOUP_KW["bins_per_cell"],
+                                     SOUP_KW["max_bins"], SOUP_KW["eps"],
+                                     "cpu")
+    jkey, jscore, _ = _jax_stage1(p, args, dtype)
+    counts = t[1].numpy()
+    n_cells, cut_bins = len(args[0]), []
+
+    def cut(b, t_list, j_list):
+        """A list cut short of its bin's count may keep other cells than
+        the JAX package's only where they tie at the cut: each cell in
+        one list alone scores (JAX) within twice the stage-1 tolerance of
+        the JAX list's last score."""
+        assert counts[b] > len(j_list) and b not in alike, f"bin {b}"
+        slots = np.flatnonzero(jkey == b)
+        score = dict(zip(slots % n_cells, jscore[slots]))
+        last = score[j_list[-1]]
+        for c in set(t_list) ^ set(j_list):
+            tol = _score_tol(max(abs(score[c]), abs(last)), dtype, args)
+            assert abs(score[c] - last) <= 2 * tol, (b, c, score[c], last)
+        cut_bins.append(b)
+
+    n_re = assert_lists_match(t[0].numpy(), t[5].numpy(), t[6].numpy(),
+                              j[0], j[5], j[6], ordered_bins=alike, cut=cut)
+    assert n_re <= n_differ and len(cut_bins) <= 1
+
+
+def _card_matches_plain(dev, args, dtype, kw, k_max):
+    """D1's count pass, its write pass (canonically ordered inside each
+    bucket) and D2 (on the write pass's records and on the records with
+    each bucket shuffled) torch.equal to their plain versions on the
+    card; the builder on the card equal to the builder on the CPU.
+    Returns the largest count."""
+    bk = cand_build_kernel
+    p, *_ = cand_build.prepare_pairs(*args, dtype, kw["bins_per_cell"],
+                                     kw["max_bins"], kw["eps"], dev)
+    n0 = (bk.count_launches, bk.write_launches, bk.order_launches)
+    counts = bk.count_pairs_cuda(p)
+    want_counts, want_rec = cand_build.bin_pairs_plain(p)
+    assert torch.equal(counts, want_counts)
+    start = torch.cumsum(counts, 0, dtype=torch.int32) - counts
+    rec = bk.write_pairs_cuda(p, start, int(counts.sum()))
+    assert torch.equal(_canonical(rec, counts), want_rec)
+    max_count = int(counts.max())
+    n_over = int((counts > k_max).sum())
+    k_ext = min(max_count - k_max, kw["ext_max_k"]) if n_over else 0
+    n_cells = len(args[0])
+    want = cand_build.fill_tables_plain(want_rec, counts, n_cells, k_max,
+                                        k_ext, n_over)
+    for r in (rec, _shuffled(rec, counts, 3)):
+        got = bk.order_tables_cuda(r, start, counts,
+                                   cand_build.ext_slots(counts, k_max),
+                                   n_cells, k_max, k_ext, n_over, max_count)
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)
+    torch.cuda.synchronize()
+    assert (bk.count_launches, bk.write_launches, bk.order_launches) == (
+        n0[0] + 1, n0[1] + 1, n0[2] + 2)
+    on_card = cand_build.build_candidate_bins_device(*args, k_max, dtype,
+                                                     **kw, device=dev)
+    on_cpu = cand_build.build_candidate_bins_device(*args, k_max, dtype,
+                                                    **kw, device="cpu")
+    for i in (0, 1, 5, 6):
+        assert torch.equal(on_card[i].cpu(), on_cpu[i])
+    assert on_card[2] == on_cpu[2]
+    return max_count
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", list(DTYPES))
 @pytest.mark.parametrize("mesh", list(MESHES))
 def test_cuda_kernels_match_plain(cuda, mesh, dtype):
-    """D1's words, cells and counts and D2's tables torch.equal to their
-    plain versions on the same card tensors, and the whole builder on the
-    card to the builder on the CPU."""
+    """D1's counts and records and D2's tables torch.equal to their plain
+    versions on the same card tensors, and the whole builder on the card
+    to the builder on the CPU."""
+    _card_matches_plain(cuda, _args(mesh), DTYPES[dtype], KW, 10)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("n", [6, 18])
+def test_cuda_heavy_bin_soup(cuda, n, dtype):
+    """The heavy-bin soups on the card: D2's block route (n = 6) and its
+    rank route past shared memory (n = 18) torch.equal to the plain
+    version, with and without K widened to the worst bin."""
+    args = _soup(n)
     dtype = DTYPES[dtype]
-    args = _args(mesh)
-    p, *_ = cand_build.prepare_pairs(*args, dtype, KW["bins_per_cell"],
-                                     KW["max_bins"], KW["eps"], cuda)
-    n0 = cand_build_kernel.pairs_launches
-    word, cell, counts = cand_build_kernel.gen_pairs_cuda(p)
-    torch.cuda.synchronize()
-    assert cand_build_kernel.pairs_launches == n0 + 1
-    for a, b in zip((word, cell, counts), cand_build.gen_pairs_plain(p)):
-        assert torch.equal(a, b)
-    sk, rank, scell = cand_build.sort_rank_count(word, cell)
-    sw, scell2 = cand_build.sort_pairs(word, cell)
-    assert torch.equal(scell, scell2)
-    k_max = 10
-    n_over = int((counts > k_max).sum())
-    k_ext = min(int(counts.max()) - k_max, 32) if n_over else 0
-    got = cand_build_kernel.fill_tables_cuda(
-        sw, scell, counts, cand_build.ext_slots(counts, k_max), p.n_bins,
-        k_max, k_ext, n_over)
-    want = cand_build.fill_tables_plain(sk, rank, scell, counts, p.n_bins,
-                                        k_max, k_ext, n_over)
-    for a, b in zip(got, want):
-        assert torch.equal(a, b)
-    on_card = cand_build.build_candidate_bins_device(*args, k_max, dtype,
-                                                     **KW, device=cuda)
-    on_cpu = cand_build.build_candidate_bins_device(*args, k_max, dtype,
-                                                    **KW, device="cpu")
-    for i in (0, 1, 5, 6):
-        assert torch.equal(on_card[i].cpu(), on_cpu[i])
-    assert on_card[2] == on_cpu[2]
+    max_count = _card_matches_plain(cuda, args, dtype, SOUP_KW, SOUP_K)
+    assert max_count > (16384 if n == 18 else 32)
+    _card_matches_plain(cuda, args, dtype, SOUP_KW, max_count)
+
+
+@pytest.mark.cuda
+def test_cuda_builder_runs_no_sort(cuda):
+    """The builder on a CUDA grid launches D1 twice and D2 once, and no
+    aten::sort."""
+    from torch.profiler import ProfilerActivity, profile
+
+    bk = cand_build_kernel
+    args = _args("tetra")
+    cand_build.build_candidate_bins_device(*args, 10, torch.float32, **KW,
+                                           device=cuda)
+    n0 = (bk.count_launches, bk.write_launches, bk.order_launches)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        cand_build.build_candidate_bins_device(*args, 10, torch.float32,
+                                               **KW, device=cuda)
+        torch.cuda.synchronize()
+    names = {e.key for e in prof.key_averages()}
+    assert not any("sort" in x for x in names), sorted(names)
+    assert (bk.count_launches, bk.write_launches, bk.order_launches) == (
+        n0[0] + 1, n0[1] + 1, n0[2] + 1)
