@@ -20,39 +20,52 @@
 //
 // What bounds it on an H100: memory.  One random row of about 1.5 KB
 // (K = 24 quantized tets) per query and a few flops per byte, so the
-// kernel is built to read each row once and coalesced: one warp per
-// query, lanes over the K candidates (looping when K > 32), so each
-// role of a row is one contiguous K-float read.  The kernel reads the
-// row itself through the query's bin index; the TPU wrapper gathered
-// table[idx] into a separate buffer first because Pallas cannot gather
-// rows, and at 10M queries that buffer alone would be 15 GB.  The
-// argmax is a butterfly of shuffles on (margin, k) pairs with the lower
-// k winning ties (jnp.argmax's first occurrence); only the winner's
-// lane evaluates the values, from its own margins and its row columns.
+// kernel is built to read each row once and coalesced: a group of lanes
+// per query, over the K candidates, so each role of a row is one
+// contiguous read.  The kernel reads the row itself through the query's
+// bin index; the TPU wrapper gathered table[idx] into a separate buffer
+// first because Pallas cannot gather rows, and at 10M queries that
+// buffer alone would be 15 GB.  The argmax is a butterfly of shuffles on
+// (margin, k) pairs with the lower k winning ties (jnp.argmax's first
+// occurrence); only the winner's lane evaluates the values, from its own
+// margins and its row columns.
 //
-// Two front ends share that per-query probe.  The direct kernel
-// (cand_rows_kernel, probe_row) takes the queries in their own order
-// with their bin index and probe frame computed by the caller; it serves
-// the extension table.  On the main table, 10M
-// uniform queries touch 1.9M distinct rows of 1.5 KB, and in query order
-// each row comes from DRAM about five times (the L2 holds 50 MB of the
-// 2.9 GB table).  The bin-ordered front end counting-sorts the queries
-// by bin (cand_bin_pass_kernel, a scan, cand_bin_scatter_kernel), then
-// probes them in that order, a group of lanes per query
-// (cand_rows_binned_kernel), so the queries of one bin probe its row one
-// after the other and it comes from DRAM about once; the probe writes
-// each query's record at its sorted slot, and cand_bin_unsort_kernel
-// puts the records back in query order.  On the H100, writing the
-// outputs straight to each query's own position cost more than the probe
-// (random 4-byte writes).  One thread per query took 3x as long as a
-// group of 4 lanes at 1M queries (half a query a bin), 4 lanes 1.2x as
-// long as 2 at 10M (5 a bin), so the wrapper picks the group size by
-// queries per bin (ops/cand_kernel.py:binned_lanes; PERF.md §6).
-// The front end also computes the bin index and local frame, which the
-// direct design left to torch.  Its bound: the distinct rows once, the
-// queries and outputs once (permutation and records are its own
-// scratch).  The probe with 16-byte loads takes 54-64 registers (64 for
-// quantized tets: 4 blocks of 256 threads an SM), no spills.
+// On the main table, 10M uniform queries touch 1.9M distinct rows of
+// 1.5 KB, and in query order each row comes from DRAM about five times
+// (the L2 holds 50 MB of the 2.9 GB table).  So the queries are
+// counting-sorted by bin (cand_bin_pass_kernel, a scan,
+// cand_bin_scatter_kernel), then probed in that order, a group of lanes
+// per query (cand_rows_binned_kernel), so the queries of one bin probe
+// its row one after the other and it comes from DRAM about once; the
+// probe writes each query's record at its sorted slot, and
+// cand_bin_unsort_kernel puts the records back in query order.  On the
+// H100, writing the outputs straight to each query's own position cost
+// more than the probe (random 4-byte writes).  One thread per query
+// took 3x as long as a group of 4 lanes at 1M queries (half a query a
+// bin), 4 lanes 1.2x as long as 2 at 10M (5 a bin), so the wrapper picks
+// the group size by queries per bin (ops/cand_kernel.py:binned_lanes;
+// PERF.md §6).  The front end also computes the bin index and local
+// frame.  Its bound: the distinct rows once, the queries and outputs
+// once (permutation and records are its own scratch).  The probe with
+// 16-byte loads takes 54-64 registers (64 for quantized tets: 4 blocks
+// of 256 threads an SM), no spills.
+//
+// Extension rows (a grid whose overflow bins keep candidates K..K+k_ext
+// in a second table, layouts 0-2): a query whose main verdict is an
+// overflow miss (aux >= 0, the bin's extension slot) probes that row in
+// the same launch (the EXT instantiation), with the same group of lanes,
+// in the bin's frame, the row read one element at a time; a second
+// butterfly picks its winner and one lane writes the merged record.  The
+// queries of a bin are adjacent in bin order, so the bin's extension row
+// comes from DRAM about once, where the first design (one warp a query,
+// in query order, after a host read of the misses and a torch gather of
+// their inputs; tools/cand_ext_alternatives.cu) read it once a query.
+// The merge is the JAX package's (ops/locate.py:892-975): found in the
+// extension row, that winner; not found, the main winner's id and values
+// with the extension row's verdict, -1 for an exact miss and >= 0 where
+// even K + k_ext candidates did not hold the bin, so that "aux >= 0:
+// walk from id" is the one rule for the residual walks.  Plain PyTorch
+// version: ops/cand_kernel.py:probe_rows_ext_plain.
 //
 // The df-plane rows (layout 3) take the same bin order, and their front
 // end also does what torch did before the direct layout-3 kernel: the
@@ -63,7 +76,7 @@
 // ops/cand_kernel.py:local_frame_df.  A query's record is then id, aux,
 // V hi and V lo values, and the unsort moves 2 + 2V words.  The 24 bytes
 // of float64 input a query replace the 24 of the hi/lo frame the direct
-// kernel read, so the bound counts the same bytes.
+// layout-3 kernel read, so the bound counts the same bytes.
 //
 // Packed int16 words are often NaN bit patterns as floats, so the
 // qn/qd roles are read through an int pointer and unpacked with integer
@@ -72,8 +85,8 @@
 //
 // A float64 grid's rows are never quantized: they take layouts 1 and 2 in
 // double (the JAX package's float64 route, its XLA _probe_rows_xla,
-// ops/locate.py:562).  The direct kernel, the bin pass and the probe in
-// bin order are templates on the rows' type T, instantiated for float and
+// ops/locate.py:562).  The bin pass and the probe in bin order are
+// templates on the rows' type T, instantiated for float and
 // for double (the *_f64 entry points, scalars in double); the bin pass of
 // a float64 grid bins each query in double against the grid's float64
 // origin and inverse sizes, where accurate mode's bin pass on a float32
@@ -93,8 +106,6 @@
 #include "wkern.cuh"
 
 namespace {
-
-constexpr int kThreads = 256;  // 8 queries per block
 
 __device__ __forceinline__ float lo16(int w) {
   return (float)((int)((unsigned)w << 16) >> 16);
@@ -180,7 +191,7 @@ __device__ __forceinline__ T row_margin(const T* __restrict__ row, int K,
 // id, the verdict aux (-2 found, >= 0 overflow-bin miss carrying the
 // extension slot, -1 exact miss) and the fused values, written at
 // position q: out_id[q * stride], out_aux[q * stride] and the values
-// from out_vals + q * vstride (the direct kernel's separate arrays:
+// from out_vals + q * vstride (separate arrays:
 // stride 1, vstride n_vars; the bin-ordered probe's records: stride
 // 2 + n_vars words, layout 3 2 + 2 n_vars, double values 2 + 2 n_vars,
 // and vstride the same in values).  rq_lo: the lo parts of r_local and
@@ -258,89 +269,20 @@ __device__ __forceinline__ void write_winner(
   }
 }
 
-// The probe of one query by one warp: lanes over the K candidates of its
-// row, a butterfly argmax, and the winner's lane writes the results.
-// rx, ry, rz: the query (r_local when quantized).
-template <int NF, int LAYOUT, typename T>
-__device__ __forceinline__ void probe_row(
-    const T* __restrict__ row, int lane, int q, T rx, T ry, T rz, int K,
-    int id_role, int count_col, T eps, int ovf_base, float qinv, int n_vars,
-    const int* __restrict__ vroles, int* __restrict__ out_id,
-    int* __restrict__ out_aux, T* __restrict__ out_vals) {
-  constexpr bool kQuant = LAYOUT == 0;
-  const T ds = kQuant ? row[count_col + 1] : T(0);
-
-  T best_m = T(0);
-  int best_k = -1;
-  T best_mf[NF];
-  for (int k = lane; k < K; k += 32) {
-    T mf[NF];
-    const T m = row_margin<NF, LAYOUT>(row, K, k, id_role, rx, ry, rz, qinv,
-                                       ds, mf);
-    if (best_k < 0 || m > best_m) {
-      best_m = m;
-      best_k = k;
-#pragma unroll
-      for (int f = 0; f < NF; ++f) best_mf[f] = mf[f];
-    }
-  }
-
-  // Butterfly argmax over the warp: larger margin wins, lower k on ties
-  // (lanes without a candidate carry k = -1 and never win).
-  T wm = best_m;
-  int wk = best_k;
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    const T om = __shfl_xor_sync(0xffffffffu, wm, off);
-    const int ok = __shfl_xor_sync(0xffffffffu, wk, off);
-    if (ok >= 0 && (wk < 0 || om > wm || (om == wm && ok < wk))) {
-      wm = om;
-      wk = ok;
-    }
-  }
-  if (wk < 0 || best_k != wk) return;  // the winner's lane finishes
-  write_winner<NF, LAYOUT>(row, K, wk, wm, best_mf, rx, ry, rz, nullptr, q,
-                           id_role, count_col, eps, ovf_base, n_vars, vroles,
-                           out_id, out_aux, out_vals, nullptr, 1, n_vars);
-}
-
-// Direct probe: one warp per query in query order, each reading the row
-// of its given bin index (the first design, kept for the extension-table
-// probe).
-template <int NF, int LAYOUT, typename T>
-__global__ void cand_rows_kernel(
-    const T* __restrict__ table, int W, const int* __restrict__ idx,
-    const T* __restrict__ rq,  // (B, 3): r, or r_local when quantized
-    int n_queries, int K, int id_role, int count_col, T eps, int ovf_base,
-    float qinv, int n_vars, const int* __restrict__ vroles,
-    int* __restrict__ out_id, int* __restrict__ out_aux,
-    T* __restrict__ out_vals)  // (B, V)
-{
-  const int q = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
-  const int lane = threadIdx.x & 31;
-  if (q >= n_queries) return;  // warp-uniform
-  probe_row<NF, LAYOUT>(table + (size_t)idx[q] * W, lane, q, rq[3 * q + 0],
-                        rq[3 * q + 1], rq[3 * q + 2], K, id_role, count_col,
-                        eps, ovf_base, qinv, n_vars, vroles, out_id, out_aux,
-                        out_vals);
-}
-
-template <int NF, int LAYOUT, typename T>
-void launch(const T* table, int W, const int* idx, const T* rq,
-            int n_queries, int K, int id_role, int count_col, T eps,
-            int ovf_base, float qinv, int n_vars, const int* vroles,
-            int* out_id, int* out_aux, T* out_vals, cudaStream_t s) {
-  const long long threads = (long long)n_queries * 32;
-  const int blocks = (int)((threads + kThreads - 1) / kThreads);
-  cand_rows_kernel<NF, LAYOUT, T><<<blocks, kThreads, 0, s>>>(
-      table, W, idx, rq, n_queries, K, id_role, count_col, eps, ovf_base,
-      qinv, n_vars, vroles, out_id, out_aux, out_vals);
-}
-
 // Bin-ordered front end (the main table's layouts 0-2 and the df-plane
 // rows), four launches: the bin pass, the scatter, the probe in bin
 // order, the unsort.
 constexpr int kOrderThreads = 256;
+
+// A grid's extension rows: row s holds candidates K..K+k of the bin
+// whose overflow miss carries slot s, in the main rows' layout with k
+// candidates (count column count_col, width W), probed in the bin's
+// frame; table null on a grid without them.
+template <typename T>
+struct ExtRows {
+  const T* table;
+  int W, k, count_col;
+};
 
 // A query coordinate of type R in the bin grid's type T: as it is, or a
 // float64 coordinate rounded to float32 for a float32 grid's bins.
@@ -411,14 +353,14 @@ __global__ void cand_bin_scatter_kernel(const int* __restrict__ bin,
 // neighbours' records; cand_bin_unsort_kernel puts the records back in
 // query order.  T: the rows' type, float or double (a float64 grid's
 // rows, layouts 1 and 2, queries in double, VEC and F64 false).
-template <int NF, int LAYOUT, bool VEC, bool F64, typename T>
+template <int NF, int LAYOUT, bool VEC, bool F64, bool EXT, typename T>
 __global__ void __launch_bounds__(kOrderThreads)
 cand_rows_binned_kernel(
     const T* __restrict__ table, int W, const void* __restrict__ r,
     const float* __restrict__ r_lo, const int* __restrict__ perm,
     int n_queries, int log2_g, iu::BinGrid<T> bins, int K, int id_role,
     int count_col, T eps, int ovf_base, float qinv, int n_vars,
-    const int* __restrict__ vroles, int* __restrict__ rec) {
+    const int* __restrict__ vroles, int* __restrict__ rec, ExtRows<T> ext) {
   constexpr bool kQuant = LAYOUT == 0 || LAYOUT == 3;
   constexpr int NW = kQuant ? QuantWords<NF>::SN + QuantWords<NF>::DN : 4 * NF;
   const int G = 1 << log2_g;
@@ -534,15 +476,86 @@ cand_rows_binned_kernel(
       wk = ok;
     }
   }
-  if (!live || wk < 0 || best_k != wk) return;  // the winner's lane finishes
   constexpr int kWords = (int)sizeof(T) / 4;  // record words a value
   const int stride = 2 + (LAYOUT == 3 ? 2 : kWords) * n_vars;
   T* vals = reinterpret_cast<T*>(rec + 2);
+  const int vstride = kWords == 1 ? stride : stride / kWords;
+  // an overflow miss that the extension row did not resolve, and that
+  // row's verdict
+  bool ext_miss = false;
+  int ext_aux = -1;
+  if constexpr (EXT) {
+    // An overflow miss of the main row probes its bin's extension row
+    // (slot aux) with the same group, in the same frame: every lane knows
+    // the main winner, so every lane knows the slot.  Every lane of the
+    // warp reaches the second butterfly; groups with nothing to probe
+    // carry k = -1.
+    int eslot = -1;
+    if (live && wk >= 0) {
+      const int id_main = (int)row[id_role * K + wk];
+      const int cnt = (int)row[count_col];
+      const bool found = (wm >= -eps) && (id_main >= 0);
+      if (!found && cnt > ovf_base && id_main >= 0) {
+        eslot = cnt - (ovf_base + 1);
+      }
+    }
+    const T* erow = ext.table + (size_t)(eslot < 0 ? 0 : eslot) * ext.W;
+    const int ext_base = ovf_base + ext.k;
+    T e_m = T(0);
+    int e_k = -1;
+    T e_mf[NF];
+    if (eslot >= 0) {
+      const T eds = (LAYOUT == 0) ? erow[ext.count_col + 1] : T(0);
+      for (int kc = lane; kc < ext.k; kc += G) {
+        T mf[NF];
+        const T m = row_margin<NF, LAYOUT>(erow, ext.k, kc, id_role, rx, ry,
+                                           rz, qinv, eds, mf);
+        if (e_k < 0 || m > e_m) {
+          e_m = m;
+          e_k = kc;
+#pragma unroll
+          for (int f = 0; f < NF; ++f) e_mf[f] = mf[f];
+        }
+      }
+    }
+    T em = e_m;
+    int ek = e_k;
+    for (int off = G >> 1; off > 0; off >>= 1) {
+      const T om = __shfl_xor_sync(0xffffffffu, em, off);
+      const int ok = __shfl_xor_sync(0xffffffffu, ek, off);
+      if (ok >= 0 && (ek < 0 || om > em || (om == em && ok < ek))) {
+        em = om;
+        ek = ok;
+      }
+    }
+    if (eslot >= 0 && ek >= 0) {
+      const int id_ext = (int)erow[id_role * ext.k + ek];
+      const int cnt = (int)erow[ext.count_col];
+      if ((em >= -eps) && (id_ext >= 0)) {
+        // found in the extension row: its winner's lane writes the record
+        if (e_k == ek) {
+          write_winner<NF, LAYOUT>(erow, ext.k, ek, em, e_mf, rx, ry, rz,
+                                   rq_lo, slot, id_role, ext.count_col, eps,
+                                   ext_base, n_vars, vroles, rec, rec + 1,
+                                   vals, nullptr, stride, vstride);
+        }
+        return;
+      }
+      // not there either: the main winner's record, with the extension
+      // row's verdict (-1 exact miss, >= 0 a bin beyond even K + k)
+      ext_miss = true;
+      ext_aux = (cnt > ext_base && id_ext >= 0) ? cnt - (ext_base + 1) : -1;
+    }
+  }
+  if (!live || wk < 0 || best_k != wk) return;  // the winner's lane finishes
   write_winner<NF, LAYOUT>(
       row, K, wk, wm, best_mf, rx, ry, rz, rq_lo, slot, id_role, count_col,
       eps, ovf_base, n_vars, vroles, rec, rec + 1, vals,
       LAYOUT == 3 ? reinterpret_cast<float*>(vals) + n_vars : nullptr, stride,
-      kWords == 1 ? stride : stride / kWords);
+      vstride);
+  if constexpr (EXT) {
+    if (ext_miss) rec[(size_t)slot * stride + 1] = ext_aux;
+  }
 }
 
 // Unsort: query q's record, read back from its slot, into the outputs
@@ -565,49 +578,13 @@ __global__ void cand_bin_unsort_kernel(const int* __restrict__ rec,
 }
 
 template <typename T>
-int cand_rows(const T* table, int W, const int* idx, const T* rq,
-              int n_queries, int K, int nf, int layout, int id_role,
-              int count_col, T eps, int ovf_base, float qinv, int n_vars,
-              const int* vroles, int* out_id, int* out_aux, T* out_vals,
-              void* stream) {
-  if (n_queries <= 0) return (int)cudaSuccess;
-  if (K <= 0 || n_vars < 0) {
-    return (int)cudaErrorInvalidValue;
-  }
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define IU_CAND_LAUNCH(NF_, L_)                                            \
-  launch<NF_, L_, T>(table, W, idx, rq, n_queries, K, id_role, count_col,  \
-                     eps, ovf_base, qinv, n_vars, vroles, out_id, out_aux, \
-                     out_vals, s)
-  if constexpr (sizeof(T) == 4) {
-    if (layout == 0 && nf == 3) {
-      IU_CAND_LAUNCH(3, 0);
-      return (int)cudaGetLastError();
-    } else if (layout == 0 && nf == 4) {
-      IU_CAND_LAUNCH(4, 0);
-      return (int)cudaGetLastError();
-    }
-  }
-  if (layout == 1 && nf == 3) {
-    IU_CAND_LAUNCH(3, 1);
-  } else if (layout == 1 && nf == 4) {
-    IU_CAND_LAUNCH(4, 1);
-  } else if (layout == 2 && nf == 4) {
-    IU_CAND_LAUNCH(4, 2);
-  } else {
-    return (int)cudaErrorInvalidValue;
-  }
-#undef IU_CAND_LAUNCH
-  return (int)cudaGetLastError();
-}
-
-template <typename T>
 int cand_rows_binned(const T* table, int W, const void* r, const float* r_lo,
                      int f64, const int* perm, int n_queries, int lanes,
                      const T* bin_rmin, const T* bin_inv_h, int nbx, int nby,
                      int nbz, int K, int nf, int layout, int id_role,
                      int count_col, T eps, int ovf_base, float qinv,
-                     int n_vars, const int* vroles, int* rec, void* stream) {
+                     int n_vars, const int* vroles, ExtRows<T> ext, int* rec,
+                     void* stream) {
   if (n_queries <= 0) return (int)cudaSuccess;
   if (K <= 0 || n_vars < 0 || lanes < 1 || lanes > 32 ||
       (lanes & (lanes - 1)) != 0) {
@@ -616,17 +593,30 @@ int cand_rows_binned(const T* table, int W, const void* r, const float* r_lo,
   if (layout != 3 && (f64 || r_lo != nullptr)) {
     return (int)cudaErrorInvalidValue;
   }
+  const bool has_ext = ext.table != nullptr;
+  if (has_ext && (layout == 3 || ext.k <= 0 || ext.count_col + 1 > ext.W)) {
+    return (int)cudaErrorInvalidValue;
+  }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const iu::BinGrid<T> bins{bin_rmin, bin_inv_h, nbx, nby, nbz};
   const int log2_g = __builtin_ctz(lanes);
   const long long threads = (long long)n_queries * lanes;
   const int blocks = (int)((threads + kOrderThreads - 1) / kOrderThreads);
-#define IU_BINNED_KERNEL(NF_, L_, V_, D_)                                    \
-  cand_rows_binned_kernel<NF_, L_, V_, D_, T>                                \
+#define IU_BINNED_ONE(NF_, L_, V_, D_, E_)                                   \
+  cand_rows_binned_kernel<NF_, L_, V_, D_, E_, T>                            \
       <<<blocks, kOrderThreads, 0, s>>>(table, W, r, r_lo, perm, n_queries,  \
                                         log2_g, bins, K, id_role, count_col, \
                                         eps, ovf_base, qinv, n_vars, vroles, \
-                                        rec)
+                                        rec, ext)
+  // with the extension probe on a grid that has extension rows
+#define IU_BINNED_KERNEL(NF_, L_, V_, D_)     \
+  do {                                        \
+    if (has_ext) {                            \
+      IU_BINNED_ONE(NF_, L_, V_, D_, true);   \
+    } else {                                  \
+      IU_BINNED_ONE(NF_, L_, V_, D_, false);  \
+    }                                         \
+  } while (0)
   if constexpr (sizeof(T) == 8) {
     // a float64 grid's rows: layouts 1 and 2, one element at a time
     if (layout == 1 && nf == 3) {
@@ -650,6 +640,15 @@ int cand_rows_binned(const T* table, int W, const void* r, const float* r_lo,
       IU_BINNED_KERNEL(NF_, L_, false, D_);  \
     }                                        \
   } while (0)
+    // the df-plane rows (layout 3) have no extension rows
+#define IU_DF_LAUNCH(NF_, D_)                       \
+  do {                                              \
+    if (vec) {                                      \
+      IU_BINNED_ONE(NF_, 3, true, D_, false);       \
+    } else {                                        \
+      IU_BINNED_ONE(NF_, 3, false, D_, false);      \
+    }                                               \
+  } while (0)
     if (layout == 0 && nf == 3) {
       IU_BINNED_LAUNCH(3, 0, false);
     } else if (layout == 0 && nf == 4) {
@@ -661,52 +660,25 @@ int cand_rows_binned(const T* table, int W, const void* r, const float* r_lo,
     } else if (layout == 2 && nf == 4) {
       IU_BINNED_LAUNCH(4, 2, false);
     } else if (layout == 3 && nf == 3 && f64) {
-      IU_BINNED_LAUNCH(3, 3, true);
+      IU_DF_LAUNCH(3, true);
     } else if (layout == 3 && nf == 3) {
-      IU_BINNED_LAUNCH(3, 3, false);
+      IU_DF_LAUNCH(3, false);
     } else if (layout == 3 && nf == 4 && f64) {
-      IU_BINNED_LAUNCH(4, 3, true);
+      IU_DF_LAUNCH(4, true);
     } else if (layout == 3 && nf == 4) {
-      IU_BINNED_LAUNCH(4, 3, false);
+      IU_DF_LAUNCH(4, false);
     } else {
       return (int)cudaErrorInvalidValue;
     }
+#undef IU_DF_LAUNCH
 #undef IU_BINNED_LAUNCH
   }
 #undef IU_BINNED_KERNEL
+#undef IU_BINNED_ONE
   return (int)cudaGetLastError();
 }
 
 }  // namespace
-
-// Plain C entry points (bound with ctypes).  iu_cand_rows: a float32
-// table and queries, layout 0 quantized simplex, 1 f32 simplex, 2 quad;
-// iu_cand_rows_f64: a float64 grid's table and queries (layouts 1 and 2,
-// eps in double).  nf 3 or 4.  vroles: (n_vars,) device int32, the first
-// role column of each fused variable.  Returns the cudaError_t of the
-// launch.
-extern "C" int iu_cand_rows(const float* table, int W, const int* idx,
-                            const float* rq, int n_queries, int K, int nf,
-                            int layout, int id_role, int count_col, float eps,
-                            int ovf_base, float qinv, int n_vars,
-                            const int* vroles, int* out_id, int* out_aux,
-                            float* out_vals, void* stream) {
-  return cand_rows<float>(table, W, idx, rq, n_queries, K, nf, layout,
-                          id_role, count_col, eps, ovf_base, qinv, n_vars,
-                          vroles, out_id, out_aux, out_vals, stream);
-}
-
-extern "C" int iu_cand_rows_f64(const double* table, int W, const int* idx,
-                                const double* rq, int n_queries, int K,
-                                int nf, int layout, int id_role,
-                                int count_col, double eps, int ovf_base,
-                                int n_vars, const int* vroles, int* out_id,
-                                int* out_aux, double* out_vals,
-                                void* stream) {
-  return cand_rows<double>(table, W, idx, rq, n_queries, K, nf, layout,
-                           id_role, count_col, eps, ovf_base, 0.0f, n_vars,
-                           vroles, out_id, out_aux, out_vals, stream);
-}
 
 // Plain C entry points of the bin-ordered probe (bound with ctypes).  r:
 // (B, 3) queries, float32, or float64 where f64 is nonzero (the df-plane
@@ -773,24 +745,28 @@ extern "C" int iu_cand_bin_scatter(const int* bin, const int* rank,
 // (the kernel splits the queries and computes the hi/lo r_local).  r:
 // float32 (B, 3), or float64 where f64 is nonzero (layout 3 only); r_lo:
 // the float32 lo parts of float32 queries, layout 3 only (null: zeros).
-// rec: (B, 2 + n_vars) int32 (layout 3: 2 + 2 n_vars), one record per
-// slot: id, aux, then the values' float bits (layout 3: hi, then lo).
-// iu_cand_rows_binned_f64: a float64 grid's rows (layouts 1 and 2),
-// queries and bin grid; rec (B, 2 + 2 n_vars), the values as doubles.
-extern "C" int iu_cand_rows_binned(const float* table, int W, const void* r,
-                                   const float* r_lo, int f64,
-                                   const int* perm, int n_queries, int lanes,
-                                   const float* bin_rmin,
-                                   const float* bin_inv_h, int nbx, int nby,
-                                   int nbz, int K, int nf, int layout,
-                                   int id_role, int count_col, float eps,
-                                   int ovf_base, float qinv, int n_vars,
-                                   const int* vroles, int* rec,
-                                   void* stream) {
-  return cand_rows_binned<float>(table, W, r, r_lo, f64, perm, n_queries,
-                                 lanes, bin_rmin, bin_inv_h, nbx, nby, nbz, K,
-                                 nf, layout, id_role, count_col, eps,
-                                 ovf_base, qinv, n_vars, vroles, rec, stream);
+// ext_table: the extension rows ((n_ext, ext_W), ext_k candidates, count
+// at column ext_count_col), layouts 0-2, or null: an overflow miss of
+// the main row then probes the extension row of its slot in the same
+// launch, and its record holds the extension winner where that row
+// contains the query, else the main winner's id and values with the
+// extension row's verdict (-1, or >= 0 where even K + ext_k candidates
+// do not hold the bin).  rec: (B, 2 + n_vars) int32 (layout 3: 2 + 2
+// n_vars), one record per slot: id, aux, then the values' float bits
+// (layout 3: hi, then lo).  iu_cand_rows_binned_f64: a float64 grid's
+// rows (layouts 1 and 2), queries, bin grid and extension rows; rec (B,
+// 2 + 2 n_vars), the values as doubles.
+extern "C" int iu_cand_rows_binned(
+    const float* table, int W, const void* r, const float* r_lo, int f64,
+    const int* perm, int n_queries, int lanes, const float* bin_rmin,
+    const float* bin_inv_h, int nbx, int nby, int nbz, int K, int nf,
+    int layout, int id_role, int count_col, float eps, int ovf_base,
+    float qinv, int n_vars, const int* vroles, const float* ext_table,
+    int ext_W, int ext_k, int ext_count_col, int* rec, void* stream) {
+  return cand_rows_binned<float>(
+      table, W, r, r_lo, f64, perm, n_queries, lanes, bin_rmin, bin_inv_h,
+      nbx, nby, nbz, K, nf, layout, id_role, count_col, eps, ovf_base, qinv,
+      n_vars, vroles, {ext_table, ext_W, ext_k, ext_count_col}, rec, stream);
 }
 
 extern "C" int iu_cand_rows_binned_f64(
@@ -798,12 +774,12 @@ extern "C" int iu_cand_rows_binned_f64(
     int n_queries, int lanes, const double* bin_rmin,
     const double* bin_inv_h, int nbx, int nby, int nbz, int K, int nf,
     int layout, int id_role, int count_col, double eps, int ovf_base,
-    int n_vars, const int* vroles, int* rec, void* stream) {
-  return cand_rows_binned<double>(table, W, r, nullptr, 0, perm, n_queries,
-                                  lanes, bin_rmin, bin_inv_h, nbx, nby, nbz,
-                                  K, nf, layout, id_role, count_col, eps,
-                                  ovf_base, 0.0f, n_vars, vroles, rec,
-                                  stream);
+    int n_vars, const int* vroles, const double* ext_table, int ext_W,
+    int ext_k, int ext_count_col, int* rec, void* stream) {
+  return cand_rows_binned<double>(
+      table, W, r, nullptr, 0, perm, n_queries, lanes, bin_rmin, bin_inv_h,
+      nbx, nby, nbz, K, nf, layout, id_role, count_col, eps, ovf_base, 0.0f,
+      n_vars, vroles, {ext_table, ext_W, ext_k, ext_count_col}, rec, stream);
 }
 
 // iu_cand_bin_unsort: the probe's records ((B, 2 + n_vars) int32 by

@@ -1,6 +1,6 @@
 // The batched neighbor walk (kernel B3): every query walks from r0 inside
-// cell ic0 along u until it arrives, leaves the domain or hits the step
-// cap (iu_get_cell_through_neighbors + get_cell_intersection,
+// cell ic0 towards r1 until it arrives, leaves the domain or hits the
+// step cap (iu_get_cell_through_neighbors + get_cell_intersection,
 // m_interp_unstructured.f90:664-764).
 //
 // Replaces the JAX package's Pallas TPU kernel
@@ -9,33 +9,49 @@
 // on rows that XLA had gathered into a (B, 128) buffer; ops/locate.py's
 // _walk_pallas looped it in a lax.while_loop until no lane was active.
 // Each lane of that loop is independent, and an active lane steps in
-// every round until it stops, so one thread per query looping up to
-// max_steps rounds gives exactly the loop's per-lane result.  Here the
+// every round until it stops, so one query walking up to max_steps
+// rounds to its end gives exactly the loop's per-lane result.  Here the
 // state stays in registers for the whole walk, the host-side
-// any(active) test per round disappears, and each thread reads the
-// NF*5 leading floats of its current cell's row itself: there is no
-// gather buffer.
+// any(active) test per round disappears, and each query reads the NF*5
+// leading elements of its current cell's row itself: there is no gather
+// buffer.
+//
+// walk_kernel is the explicit walk (walk_rows: the public walk(), masked
+// walks, the tracer's generic path), one thread a walk.  It takes r0, r1
+// and ic0 and computes each walk's unit direction, length and whether it
+// moves in the kernel, in the rounding of ops/walk_kernel.py:
+// walk_direction (sqrtf of (x*x + y*y) + z*z, a degenerate walk divides
+// by 1, IEEE division), where the first design read u, total and active
+// from tensors that about six torch launches had written; each round
+// reads the row's NF*5 leading elements with 16-byte loads (5 for tets,
+// 4 for triangles; double2 in double: the wrapper checks that W is a
+// whole number of 16-byte words and the table 16-byte aligned), then runs
+// iu::walk_round_row (walk.cuh).  The block size is the
+// wrapper's, by batch size (ops/walk_kernel.py:walk_threads): at the
+// generic trace's 1024 walks a launch is one chain of dependent rounds
+// per walk, so blocks of 32 spread the walks over 32 SMs; at 65,536 and
+// more the block size hardly matters.  Four lanes a walk, each lane one
+// face's distance and the round's best two faces merged by shuffles,
+// lost to one thread a walk at every size from 1024 to 10M walks
+// (tools/walk_rows_alternatives.cu, tools/walk_rows_sweep.py; PERF.md
+// §6).
 //
 // What bounds it on an H100: memory latency.  Each round is one
 // dependent read of 80 bytes (tets) from a random row of the 512-byte
 // walk table, then ~60 flops; the next row's address depends on the
-// result.  Bytes moved are about 80 B per step plus 61 B of per-query
-// state in and out.  The design keeps that minimal (no gather buffer,
-// no per-round state traffic) and relies on many resident threads to
-// hide the latency of the dependent reads.
+// result.  Bytes moved are about 80 B per step plus 60 B of per-query
+// state in and out.
 //
-// The face round is iu::walk_round in csrc/walk.cuh (shared with the
-// tracer kernel).  Plain PyTorch version:
-// ops/walk_kernel.py:walk_plain, whose rounding order this kernel
-// follows (built with --fmad=false).
+// Plain PyTorch version: ops/walk_kernel.py:walk_direction followed by
+// walk_plain, whose rounding order this kernel follows (built with
+// --fmad=false).
 //
 // get_cell_walk_kernel below is get_cell's whole walk stage, from "start
-// cell known" to (ic, found), in one launch; walk_kernel above stays for
-// explicit walks (the public walk(), masked walks, the tracer's generic
-// path).  Per query, in registers: the origin (the seed bin's bin_pack
+// cell known" to (ic, found), in one launch.  Per query, in registers:
+// the origin (the seed bin's bin_pack
 // row, or the start cell's center from the vertex block of its walk
-// row), direction and distance as ops/locate.py:_walk_args computes them
-// (sqrtf of (x*x + y*y) + z*z, IEEE division), phase 1 of p1 rounds,
+// row), direction and distance as walk_direction computes them,
+// phase 1 of p1 rounds,
 // then for a query still walking the restart of the JAX package's
 // _resume_walk (direction and distance from r_p, no previous cell) for
 // at most max_steps - p1 more rounds, and get_cell's found rule.  The
@@ -43,7 +59,7 @@
 // rounds; here they stay only because the restart changes the rounding,
 // and the port must agree with the JAX package.  5 bytes go out per
 // query (ic, found), where the earlier composition moved 57 bytes of
-// walk state in and out of walk_kernel and more through the torch
+// walk state in and out of an explicit walk and more through the torch
 // around it.
 //
 // What bounds it on an H100: the latency of dependent row reads, as for
@@ -56,7 +72,7 @@
 // and 1536 of an SM's 2048 threads, are resident.  Plain PyTorch
 // version: ops/walk_kernel.py:get_cell_walk_plain.
 //
-// Both kernels are templates on the rows' type T, instantiated for float
+// The kernels are templates on the rows' type T, instantiated for float
 // (iu_walk, iu_get_cell_walk) and for double, a float64 grid's rows
 // (iu_walk_f64, iu_get_cell_walk_f64), the JAX package's float64 route
 // (its XLA walk loop, ops/locate.py:146-327).  A float64 walk row is 64
@@ -68,17 +84,18 @@
 
 #include <cuda_runtime.h>
 
+#include <cstdint>
+
 #include "bins.cuh"
 #include "walk.cuh"
 #include "wkern.cuh"
 
 namespace {
 
-constexpr int kThreads = 128;
 constexpr int kGetCellThreads = 256;
 
 // Unit direction and length of the walk from p to r (degenerate walks,
-// shorter than tiny, stay put), in _walk_args' rounding order.
+// shorter than tiny, stay put), in walk_direction's rounding order.
 template <typename T>
 __device__ __forceinline__ void walk_direction(T px, T py, T pz, T rx, T ry,
                                                T rz, T tiny, T& ux, T& uy,
@@ -237,38 +254,13 @@ get_cell_walk_kernel(const T* __restrict__ table, int n_rows, int W,
   out_found[q] = found ? 1 : 0;
 }
 
-template <int NF, typename T>
-__global__ void walk_kernel(const T* __restrict__ table, int n_rows, int W,
-                            const T* __restrict__ r0,
-                            const T* __restrict__ u,
-                            const T* __restrict__ total,
-                            const unsigned char* __restrict__ active0,
-                            const int* __restrict__ ic0,
-                            const int* __restrict__ mask, int n_queries,
-                            T nudge, T eps_arrive, T big, int max_steps,
-                            int* __restrict__ out_ic, T* __restrict__ out_rp,
-                            int* __restrict__ out_steps,
-                            int* __restrict__ out_status) {
-  const int q = blockIdx.x * blockDim.x + threadIdx.x;
-  if (q >= n_queries) return;
-  const T ux = u[3 * q + 0];
-  const T uy = u[3 * q + 1];
-  const T uz = u[3 * q + 2];
-  iu::WalkState<T> s;
-  s.px = r0[3 * q + 0];
-  s.py = r0[3 * q + 1];
-  s.pz = r0[3 * q + 2];
-  s.dist_left = total[q];
-  s.ic = ic0[q];
-  s.prev = -1;
-  s.status = iu::kStatusArrived;
-  s.steps = 0;
-  s.active = active0[q] != 0;
-  const int mask0 = mask != nullptr ? mask[iu::clamp_row(s.ic, n_rows)] : 0;
-  for (int n = 0; n < max_steps && s.active; ++n) {
-    iu::walk_round<NF>(table, n_rows, W, ux, uy, uz, nudge, eps_arrive, big,
-                       mask, mask0, s);
-  }
+// Writes a finished walk's results at position q.
+template <typename T>
+__device__ __forceinline__ void walk_out(const iu::WalkState<T>& s, int q,
+                                         int* __restrict__ out_ic,
+                                         T* __restrict__ out_rp,
+                                         int* __restrict__ out_steps,
+                                         int* __restrict__ out_status) {
   out_ic[q] = s.ic;
   out_rp[3 * q + 0] = s.px;
   out_rp[3 * q + 1] = s.py;
@@ -277,20 +269,57 @@ __global__ void walk_kernel(const T* __restrict__ table, int n_rows, int W,
   out_status[q] = s.active ? iu::kStatusStepCap : s.status;
 }
 
+// The explicit walk, one thread a walk: direction from (r0, r1), rows
+// read with 16-byte loads.
+template <int NF, typename T>
+__global__ void walk_kernel(const T* __restrict__ table, int n_rows, int W,
+                            const T* __restrict__ r0,
+                            const T* __restrict__ r1,
+                            const int* __restrict__ ic0,
+                            const int* __restrict__ mask, int n_queries,
+                            T nudge, T eps_arrive, T big, T tiny,
+                            int max_steps, int* __restrict__ out_ic,
+                            T* __restrict__ out_rp,
+                            int* __restrict__ out_steps,
+                            int* __restrict__ out_status) {
+  constexpr int L = kVec<T>;
+  constexpr int kChunks = (NF * 5 + L - 1) / L;
+  const int q = blockIdx.x * blockDim.x + threadIdx.x;
+  if (q >= n_queries) return;
+  iu::WalkState<T> s;
+  T ux, uy, uz;
+  walk_direction(r0[3 * q + 0], r0[3 * q + 1], r0[3 * q + 2], r1[3 * q + 0],
+                 r1[3 * q + 1], r1[3 * q + 2], tiny, ux, uy, uz, s);
+  s.ic = ic0[q];
+  s.steps = 0;
+  const int mask0 = mask != nullptr ? mask[iu::clamp_row(s.ic, n_rows)] : 0;
+  for (int n = 0; n < max_steps && s.active; ++n) {
+    T g[L * kChunks];
+    load_cols<0, kChunks>(table + (size_t)iu::clamp_row(s.ic, n_rows) * W, g);
+    iu::walk_round_row<NF>(g, ux, uy, uz, nudge, eps_arrive, big, mask,
+                           mask0, s);
+  }
+  walk_out(s, q, out_ic, out_rp, out_steps, out_status);
+}
+
 template <typename T>
 int walk_launch(const T* table, int n_rows, int W, int nf, const T* r0,
-                const T* u, const T* total, const unsigned char* active0,
-                const int* ic0, const int* mask, int n_queries, T nudge,
-                T eps_arrive, T big, int max_steps, int* out_ic, T* out_rp,
-                int* out_steps, int* out_status, void* stream) {
+                const T* r1, const int* ic0, const int* mask, int n_queries,
+                T nudge, T eps_arrive, T big, T tiny, int max_steps,
+                int threads, int* out_ic, T* out_rp, int* out_steps,
+                int* out_status, void* stream) {
   if (n_queries <= 0) return (int)cudaSuccess;
-  if (n_rows <= 0 || W < 5 * nf) return (int)cudaErrorInvalidValue;
+  if (n_rows <= 0 || W % kVec<T> != 0 || W < 5 * nf ||
+      reinterpret_cast<uintptr_t>(table) % 16 != 0 || threads < 32 ||
+      threads > 256 || threads % 32 != 0) {
+    return (int)cudaErrorInvalidValue;
+  }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int blocks = (n_queries + kThreads - 1) / kThreads;
-#define IU_WALK(NF_)                                                         \
-  walk_kernel<NF_, T><<<blocks, kThreads, 0, s>>>(                           \
-      table, n_rows, W, r0, u, total, active0, ic0, mask, n_queries, nudge, \
-      eps_arrive, big, max_steps, out_ic, out_rp, out_steps, out_status)
+  const int blocks = (n_queries + threads - 1) / threads;
+#define IU_WALK(NF_)                                                       \
+  walk_kernel<NF_, T><<<blocks, threads, 0, s>>>(                          \
+      table, n_rows, W, r0, r1, ic0, mask, n_queries, nudge, eps_arrive,   \
+      big, tiny, max_steps, out_ic, out_rp, out_steps, out_status)
   if (nf == 3) {
     IU_WALK(3);
   } else if (nf == 4) {
@@ -336,36 +365,38 @@ int get_cell_walk_launch(const T* table, int n_rows, int W, int nf,
 }  // namespace
 
 // Plain C entry points (bound with ctypes).  table: (n_rows, W) walk
-// rows, float32 (iu_walk) or float64 (iu_walk_f64, with the positions,
-// directions, distances and tolerances in double); r0, u, out_rp: (B,
-// 3); total: (B,); active0: (B,) bool, the lanes that walk (not
-// degenerate); ic0: (B,) int32; mask: (n_rows,) int32 per-cell mask
-// values, or null for a walk without a mask; nf: 3 or 4.  Returns the
-// cudaError_t of the launch.
+// rows, float32 (iu_walk) or float64 (iu_walk_f64, with the positions
+// and tolerances in double), W * the element size a multiple of 16
+// bytes, 16-byte aligned; r0, r1, out_rp: (B, 3) starts, targets and
+// final positions; ic0: (B,) int32 start cells; mask: (n_rows,) int32
+// per-cell mask values, or null for a walk without a mask; nf: 3 or 4;
+// tiny: walks shorter than it stay put; threads: a block's threads, a
+// multiple of 32 up to 256 (the double kernel's registers do not fit
+// 1024 threads a block).  Returns the cudaError_t of the launch.
 extern "C" int iu_walk(const float* table, int n_rows, int W, int nf,
-                       const float* r0, const float* u, const float* total,
-                       const unsigned char* active0, const int* ic0,
+                       const float* r0, const float* r1, const int* ic0,
                        const int* mask, int n_queries, float nudge,
-                       float eps_arrive, float big, int max_steps,
-                       int* out_ic, float* out_rp,
-                       int* out_steps, int* out_status, void* stream) {
-  return walk_launch<float>(table, n_rows, W, nf, r0, u, total, active0, ic0,
-                            mask, n_queries, nudge, eps_arrive, big,
-                            max_steps, out_ic, out_rp, out_steps, out_status,
-                            stream);
+                       float eps_arrive, float big, float tiny,
+                       int max_steps, int threads, int* out_ic,
+                       float* out_rp, int* out_steps, int* out_status,
+                       void* stream) {
+  return walk_launch<float>(table, n_rows, W, nf, r0, r1, ic0, mask,
+                            n_queries, nudge, eps_arrive, big, tiny,
+                            max_steps, threads, out_ic, out_rp, out_steps,
+                            out_status, stream);
 }
 
 extern "C" int iu_walk_f64(const double* table, int n_rows, int W, int nf,
-                           const double* r0, const double* u,
-                           const double* total, const unsigned char* active0,
+                           const double* r0, const double* r1,
                            const int* ic0, const int* mask, int n_queries,
                            double nudge, double eps_arrive, double big,
-                           int max_steps, int* out_ic, double* out_rp,
-                           int* out_steps, int* out_status, void* stream) {
-  return walk_launch<double>(table, n_rows, W, nf, r0, u, total, active0,
-                             ic0, mask, n_queries, nudge, eps_arrive, big,
-                             max_steps, out_ic, out_rp, out_steps, out_status,
-                             stream);
+                           double tiny, int max_steps, int threads,
+                           int* out_ic, double* out_rp, int* out_steps,
+                           int* out_status, void* stream) {
+  return walk_launch<double>(table, n_rows, W, nf, r0, r1, ic0, mask,
+                             n_queries, nudge, eps_arrive, big, tiny,
+                             max_steps, threads, out_ic, out_rp, out_steps,
+                             out_status, stream);
 }
 
 // Plain C entry points of get_cell's walk stage (bound with ctypes).

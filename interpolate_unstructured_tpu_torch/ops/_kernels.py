@@ -55,27 +55,17 @@ _SIGNATURES = {
         [_P, _P, _P, _P, _P, _P, _I, _IP, _I, _P, _I, _I, _I, _D, _P, _I, _P,
          _P, _I, _I, _P],
     ),
-    "iu_cand_rows": (
-        _I,
-        [_P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _F, _I, _P, _P,
-         _P, _P, _P],
-    ),
-    "iu_cand_rows_f64": (
-        _I,
-        [_P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _D, _I, _I, _P, _P, _P,
-         _P, _P],
-    ),
     "iu_interp_acc": (
         _I, [_P, _I, _P, _P, _P, _I, _I, _I, _IP, _I, _P, _P, _I, _I, _P],
     ),
     "iu_walk": (
         _I,
-        [_P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _I, _F, _F, _F, _I, _P, _P,
+        [_P, _I, _I, _I, _P, _P, _P, _P, _I, _F, _F, _F, _F, _I, _I, _P, _P,
          _P, _P, _P],
     ),
     "iu_walk_f64": (
         _I,
-        [_P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _I, _D, _D, _D, _I, _P, _P,
+        [_P, _I, _I, _I, _P, _P, _P, _P, _I, _D, _D, _D, _D, _I, _I, _P, _P,
          _P, _P, _P],
     ),
     "iu_get_cell_walk": (
@@ -98,12 +88,12 @@ _SIGNATURES = {
     "iu_cand_rows_binned": (
         _I,
         [_P, _I, _P, _P, _I, _P, _I, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-         _I, _F, _I, _F, _I, _P, _P, _P],
+         _I, _F, _I, _F, _I, _P, _P, _I, _I, _I, _P, _P],
     ),
     "iu_cand_rows_binned_f64": (
         _I,
         [_P, _I, _P, _P, _I, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _D,
-         _I, _I, _P, _P, _P],
+         _I, _I, _P, _P, _I, _I, _I, _P, _P],
     ),
     "iu_cand_bin_unsort": (_I, [_P, _P, _I, _I, _P, _P, _P, _P]),
     "iu_trace_loop": (

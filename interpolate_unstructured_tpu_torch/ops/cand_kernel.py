@@ -12,35 +12,36 @@ weights).  Four row layouts (see ``RowLayout.kind`` and the packers in
 branch (the JAX kernel's ``df_planes=True``), whose values come back as
 hi/lo float32 pairs.
 
-:func:`cand_rows_query` launches the direct CUDA kernel
-(``csrc/cand_rows.cu``, one warp per query in query order) on CUDA
-tensors and runs the plain PyTorch version (:func:`probe_rows_plain`) on
-CPU tensors; it serves the extension table.  The main table is probed in
-bin order by :func:`cand_rows_binned_query`: on CUDA tensors a bin pass
-and a scatter kernel group the queries by bin (:func:`bin_order_cuda`),
-the probe kernel takes them in that order, a group of lanes per query
-(:func:`binned_lanes`), and writes each query's record at its sorted
-slot, and an unsort kernel puts the records back in query order
-(:func:`cand_rows_binned_cuda`); on CPU tensors the plain version,
-:func:`probe_rows_plain`, probes in query order (:func:`bin_order_plain`
-is the scatter's plain twin).  The df-plane rows take the same four
-kernels from the queries as given, float64 or a float32 hi/lo pair,
-which the kernels split and carry into the hi/lo local frame themselves
-(:func:`cand_rows_df_query`); the plain version is
+:func:`cand_rows_binned_query` probes the main table in bin order: on
+CUDA tensors a bin pass and a scatter kernel group the queries by bin
+(:func:`bin_order_cuda`), the probe kernel takes them in that order, a
+group of lanes per query (:func:`binned_lanes`), and writes each query's
+record at its sorted slot, and an unsort kernel puts the records back in
+query order (:func:`cand_rows_binned_cuda`); on CPU tensors the plain
+version, :func:`probe_rows_plain`, probes in query order
+(:func:`bin_order_plain` is the scatter's plain twin).  On a grid with
+extension rows (``ext``) the same probe launch takes an overflow miss
+on to its bin's extension row and writes the merged record; the plain
+version is :func:`probe_rows_ext_plain`, the main probe, the extension
+probe of the overflow misses and the merge.  The df-plane rows take the
+same four kernels from the queries as given, float64 or a float32 hi/lo
+pair, which the kernels split and carry into the hi/lo local frame
+themselves (:func:`cand_rows_df_query`); the plain version is
 :func:`cand_rows_df_plain` (:func:`probe_inputs_df_plain`, then
-:func:`probe_rows_df_plain`).  ``launches`` counts the direct kernel's
-launches, ``bin_pass_launches``, ``bin_scatter_launches`` and
-``bin_unsort_launches`` those of the bin-ordered front end (both row
-kinds), ``binned_launches`` the probe in bin order of the f32 layouts and
-``df_launches`` that of the df-plane rows.
+:func:`probe_rows_df_plain`).  ``bin_pass_launches``,
+``bin_scatter_launches`` and ``bin_unsort_launches`` count the launches
+of the bin-ordered front end (every row kind), ``binned_launches`` the
+probe in bin order of a main table without extension rows,
+``ext_launches`` the probe with extension rows and ``df_launches`` that
+of the df-plane rows.
 
 A float64 grid's rows ("simplex" and "quad" in float64, never quantized)
-take the same direct kernel, bin pass, probe and unsort, instantiated for
-double (the ``*_f64`` entry points, scalars as C doubles): the bin pass
-bins the float64 queries in double against the grid's float64 origin and
-inverse sizes, and a record carries each double value as two int32
-words, which the unsort moves as it moves any word.  They count in the
-same counters.
+take the same bin pass, probe (with or without extension rows) and
+unsort, instantiated for double (the ``*_f64`` entry points, scalars as
+C doubles): the bin pass bins the float64 queries in double against the
+grid's float64 origin and inverse sizes, and a record carries each
+double value as two int32 words, which the unsort moves as it moves any
+word. They count in the same counters.
 """
 
 from __future__ import annotations
@@ -53,11 +54,11 @@ import torch
 
 from . import _kernels, df32, geometry, wkern
 
-launches = 0  # direct launches (B2, the extension rows)
 df_launches = 0  # probe in bin order of the df-plane rows (B2-df)
 bin_pass_launches = 0  # bin pass of the bin-ordered probe
 bin_scatter_launches = 0  # scatter of the bin-ordered probe
-binned_launches = 0  # probe in bin order (main table, f32 layouts)
+binned_launches = 0  # probe in bin order (main table, no extension rows)
+ext_launches = 0  # probe in bin order with the extension rows
 bin_unsort_launches = 0  # unsort of the bin-ordered probe's records
 
 _KIND_CODE = {"quantized": 0, "simplex": 1, "quad": 2, "qdf": 3}
@@ -306,6 +307,36 @@ def probe_rows_plain(table, idx, rq, lay, eps, ovf_base, chunk, rq_lo=None):
     return tuple(torch.cat([o[i] for o in outs]) for i in range(3))
 
 
+def probe_rows_ext_plain(table, ext_table, idx, rq, lay, lay_ext, eps,
+                         ovf_base, chunk):
+    """Plain PyTorch version of the probe with extension rows (model: the
+    JAX package's ``_candidates_query`` merge, ops/locate.py:892-975), on
+    any device and float dtype: :func:`probe_rows_plain` on the main
+    table, then on the extension row (slot ``aux``) of every overflow
+    miss, in the main rows' frame ``rq``, with ``ovf_base + lay_ext.k``,
+    then the merge.  A query found in its extension row takes that
+    winner's id, verdict and values; one that the extension row does not
+    hold keeps the main winner's id and values with the extension row's
+    verdict: -1 for an exact miss, >= 0 where even K + k_ext candidates
+    did not hold the bin (its residual walk starts from the main
+    winner).  Returns (id_best (B,) int32, aux (B,) int32, values (B,
+    V))."""
+    id_best, aux, values = probe_rows_plain(table, idx, rq, lay, eps,
+                                            ovf_base, chunk)
+    sel = torch.nonzero(aux >= 0).squeeze(1)
+    if sel.numel() == 0:
+        return id_best, aux, values
+    chunk_ext = max(1, chunk * table.shape[1] // ext_table.shape[1])
+    id2, aux2, vals2 = probe_rows_plain(
+        ext_table, aux[sel], rq[sel], lay_ext, eps, ovf_base + lay_ext.k,
+        chunk_ext)
+    found2 = aux2 == -2
+    id_best[sel] = torch.where(found2, id2, id_best[sel])
+    aux[sel] = aux2
+    values[sel] = torch.where(found2[:, None], vals2, values[sel])
+    return id_best, aux, values
+
+
 def probe_rows_df_plain(table, idx, rq, rq_lo, lay, eps, ovf_base, chunk):
     """Plain PyTorch version of B2's df-plane branch ("qdf" rows).
     Returns (id_best, aux, vals_hi (B, V), vals_lo (B, V))."""
@@ -324,72 +355,6 @@ def cand_rows_df_plain(table, r, r_lo, rmin, inv_h, shape, lay, eps,
     idx, rq, rq_lo = probe_inputs_df_plain(r, r_lo, rmin, inv_h, shape)
     return probe_rows_df_plain(table, idx, rq, rq_lo, lay, eps, ovf_base,
                                chunk)
-
-
-def cand_rows_cuda(table, idx, rq, lay, eps, ovf_base):
-    """Launch B2's direct kernel on CUDA tensors: a float32 or float64
-    table (float64: "simplex" or "quad" rows), int32 idx, rq of the
-    table's dtype.  The kernel reads each query's row from the table
-    itself.  Returns (id_best, aux, values)."""
-    global launches
-    if lay.kind not in ("quantized", "simplex", "quad"):
-        raise ValueError(f"{lay.kind!r} rows are probed in bin order")
-    _check_table(table, lay)
-    if rq.dtype != table.dtype:
-        raise TypeError(
-            "the CUDA candidate kernel takes queries of the table's dtype, "
-            f"got {table.dtype} / {rq.dtype}"
-        )
-    if idx.dtype != torch.int32:
-        raise TypeError(f"idx must be int32, got {idx.dtype}")
-    if not table.device == idx.device == rq.device:
-        raise ValueError("table, idx and queries must share one device")
-    if table.ndim != 2 or not table.is_contiguous():
-        raise ValueError("table must be a contiguous (n_rows, W) tensor")
-    b = idx.shape[0]
-    if idx.ndim != 1 or rq.shape != (b, 3):
-        raise ValueError(
-            f"idx must be (B,), queries (B, 3): got {tuple(idx.shape)}, "
-            f"{tuple(rq.shape)}"
-        )
-    tail = 2 if lay.kind == "quantized" else 1
-    if lay.count_col + tail > table.shape[1] or lay.k < 1:
-        raise ValueError(f"row layout {lay} does not fit width {table.shape[1]}")
-    idx = idx.contiguous()
-    rq = rq.contiguous()
-    dev = table.device
-    n_vars = len(lay.var_roles)
-    vroles = _var_roles(lay.var_roles, dev)
-    out_id = torch.empty(b, dtype=torch.int32, device=dev)
-    out_aux = torch.empty(b, dtype=torch.int32, device=dev)
-    vals = torch.empty((b, n_vars), dtype=table.dtype, device=dev)
-    if b == 0:
-        return out_id, out_aux, vals
-    args = (table.data_ptr(), table.shape[1], idx.data_ptr(), rq.data_ptr(),
-            b, lay.k, lay.nf, _KIND_CODE[lay.kind], lay.id_role,
-            lay.count_col, float(eps), int(ovf_base))
-    outs = (n_vars, vroles.data_ptr(), out_id.data_ptr(),
-            out_aux.data_ptr(), vals.data_ptr(),
-            torch.cuda.current_stream(dev).cuda_stream)
-    with torch.cuda.device(dev):
-        if table.dtype == torch.float64:
-            code = _kernels.lib().iu_cand_rows_f64(*args, *outs)
-        else:
-            code = _kernels.lib().iu_cand_rows(*args, QINV, *outs)
-    _kernels.check(code, "iu_cand_rows")
-    launches += 1
-    return out_id, out_aux, vals
-
-
-def cand_rows_query(table, idx, rq, lay, eps, ovf_base, chunk):
-    """Candidate-row probe: the CUDA kernel for CUDA tensors, the plain
-    version (gathering ``chunk`` rows at a time) for CPU tensors.
-    Returns (id_best (B,) int32, aux (B,) int32, values (B, V))."""
-    if table.device.type == "cuda":
-        return cand_rows_cuda(table, idx, rq, lay, eps, ovf_base)
-    if table.device.type == "cpu":
-        return probe_rows_plain(table, idx, rq, lay, eps, ovf_base, chunk)
-    raise ValueError(f"no candidate probe for device {table.device}")
 
 
 def binned_lanes(n_queries, n_bins):
@@ -477,7 +442,7 @@ def bin_order_cuda(r, rmin, inv_h, shape):
 
 
 def cand_rows_binned_cuda(table, r, perm, slot, rmin, inv_h, shape, lay, eps,
-                          ovf_base, lanes=None, r_lo=None):
+                          ovf_base, lanes=None, r_lo=None, ext=None):
     """Launch the probe in bin order and the unsort on CUDA tensors:
     float32 table (one row per bin) and (B, 3) queries ``r`` (the kernel
     computes their bins and, for quantized rows, their local frame), or a
@@ -488,9 +453,12 @@ def cand_rows_binned_cuda(table, r, perm, slot, rmin, inv_h, shape, lay, eps,
     writes its record at its slot; the unsort puts the records back.
     For the df-plane rows ("qdf") ``r`` is float64, or float32 with the
     lo parts ``r_lo`` (None: zeros), and the kernel splits the queries and
-    forms their hi/lo local frame.  Returns (id_best, aux, values) in
+    forms their hi/lo local frame.  ``ext``: (extension table, its
+    :class:`RowLayout`) of a grid with extension rows (layouts 0-2), whose
+    overflow misses the same launch probes there and merges as
+    :func:`probe_rows_ext_plain` does.  Returns (id_best, aux, values) in
     query order; for "qdf" values is (B, 2V), hi columns then lo."""
-    global binned_launches, df_launches, bin_unsort_launches
+    global binned_launches, ext_launches, df_launches, bin_unsort_launches
     df = lay.kind == "qdf"
     if lay.kind not in ("quantized", "simplex", "quad", "qdf"):
         raise ValueError(f"unknown row kind {lay.kind!r}")
@@ -523,6 +491,23 @@ def cand_rows_binned_cuda(table, r, perm, slot, rmin, inv_h, shape, lay, eps,
     tail = 2 if lay.kind in _QUANTIZED_KINDS else 1
     if lay.count_col + tail > table.shape[1]:
         raise ValueError(f"row layout {lay} does not fit width {table.shape[1]}")
+    ext_args = (None, 0, 0, 0)
+    if ext is not None:
+        ext_table, lay_ext = ext
+        if df or (lay_ext.kind, lay_ext.nf, lay_ext.id_role,
+                  lay_ext.var_roles) != (lay.kind, lay.nf, lay.id_role,
+                                         lay.var_roles):
+            raise ValueError("extension rows take the main rows' layout "
+                             "(layouts 0-2) with their own k")
+        if (ext_table.dtype != table.dtype or ext_table.device != table.device
+                or ext_table.ndim != 2 or not ext_table.is_contiguous()
+                or lay_ext.count_col + tail > ext_table.shape[1]
+                or lay_ext.k < 1):
+            raise ValueError("the extension table must be a contiguous "
+                             "(n_ext, W) tensor of the table's dtype and "
+                             "device that its layout fits")
+        ext_args = (ext_table.data_ptr(), ext_table.shape[1], lay_ext.k,
+                    lay_ext.count_col)
     if lanes is None:
         lanes = binned_lanes(b, n_bins)
     if lanes not in (1, 2, 4, 8, 16, 32):
@@ -549,7 +534,7 @@ def cand_rows_binned_cuda(table, r, perm, slot, rmin, inv_h, shape, lay, eps,
                 perm.data_ptr(), b, lanes, rmin.data_ptr(), inv_h.data_ptr(),
                 *shape, lay.k, lay.nf, _KIND_CODE[lay.kind], lay.id_role,
                 lay.count_col, float(eps), int(ovf_base), n_vars,
-                vroles.data_ptr(), rec.data_ptr(), stream,
+                vroles.data_ptr(), *ext_args, rec.data_ptr(), stream,
             )
         else:
             code = _kernels.lib().iu_cand_rows_binned(
@@ -558,11 +543,13 @@ def cand_rows_binned_cuda(table, r, perm, slot, rmin, inv_h, shape, lay, eps,
                 perm.data_ptr(), b, lanes, rmin.data_ptr(), inv_h.data_ptr(),
                 *shape, lay.k, lay.nf, _KIND_CODE[lay.kind], lay.id_role,
                 lay.count_col, float(eps), int(ovf_base), QINV, n_vars,
-                vroles.data_ptr(), rec.data_ptr(), stream,
+                vroles.data_ptr(), *ext_args, rec.data_ptr(), stream,
             )
         _kernels.check(code, "iu_cand_rows_binned")
         if df:
             df_launches += 1
+        elif ext is not None:
+            ext_launches += 1
         else:
             binned_launches += 1
         code = _kernels.lib().iu_cand_bin_unsort(
@@ -574,22 +561,29 @@ def cand_rows_binned_cuda(table, r, perm, slot, rmin, inv_h, shape, lay, eps,
 
 
 def cand_rows_binned_query(table, r, rmin, inv_h, shape, lay, eps, ovf_base,
-                           chunk):
-    """The main-table probe in bin order, from the queries themselves:
+                           chunk, ext=None):
+    """The candidate probe in bin order, from the queries themselves:
     ``table`` holds one row per candidate bin of the grid (origin
-    ``rmin``, inverse sizes ``inv_h``, ``shape`` bins per axis).  The
-    bin pass, scatter, probe and unsort kernels for CUDA tensors; for
-    CPU tensors the plain version, :func:`probe_rows_plain` in query
-    order (a query's result does not depend on the order).  Returns
-    (id_best (B,) int32, aux (B,) int32, values (B, V)) in query order."""
+    ``rmin``, inverse sizes ``inv_h``, ``shape`` bins per axis); ``ext``:
+    (extension table, its :class:`RowLayout`) of a grid with extension
+    rows, or None.  The bin pass, scatter, probe (with the extension
+    probe of the overflow misses where ``ext`` is given) and unsort
+    kernels for CUDA tensors; for CPU tensors the plain version,
+    :func:`probe_rows_plain` (:func:`probe_rows_ext_plain` with ``ext``)
+    in query order (a query's result does not depend on the order).
+    Returns (id_best (B,) int32, aux (B,) int32, values (B, V)) in query
+    order."""
     if table.device.type == "cuda":
         _check_table(table, lay)  # before the bin pass
         _, _, perm, slot = bin_order_cuda(r, rmin, inv_h, shape)
         return cand_rows_binned_cuda(table, r, perm, slot, rmin, inv_h, shape,
-                                     lay, eps, ovf_base)
+                                     lay, eps, ovf_base, ext=ext)
     if table.device.type == "cpu":
         idx, rq = probe_inputs_plain(r, rmin, inv_h, shape,
                                      lay.kind == "quantized")
+        if ext is not None:
+            return probe_rows_ext_plain(table, ext[0], idx, rq, lay, ext[1],
+                                        eps, ovf_base, chunk)
         return probe_rows_plain(table, idx, rq, lay, eps, ovf_base, chunk)
     raise ValueError(f"no candidate probe for device {table.device}")
 

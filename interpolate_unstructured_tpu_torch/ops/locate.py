@@ -166,9 +166,9 @@ def walk(grid, r0, r1, ic0, max_steps=None, i_icell_mask=None, table=None):
 
 def _walk_args(grid, r0, r1, ic0, max_steps=None, table=None):
     """The arguments of ``walk_kernel.walk_rows`` for a walk from r0 to
-    r1 over ``table`` (default: the walk rows): unit directions, lengths
-    (degenerate walks, shorter than the dtype's tiny distance, stay
-    put), start cells and the dtype-scaled tolerances."""
+    r1 over ``table`` (default: the walk rows): starts, targets, start
+    cells and the dtype-scaled tolerances (walks shorter than the
+    dtype's tiny distance stay put)."""
     if max_steps is None:
         max_steps = grid.config.max_walk_steps
     if table is None:
@@ -177,9 +177,8 @@ def _walk_args(grid, r0, r1, ic0, max_steps=None, table=None):
     r1 = _queries(grid, r1)
     dtype = torch.empty((), dtype=r0.dtype).numpy().dtype
     nudge, eps_arrive = walk_tolerances(dtype, grid.rmin, grid.rmax)
-    u, total, active = walk_kernel.walk_direction(r0, r1, tiny_distance(dtype))
-    return (table, r0, u, total, active, _cells(grid, ic0), nudge,
-            eps_arrive, huge_distance(dtype), max_steps,
+    return (table, r0, r1, _cells(grid, ic0), nudge, eps_arrive,
+            huge_distance(dtype), tiny_distance(dtype), max_steps,
             grid.n_faces_per_cell)
 
 
@@ -232,9 +231,9 @@ def _cand_eps(grid) -> float:
 
 
 def _cand_probe_inputs(grid, r):
-    """(idx (B,) int32, rq (B, 3)) of a direct main-table probe: each
-    query's bin, and the query in that bin's local frame when the rows
-    are quantized (the extension rows share the frame)."""
+    """(idx (B,) int32, rq (B, 3)) of the plain probe in query order:
+    each query's bin, and the query in that bin's local frame when the
+    rows are quantized (the extension rows share the frame)."""
     from ..models.grid import cand_is_quantized
 
     return cand_kernel.probe_inputs_plain(
@@ -250,13 +249,14 @@ def _candidates_query(grid, r, var_slots, max_steps=None):
     every cell intersecting the query's bin.  Where the bin's list is
     complete, a miss is exact: the point is outside the mesh.  Queries
     of overflow bins that no stored candidate contains probe the bin's
-    extension row (candidates K..K+k_ext, same layout, same kernel).
-    Bins whose count exceeds K + k_ext (or grids without extension
-    rows) leave a residual: those misses walk from their best
-    candidate's center (kernel B3's get_cell walk) and interpolate in
-    the cell they reach.  The main table is probed in bin order
-    (``cand_kernel.cand_rows_binned_query``); the few extension-row
-    probes go to the direct kernel.
+    extension row (candidates K..K+k_ext, same layout) in the same
+    probe.  Bins whose count exceeds K + k_ext (or grids without
+    extension rows) leave a residual: those misses (``aux >= 0``) walk
+    from their best main candidate's center (kernel B3's get_cell walk)
+    and interpolate in the cell they reach.  The rows are probed in bin
+    order (``cand_kernel.cand_rows_binned_query``), so on a grid whose
+    rows cover every bin nothing between the probe and the values reads
+    back to the host.
 
     Returns (i_cell (B,) int32, found (B,) bool, values (B, V)).
     """
@@ -264,62 +264,34 @@ def _candidates_query(grid, r, var_slots, max_steps=None):
         max_steps = grid.config.max_walk_steps
     var_slots = tuple(var_slots)
     k_max = grid.cand_ids.shape[1]
-    eps = _cand_eps(grid)
+    ext = None
+    if grid.cand_ext_table is not None:
+        ext = (grid.cand_ext_table,
+               _row_layout(grid, grid.cand_ext_ids.shape[1], var_slots))
     id_best, aux, values = cand_kernel.cand_rows_binned_query(
         grid.cand_table, r, grid.cand_rmin, grid.cand_inv_h, grid.cand_shape,
-        _row_layout(grid, k_max, var_slots), eps, k_max, _cand_chunk(grid),
+        _row_layout(grid, k_max, var_slots), _cand_eps(grid), k_max,
+        _cand_chunk(grid), ext,
     )
     found = aux == -2
     ic = torch.where(found, id_best, -1)
-    if grid.cand_ext_table is None and grid.cand_ext_covers:
-        # every bin's complete list fits its row: a miss is exact
+    if grid.cand_ext_covers:
+        # every bin's complete list fits its row or its extension row: a
+        # miss is exact
         return ic, found, values
-
-    def walk_and_interp(sel):
-        """Walk the selected misses from their best candidate's center;
-        (ic, found, values) of the cells they reach."""
-        ic_w, found_w = walk_kernel.get_cell_walk(
-            grid, r[sel], id_best[sel].clamp_min(0), max_steps, 0)
-        vals_w = None
-        if var_slots:
-            from .interp import interpolate_at_icell
-
-            vals_w = interpolate_at_icell(grid, r[sel], var_slots,
-                                          ic_w.clamp_min(0))
-        return ic_w, found_w, vals_w
-
-    def merge(sel, ic_o, found_o, vals_o):
-        ic[sel] = torch.where(found_o, ic_o, -1)
-        if vals_o is not None:
-            values[sel] = torch.where(found_o[:, None], vals_o, values[sel])
-
-    # aux >= 0 marks overflow-bin misses; aux is the extension slot
+    # aux >= 0: a bin beyond K (no extension rows) or K + k_ext candidates
     sel = torch.nonzero(aux >= 0).squeeze(1)
     if sel.numel() == 0:
         return ic, found, values
-    if grid.cand_ext_table is None:
-        merge(sel, *walk_and_interp(sel))
-        return ic, ic >= 0, values
+    ic_w, found_w = walk_kernel.get_cell_walk(
+        grid, r[sel], id_best[sel].clamp_min(0), max_steps, 0)
+    ic[sel] = torch.where(found_w, ic_w, -1)
+    if var_slots:
+        from .interp import interpolate_at_icell
 
-    k_ext = grid.cand_ext_ids.shape[1]
-    _, rq = _cand_probe_inputs(grid, r[sel])
-    id2, aux2, vals2 = cand_kernel.cand_rows_query(
-        grid.cand_ext_table, aux[sel].contiguous(), rq,
-        _row_layout(grid, k_ext, var_slots), eps, k_max + k_ext,
-        _cand_chunk(grid, grid.cand_ext_table),
-    )
-    found2 = aux2 == -2
-    merge(sel, torch.where(found2, id2, -1), found2, vals2)
-    if not grid.cand_ext_covers:
-        # aux2 >= 0: even the extension row did not hold the bin's
-        # complete list
-        resid = sel[aux2 >= 0]
-        if resid.numel():
-            ic_w, found_w, vals_w = walk_and_interp(resid)
-            ic[resid] = torch.where(found_w, ic_w, -1)
-            if vals_w is not None:
-                values[resid] = torch.where(found_w[:, None], vals_w,
-                                            values[resid])
+        vals_w = interpolate_at_icell(grid, r[sel], var_slots,
+                                      ic_w.clamp_min(0))
+        values[sel] = torch.where(found_w[:, None], vals_w, values[sel])
     return ic, ic >= 0, values
 
 

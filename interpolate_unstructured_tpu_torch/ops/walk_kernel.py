@@ -1,24 +1,28 @@
 """Kernel B3: the batched neighbor walk.
 
 Counterpart of the JAX package's ``ops/pallas_walk.py``.  Every query
-walks from ``r0`` (inside cell ``ic0``) along the unit direction ``u``
-for ``total``: each round takes the exit face (least ray-plane distance
-among faces with ``u . n > 0``, the runner-up when the best leads
-straight back to the previous cell), then arrives, leaves the domain or
-hops across with a ``nudge`` overshoot (m_interp_unstructured.f90:
-664-764).  A query stops at arrival or at the boundary; one still
-walking after ``max_steps`` rounds gets ``STATUS_STEP_CAP``.  With a
-per-cell ``mask`` column (the tracer's icell-mask region), a hop into a
-cell whose mask value differs from the start cell's stops on the face
-with ``STATUS_MASK_CHANGED``, in that cell (:706-719).
+walks from ``r0`` (inside cell ``ic0``) towards ``r1``, along the unit
+direction ``u`` for the length ``total`` (:func:`walk_direction`): each
+round takes the exit face (least ray-plane distance among faces with
+``u . n > 0``, the runner-up when the best leads straight back to the
+previous cell), then arrives, leaves the domain or hops across with a
+``nudge`` overshoot (m_interp_unstructured.f90:664-764).  A query stops
+at arrival or at the boundary; one still walking after ``max_steps``
+rounds gets ``STATUS_STEP_CAP``.  With a per-cell ``mask`` column (the
+tracer's icell-mask region), a hop into a cell whose mask value differs
+from the start cell's stops on the face with ``STATUS_MASK_CHANGED``, in
+that cell (:706-719).
 
-:func:`walk_rows` launches the CUDA kernel (``csrc/walk.cu``, one thread
-per query walking to its end; float32, or float64 for a float64 grid,
-whose entry points take double tolerances) on CUDA tensors and runs
-:func:`walk_plain`, the plain PyTorch version (the round loop, rows
-gathered per round), on CPU tensors.  ``launches`` counts kernel
-launches.  It serves explicit walks: the public ``walk()``, masked
-walks and the tracer's generic path.
+:func:`walk_rows` launches the CUDA kernel (``csrc/walk.cu``; float32,
+or float64 for a float64 grid, whose entry points take double
+tolerances) on CUDA tensors: from ``r0``, ``r1`` and ``ic0`` the kernel
+computes each walk's direction and walks it to its end, one thread a
+walk, in blocks sized by batch (:func:`walk_threads`).  On CPU tensors
+it runs :func:`walk_rows_plain`, the plain PyTorch version:
+:func:`walk_direction`, then :func:`walk_plain` (the round loop, rows
+gathered per round).  ``launches`` counts kernel launches.  It serves
+explicit walks: the public ``walk()``, masked walks and the tracer's
+generic path.
 
 :func:`get_cell_walk` is ``get_cell``'s whole walk stage, from the start
 cells (or the seed bins) to (ic, found): origin, direction, the
@@ -157,26 +161,58 @@ def walk_plain(table, r0, u, total, active, ic0, nudge, eps_arrive, big,
     return ic, rp, steps, status
 
 
-def walk_cuda(table, r0, u, total, active, ic0, nudge, eps_arrive, big,
-              max_steps, nf, mask=None):
-    """Launch B3 on CUDA tensors: a float32 or float64 table with
-    positions, directions and lengths of its dtype, bool ``active``, int32
-    ``ic0`` and ``mask`` (None: no mask).  One thread per query walks to
-    its end."""
+# Threads a block of the explicit walk by batch size
+# (tools/walk_rows_sweep.py on the 998k-tet box's walk rows and the trace
+# table, H100, PERF.md §6): at 1024 walks a launch is one chain of
+# dependent rounds per walk, and blocks of 32 spread the walks over 32
+# SMs (0.0052 ms against 0.0056 at 128 and 0.0060 at 256 in float32,
+# 0.0065 / 0.0071 / 0.0079 in float64); from 65,536 walks on the block
+# size moves the time by 1% or less.
+SMALL_WALKS = 1 << 16
+SMALL_THREADS = 32
+THREADS = 128
+
+
+def walk_threads(n_walks):
+    """Threads a block of the explicit walk's kernel for a batch of
+    ``n_walks``."""
+    return SMALL_THREADS if n_walks <= SMALL_WALKS else THREADS
+
+
+def walk_rows_plain(table, r0, r1, ic0, nudge, eps_arrive, big, tiny,
+                    max_steps, nf, mask=None):
+    """Plain PyTorch version of :func:`walk_rows`: :func:`walk_direction`
+    from r0 to r1, then :func:`walk_plain`, on any device and float
+    dtype.  Returns (ic, r_p, steps, status)."""
+    u, total, active = walk_direction(r0, r1, tiny)
+    return walk_plain(table, r0, u, total, active, ic0, nudge, eps_arrive,
+                      big, max_steps, nf, mask)
+
+
+def walk_cuda(table, r0, r1, ic0, nudge, eps_arrive, big, tiny, max_steps,
+              nf, mask=None, threads=None):
+    """Launch B3's explicit walk on CUDA tensors: a float32 or float64
+    table (16-byte aligned, a whole number of 16-byte words wide) with
+    starts and targets of its dtype, int32 ``ic0`` and ``mask`` (None:
+    no mask).  The kernel computes each walk's direction and walks it to
+    its end, one thread a walk, in blocks of ``threads`` (None:
+    :func:`walk_threads`)."""
     global launches
     b = r0.shape[0]
-    if not (r0.shape == u.shape == (b, 3) and total.shape == active.shape
-            == ic0.shape == (b,)):
-        raise ValueError(
-            "walk inputs must be r0, u (B, 3) and total, active, ic0 (B,)"
-        )
-    entry = _entry(_WALK_ENTRY, "walk kernel", table, r0, u, total)
-    if active.dtype != torch.bool or ic0.dtype != torch.int32:
-        raise TypeError("active must be bool and ic0 int32")
-    if len({t.device for t in (table, r0, u, total, active, ic0)}) != 1:
+    if not (r0.shape == r1.shape == (b, 3) and ic0.shape == (b,)):
+        raise ValueError("walk inputs must be r0, r1 (B, 3) and ic0 (B,)")
+    entry = _entry(_WALK_ENTRY, "walk kernel", table, r0, r1)
+    if ic0.dtype != torch.int32:
+        raise TypeError("ic0 must be int32")
+    if len({t.device for t in (table, r0, r1, ic0)}) != 1:
         raise ValueError("walk inputs must share one device")
-    if table.ndim != 2 or not table.is_contiguous() or table.shape[0] < 1:
-        raise ValueError("table must be a contiguous, non-empty (n, W) tensor")
+    if (table.ndim != 2 or not table.is_contiguous() or table.shape[0] < 1
+            or table.shape[1] * table.element_size() % 16
+            or not _aligned(table)):
+        raise ValueError(
+            "table must be a contiguous, non-empty (n, W) tensor with "
+            "16-byte aligned rows"
+        )
     if nf not in (3, 4) or table.shape[1] < 5 * nf:
         raise ValueError(f"rows of width {table.shape[1]} hold no nf={nf} faces")
     if mask is not None:
@@ -185,8 +221,11 @@ def walk_cuda(table, r0, u, total, active, ic0, nudge, eps_arrive, big,
             raise ValueError("mask must be an int32 (n_rows,) tensor on the "
                              "table's device")
         mask = mask.contiguous()
-    r0, u, total = r0.contiguous(), u.contiguous(), total.contiguous()
-    active, ic0 = active.contiguous(), ic0.contiguous()
+    threads = walk_threads(b) if threads is None else threads
+    if threads % 32 or not 32 <= threads <= 256:
+        raise ValueError(f"threads must be a multiple of 32 up to 256, got "
+                         f"{threads}")
+    r0, r1, ic0 = r0.contiguous(), r1.contiguous(), ic0.contiguous()
     dev = table.device
     out_ic = torch.empty(b, dtype=torch.int32, device=dev)
     out_rp = torch.empty((b, 3), dtype=table.dtype, device=dev)
@@ -197,10 +236,10 @@ def walk_cuda(table, r0, u, total, active, ic0, nudge, eps_arrive, big,
     with torch.cuda.device(dev):
         code = getattr(_kernels.lib(), entry)(
             table.data_ptr(), table.shape[0], table.shape[1], nf,
-            r0.data_ptr(), u.data_ptr(), total.data_ptr(), active.data_ptr(),
-            ic0.data_ptr(), None if mask is None else mask.data_ptr(), b,
-            float(nudge), float(eps_arrive), float(big),
-            int(max_steps), out_ic.data_ptr(), out_rp.data_ptr(),
+            r0.data_ptr(), r1.data_ptr(), ic0.data_ptr(),
+            None if mask is None else mask.data_ptr(), b, float(nudge),
+            float(eps_arrive), float(big), float(tiny), int(max_steps),
+            threads, out_ic.data_ptr(), out_rp.data_ptr(),
             out_steps.data_ptr(), out_status.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream,
         )
@@ -209,16 +248,17 @@ def walk_cuda(table, r0, u, total, active, ic0, nudge, eps_arrive, big,
     return out_ic, out_rp, out_steps, out_status
 
 
-def walk_rows(table, r0, u, total, active, ic0, nudge, eps_arrive, big,
-              max_steps, nf, mask=None):
-    """The batched walk: the CUDA kernel for CUDA tensors, the plain
-    version for CPU tensors.  Returns (ic, r_p, steps, status)."""
+def walk_rows(table, r0, r1, ic0, nudge, eps_arrive, big, tiny, max_steps,
+              nf, mask=None):
+    """The batched walk from r0 towards r1: the CUDA kernel for CUDA
+    tensors, the plain version for CPU tensors.  Returns (ic, r_p, steps,
+    status)."""
     if table.device.type == "cuda":
-        return walk_cuda(table, r0, u, total, active, ic0, nudge, eps_arrive,
-                         big, max_steps, nf, mask)
+        return walk_cuda(table, r0, r1, ic0, nudge, eps_arrive, big, tiny,
+                         max_steps, nf, mask)
     if table.device.type == "cpu":
-        return walk_plain(table, r0, u, total, active, ic0, nudge,
-                          eps_arrive, big, max_steps, nf, mask)
+        return walk_rows_plain(table, r0, r1, ic0, nudge, eps_arrive, big,
+                               tiny, max_steps, nf, mask)
     raise ValueError(f"no walk for device {table.device}")
 
 

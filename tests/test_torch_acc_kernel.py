@@ -403,14 +403,14 @@ def test_cuda_accurate_calls_launch_the_kernels(cuda):
     g = _cuda_grid("tetra", cuda)
     r64 = torch.from_numpy(queries64("tetra", 100_000, 16)).to(cuda)
     for name in ("df_launches", "bin_pass_launches", "bin_scatter_launches",
-                 "bin_unsort_launches", "binned_launches", "launches"):
+                 "bin_unsort_launches", "binned_launches", "ext_launches"):
         setattr(cand_kernel, name, 0)
     acc_kernel.launches = 0
     vh, vl, found, ic = tiu.interpolate_at_acc(g, r64, (0,))
     assert cand_kernel.df_launches == 1 and acc_kernel.launches == 0
     assert (cand_kernel.bin_pass_launches == cand_kernel.bin_scatter_launches
             == cand_kernel.bin_unsort_launches == 1)
-    assert cand_kernel.binned_launches == cand_kernel.launches == 0
+    assert cand_kernel.binned_launches == cand_kernel.ext_launches == 0
     assert bool(found.all())
     r_hi, r_lo = interp_acc.split_queries(r64)
     pair = tiu.interpolate_at_acc(g, r_hi, (0,), r_lo=r_lo)

@@ -219,9 +219,22 @@ def test_port_probe_inputs_match_jax():
     )
 
 
+def _ext(tg, var_slots):
+    """(extension table, its RowLayout) of a grid with extension rows,
+    else None: the ``ext`` argument of the probe in bin order."""
+    if tg.cand_ext_table is None:
+        return None
+    return (tg.cand_ext_table,
+            locate._row_layout(tg, tg.cand_ext_ids.shape[1], var_slots))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", list(CASES))
 def test_cuda_kernel_matches_plain(cuda, case):
+    """The probe in bin order, with the extension probe on the grid that
+    has extension rows, torch.equal to the plain composition
+    (probe_rows_ext_plain, or probe_rows_plain without extension rows) on
+    100,000 queries; one launch of the probe."""
     kind, cell_type, mesh, cfg = CASES[case]
     pts, cells, nbrs = mesh()
     tg = tiu.build_grid(pts, cells, nbrs, cell_type, dtype=torch.float32,
@@ -230,18 +243,28 @@ def test_cuda_kernel_matches_plain(cuda, case):
     r = torch.from_numpy(_queries(pts, cell_type, 100_000)).to(cuda)
     idx, rq = locate._cand_probe_inputs(tg, r)
     k = tg.cand_ids.shape[1]
-    lay = locate._row_layout(tg, k, tuple(range(tg.cand_nv)))
+    slots = tuple(range(tg.cand_nv))
+    lay = locate._row_layout(tg, k, slots)
     assert lay.kind == kind
     eps = locate._cand_eps(tg)
-    args = (tg.cand_table, idx, rq, lay, eps, k)
-    before = cand_kernel.launches
-    kid, kaux, kvals = cand_kernel.cand_rows_query(*args, chunk=8192)
+    ext = _ext(tg, slots)
+    before = cand_kernel.binned_launches + cand_kernel.ext_launches
+    got = cand_kernel.cand_rows_binned_query(
+        tg.cand_table, r, tg.cand_rmin, tg.cand_inv_h, tg.cand_shape, lay,
+        eps, k, 8192, ext)
     torch.cuda.synchronize()
-    assert cand_kernel.launches == before + 1
-    pid, paux, pvals = cand_kernel.probe_rows_plain(*args, chunk=8192)
-    assert torch.equal(kid, pid) and torch.equal(kaux, paux)
-    found = paux == -2
-    assert (kvals[found] - pvals[found]).abs().max().item() <= 2e-6
+    assert cand_kernel.binned_launches + cand_kernel.ext_launches == before + 1
+    if ext is None:
+        want = cand_kernel.probe_rows_plain(tg.cand_table, idx, rq, lay, eps,
+                                            k, 8192)
+    else:
+        want = cand_kernel.probe_rows_ext_plain(
+            tg.cand_table, ext[0], idx, rq, lay, ext[1], eps, k, 8192)
+        main = cand_kernel.probe_rows_plain(tg.cand_table, idx, rq, lay, eps,
+                                            k, 8192)
+        assert bool((main[1] >= 0).any()) and not bool((want[1] >= 0).any())
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
 
 
 # The bin-ordered probe of the main table: the plain bin ordering, the
@@ -370,11 +393,23 @@ def test_cand_wrapper_checks():
     with pytest.raises(ValueError):
         cand_kernel.cand_rows_binned_cuda(tg.cand_table, r, perm, perm,
                                           *grid_args, lay, eps, k, lanes=3)
-    with pytest.raises(TypeError):
-        cand_kernel.cand_rows_cuda(tg.cand_table, perm.long(), r, lay, eps, k)
+    # extension rows: the main rows' layout with their own k, a
+    # contiguous table of the main table's dtype that the layout fits
+    lay_e = locate._row_layout(tg, 5, (0,))
+    ext_t = torch.zeros((3, lay_e.count_col + 2))
+    for bad in ((ext_t, dataclasses.replace(lay_e, kind="simplex")),
+                (ext_t, dataclasses.replace(lay_e, id_role=lay.id_role + 1)),
+                (ext_t.double(), lay_e), (ext_t[:, ::2], lay_e),
+                (ext_t[:, :-2], lay_e)):
+        with pytest.raises(ValueError):
+            cand_kernel.cand_rows_binned_cuda(tg.cand_table, r, perm, perm,
+                                              *grid_args, lay, eps, k,
+                                              ext=bad)
+    df_lay = dataclasses.replace(lay, kind="qdf")
     with pytest.raises(ValueError):
-        cand_kernel.cand_rows_cuda(tg.cand_table[:, ::2], perm, r, lay, eps,
-                                   k)
+        cand_kernel.cand_rows_binned_cuda(tg.cand_table, r, perm, perm,
+                                          *grid_args, df_lay, eps, k,
+                                          ext=(ext_t, lay_e))
 
 
 def _skewed(pts, cell_type, tg, dev):
@@ -457,22 +492,33 @@ def test_cuda_binned_matches_plain(cuda, case):
 @pytest.mark.cuda
 def test_cuda_binned_on_the_main_path(cuda):
     """Cold interpolate_scalar_at and get_cell on a candidate grid launch
-    the four bin-ordered kernels and not the direct probe; the extension
-    grid's overflow misses still take the direct kernel."""
+    the four bin-ordered kernels, the probe with the extension rows on
+    the extension grid, and read nothing back to the host between the
+    probe and the values where the rows cover every bin."""
     for case in ("quantized-tetra", "extension-tetra"):
         kind, cell_type, mesh, cfg = CASES[case]
         pts, cells, nbrs = mesh()
         tg = tiu.build_grid(pts, cells, nbrs, cell_type, dtype=torch.float32,
                             locate_mode="walk", config=cfg,
                             point_data=_point_data(pts), device=cuda)
+        assert tg.cand_ext_covers
         r = torch.from_numpy(_queries(pts, cell_type, 50_000)).to(cuda)
         for call in (lambda: tiu.interpolate_scalar_at(tg, r, 0),
                      lambda: tiu.get_cell(tg, r)):
-            names = ("launches", "bin_pass_launches", "bin_scatter_launches",
-                     "binned_launches", "bin_unsort_launches")
+            names = ("bin_pass_launches", "bin_scatter_launches",
+                     "binned_launches", "ext_launches", "bin_unsort_launches")
             before = [getattr(cand_kernel, n) for n in names]
             call()
             torch.cuda.synchronize()
             d = [getattr(cand_kernel, n) - b for n, b in zip(names, before)]
-            assert d[1:] == [1, 1, 1, 1], (case, d)
-            assert d[0] == (1 if case == "extension-tetra" else 0), (case, d)
+            ext = case == "extension-tetra"
+            assert d == [1, 1, int(not ext), int(ext), 1], (case, d)
+        # no synchronizing copy from the probe to the returned values
+        locate._candidates_query(tg, r, (0,))
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU]) as prof:
+            locate._candidates_query(tg, r, (0,))
+        ops = {e.key for e in prof.key_averages()}
+        assert not ops & {"aten::nonzero", "aten::item",
+                          "aten::_local_scalar_dense"}, (case, ops)

@@ -18,9 +18,9 @@ The CPU cases hold the port against the JAX package (with x64):
 
 The ``cuda`` cases (skipped without a card) hold each double kernel
 ``torch.equal`` to its plain version on the same CUDA tensors: B1 on
-triangles, quads and tets; B2's direct kernel on the extension rows,
-and the bin pass, probe in bin order and unsort with fused values; both
-B3 kernels.  A float64 ``load_grid`` of a checkpoint saved by the JAX
+triangles, quads and tets; B2's bin pass, probe in bin order and unsort
+with fused values, and the probe with the extension rows; both B3
+kernels.  A float64 ``load_grid`` of a checkpoint saved by the JAX
 package is covered by ``tests/test_torch_checkpoint.py``
 ("tetra-float64", "triangle-float64").
 
@@ -307,10 +307,10 @@ def test_cuda_float64_bruteforce_equals_plain(cuda, mesh):
 
 
 def _b2_compare(g, r, var_slots):
-    """B2's double kernels against probe_rows_plain on the card: the bin
-    pass, probe in bin order and unsort on the main table, the direct
-    kernel on the main table and, where there is one, the extension
-    table."""
+    """B2's double kernels against their plain versions on the card: the
+    bin pass, probe in bin order and unsort on the main table and, where
+    the grid has extension rows, the probe with them against
+    probe_rows_ext_plain.  Returns the queries that reach them."""
     k = g.cand_ids.shape[1]
     lay = locate._row_layout(g, k, var_slots)
     eps = locate._cand_eps(g)
@@ -332,19 +332,19 @@ def _b2_compare(g, r, var_slots):
                cand_kernel.cand_rows_binned_cuda(g.cand_table, r, perm, slot,
                                                  *bins, lay, eps, k, lanes),
                plain)
-    _equal("B2 direct, main table",
-           cand_kernel.cand_rows_cuda(g.cand_table, idx, rq, lay, eps, k),
-           plain)
     if g.cand_ext_table is None:
         return 0
-    aux = plain[1]
-    sel = torch.nonzero(aux >= 0).squeeze(1)
-    k_ext = g.cand_ext_ids.shape[1]
-    lay_e = locate._row_layout(g, k_ext, var_slots)
-    args = (g.cand_ext_table, aux[sel].contiguous(), rq[sel].contiguous(),
-            lay_e, eps, k + k_ext)
-    _equal("B2 direct, extension table", cand_kernel.cand_rows_cuda(*args),
-           cand_kernel.probe_rows_plain(*args, chunk))
+    sel = torch.nonzero(plain[1] >= 0).squeeze(1)
+    lay_e = locate._row_layout(g, g.cand_ext_ids.shape[1], var_slots)
+    ext = (g.cand_ext_table, lay_e)
+    want = cand_kernel.probe_rows_ext_plain(g.cand_table, g.cand_ext_table,
+                                            idx, rq, lay, lay_e, eps, k, chunk)
+    for lanes in (1, 2, 4, 32):
+        _equal(f"B2 in bin order with the extension rows, {lanes} lanes",
+               cand_kernel.cand_rows_binned_cuda(g.cand_table, r, perm, slot,
+                                                 *bins, lay, eps, k, lanes,
+                                                 ext=ext),
+               want)
     return int(sel.numel())
 
 
@@ -367,18 +367,17 @@ def test_cuda_float64_candidate_rows_equal_plain(cuda, mesh):
 
 @pytest.mark.cuda
 def test_cuda_float64_extension_rows_equal_plain(cuda):
-    """The K = 7 float64 box: B2 in bin order on the main rows, the
-    direct kernel on the extension rows, then interpolate_at_icell, with
-    the CPU's answers."""
+    """The K = 7 float64 box: B2 in bin order with the extension probe,
+    then interpolate_at_icell, with the CPU's answers."""
     pts, g = _build(*EXT_BOX, device=cuda)
     r = torch.from_numpy(_queries(pts, 20_000)).to(cuda)
     assert _b2_compare(g, r, ()) > 0
     _, gc = _build(*EXT_BOX)
-    before = cand_kernel.launches, cand_kernel.binned_launches
+    before = cand_kernel.ext_launches, cand_kernel.binned_launches
     got = tiu.interpolate_scalar_at(g, r, 0)
     torch.cuda.synchronize()
-    assert cand_kernel.launches > before[0]
-    assert cand_kernel.binned_launches > before[1]
+    assert cand_kernel.ext_launches == before[0] + 1
+    assert cand_kernel.binned_launches == before[1]
     _as_cpu("interpolate_scalar_at", got,
             tiu.interpolate_scalar_at(gc, r.cpu(), 0))
 
@@ -418,8 +417,10 @@ def test_cuda_float64_walks_equal_plain(cuda, mesh):
     r0 = walk_kernel.walk_origin(g.walk_table, start, g.n_faces_per_cell,
                                  g.n_points_per_cell)
     args = locate._walk_args(g, r0, rw, start)
-    _equal("walk_rows", walk_kernel.walk_cuda(*args),
-           walk_kernel.walk_plain(*args))
+    for threads in (32, 128):
+        _equal(f"walk_rows, {threads} threads a block",
+               walk_kernel.walk_cuda(*args, threads=threads),
+               walk_kernel.walk_rows_plain(*args))
     _, gc = _build(cell_type, gen, NOCAND, "walk")
     before = walk_kernel.get_cell_launches, walk_kernel.launches
     got = [tiu.get_cell(g, rw, guess), tiu.get_cell(g, r),

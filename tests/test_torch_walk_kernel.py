@@ -235,52 +235,101 @@ def test_walk_mask_matches_jax(mesh, table):
         assert torch.equal(a, b)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("mesh", list(MESHES))
-def test_cuda_walk_matches_plain(cuda, mesh):
+def _cuda_walk_setup(cuda, mesh, dtype, table, n):
+    """(args of walk_rows on the card, mask column): ``n`` walks of the
+    module's lanes (repeated to size) on a grid of ``dtype`` with a band
+    mask, over the walk rows or the tracer's trace rows."""
     cell_type, gen = MESHES[mesh]
     pts, cells, nbrs = gen()
     g = tiu.build_grid(pts, cells, nbrs, cell_type, locate_mode="walk",
-                       dtype=torch.float32, device=cuda)
+                       dtype=getattr(torch, dtype), device=cuda,
+                       point_data={"vx": pts[:, 0], "vy": pts[:, 1]},
+                       icell_data={"band": _bands(pts[cells])},
+                       config=tiu.IUConfig(use_candidate_bins=False))
     ic0, r0, r1 = _lanes(g.cell_points.cpu().numpy(), g.rmin.cpu().numpy(),
                          g.rmax.cpu().numpy(), cell_type, g.n_cells)
+    reps = -(-n // N_LANES)
+    ic0, r0, r1 = (np.concatenate([x] * reps)[:n] for x in (ic0, r0, r1))
+    tab = None if table == "walk" else tiu.build_trace_table(g, [0, 1])
     args = locate._walk_args(g, torch.from_numpy(r0).to(cuda),
                              torch.from_numpy(r1).to(cuda),
-                             torch.from_numpy(ic0).to(cuda))
+                             torch.from_numpy(ic0).to(cuda), table=tab)
+    return args, g.icell_data[:, 0].to(torch.int32).contiguous()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1024, 100_000])
+@pytest.mark.parametrize("table", ["walk", "trace"])
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("mesh", list(MESHES))
+def test_cuda_walk_matches_plain(cuda, mesh, dtype, table, n):
+    """B3's explicit walk (the direction computed in the kernel) against
+    walk_direction + walk_plain, bit for bit, at the block size walk_rows
+    picks and at others; one launch."""
+    args, _ = _cuda_walk_setup(cuda, mesh, dtype, table, n)
+    u, total, active = walk_kernel.walk_direction(args[1], args[2], args[7])
+    pout = walk_kernel.walk_plain(args[0], args[1], u, total, active,
+                                  *args[3:7], *args[8:])
     before = walk_kernel.launches
     kout = walk_kernel.walk_rows(*args)
     torch.cuda.synchronize()
     assert walk_kernel.launches == before + 1
-    pout = walk_kernel.walk_plain(*args)
     for k, p in zip(kout, pout):
         assert torch.equal(k, p)
+    for threads in (32, 128, 256):
+        for k, p in zip(walk_kernel.walk_cuda(*args, threads=threads), pout):
+            assert torch.equal(k, p), threads
+    assert (pout[2] > 1).any() and (pout[3] == tiu.STATUS_BOUNDARY).any()
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
 @pytest.mark.parametrize("mesh", list(MESHES))
-def test_cuda_masked_walk_matches_plain(cuda, mesh):
+def test_cuda_masked_walk_matches_plain(cuda, mesh, dtype):
     """B3 with a mask column against the masked plain version, bit for
-    bit; a mask that never changes gives the unmasked kernel's walks."""
-    cell_type, gen = MESHES[mesh]
-    pts, cells, nbrs = gen()
-    g = tiu.build_grid(pts, cells, nbrs, cell_type, locate_mode="walk",
+    bit, at two block sizes, on the walk rows and the trace rows; a mask
+    that never changes gives the unmasked kernel's walks."""
+    for table in ("walk", "trace"):
+        args, mask = _cuda_walk_setup(cuda, mesh, dtype, table, 20_000)
+        pout = walk_kernel.walk_rows_plain(*args, mask)
+        for threads in (32, 128):
+            kout = walk_kernel.walk_cuda(*args, mask, threads=threads)
+            for k, p in zip(kout, pout):
+                assert torch.equal(k, p), (table, threads)
+        assert (pout[3] == tiu.STATUS_MASK_CHANGED).any()
+        flat = torch.zeros_like(mask)
+        for k, p in zip(walk_kernel.walk_rows(*args, flat),
+                        walk_kernel.walk_rows(*args)):
+            assert torch.equal(k, p)
+
+
+@pytest.mark.cuda
+def test_cuda_walk_builds_no_direction(cuda):
+    """locate.walk on the card launches B3 and no torch op to build the
+    direction: the kernel computes it itself (the walk tolerances still
+    read the grid's extent back, as get_cell's do)."""
+    args, _ = _cuda_walk_setup(cuda, "tetra", "float32", "walk", 1024)
+    g_r0, g_r1, g_ic = args[1], args[2], args[3]
+    pts, cells, nbrs = MESHES["tetra"][1]()
+    g = tiu.build_grid(pts, cells, nbrs, "tetra", locate_mode="walk",
                        dtype=torch.float32, device=cuda,
-                       icell_data={"band": _bands(pts[cells])})
-    ic0, r0, r1 = _lanes(g.cell_points.cpu().numpy(), g.rmin.cpu().numpy(),
-                         g.rmax.cpu().numpy(), cell_type, g.n_cells)
-    args = locate._walk_args(g, torch.from_numpy(r0).to(cuda),
-                             torch.from_numpy(r1).to(cuda),
-                             torch.from_numpy(ic0).to(cuda))
-    mask = g.icell_data[:, 0].contiguous()
-    kout = walk_kernel.walk_rows(*args, mask)
-    pout = walk_kernel.walk_plain(*args, mask)
-    for k, p in zip(kout, pout):
-        assert torch.equal(k, p)
-    assert (kout[3] == tiu.STATUS_MASK_CHANGED).any()
-    flat = torch.zeros_like(mask)
-    for k, p in zip(walk_kernel.walk_rows(*args, flat),
-                    walk_kernel.walk_rows(*args)):
-        assert torch.equal(k, p)
+                       config=tiu.IUConfig(use_candidate_bins=False))
+    locate.walk(g, g_r0, g_r1, g_ic)
+    torch.cuda.synchronize()
+    act = torch.profiler.ProfilerActivity
+    with torch.profiler.profile(activities=[act.CPU, act.CUDA]) as prof:
+        locate.walk(g, g_r0, g_r1, g_ic)
+        torch.cuda.synchronize()
+    keys = {e.key for e in prof.key_averages()}
+    math = {"aten::sub", "aten::mul", "aten::add", "aten::div",
+            "aten::sqrt", "aten::where", "aten::lt", "aten::bitwise_not"}
+    assert not keys & math, keys & math
+    from torch.autograd import DeviceType
+
+    kernels = {e.name for e in prof.events()
+               if e.device_type == DeviceType.CUDA
+               and not e.name.startswith(("Memcpy", "Memset"))}
+    assert kernels and all("walk" in k for k in kernels), kernels
 
 
 @pytest.mark.parametrize("dtype", ["float32", "float64"])
@@ -502,6 +551,30 @@ def test_get_cell_walk_wrapper_checks():
         walk_kernel.get_cell_walk_cuda(narrow, r, None, 10, 0)
 
 
+def test_walk_wrapper_checks():
+    """The explicit walk's CUDA wrapper refuses a wrong dtype, device, row
+    stride or block size before it reaches the kernel."""
+    pts, cells, nbrs = meshgen.tet_box_mesh(3, 3, 3)
+    g = tiu.build_grid(pts, cells, nbrs, "tetra", locate_mode="walk",
+                       dtype=torch.float32, device="cpu",
+                       config=tiu.IUConfig(use_candidate_bins=False))
+    r = torch.full((5, 3), 0.5)
+    ic0 = torch.zeros(5, dtype=torch.int32)
+    args = list(locate._walk_args(g, r, r + 0.1, ic0))
+    with pytest.raises(TypeError):  # a float64 target beside float32 rows
+        walk_kernel.walk_cuda(*args[:2], args[2].double(), *args[3:])
+    with pytest.raises(TypeError):
+        walk_kernel.walk_cuda(*args[:3], args[3].long(), *args[4:])
+    with pytest.raises(ValueError):
+        walk_kernel.walk_cuda(*args[:2], args[2][:4], *args[3:])
+    with pytest.raises(ValueError):  # rows that are not 16-byte words
+        walk_kernel.walk_cuda(g.walk_table[:, :126].contiguous(), *args[1:])
+    with pytest.raises(ValueError):
+        walk_kernel.walk_cuda(*args, threads=48)
+    with pytest.raises(ValueError):
+        walk_kernel.walk_cuda(*args, threads=512)
+
+
 def _gc_batches(g, cell_type):
     """Skewed CUDA batches of the walk stage: uniform with off-domain
     queries, every query in one seed bin, one query per seed bin (the bin
@@ -589,3 +662,64 @@ def test_cuda_get_cell_walk_on_the_main_path(cuda):
     assert walk_kernel.get_cell_launches > b0
     _, cic, cf = tiu.interpolate_scalar_at(grids[0], r, 0)
     assert torch.equal(gic.cpu(), cic) and torch.equal(gf.cpu(), cf)
+
+
+def test_edge_walk_plain_matches_jax():
+    """Walks from cell centers of the 7x7x7 box out through the midpoint
+    of one of the cell's edges, where the two faces that meet there tie:
+    the plain walk against the JAX package's.  Final cells and statuses
+    identical on every walk; where the edge lies on the boundary, one
+    side may leave the domain by one face and the other hop once more
+    into the other face's cell first (XLA's FMA-contracted distances
+    break the tie the other way), so the step counts may differ there,
+    by one, or by two at a corner of the box, on walks that left the
+    domain; final positions within 4e-6.
+    Some first rounds tie exactly."""
+    pytest.importorskip("jax")
+    import jax.numpy as jnp
+
+    import interpolate_unstructured_tpu as jiu
+    from interpolate_unstructured_tpu.ops import locate as jlocate
+
+    pts, cells, nbrs = meshgen.tet_box_mesh(7, 7, 7)
+    ug = jiu.build_grid(pts, cells, nbrs, "tetra", locate_mode="walk",
+                        dtype=jnp.float32)
+    tg = tiu.grid_from_numpy(
+        {f: None if getattr(ug, f) is None else np.asarray(getattr(ug, f))
+         for f in DATA_FIELDS},
+        {f: getattr(ug, f) for f in META_FIELDS}, "cpu",
+    )
+    cp = np.asarray(ug.cell_points, np.float64)
+    rng = np.random.default_rng(43)
+    ic0 = rng.integers(0, ug.n_cells, N_LANES).astype(np.int32)
+    edges = np.array([(0, 1), (0, 2), (0, 3), (1, 2), (1, 3), (2, 3)])
+    e = edges[rng.integers(0, 6, N_LANES)]
+    c = cp[ic0].mean(axis=1)
+    mid = 0.5 * (cp[ic0, e[:, 0]] + cp[ic0, e[:, 1]])
+    r0 = c.astype(np.float32)
+    r1 = (c + 1.5 * (mid - c)).astype(np.float32)
+    jout = jlocate.walk(ug, jnp.asarray(r0), jnp.asarray(r1),
+                        jnp.asarray(ic0))
+    tout = locate.walk(tg, r0, r1, ic0)
+    jic, jrp, jsteps, jst = (torch.from_numpy(np.array(x)) for x in jout)
+    assert torch.equal(tout[0], jic) and torch.equal(tout[3], jst)
+    hop = tout[2] != jsteps
+    assert bool((jst[hop] == tiu.STATUS_BOUNDARY).all())
+    assert bool(((tout[2] - jsteps)[hop].abs() <= 2).all())
+    assert int(hop.sum()) <= 0.02 * N_LANES
+    np.testing.assert_allclose(tout[1].numpy(), jrp.numpy(), rtol=0,
+                               atol=4e-6)
+    assert (jst == tiu.STATUS_ARRIVED).any()
+    # the first round's two best faces tie exactly on some walks
+    args = locate._walk_args(tg, r0, r1, ic0)
+    u, _, _ = walk_kernel.walk_direction(args[1], args[2], args[7])
+    g = tg.walk_table[torch.from_numpy(ic0).long(), :20]
+    pdn = torch.stack([(g[:, 3 * f] * u[:, 0] + g[:, 3 * f + 1] * u[:, 1])
+                       + g[:, 3 * f + 2] * u[:, 2] for f in range(4)], 1)
+    rpn = torch.stack([(g[:, 3 * f] * args[1][:, 0]
+                        + g[:, 3 * f + 1] * args[1][:, 1])
+                       + g[:, 3 * f + 2] * args[1][:, 2] for f in range(4)],
+                      1)
+    dist = torch.where(pdn > 0, (g[:, 12:16] - rpn) / pdn, args[6])
+    best = torch.sort(dist, dim=1).values
+    assert bool((best[:, 0] == best[:, 1]).any())

@@ -12,7 +12,9 @@ float32) and takes the candidate phase's 10M cold queries
 new, old; or each lane count in order, then in reverse):
 
 1. batch sizes 1k-1M: the direct composition (torch bin index and local
-   frame, then the direct kernel) against ``cand_rows_binned_query``
+   frame, then the direct kernel of ``tools/cand_ext_alternatives.cu``,
+   built beside the port's library by ``tools/cand_ext_sweep.py``'s
+   helpers) against ``cand_rows_binned_query``
    (bin pass, scan, scatter, probe in bin order, unsort) -- the
    measurement behind the absence of a size threshold for the direct
    kernel on the main table;
@@ -57,7 +59,11 @@ def main() -> int:
     from interpolate_unstructured_tpu_torch.ops import cand_kernel, locate
     from interpolate_unstructured_tpu_torch.utils import meshgen
 
+    import cand_ext_sweep
+
     print(f"card: {chip_smoke.card_line()}")
+    proc, out = cand_ext_sweep.start_build()
+    lib = cand_ext_sweep.finish_build(proc, out)
     dev = torch.device("cuda", 0)
     t0 = time.perf_counter()
     pts, cells, nbrs = meshgen.tet_box_mesh(55, 55, 55)
@@ -78,9 +84,9 @@ def main() -> int:
     for b in SIZES:
         rb = r[:b]
         t = chip_smoke.turns({
-            "old": lambda: cand_kernel.cand_rows_cuda(
-                grid.cand_table, *locate._cand_probe_inputs(grid, rb), lay,
-                eps, k),
+            "old": lambda: cand_ext_sweep.direct(
+                lib, grid.cand_table, *locate._cand_probe_inputs(grid, rb),
+                lay, eps, k),
             "new": lambda: cand_kernel.cand_rows_binned_query(
                 grid.cand_table, rb, *bins, lay, eps, k, chunk),
         }, 20)
