@@ -135,7 +135,23 @@ a guess, ``prepare_accurate``, ``interpolate_at_acc``,
    double walks, no B4), every field torch.equal to the same loop with
    the plain walks, and its first walk launch timed alone; the phase's
    peak device memory;
-10. holds each kernel against its plain PyTorch version on the same CUDA
+10. oracle phase: the card's answers that the earlier phases kept, held
+   against the independent serial C++ oracle (``native/serial_oracle.cc``,
+   built by ``utils/serial_oracle.py`` with g++ and run on one CPU core
+   of this machine): the float64 box's first 4,096 cold queries (the
+   oracle seeds each by brute-force 1-NN) and the float64 walk grid's
+   last 1M warm ones (the card's guesses; 100,000 outside), found masks
+   identical, values within 1e-12; the float32 candidate box's first 1M
+   cold queries (the oracle's seeds from a kd-tree 1-NN) and the float32
+   walk grid's 900,000 warm plus 100,000 off-domain ones (the card's
+   guesses), given the float64 arrays each grid was built from, values
+   within 2e-6 and 5e-5; everywhere cell ids identical but where both
+   cells hold the query within the grid's tie band (``oracle_band``);
+   the float64 generic trace and the fused float32 trace of the 1024
+   helix lines by ``tests/test_torch_trace.py``'s trace rules (curves
+   within 1e-9 and 5e-5), final states within 2 min_dx; then the
+   oracle's queries/s and trace steps/s on one core beside the card's;
+11. holds each kernel against its plain PyTorch version on the same CUDA
    tensors, checks linear exactness and found masks, and times kernel
    and plain version with CUDA events (B4 and B3's walks at the generic
    trace's size, whose launches are short beside the wrapper's host
@@ -1262,6 +1278,12 @@ def candidate_phase(dev, tiu, meshgen, interp_kernel, locate, cand_kernel,
     check(bool(found.all()), f"{int((~found).sum())} of 10M queries not found")
     lin = float((vals.double() - (r.double().sum(1) + 1.0)).abs().max())
     check(lin <= LIN_TOL, f"998k-tet linear-exactness error {lin}")
+    # for the oracle phase: the first 1M and the float64 arrays the grid
+    # was built from
+    res["oracle"] = dict(
+        cold=dict(oracle_sample(r, (vals, ic, found), slice(0, ORACLE_N)),
+                  band=oracle_band(grid, pts)),
+        mesh=oracle_mesh(grid, pts, pts.sum(1) + 1.0))
 
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1270,6 +1292,7 @@ def candidate_phase(dev, tiu, meshgen, interp_kernel, locate, cand_kernel,
         tiu.interpolate_scalar_at(grid, r, 0, fill_value=0.0)
     torch.cuda.synchronize()
     e2e = (time.perf_counter() - t0) / reps
+    res["oracle"]["rate"] = N_CAND / e2e
     print(f"B2 10M cold interpolate_scalar_at: first call {first_s:.4f} s, "
           f"steady {e2e * 1e3:.4f} ms = {N_CAND / e2e:.4e} queries/s; "
           f"all found; linear error {lin:.3e}")
@@ -1577,6 +1600,8 @@ def walk_phase(dev, tiu, meshgen, interp_kernel, locate, cand_kernel,
     check(bool(found.all()), f"{int((~found).sum())} warm queries not found")
     lin_w = float((vals.double() - truth(r_warm)).abs().max())
     check(lin_w <= LIN_TOL_ICELL, f"warm walk linear-exactness error {lin_w}")
+    warm_sample = oracle_sample(r_warm, (vals, ic_w, found),
+                                slice(0, ORACLE_N - N_OFF), guess=ic)
     warm_s = steady_s(
         lambda: tiu.interpolate_scalar_at(grid, r_warm, 0, guess=ic), 3)
     res["cold_s"], res["warm_s"] = cold_s, warm_s
@@ -1643,6 +1668,15 @@ def walk_phase(dev, tiu, meshgen, interp_kernel, locate, cand_kernel,
           "off-domain boundary codes differ from the plain walk's")
     print(f"B3 {N_OFF} off-domain warm queries: none found, boundary codes "
           f"{torch.unique(ic_off).tolist()} equal the plain walk's")
+    # for the oracle phase: 900,000 warm and the 100,000 off-domain
+    # queries with their guesses, on the grid's own float32 points
+    off = oracle_sample(r_off, (v_off, ic_off, f_off), slice(None),
+                        guess=g_off)
+    mesh = oracle_mesh(grid)
+    res["oracle"] = dict(
+        mesh=mesh, rate=N_CAND / warm_s,
+        warm=dict({k: np.concatenate([warm_sample[k], off[k]])
+                   for k in off}, band=oracle_band(grid, mesh[0])))
 
     # get_cell's walk stage against its plain version, bit for bit, on
     # all 10M warm and 10M cold queries, with get_cell's two phases
@@ -2030,10 +2064,16 @@ def trace_phase(dev, tiu, grid, counters, walk_kernel, trace_kernel, tmp,
         print(f"B4 {n} lines, host time by op in one call (torch.profiler, "
               f"self CPU ms, top 8): " + host_ops(lambda: trace(y0), 8))
         runs[n] = dict(out=out, y0=y0, inputs=inputs, wall=wall, med=med,
-                       k_ms=k_ms if k_ms is not None else ev_ms)
+                       k_ms=k_ms if k_ms is not None else ev_ms, steps=steps)
 
     res["trace_vtk_s"] = trace_vtk_check(tiu, runs[TRACE_N[0]]["out"], tmp,
                                          card)
+    # for the oracle phase: the fused trace of 1024 lines and its inputs
+    small = runs[TRACE_N[0]]
+    res["oracle"] = dict(out=trace_host(small["out"]), y0=host64(small["y0"]),
+                         field=np.stack([host64(grid.point_data[:, i])
+                                         for i in i_field], axis=1),
+                         rate=small["steps"] / small["med"] * 1e3)
 
     # B4's numbers at 65,536 lines: the kernel, the plain loop, the bound
     big = runs[TRACE_N[-1]]
@@ -2950,6 +2990,9 @@ def f64_cold(dev, tiu, grid, r, locate, cand_kernel, walk_kernel, counters):
           f"{n} queries not found")
     lin = float((vals - (r.sum(1) + 1.0)).abs().max())
     check(lin <= LIN_TOL_F64, f"float64 cold linear-exactness error {lin}")
+    res["oracle"] = dict(oracle_sample(r, (vals, ic, found),
+                                       slice(0, ORACLE_COLD_N)),
+                         band=oracle_band(grid, host64(grid.points)))
     del vals, found
     # E1 against its plain version on the 10M cold queries in the cells
     # the main path found (K = 7 rows fuse no variable: every value is E1's)
@@ -3135,6 +3178,11 @@ def f64_warm(dev, tiu, grid, locate, walk_kernel, counters):
           "float64 warm: outside queries lack a boundary code or the fill")
     lin_w = float((vals[:N_CAND] - (r_warm.sum(1) + 1.0)).abs().max())
     check(lin_w <= LIN_TOL_F64, f"float64 warm: linear error {lin_w}")
+    # the last 1M (900,000 inside, the 100,000 outside) for the oracle
+    res["oracle"] = dict(oracle_sample(rq, (vals, ic_w, found),
+                                       slice(rq.shape[0] - ORACLE_N, None),
+                                       guess=guess),
+                         band=oracle_band(grid, host64(grid.points)))
     del vals, found
     cold_s = steady_s(lambda: tiu.interpolate_scalar_at(grid, r, 0), 3)
     warm_s = steady_s(lambda: tiu.interpolate_scalar_at(grid, rq, 0,
@@ -3231,6 +3279,8 @@ def f64_trace(dev, tiu, grid, walk_kernel, trace_kernel, counters):
     check(n_walk >= 1 and n_gc >= 1, f"the float64 trace launched walk_rows "
           f"{n_walk} and get_cell's walk {n_gc} times")
     check(out.y.dtype == torch.float64, "the float64 trace is not float64")
+    oracle = dict(out=trace_host(out), y0=host64(y0),
+                  field=np.stack([host64(f) for f in fld], axis=1))
     with plain_walks(walk_kernel):
         p_out = trace()
     for name, a, b in zip(out._fields, out, p_out):
@@ -3279,6 +3329,7 @@ def f64_trace(dev, tiu, grid, walk_kernel, trace_kernel, counters):
           f"{w_bound_old[0]:.4f} ms with the first design's inputs)")
     return dict(walk_launches=n_walk, gc_launches=n_gc, e1_launches=n_e1,
                 wall_ms=med, steps=steps, walk_ms=sum(walks["ms"]),
+                oracle=oracle,
                 walk_small=dict(n=w_args[1].shape[0], ms=w_ms, ev_ms=w_ev,
                                 plain_ms=w_plain, bound=w_bound,
                                 bound_old=w_bound_old, max_abs_err=w_err))
@@ -3363,6 +3414,15 @@ def float64_phase(dev, tiu, meshgen, interp_kernel, locate, cand_kernel,
     res["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
     print(f"float64 phase: torch.cuda.max_memory_allocated "
           f"{res['peak_gb']:.3f} GB [{card}]")
+    tr = res["trace"]
+    res["oracle"] = dict(
+        mesh=(host64(pts), host32i(cells), host32i(nbrs),
+              host64(pdata["Polynomial"])),
+        cold=res["cold"]["oracle"], warm=res["warm"]["oracle"],
+        trace=tr["oracle"],
+        rates=dict(cold_qps=N_CAND / res["cold"]["e2e_s"],
+                   warm_qps=(N_CAND + N_OFF) / res["warm"]["warm_s"],
+                   trace_sps=tr["steps"] / tr["wall_ms"] * 1e3))
     return res
 
 
@@ -3864,6 +3924,312 @@ def sharded_phase(dev, tiu, meshgen, cand_grid, walk_grid, counters, card,
     return res
 
 
+# ---------------------------------------------------------------------
+# Oracle phase: the card's answers against the independent serial C++
+# oracle (native/serial_oracle.cc, built with g++ on this machine and run
+# on one CPU core)
+
+ORACLE_COLD_N = 4096  # float64 cold queries the oracle seeds by 1-NN search
+ORACLE_N = 1_000_000  # warm and float32 queries held against it, each grid
+ORACLE_TRACE_TOL = 1e-9  # float64 curves (tests/test_torch_trace.py)
+ORACLE_STEPS = 8  # step counts may differ at the wall by this much
+
+
+def host64(t):
+    """A tensor or array as a host float64 array."""
+    if isinstance(t, torch.Tensor):
+        t = t.detach().cpu().numpy()
+    return np.asarray(t, np.float64)
+
+
+def host32i(t):
+    """A tensor or array as a host int32 array."""
+    if isinstance(t, torch.Tensor):
+        t = t.detach().cpu().numpy()
+    return np.asarray(t, np.int32)
+
+
+def oracle_sample(r, out, rows, guess=None):
+    """Host copies of the queries ``r[rows]``, their guesses and the
+    card's ``(values, cells, found)`` of one main-path call."""
+    vals, ic, found = out
+    return dict(r=host64(r[rows]), vals=host64(vals[rows]),
+                ic=host32i(ic[rows]),
+                found=found[rows].cpu().numpy().astype(bool),
+                guess=None if guess is None else host32i(guess[rows]))
+
+
+def trace_host(out):
+    """A TraceResult's (y, y_field, n_steps, boundary_material) on the
+    host, the curves as float64."""
+    return (host64(out.y), host64(out.y_field), out.n_steps.cpu().numpy(),
+            out.boundary_material.cpu().numpy())
+
+
+def oracle_mesh(grid, points=None, data=None):
+    """(points, cells, neighbors, data) of a grid on the host, float64
+    and int32: ``points`` and ``data`` default to the grid's own, widened
+    (a grid built from float64 arrays hands the oracle those)."""
+    pts = host64(grid.points if points is None else points)
+    d = host64(grid.point_data[:, 0] if data is None else data)
+    return pts, host32i(grid.cells), host32i(grid.neighbors), d
+
+
+def oracle_band(grid, pts64):
+    """The tie band of a grid's answers against the oracle's.  The card
+    takes a cell whose face margins, in the grid's own geometry, are at
+    least -(eps_inside + cand_qeps) (the probe, ``locate._cand_eps``),
+    or where a walk ends: its target lies within eps_arrive past the exit
+    face, from a position a hop's nudge may have carried past a crossed
+    face (``utils.config.walk_tolerances``: 64 and 16 eps(dtype) extent,
+    7.6e-6 and 1.9e-6 on the unit box in float32).  The grid's vertices
+    lie within ``rounding`` of the float64 points the oracle is given,
+    which moves a face plane by about as much on each side, and its
+    margins round within a few ulp of the extent.  So a cell either side
+    picks holds the query, in the oracle's float64 geometry, within
+    max(eps_inside + cand_qeps, eps_arrive + nudge) + 2 rounding + 8
+    eps(dtype) extent (1e-10 on the float64 box)."""
+    from interpolate_unstructured_tpu_torch.utils.config import (
+        walk_tolerances,
+    )
+
+    nudge, eps_arrive = walk_tolerances(grid.dtype, grid.rmin, grid.rmax)
+    rounding = float(np.abs(host64(grid.points) - pts64).max())
+    extent = float(np.abs(pts64).max())
+    eps = float(torch.finfo(grid.dtype).eps)
+    return (max(grid.config.eps_inside + grid.cand_qeps, eps_arrive + nudge)
+            + 2.0 * rounding + 8.0 * eps * max(extent, 1.0))
+
+
+def tet_margins(pts, cells, c, q):
+    """(n, 4) distances of the points ``q`` inside face k = (k, k+1,
+    k+2) of the tets ``c`` (positive inside), float64 from ``pts``;
+    face k's neighbor is ``neighbors[c, k]`` (the oracle's convention)."""
+    v = pts[cells[c]]
+    out = np.empty((len(c), 4))
+    for k in range(4):
+        a, b, d, o = (v[:, (k + j) % 4] for j in range(4))
+        nrm = np.cross(b - a, d - a)
+        nrm /= np.linalg.norm(nrm, axis=1, keepdims=True)
+        side = np.sign(np.einsum("ij,ij->i", o - a, nrm))
+        out[:, k] = side * np.einsum("ij,ij->i", q - a, nrm)
+    return out
+
+
+def oracle_verdict(label, mesh, s, orc, band, tol, found_exact):
+    """Gates of the card's answers ``s`` against the oracle's ``orc`` on
+    the same queries: found masks identical (``found_exact``), else where
+    they differ the side that found a cell holds the query within
+    ``band`` and within ``band`` of one of its boundary faces; cell ids
+    identical except where both cells hold the query within ``band`` (a
+    shared face or edge: the oracle walks from a centroid, the card
+    probes candidates or walks from its own seeds); values within
+    ``tol`` wherever both found a cell."""
+    pts, cells, nbrs, _ = mesh
+    vo, ico, fo = orc
+    q, vc, icc, fc = s["r"], s["vals"], s["ic"], s["found"]
+    fd = np.nonzero(fc != fo)[0]
+    if found_exact:
+        check(fd.size == 0, f"oracle, {label}: {fd.size} found masks differ")
+    elif fd.size:
+        c = np.where(fc[fd], icc[fd], ico[fd])
+        m = tet_margins(pts, cells, c, q[fd])
+        wall = np.where(nbrs[c] < 0, m, np.inf).min(1)
+        tie = (m.min(1) >= -band) & (wall <= band)
+        check(bool(tie.all()), f"oracle, {label}: {int((~tie).sum())} of "
+              f"{fd.size} found-mask differences are not within {band:.3e} "
+              f"of the domain's boundary")
+    both = fc & fo
+    di = np.nonzero(both & (icc != ico))[0]
+    worst = 0.0
+    if di.size:
+        mc = tet_margins(pts, cells, icc[di], q[di]).min(1)
+        mo = tet_margins(pts, cells, ico[di], q[di]).min(1)
+        worst = float(-np.minimum(mc, mo).min())
+        check(worst <= band, f"oracle, {label}: of {di.size} queries whose "
+              f"cells differ, one lies {worst:.3e} outside a cell (tie band "
+              f"{band:.3e})")
+    err = float(np.abs(vc[both] - vo[both]).max()) if both.any() else 0.0
+    check(err <= tol, f"oracle, {label}: values differ by {err:.3e} > {tol}")
+    print(f"oracle, {label}: {len(q)} queries, {int(fc.sum())} found by the "
+          f"card, found masks {'identical' if not fd.size else f'differ on {fd.size} (each within the tie band of the boundary)'}; "
+          f"cells differ on {di.size} (both hold the query, worst "
+          f"{max(worst, 0.0):.3e} outside, tie band {band:.3e}); max |value "
+          f"- oracle| {err:.3e} (gate {tol})")
+    return dict(n=len(q), found_differ=int(fd.size), ids_differ=int(di.size),
+                err=err, band=band)
+
+
+def first_cells(cells, n_points):
+    """The first cell incident to each point, the oracle's seed map."""
+    first = np.full(n_points, np.iinfo(np.int32).max, np.int64)
+    np.minimum.at(first, cells.reshape(-1),
+                  np.repeat(np.arange(len(cells)), cells.shape[1]))
+    return first.astype(np.int32)
+
+
+def oracle_trace_verdict(label, card, orc, curve_tol, final_tol, min_agree):
+    """The rules of ``tests/test_torch_trace.py``'s ``_compare_traces``,
+    line by line: identical boundary codes, step counts within
+    ORACLE_STEPS, curves (points and field samples) within ``curve_tol``
+    up to two points before the shorter end, final states within
+    ``final_tol``; at least ``min_agree`` of the lines must pass."""
+    y, yf, ns, bm = card
+    oy, oyf, ons, obm = orc
+    max_steps = y.shape[1]
+    n = y.shape[0]
+    ok = (bm == obm) & (np.abs(ns.astype(int) - ons.astype(int))
+                        <= ORACLE_STEPS)
+    curve = np.zeros(n)
+    final = np.zeros(n)
+    for t in range(n):
+        nt, no = min(int(ns[t]), max_steps), min(int(ons[t]), max_steps)
+        common = max(min(nt, no) - 2, 0)
+        curve[t] = max(np.abs(y[t, :common] - oy[t, :common]).max(initial=0),
+                       np.abs(yf[t, :common] - oyf[t, :common]).max(initial=0))
+        final[t] = np.abs(y[t, max(nt, 1) - 1] - oy[t, max(no, 1) - 1]).max()
+    ok &= (curve <= curve_tol) & (final <= final_tol)
+    n_ok = int(ok.sum())
+    for t in np.nonzero(~ok)[0][:5]:
+        print(f"  {label}, line {t}: card n_steps {int(ns[t])} code "
+              f"{int(bm[t])}, oracle {int(ons[t])} code {int(obm[t])}; "
+              f"curve {curve[t]:.3e}, final {final[t]:.3e}")
+    check(n_ok >= min_agree * n, f"oracle, {label}: {n - n_ok} of {n} lines "
+          f"fail the trace rules")
+    same = int((ns == ons).sum())
+    print(f"oracle, {label}: {n_ok} of {n} lines pass (codes identical, "
+          f"step counts within {ORACLE_STEPS}, curves within {curve_tol} up "
+          f"to two points before the shorter end, final states within "
+          f"{final_tol}); max curve difference {curve[ok].max(initial=0):.3e}, "
+          f"max final-state difference {final[ok].max(initial=0):.3e}; step "
+          f"counts identical on {same} lines, the others differ by at most "
+          f"{int(np.abs(ns.astype(int) - ons.astype(int)).max())}")
+    return dict(n=n, ok=n_ok, same_steps=same,
+                curve=float(curve[ok].max(initial=0)),
+                final=float(final[ok].max(initial=0)))
+
+
+def cpu_model() -> str:
+    """The first CPU's model name in /proc/cpuinfo, with its vendor,
+    family, model and stepping numbers, and the number of CPUs."""
+    import os
+
+    info = {}
+    try:
+        with open("/proc/cpuinfo") as f:
+            for line in f:
+                if not line.strip():
+                    break
+                key, _, value = line.partition(":")
+                info[key.strip()] = value.strip()
+    except OSError:
+        pass
+    ids = ", ".join(f"{k} {info[k]}" for k in (
+        "vendor_id", "cpu family", "model", "stepping") if k in info)
+    return (f"{info.get('model name', 'unknown')} ({ids}; "
+            f"{os.cpu_count()} CPUs)")
+
+
+def oracle_phase(card, cand, walk, trace, f64):
+    """The card's answers, gathered by the earlier phases, against the
+    serial oracle on this machine's CPU: the float64 box's cold queries
+    (the oracle's own brute-force 1-NN seeds) and warm ones (the card's
+    guesses), the float32 candidate box's cold queries (seeded as the
+    oracle seeds, by a kd-tree 1-NN and its first-incident-cell map) and
+    the walk grid's warm and off-domain ones (the card's guesses), the
+    float64 generic trace and the fused float32 trace of the helix.
+    No fallback: a failed build or gate raises."""
+    from scipy.spatial import cKDTree
+
+    from interpolate_unstructured_tpu_torch.utils import serial_oracle
+
+    t0 = time.perf_counter()
+    lib = serial_oracle.build()  # raises with g++'s output
+    check(serial_oracle.available(), "the serial oracle does not load")
+    build_s = time.perf_counter() - t0
+    cpu = cpu_model()
+    print(f"oracle: {lib.name} built and loaded in {build_s:.3f} s "
+          f"(g++ {' '.join(serial_oracle.CXX_FLAGS)}); CPU {cpu}")
+    res = {}
+
+    def query(label, mesh, s, tol, found_exact, guesses):
+        pts, cells, nbrs, data = mesh
+        t1 = time.perf_counter()
+        serial_oracle.serial_query(pts, cells, nbrs, data, s["r"][:0])
+        setup_s = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        orc = serial_oracle.serial_query(pts, cells, nbrs, data, s["r"],
+                                         guesses=guesses)
+        call_s = time.perf_counter() - t1
+        out = oracle_verdict(label, mesh, s, orc, s["band"], tol, found_exact)
+        out.update(call_s=call_s, setup_s=setup_s,
+                   qps=len(s["r"]) / max(call_s - setup_s, 1e-9))
+        return out
+
+    m64 = f64["mesh"]
+    res["f64_cold"] = query("float64 box, cold (the oracle's brute-force "
+                            "1-NN seeds)", m64, f64["cold"], LIN_TOL_F64,
+                            True, guesses=None)
+    res["f64_warm"] = query("float64 walk grid, warm (the card's guesses), "
+                            "the last 1M of 10.1M", m64, f64["warm"],
+                            LIN_TOL_F64, True, f64["warm"]["guess"])
+    mc = cand["mesh"]
+    t1 = time.perf_counter()
+    nn = cKDTree(mc[0]).query(cand["cold"]["r"])[1]
+    seeds = first_cells(mc[1], len(mc[0]))[nn]
+    seed_s = time.perf_counter() - t1
+    res["f32_cand"] = query("float32 candidate box, cold, the first 1M "
+                            "(1-NN seeds by kd-tree)", mc, cand["cold"],
+                            LIN_TOL, False, guesses=seeds)
+    res["f32_walk"] = query("float32 walk grid, 900,000 warm + 100,000 "
+                            "off-domain (the card's guesses)", walk["mesh"],
+                            walk["warm"], LIN_TOL_ICELL, False,
+                            walk["warm"]["guess"])
+
+    def traced(label, mesh, tr, curve_tol, min_agree):
+        pts, cells, nbrs, data = mesh
+        t1 = time.perf_counter()
+        serial_oracle.serial_query(pts, cells, nbrs, data, tr["y0"][:0])
+        setup_s = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        orc = serial_oracle.serial_trace(pts, cells, nbrs, tr["field"],
+                                         tr["y0"], **TRACE_KW)
+        call_s = time.perf_counter() - t1
+        out = oracle_trace_verdict(label, tr["out"], orc, curve_tol,
+                                   2.0 * TRACE_KW["min_dx"], min_agree)
+        steps = int(np.minimum(orc[2], TRACE_KW["max_steps"]).sum())
+        out.update(call_s=call_s, setup_s=setup_s, steps=steps,
+                   sps=steps / max(call_s - setup_s, 1e-9))
+        return out
+
+    res["f64_trace"] = traced("float64 generic trace, 1024 helix lines",
+                              m64, f64["trace"], ORACLE_TRACE_TOL, 1.0)
+    res["f32_trace"] = traced("fused float32 trace (B4), 1024 helix lines",
+                              walk["mesh"], trace, TRACE_TOL,
+                              1.0 - TRACE_DIFFER)
+    fc, fw, ft = res["f64_cold"], res["f64_warm"], res["f64_trace"]
+    rates = f64["rates"]
+    print(f"oracle speed on one CPU core ({cpu}), beside the card [{card}]: "
+          f"cold {fc['qps']:.4e} queries/s ({ORACLE_COLD_N} queries in "
+          f"{fc['call_s']:.3f} s, of which {fc['setup_s']:.3f} s is the mesh "
+          f"set-up, timed by a call with no query) against the card's "
+          f"{rates['cold_qps']:.4e} (float64 box, 10M cold), "
+          f"{rates['cold_qps'] / fc['qps']:.4e}x; warm {fw['qps']:.4e} "
+          f"queries/s ({fw['n']} in {fw['call_s']:.3f} s, set-up "
+          f"{fw['setup_s']:.3f} s) against {rates['warm_qps']:.4e} (float64 "
+          f"walk grid, 10.1M warm), {rates['warm_qps'] / fw['qps']:.4e}x; "
+          f"trace {ft['sps']:.4e} steps/s ({ft['steps']} steps in "
+          f"{ft['call_s']:.3f} s, set-up {ft['setup_s']:.3f} s; the 1024 "
+          f"start cells by brute-force 1-NN included) against "
+          f"{rates['trace_sps']:.4e} (float64 generic trace, 1024 lines), "
+          f"{rates['trace_sps'] / ft['sps']:.4e}x; float32 on the card: "
+          f"candidate cold {cand['rate']:.4e}, walk-grid warm "
+          f"{walk['rate']:.4e} queries/s, fused trace {trace['rate']:.4e} "
+          f"steps/s; kd-tree seeds for 1M queries {seed_s:.3f} s")
+    res["build_s"] = build_s
+    return res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
@@ -3930,6 +4296,8 @@ def main() -> int:
                           trace_kernel, icell_kernel),
                          walk_kernel, trace_kernel, tmp, card)
     f64 = timed_phase("float64", float64_phase, *args, trace_kernel, card)
+    timed_phase("oracle", oracle_phase, card, b2.pop("oracle"),
+                b3.pop("oracle"), b4.pop("oracle"), f64.pop("oracle"))
     print("phase seconds: " + json.dumps(phase_s) + f" [{card}]")
     ck = cand_kernel.__name__
     io_n = io["counts"]

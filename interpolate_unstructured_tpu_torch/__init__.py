@@ -16,7 +16,10 @@ reads every mesh format the JAX package reads, through the converter
 ``io/convert.py`` and its ``.binda`` cache; ``write_vtk``,
 ``write_trace_vtk``); grid checkpoints (``save_grid``, ``load_grid``,
 in the JAX package's binda v5 layout, so either package loads what the
-other saved); and ``validate_grid``.  Its kernels are CUDA C++ for
+other saved); ``validate_grid``; and the JAX package's utilities:
+``utils/serial_oracle.py`` (the binding of the independent serial C++
+oracle ``native/serial_oracle.cc``, which it builds with g++),
+``utils/timing.py`` and ``utils/cache.py``.  Its kernels are CUDA C++ for
 ``sm_90a`` (``csrc/``), built by ``nvcc`` on first use into
 ``build/kernels/``:
 
@@ -41,6 +44,7 @@ file needs them.
 
 from .models.grid import (
     Grid,
+    UGrid,
     add_cell_data,
     add_icell_data,
     add_point_data,
@@ -100,6 +104,7 @@ __all__ = [
     "STATUS_MASK_CHANGED",
     "STATUS_STEP_CAP",
     "TraceResult",
+    "UGrid",
     "add_cell_data",
     "add_icell_data",
     "add_point_data",

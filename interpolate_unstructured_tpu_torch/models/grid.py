@@ -138,12 +138,31 @@ class Grid:
         return len(self.point_data_names)
 
     @property
+    def n_cell_data(self) -> int:
+        return len(self.cell_data_names)
+
+    @property
+    def n_icell_data(self) -> int:
+        return len(self.icell_data_names)
+
+    @property
     def dtype(self) -> torch.dtype:
         return self.points.dtype
 
     @property
     def device(self) -> torch.device:
         return self.points.device
+
+    def cell_centers(self) -> torch.Tensor:
+        """Cell centroid = mean of vertices (iu_get_cell_center,
+        :264-269), (n_cells, 3) in the grid's dtype and device: the
+        vertices summed left to right, times the reciprocal of their
+        count, the JAX package's ``jnp.mean`` bit for bit."""
+        cp = self.cell_points
+        acc = cp[:, 0]
+        for k in range(1, cp.shape[1]):
+            acc = acc + cp[:, k]
+        return acc * (1.0 / cp.shape[1])
 
     def to(self, device) -> "Grid":
         """The grid with every tensor leaf on ``device`` (dtypes, bits,
@@ -155,6 +174,10 @@ class Grid:
         return dataclasses.replace(self, **{
             f: getattr(self, f).to(device) for f in DATA_FIELDS
             if getattr(self, f) is not None})
+
+
+# The JAX package's name for the grid class
+UGrid = Grid
 
 
 def host_array(t) -> np.ndarray:

@@ -8,9 +8,10 @@ with a plain C interface, bound with ``ctypes``:
          --fmad=false -Xcompiler -fPIC -Xptxas -v -c -o <src>.o csrc/<src>.cu
     nvcc -gencode arch=compute_90a,code=sm_90a -shared -o <lib> *.o
 
-The library lands in ``build/kernels/`` at the repository root, named
-by a hash of the sources and flags, so a changed source rebuilds and an
-unchanged one loads at once.  ``--fmad=false`` keeps the kernels'
+The library lands in ``build/kernels/`` at the repository root (the
+directory ``utils.cache.enable_compile_cache`` sets), named by a hash of
+the sources and flags, so a changed source rebuilds and an unchanged one
+loads at once.  ``--fmad=false`` keeps the kernels'
 rounding order equal to their plain PyTorch versions'.  The kernels of
 B1, B2, B3 and E1 have a second entry point each for float64 grids
 (``*_f64``), whose scalars are passed as C doubles.  The build runs
@@ -29,8 +30,9 @@ import subprocess
 import threading
 from pathlib import Path
 
+from ..utils import cache
+
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (
     *ARCH, "-std=c++17", "-O3", "--fmad=false", "-Xcompiler", "-fPIC",
@@ -159,13 +161,18 @@ def _sources() -> list[Path]:
     return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
 
 
+def build_dir() -> Path:
+    """The directory the kernel library builds into."""
+    return cache.build_dir("kernels")
+
+
 def library_path() -> Path:
     """Where the library for the current sources and flags lives."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for src in _sources():
         h.update(src.name.encode())
         h.update(src.read_bytes())
-    return BUILD_DIR / f"libiu_kernels_{h.hexdigest()[:16]}.so"
+    return build_dir() / f"libiu_kernels_{h.hexdigest()[:16]}.so"
 
 
 def build() -> Path:
@@ -173,12 +180,12 @@ def build() -> Path:
     out = library_path()
     if out.exists():
         return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    out.parent.mkdir(parents=True, exist_ok=True)
     tag = f"{out.stem}.{os.getpid()}"
     nvcc = _nvcc()
     jobs = []
     for src in sorted(CSRC.glob("*.cu")):
-        obj = BUILD_DIR / f"{tag}.{src.stem}.o"
+        obj = out.parent / f"{tag}.{src.stem}.o"
         cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
         jobs.append((cmd, obj, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))

@@ -26,6 +26,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..utils.timing import env_ticker
+
 CELL_TYPES = ("triangle", "quad", "tetra")
 N_POINTS_PER_CELL = {"triangle": 3, "quad": 4, "tetra": 4}
 # n_faces_per_cell == n_points_per_cell for tri/quad/tet (:865)
@@ -319,6 +321,7 @@ def build_candidate_bins(
       ext_slot: (n_bins,) int32 — overflow bins' row in ext_ids, -1
         elsewhere
     """
+    _tick = env_ticker("IU_BUILD_PROFILE", "cand-build")
     n_cells = len(cell_points)
     rmin = np.asarray(rmin, dtype=np.float64)
     n_target = min(max(int(bins_per_cell * n_cells), 1), max_bins)
@@ -396,6 +399,7 @@ def build_candidate_bins(
         out_score.append(
             (off - proj).min(axis=1)[keep].astype(np.float32)
         )
+        _tick(f"chunk {c_lo}-{c_hi}")
         c_lo = c_hi
 
     if total_pairs:
@@ -407,7 +411,9 @@ def build_candidate_bins(
         pcell = np.zeros(0, np.int32)
         score = np.zeros(0, np.float32)
 
+    _tick("concat")
     order = np.lexsort((-score, pbin))
+    _tick("lexsort")
     pbin = pbin[order]
     pcell = pcell[order]
 
@@ -424,8 +430,10 @@ def build_candidate_bins(
         k_max = max_count
     keep = rank_in_bin < k_max
 
+    _tick("rank")
     cand_ids = np.full((n_bins, k_max), -1, dtype=np.int32)
     cand_ids[pbin[keep], rank_in_bin[keep]] = pcell[keep]
+    _tick("fill main")
 
     over = np.where(cand_count > k_max)[0]
     k_ext = 0
@@ -439,6 +447,7 @@ def build_candidate_bins(
         ext_ids[
             ext_slot[pbin[keep2]], rank_in_bin[keep2] - k_max
         ] = pcell[keep2]
+    _tick("ext")
     return (
         cand_ids,
         cand_count,

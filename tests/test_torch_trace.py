@@ -365,8 +365,7 @@ def _compare_traces(res, oy, oyf, ons, obm, atol=1e-9, final_atol=1e-6):
 
 
 def _serial_oracle():
-    pytest.importorskip("jax")
-    from interpolate_unstructured_tpu.utils import serial_oracle
+    from interpolate_unstructured_tpu_torch.utils import serial_oracle
 
     if not serial_oracle.available():
         pytest.skip("no C++ toolchain for the serial oracle")

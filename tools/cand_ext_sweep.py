@@ -64,8 +64,8 @@ def start_build():
     from interpolate_unstructured_tpu_torch.ops import _kernels
 
     src = Path(__file__).with_name("cand_ext_alternatives.cu")
-    out = _kernels.BUILD_DIR / "libcand_ext_sweep.so"
-    _kernels.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    out = _kernels.build_dir() / "libcand_ext_sweep.so"
+    _kernels.build_dir().mkdir(parents=True, exist_ok=True)
     cmd = [_kernels._nvcc(), *_kernels.NVCC_FLAGS, "-shared", "-o", str(out),
            str(src)]
     return subprocess.Popen(cmd, stdout=subprocess.PIPE,

@@ -63,8 +63,8 @@ def start_build():
     from interpolate_unstructured_tpu_torch.ops import _kernels
 
     src = Path(__file__).with_name("walk_rows_alternatives.cu")
-    out = _kernels.BUILD_DIR / "libwalk_rows_sweep.so"
-    _kernels.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    out = _kernels.build_dir() / "libwalk_rows_sweep.so"
+    _kernels.build_dir().mkdir(parents=True, exist_ok=True)
     cmd = [_kernels._nvcc(), *_kernels.NVCC_FLAGS, "-shared", "-o", str(out),
            str(src)]
     return subprocess.Popen(cmd, stdout=subprocess.PIPE,
