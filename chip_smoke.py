@@ -1830,7 +1830,9 @@ def device_busy(fn, tags):
             fn()
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-        ev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        # the port's spans (iu.*) also lie on the device's timeline
+        ev = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+              and not e.name.startswith("iu.")]
     except Exception as err:  # a profiler fault is no fault of the port
         print(f"profiler: {err!r}")
         return None

@@ -60,7 +60,10 @@
 // and the port must agree with the JAX package.  5 bytes go out per
 // query (ic, found), where the earlier composition moved 57 bytes of
 // walk state in and out of an explicit walk and more through the torch
-// around it.
+// around it.  While the port traces (utils/timing.py) the launch takes a
+// step counter: each warp sums its walks' steps by shuffles and adds the
+// sum with one atomic; with a null counter that is skipped, and the
+// outputs are the same either way.
 //
 // What bounds it on an H100: the latency of dependent row reads, as for
 // walk_kernel.  Each round reads the leading NF*5 floats of its row
@@ -177,23 +180,19 @@ __device__ __forceinline__ void seed_row(const double* __restrict__ pack,
   load16(pack + 4 * (size_t)b + 2, g + 2);
 }
 
+// get_cell's walk of query q, written to out_ic[q] and out_found[q];
+// returns the steps it took over both phases.
 template <int NF, typename T>
-__global__ void __launch_bounds__(kGetCellThreads)
-get_cell_walk_kernel(const T* __restrict__ table, int n_rows, int W,
-                     const T* __restrict__ r,
-                     const int* __restrict__ start,
-                     const T* __restrict__ bin_pack,
-                     const int* __restrict__ bin_table,
-                     iu::BinGrid<T> bins, int n_queries, T nudge,
-                     T eps_arrive, T big, T tiny, int max_steps, int p1,
-                     int* __restrict__ out_ic,
-                     unsigned char* __restrict__ out_found) {
+__device__ __forceinline__ int get_cell_walk_query(
+    const T* __restrict__ table, int n_rows, int W, const T* __restrict__ r,
+    const int* __restrict__ start, const T* __restrict__ bin_pack,
+    const int* __restrict__ bin_table, const iu::BinGrid<T>& bins, T nudge,
+    T eps_arrive, T big, T tiny, int max_steps, int p1, int q,
+    int* __restrict__ out_ic, unsigned char* __restrict__ out_found) {
   constexpr int NPC = NF;  // triangles, quads and tets
   constexpr int L = kVec<T>;
   constexpr int V0 = NF * 5;  // vertex block [V0, V0 + NPC * 3)
   constexpr int C0 = V0 / L, C1 = (V0 + NPC * 3 + L - 1) / L;
-  const int q = blockIdx.x * blockDim.x + threadIdx.x;
-  if (q >= n_queries) return;
   const T rx = r[3 * q + 0];
   const T ry = r[3 * q + 1];
   const T rz = r[3 * q + 2];
@@ -252,6 +251,39 @@ get_cell_walk_kernel(const T* __restrict__ table, int n_rows, int W,
   const bool found = !s.active && s.status == iu::kStatusArrived && s.ic >= 0;
   out_ic[q] = found ? s.ic : (s.ic < -1 ? s.ic : -1);
   out_found[q] = found ? 1 : 0;
+  return s.steps;
+}
+
+// step_count: null, or a device counter that gets the steps of every
+// walk, summed over each warp and added once a warp (blocks are whole
+// warps, and every lane reaches the sum).
+template <int NF, typename T>
+__global__ void __launch_bounds__(kGetCellThreads)
+get_cell_walk_kernel(const T* __restrict__ table, int n_rows, int W,
+                     const T* __restrict__ r,
+                     const int* __restrict__ start,
+                     const T* __restrict__ bin_pack,
+                     const int* __restrict__ bin_table,
+                     iu::BinGrid<T> bins, int n_queries, T nudge,
+                     T eps_arrive, T big, T tiny, int max_steps, int p1,
+                     int* __restrict__ out_ic,
+                     unsigned char* __restrict__ out_found,
+                     unsigned long long* __restrict__ step_count) {
+  const int q = blockIdx.x * blockDim.x + threadIdx.x;
+  const int steps =
+      q < n_queries
+          ? get_cell_walk_query<NF>(table, n_rows, W, r, start, bin_pack,
+                                    bin_table, bins, nudge, eps_arrive, big,
+                                    tiny, max_steps, p1, q, out_ic, out_found)
+          : 0;
+  if (step_count != nullptr) {
+    unsigned long long sum = (unsigned long long)steps;
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) {
+      sum += __shfl_down_sync(0xffffffffu, sum, o);
+    }
+    if ((threadIdx.x & 31) == 0 && sum != 0) atomicAdd(step_count, sum);
+  }
 }
 
 // Writes a finished walk's results at position q.
@@ -338,7 +370,8 @@ int get_cell_walk_launch(const T* table, int n_rows, int W, int nf,
                          const T* bin_inv_h, int nbx, int nby, int nbz,
                          int n_queries, T nudge, T eps_arrive, T big, T tiny,
                          int max_steps, int p1, int* out_ic,
-                         unsigned char* out_found, void* stream) {
+                         unsigned char* out_found,
+                         unsigned long long* step_count, void* stream) {
   if (n_queries <= 0) return (int)cudaSuccess;
   if (n_rows <= 0 || W % kVec<T> != 0 || W < 8 * nf || p1 < 0 ||
       (start == nullptr && bin_pack == nullptr)) {
@@ -350,7 +383,8 @@ int get_cell_walk_launch(const T* table, int n_rows, int W, int nf,
 #define IU_GET_CELL_WALK(NF_)                                               \
   get_cell_walk_kernel<NF_, T><<<blocks, kGetCellThreads, 0, s>>>(          \
       table, n_rows, W, r, start, bin_pack, bin_table, bins, n_queries,      \
-      nudge, eps_arrive, big, tiny, max_steps, p1, out_ic, out_found)
+      nudge, eps_arrive, big, tiny, max_steps, p1, out_ic, out_found,       \
+      step_count)
   if (nf == 3) {
     IU_GET_CELL_WALK(3);
   } else if (nf == 4) {
@@ -408,7 +442,9 @@ extern "C" int iu_walk_f64(const double* table, int n_rows, int W, int nf,
 // (n_bins,) int32 seeds that replace start cells outside [0, n_rows), or
 // null to take start as given; bin_rmin, bin_inv_h: (3,) on the device;
 // p1: phase-1 rounds (0: one phase of max_steps rounds).  out_ic: (B,)
-// int32, out_found: (B,) bool.  Returns the cudaError_t of the launch.
+// int32, out_found: (B,) bool.  step_count: a device counter (one 64-bit
+// word) that the launch adds every walk's steps to, or null.  Returns the
+// cudaError_t of the launch.
 extern "C" int iu_get_cell_walk(const float* table, int n_rows, int W, int nf,
                                 const float* r, const int* start,
                                 const float* bin_pack, const int* bin_table,
@@ -417,11 +453,12 @@ extern "C" int iu_get_cell_walk(const float* table, int n_rows, int W, int nf,
                                 float nudge, float eps_arrive, float big,
                                 float tiny, int max_steps, int p1,
                                 int* out_ic, unsigned char* out_found,
+                                unsigned long long* step_count,
                                 void* stream) {
   return get_cell_walk_launch<float>(
       table, n_rows, W, nf, r, start, bin_pack, bin_table, bin_rmin,
       bin_inv_h, nbx, nby, nbz, n_queries, nudge, eps_arrive, big, tiny,
-      max_steps, p1, out_ic, out_found, stream);
+      max_steps, p1, out_ic, out_found, step_count, stream);
 }
 
 extern "C" int iu_get_cell_walk_f64(
@@ -430,9 +467,9 @@ extern "C" int iu_get_cell_walk_f64(
     const double* bin_rmin, const double* bin_inv_h, int nbx, int nby,
     int nbz, int n_queries, double nudge, double eps_arrive, double big,
     double tiny, int max_steps, int p1, int* out_ic,
-    unsigned char* out_found, void* stream) {
+    unsigned char* out_found, unsigned long long* step_count, void* stream) {
   return get_cell_walk_launch<double>(
       table, n_rows, W, nf, r, start, bin_pack, bin_table, bin_rmin,
       bin_inv_h, nbx, nby, nbz, n_queries, nudge, eps_arrive, big, tiny,
-      max_steps, p1, out_ic, out_found, stream);
+      max_steps, p1, out_ic, out_found, step_count, stream);
 }

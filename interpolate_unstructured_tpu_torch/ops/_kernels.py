@@ -73,12 +73,12 @@ _SIGNATURES = {
     "iu_get_cell_walk": (
         _I,
         [_P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F,
-         _F, _I, _I, _P, _P, _P],
+         _F, _I, _I, _P, _P, _P, _P],
     ),
     "iu_get_cell_walk_f64": (
         _I,
         [_P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _D, _D, _D,
-         _D, _I, _I, _P, _P, _P],
+         _D, _I, _I, _P, _P, _P, _P],
     ),
     "iu_cand_bin_pass": (
         _I, [_P, _I, _I, _P, _P, _I, _I, _I, _P, _P, _P, _P],

@@ -33,7 +33,9 @@ themselves (:func:`cand_rows_df_query`); the plain version is
 of the bin-ordered front end (every row kind), ``binned_launches`` the
 probe in bin order of a main table without extension rows,
 ``ext_launches`` the probe with extension rows and ``df_launches`` that
-of the df-plane rows.
+of the df-plane rows.  While tracing (``utils/timing.py``) the bin pass
+and scatter are span ``iu.locate.bin_order``, the probe and unsort (or
+the plain probe) ``iu.locate.probe``.
 
 A float64 grid's rows ("simplex" and "quad" in float64, never quantized)
 take the same bin pass, probe (with or without extension rows) and
@@ -53,6 +55,7 @@ import numpy as np
 import torch
 
 from . import _kernels, df32, geometry, wkern
+from ..utils import timing
 
 df_launches = 0  # probe in bin order of the df-plane rows (B2-df)
 bin_pass_launches = 0  # bin pass of the bin-ordered probe
@@ -400,6 +403,7 @@ def _check_bins(r, rmin, inv_h, shape):
     return r.contiguous(), rmin.contiguous(), inv_h.contiguous(), n_bins
 
 
+@timing.spanned("iu.locate.bin_order")
 def bin_order_cuda(r, rmin, inv_h, shape):
     """Launch the bin pass and the scatter on CUDA tensors: (B, 3) float32
     queries (or float64, binned by their float32 rounding) with the (3,)
@@ -441,6 +445,7 @@ def bin_order_cuda(r, rmin, inv_h, shape):
     return idx, ends, perm, slot
 
 
+@timing.spanned("iu.locate.probe")
 def cand_rows_binned_cuda(table, r, perm, slot, rmin, inv_h, shape, lay, eps,
                           ovf_base, lanes=None, r_lo=None, ext=None):
     """Launch the probe in bin order and the unsort on CUDA tensors:
@@ -579,12 +584,14 @@ def cand_rows_binned_query(table, r, rmin, inv_h, shape, lay, eps, ovf_base,
         return cand_rows_binned_cuda(table, r, perm, slot, rmin, inv_h, shape,
                                      lay, eps, ovf_base, ext=ext)
     if table.device.type == "cpu":
-        idx, rq = probe_inputs_plain(r, rmin, inv_h, shape,
-                                     lay.kind == "quantized")
-        if ext is not None:
-            return probe_rows_ext_plain(table, ext[0], idx, rq, lay, ext[1],
-                                        eps, ovf_base, chunk)
-        return probe_rows_plain(table, idx, rq, lay, eps, ovf_base, chunk)
+        with timing.span("iu.locate.probe", table.device):
+            idx, rq = probe_inputs_plain(r, rmin, inv_h, shape,
+                                         lay.kind == "quantized")
+            if ext is not None:
+                return probe_rows_ext_plain(table, ext[0], idx, rq, lay,
+                                            ext[1], eps, ovf_base, chunk)
+            return probe_rows_plain(table, idx, rq, lay, eps, ovf_base,
+                                    chunk)
     raise ValueError(f"no candidate probe for device {table.device}")
 
 

@@ -18,6 +18,10 @@ Values are (B, V), as at the public API of the JAX package; the (V, B)
 layout its internals used for the TPU is not carried over.  Every
 query returns a ``found`` mask, and values carry ``fill_value`` where
 nothing contains the query.
+
+While tracing (``utils/timing.py``) ``interpolate_at`` is the entry span
+``iu.interpolate_at``; the location inside it is ``iu.locate``,
+``interpolate_at_icell`` is ``iu.icell`` and the fill ``iu.fill``.
 """
 
 from __future__ import annotations
@@ -28,6 +32,7 @@ import numpy as np
 import torch
 
 from . import wkern
+from ..utils import timing
 
 
 def _vq_components(cell_points, r, npc):
@@ -91,6 +96,7 @@ def cell_weights(grid, r, i_cell):
     )
 
 
+@timing.spanned("iu.icell", timed=True)
 def interpolate_at_icell(grid, r, i_vars, i_cell):
     """Interpolate point-data variables inside known cells (:497-527).
 
@@ -175,10 +181,12 @@ def interpolate_at_icell_plain(grid, r, i_vars, i_cell):
 def _static_slots(i_vars):
     """Variable indices as a tuple of ints."""
     if isinstance(i_vars, torch.Tensor):
-        return tuple(int(v) for v in i_vars.reshape(-1).tolist())
+        with timing.host_read("static_slots", i_vars):
+            return tuple(int(v) for v in i_vars.reshape(-1).tolist())
     return tuple(int(v) for v in np.asarray(i_vars).reshape(-1))
 
 
+@timing.spanned("iu.fill")
 def _fill(values, found, fill_value):
     """Values where found, else ``fill_value`` (a scalar, or anything
     that broadcasts to (B, V), such as the previous values).  A Python
@@ -191,6 +199,7 @@ def _fill(values, found, fill_value):
     return torch.where(found[:, None], values, fill.broadcast_to(values.shape))
 
 
+@timing.spanned("iu.interpolate_at", entry=True)
 def interpolate_at(grid, r, i_vars, guess=None, fill_value=math.nan):
     """Locate + interpolate (iu_interpolate_at, :480-495), batched.
 
@@ -232,7 +241,8 @@ def interpolate_at(grid, r, i_vars, guess=None, fill_value=math.nan):
         and slots
         and all(0 <= s < cand_fused_nv(grid) for s in slots)
     ):
-        i_cell, found, values = locate._candidates_query(grid, r, slots)
+        with timing.span("iu.locate", grid.device, timed=True):
+            i_cell, found, values = locate._candidates_query(grid, r, slots)
         return _fill(values, found, fill_value), i_cell, found
 
     i_cell, found = locate.get_cell(grid, r, guess)

@@ -32,6 +32,7 @@ from __future__ import annotations
 import torch
 
 from . import cand_kernel, walk_kernel
+from ..utils import timing
 from ..utils.config import huge_distance, tiny_distance, walk_tolerances
 
 STATUS_ARRIVED = walk_kernel.STATUS_ARRIVED
@@ -279,19 +280,22 @@ def _candidates_query(grid, r, var_slots, max_steps=None):
         # every bin's complete list fits its row or its extension row: a
         # miss is exact
         return ic, found, values
-    # aux >= 0: a bin beyond K (no extension rows) or K + k_ext candidates
-    sel = torch.nonzero(aux >= 0).squeeze(1)
-    if sel.numel() == 0:
-        return ic, found, values
-    ic_w, found_w = walk_kernel.get_cell_walk(
-        grid, r[sel], id_best[sel].clamp_min(0), max_steps, 0)
-    ic[sel] = torch.where(found_w, ic_w, -1)
-    if var_slots:
-        from .interp import interpolate_at_icell
+    with timing.span("iu.locate.miss_walk", grid.device):
+        # aux >= 0: a bin beyond K (no extension rows) or K + k_ext
+        # candidates
+        with timing.host_read("cand_residual", aux):
+            sel = torch.nonzero(aux >= 0).squeeze(1)
+        if sel.numel() == 0:
+            return ic, found, values
+        ic_w, found_w = walk_kernel.get_cell_walk(
+            grid, r[sel], id_best[sel].clamp_min(0), max_steps, 0)
+        ic[sel] = torch.where(found_w, ic_w, -1)
+        if var_slots:
+            from .interp import interpolate_at_icell
 
-        vals_w = interpolate_at_icell(grid, r[sel], var_slots,
-                                      ic_w.clamp_min(0))
-        values[sel] = torch.where(found_w[:, None], vals_w, values[sel])
+            vals_w = interpolate_at_icell(grid, r[sel], var_slots,
+                                          ic_w.clamp_min(0))
+            values[sel] = torch.where(found_w[:, None], vals_w, values[sel])
     return ic, ic >= 0, values
 
 
@@ -361,13 +365,16 @@ def _get_cell_warm(grid, r, guess, max_steps):
     # error-stops on guess > n_cells, :490)
     guess = torch.where(guess >= grid.n_cells, -1, guess)
     ic, found, _ = _candidates_query(grid, r, (), max_steps)
-    sel = torch.nonzero(~found & (guess >= 0)).squeeze(1)
-    if sel.numel():
-        ic[sel], found[sel] = walk_kernel.get_cell_walk(
-            grid, r[sel], guess[sel], max_steps, 0)
+    with timing.span("iu.locate.miss_walk", grid.device):
+        with timing.host_read("warm_miss", found):
+            sel = torch.nonzero(~found & (guess >= 0)).squeeze(1)
+        if sel.numel():
+            ic[sel], found[sel] = walk_kernel.get_cell_walk(
+                grid, r[sel], guess[sel], max_steps, 0)
     return ic, found
 
 
+@timing.spanned("iu.locate", timed=True)
 def get_cell(grid, r, guess=None, max_steps=None):
     """Find the cell containing each query point (iu_get_cell, :412-434).
 
@@ -383,6 +390,8 @@ def get_cell(grid, r, guess=None, max_steps=None):
     then the stragglers resume from where they stopped (which restarts
     their direction and distance from there, as in the JAX package).
     Both phases run in one launch of ``walk_kernel.get_cell_walk``.
+
+    While tracing (``utils/timing.py``) the call is span ``iu.locate``.
 
     Returns (i_cell, found): i_cell is -1 (or the off-domain neighbor
     code) where the point is in no cell.

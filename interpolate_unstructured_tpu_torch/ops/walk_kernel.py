@@ -29,7 +29,10 @@ cells (or the seed bins) to (ic, found): origin, direction, the
 two-phase walk and the found rule in one launch of
 ``get_cell_walk_kernel`` (``csrc/walk.cu``) on CUDA tensors, and
 :func:`get_cell_walk_plain`, the composition of the plain pieces, on CPU
-tensors.  ``get_cell_launches`` counts its launches.
+tensors.  ``get_cell_launches`` counts its launches.  While tracing
+(``utils/timing.py``) it is span ``iu.locate.walk`` and counts
+``walk.queries`` and ``walk.steps``, the steps of every walk over both
+phases, which both versions sum on the device.
 
 Walk rows (``models.grid._build_walk_table``) start with face normals
 (nf*3, column f*3 + d) | face offsets (nf) | neighbor ids as floats
@@ -41,6 +44,7 @@ from __future__ import annotations
 import torch
 
 from . import _kernels, geometry
+from ..utils import timing
 from ..utils.config import huge_distance, tiny_distance, walk_tolerances
 
 launches = 0  # launches of the explicit walk (walk_rows)
@@ -307,20 +311,21 @@ def _tolerances(grid, dtype):
 def _resume_plain(grid, r_p, r1, ic, max_steps):
     """Phase 2 of the plain get_cell walk: the stragglers walk again from
     where they stopped (direction and distance from ``r_p``, no previous
-    cell).  Returns (ic, status)."""
+    cell).  Returns (ic, steps, status)."""
     nudge, eps_arrive, big, tiny = _tolerances(grid, r_p.dtype)
     u, total, active = walk_direction(r_p, r1, tiny)
-    ic_o, _, _, st_o = walk_plain(grid.walk_table, r_p, u, total, active, ic,
-                                  nudge, eps_arrive, big, max_steps,
-                                  grid.n_faces_per_cell)
-    return ic_o, st_o
+    ic_o, _, steps_o, st_o = walk_plain(grid.walk_table, r_p, u, total,
+                                        active, ic, nudge, eps_arrive, big,
+                                        max_steps, grid.n_faces_per_cell)
+    return ic_o, steps_o, st_o
 
 
-def get_cell_walk_plain(grid, r, start, max_steps, p1):
+def get_cell_walk_plain(grid, r, start, max_steps, p1, step_count=None):
     """Plain PyTorch version of :func:`get_cell_walk`: the composition the
     port ran before the fused kernel (seed rows or start-cell centers,
     :func:`walk_direction`, :func:`walk_plain`, the two-phase merge), on
-    any device and float dtype."""
+    any device and float dtype.  ``step_count``: None, or an int64
+    tensor of one element that gets the steps of every walk added."""
     table = grid.walk_table
     n_rows = table.shape[0]
     nf = grid.n_faces_per_cell
@@ -336,17 +341,21 @@ def get_cell_walk_plain(grid, r, start, max_steps, p1):
         r0 = walk_origin(table, start.clamp(0, n_rows - 1), nf,
                          grid.n_points_per_cell)
     u, total, active = walk_direction(r0, r, tiny)
-    ic, rp, _, status = walk_plain(table, r0, u, total, active, start, nudge,
-                                   eps_arrive, big,
-                                   p1 if p1 > 0 else max_steps, nf)
+    ic, rp, steps, status = walk_plain(table, r0, u, total, active, start,
+                                       nudge, eps_arrive, big,
+                                       p1 if p1 > 0 else max_steps, nf)
     found = (status == STATUS_ARRIVED) & (ic >= 0)
+    if step_count is not None:
+        step_count += steps.sum()
     if p1 > 0:
         sel = torch.nonzero(status == STATUS_STEP_CAP).squeeze(1)
         if sel.numel():
-            ic_o, st_o = _resume_plain(grid, rp[sel], r[sel], ic[sel],
-                                       max_steps - p1)
+            ic_o, steps_o, st_o = _resume_plain(grid, rp[sel], r[sel],
+                                                ic[sel], max_steps - p1)
             ic[sel] = ic_o
             found[sel] = (st_o == STATUS_ARRIVED) & (ic_o >= 0)
+            if step_count is not None:
+                step_count += steps_o.sum()
     return torch.where(found, ic, torch.clamp_max(ic, -1)), found
 
 
@@ -354,12 +363,14 @@ def _aligned(t):
     return t.data_ptr() % 16 == 0
 
 
-def get_cell_walk_cuda(grid, r, start, max_steps, p1):
+def get_cell_walk_cuda(grid, r, start, max_steps, p1, step_count=None):
     """Launch ``get_cell_walk_kernel`` on CUDA tensors: float32 or float64
     walk rows (16-byte aligned, a whole number of 16-byte words wide),
     with queries, seed rows and bin grid of their dtype, and int32 start
     cells or None.  One thread per query, from its origin to (ic,
-    found)."""
+    found).  ``step_count``: None, or an int64 tensor of one element on
+    the rows' device that gets the steps of every walk added (a sum a
+    warp, one atomic add a warp); the outputs do not change."""
     global get_cell_launches
     table = grid.walk_table
     nf, npc = grid.n_faces_per_cell, grid.n_points_per_cell
@@ -374,6 +385,12 @@ def get_cell_walk_cuda(grid, r, start, max_steps, p1):
     tensors = [table, r, grid.bin_rmin, grid.bin_inv_h]
     tensors += [t for t in (start, grid.bin_pack, grid.bin_table)
                 if t is not None]
+    if step_count is not None:
+        if (step_count.dtype != torch.int64 or step_count.numel() != 1
+                or not step_count.is_contiguous()):
+            raise ValueError("step_count must be a contiguous int64 tensor "
+                             "of one element")
+        tensors.append(step_count)
     if len({t.device for t in tensors}) != 1:
         raise ValueError("get_cell walk inputs must share one device")
     if (table.ndim != 2 or not table.is_contiguous() or table.shape[0] < 1
@@ -425,13 +442,14 @@ def get_cell_walk_cuda(grid, r, start, max_steps, p1):
             rmin.data_ptr(), inv_h.data_ptr(), nbx, nby, nbz, b,
             float(nudge), float(eps_arrive), float(big), float(tiny),
             int(max_steps), int(p1), out_ic.data_ptr(), out_found.data_ptr(),
-            torch.cuda.current_stream(dev).cuda_stream,
+            ptr(step_count), torch.cuda.current_stream(dev).cuda_stream,
         )
     _kernels.check(code, entry)
     get_cell_launches += 1
     return out_ic, out_found
 
 
+@timing.spanned("iu.locate.walk")
 def get_cell_walk(grid, r, start, max_steps, p1):
     """``get_cell``'s walk stage on a walk grid: (i_cell, found) of the
     (B, 3) queries ``r``.
@@ -451,8 +469,14 @@ def get_cell_walk(grid, r, start, max_steps, p1):
 
     The kernel on CUDA tensors, the plain version on CPU tensors.
     """
-    if grid.walk_table.device.type == "cuda":
-        return get_cell_walk_cuda(grid, r, start, max_steps, p1)
-    if grid.walk_table.device.type == "cpu":
-        return get_cell_walk_plain(grid, r, start, max_steps, p1)
+    dev = grid.walk_table.device
+    steps = None
+    if timing.tracing():
+        steps = torch.zeros((), dtype=torch.int64, device=dev)
+        timing.metrics.count("walk.queries", r.shape[0])
+        timing.metrics.count("walk.steps", steps)
+    if dev.type == "cuda":
+        return get_cell_walk_cuda(grid, r, start, max_steps, p1, steps)
+    if dev.type == "cpu":
+        return get_cell_walk_plain(grid, r, start, max_steps, p1, steps)
     raise ValueError(f"no get_cell walk for device {grid.walk_table.device}")

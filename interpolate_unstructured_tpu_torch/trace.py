@@ -42,6 +42,14 @@ walks at their own start, which makes them no-ops, so one pass through
 the body computes what the reference's goto-laden loop does.  Both paths
 end each iteration with ``trace_kernel.step_control``.  Vectors are
 (B, D) inside; the JAX package's (D, B) row layout was a TPU layout.
+
+While tracing (``utils/timing.py``) a call is the entry span
+``iu.integrate_along_field``, holding ``iu.trace.setup`` (the table when
+built per call, the start cells, the start field, the tolerances and
+the buffers) and ``iu.trace.loop`` (B4's launch, or the generic loop:
+an ``iu.trace.iteration`` span and a host read each iteration), and
+counts ``trace.lines``, ``trace.iterations``, ``trace.steps`` and
+``trace.rounds`` from its result.
 """
 
 from __future__ import annotations
@@ -58,6 +66,7 @@ from .ops.trace_kernel import (  # noqa: F401
     MIN_RADIUS,
     SAFETY_FAC,
 )
+from .utils import timing
 from .utils.config import huge_distance, tiny_distance, walk_tolerances
 
 
@@ -119,6 +128,7 @@ def build_trace_table(grid, i_field):
         cols, (0, row_width - cols.shape[1])).contiguous()
 
 
+@timing.spanned("iu.integrate_along_field", entry=True)
 def integrate_along_field(
     grid,
     y0,
@@ -183,8 +193,6 @@ def integrate_along_field(
     tiny = tiny_distance(np_dtype)
     i32 = torch.int32
 
-    if trace_table is None:
-        trace_table = build_trace_table(grid, i_field)
     use_fused = trace_kernel.supported(grid, i_icell_mask, nvar)
     sub_int_b = torch.func.vmap(sub_int) if nvar else None
     walk_cap = grid.config.trace_walk_max_steps
@@ -229,39 +237,8 @@ def integrate_along_field(
             trace_table[ic.clamp_min(0).long()], grid.cell_type, ndim, tgt)
         return ys, field, derivs(field, ys), ic, r_p, tgt, failed, capped
 
-    # ---- initialization (:1045-1073) ----
-    r0_3 = pad3(y0[:, :ndim])
-    ic0, found0 = locate.get_cell(grid, r0_3)
-    ic0 = torch.where(found0, ic0, -1).to(i32)
-    field0 = interp.interpolate_at_icell(grid, r0_3, i_field,
-                                         ic0.clamp_min(0))
-    in_region = found0
-    if mask_value is not None:
-        in_region = found0 & (
-            grid.icell_data[ic0.clamp_min(0).long(), i_icell_mask]
-            == mask_value
-        )
-    done = ~in_region
-    bm = torch.where(done, boundary_code(ic0), BM_NOT_REACHED).to(i32)
-    field0 = pad3(torch.where(in_region[:, None], field0, 0.0))
-    loop_kw = dict(min_dx=min_dx, max_dx=max_dx, max_steps=max_steps,
-                   rtol=rtol, atol=atol, shrink_eps=shrink_eps,
-                   axisymmetric=axisymmetric)
-
-    if use_fused:
-        # Every line's whole RK loop in one launch of B4
-        nudge, eps_arrive = walk_tolerances(np_dtype, grid.rmin, grid.rmax)
-        return TraceResult(*trace_kernel.trace_loop(
-            trace_table, y0, field0, ic0, done, bm, cell_type=grid.cell_type,
-            ndim=ndim, nudge=nudge, eps_arrive=eps_arrive, tiny=tiny,
-            big=huge_distance(np_dtype), reverse=reverse,
-            walk_steps=walk_cap, min_radius=MIN_RADIUS,
-            max_iterations=max_iterations, **loop_kw))
-
-    s = trace_kernel.RKState(y0, field0, ic0, done, bm, max_dx, max_steps,
-                             ndim)
-    it = 0
-    while it < max_iterations and bool((~s.done).any()):
+    def iteration(s, it):
+        """One RK iteration of the generic path over every line."""
         act = ~s.done
         anchor = s.anchor
         r0 = pad3(anchor[:, :ndim])
@@ -296,8 +273,71 @@ def integrate_along_field(
             s, it, act, (k1, k2, k3, k4), ys3, field4, ic4, r_p, ok,
             act & ~ok, ic_fail, cap_fail, boundary_code, ndim=ndim,
             min_radius=MIN_RADIUS, **loop_kw)
-        it += 1
-    return TraceResult(*s.result(max_steps))
+
+    # ---- initialization (:1045-1073) ----
+    with timing.span("iu.trace.setup", dev):
+        if trace_table is None:
+            trace_table = build_trace_table(grid, i_field)
+        r0_3 = pad3(y0[:, :ndim])
+        ic0, found0 = locate.get_cell(grid, r0_3)
+        ic0 = torch.where(found0, ic0, -1).to(i32)
+        field0 = interp.interpolate_at_icell(grid, r0_3, i_field,
+                                             ic0.clamp_min(0))
+        in_region = found0
+        if mask_value is not None:
+            in_region = found0 & (
+                grid.icell_data[ic0.clamp_min(0).long(), i_icell_mask]
+                == mask_value
+            )
+        done = ~in_region
+        bm = torch.where(done, boundary_code(ic0), BM_NOT_REACHED).to(i32)
+        field0 = pad3(torch.where(in_region[:, None], field0, 0.0))
+        loop_kw = dict(min_dx=min_dx, max_dx=max_dx, max_steps=max_steps,
+                       rtol=rtol, atol=atol, shrink_eps=shrink_eps,
+                       axisymmetric=axisymmetric)
+        if use_fused:
+            nudge, eps_arrive = walk_tolerances(np_dtype, grid.rmin,
+                                                grid.rmax)
+        else:
+            s = trace_kernel.RKState(y0, field0, ic0, done, bm, max_dx,
+                                     max_steps, ndim)
+
+    with timing.span("iu.trace.loop", dev):
+        if use_fused:
+            # Every line's whole RK loop in one launch of B4
+            res = TraceResult(*trace_kernel.trace_loop(
+                trace_table, y0, field0, ic0, done, bm,
+                cell_type=grid.cell_type, ndim=ndim, nudge=nudge,
+                eps_arrive=eps_arrive, tiny=tiny,
+                big=huge_distance(np_dtype), reverse=reverse,
+                walk_steps=walk_cap, min_radius=MIN_RADIUS,
+                max_iterations=max_iterations, **loop_kw))
+        else:
+            it = 0
+            while it < max_iterations:
+                with timing.host_read("trace_loop", s.done):
+                    if not bool((~s.done).any()):
+                        break
+                with timing.span("iu.trace.iteration", dev):
+                    iteration(s, it)
+                it += 1
+            res = TraceResult(*s.result(max_steps))
+    _count_trace(res, max_steps)
+    return res
+
+
+def _count_trace(res, max_steps):
+    """While tracing, count a trace's lines, RK iterations, stored points
+    (capped at ``max_steps``) and B4's stage rounds, summed on the
+    device from its result."""
+    if not timing.tracing():
+        return
+    count = timing.metrics.count
+    count("trace.lines", res.n_steps.shape[0])
+    count("trace.iterations", res.n_iterations.sum())
+    count("trace.steps", res.n_steps.clamp_max(max_steps).sum())
+    if res.n_rounds is not None:
+        count("trace.rounds", res.n_rounds.sum())
 
 
 def write_trace_vtk(result: TraceResult, filename, ndim: int = None,

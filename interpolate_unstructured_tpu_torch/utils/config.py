@@ -15,6 +15,8 @@ import dataclasses
 
 import numpy as np
 
+from .timing import host_read
+
 
 @dataclasses.dataclass(frozen=True)
 class IUConfig:
@@ -175,7 +177,8 @@ def walk_tolerances(dtype, rmin, rmax):
     values bit for bit: the factors are powers of two, so the products
     are exact in the grid dtype.  ``dtype`` is a numpy or torch float
     dtype; ``rmin``/``rmax`` are arrays or tensors.  Returns Python
-    floats, each exactly representable in ``dtype``.
+    floats, each exactly representable in ``dtype``.  Tensors on the
+    card are read back: a host read (``utils/timing.host_read``).
     """
     np_dtype = np.dtype(str(dtype).replace("torch.", ""))
 
@@ -184,7 +187,8 @@ def walk_tolerances(dtype, rmin, rmax):
             a = a.detach().cpu().numpy()
         return float(np.max(np.abs(np.asarray(a, np.float64))))
 
-    extent = np_dtype.type(max(absmax(rmin), absmax(rmax)))
+    with host_read("walk_tolerances", rmin, rmax):
+        extent = np_dtype.type(max(absmax(rmin), absmax(rmax)))
     nudge = float(np_dtype.type(16.0 * float(np.finfo(np_dtype).eps)) * extent)
     return nudge, 4.0 * nudge
 

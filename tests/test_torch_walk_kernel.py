@@ -303,11 +303,11 @@ def test_cuda_masked_walk_matches_plain(cuda, mesh, dtype):
             assert torch.equal(k, p)
 
 
-@pytest.mark.cuda
-def test_cuda_walk_builds_no_direction(cuda):
-    """locate.walk on the card launches B3 and no torch op to build the
-    direction: the kernel computes it itself (the walk tolerances still
-    read the grid's extent back, as get_cell's do)."""
+def _profiled_walk(cuda):
+    """The torch ops and the device kernels that the profiler records for
+    one ``locate.walk`` on the card (after a warm-up call)."""
+    from torch.autograd import DeviceType
+
     args, _ = _cuda_walk_setup(cuda, "tetra", "float32", "walk", 1024)
     g_r0, g_r1, g_ic = args[1], args[2], args[3]
     pts, cells, nbrs = MESHES["tetra"][1]()
@@ -320,15 +320,51 @@ def test_cuda_walk_builds_no_direction(cuda):
     with torch.profiler.profile(activities=[act.CPU, act.CUDA]) as prof:
         locate.walk(g, g_r0, g_r1, g_ic)
         torch.cuda.synchronize()
-    keys = {e.key for e in prof.key_averages()}
-    math = {"aten::sub", "aten::mul", "aten::add", "aten::div",
-            "aten::sqrt", "aten::where", "aten::lt", "aten::bitwise_not"}
-    assert not keys & math, keys & math
-    from torch.autograd import DeviceType
-
+    # the port's own spans (iu.*) are profiler ranges, which the profiler
+    # also lays on the device's timeline
     kernels = {e.name for e in prof.events()
                if e.device_type == DeviceType.CUDA
-               and not e.name.startswith(("Memcpy", "Memset"))}
+               and not e.name.startswith(("Memcpy", "Memset", "iu."))}
+    return {"ops": sorted({e.key for e in prof.key_averages()}),
+            "kernels": sorted(kernels)}
+
+
+_PROFILED_WALK = """
+import json, sys
+import torch
+sys.path[:0] = sys.argv[1:]
+import test_torch_walk_kernel as t
+print(json.dumps(t._profiled_walk(torch.device("cuda"))))
+"""
+
+
+@pytest.mark.cuda
+def test_cuda_walk_builds_no_direction(cuda):
+    """locate.walk on the card launches B3 and no torch op to build the
+    direction: the kernel computes it itself (the walk tolerances still
+    read the grid's extent back, as get_cell's do).
+
+    The profiled call runs in a process of its own: on an H100 with
+    PyTorch 2.11, after a full run of the card's tests in one process,
+    most profiler sessions there keep their runtime records
+    (``cudaLaunchKernel``) but lose every device record, kernels and
+    copies alike, while a fresh process keeps them all."""
+    import json
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    here = Path(__file__).resolve().parent
+    res = subprocess.run(
+        [sys.executable, "-c", _PROFILED_WALK, str(here.parent), str(here)],
+        capture_output=True, text=True, timeout=600)
+    assert res.returncode == 0, res.stderr[-4000:]
+    out = json.loads(res.stdout.strip().splitlines()[-1])
+    math = {"aten::sub", "aten::mul", "aten::add", "aten::div",
+            "aten::sqrt", "aten::where", "aten::lt", "aten::bitwise_not"}
+    keys = set(out["ops"])
+    assert not keys & math, keys & math
+    kernels = set(out["kernels"])
     assert kernels and all("walk" in k for k in kernels), kernels
 
 
