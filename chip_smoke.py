@@ -115,7 +115,11 @@ a guess, ``prepare_accurate``, ``interpolate_at_acc``,
    atol = 1e-3) from 0.3 + 0.4 * default_rng(3).random((n, 3)) for n =
    1024 and 65,536 lines (B3's get_cell walk for the start cells, then
    one E1 launch for the start field, then one launch of B4 running
-   every line's RK loop), each held field by
+   every line's RK loop; the second call with the grid and batch size
+   captures the start cells and field as a CUDA graph, torch.equal to
+   the first, and the third replays it on starts from default_rng(4),
+   torch.equal to an eager set-up's trace of them and to the plain
+   loop, with no get_cell walk or E1 launch from Python), each held field by
    field against the plain loop on the card, and the 1024 lines again
    through the generic path (B3's explicit walks plus torch); the 1024
    lines' result written by ``write_trace_vtk`` and its points read
@@ -1964,7 +1968,9 @@ def trace_phase(dev, tiu, grid, counters, walk_kernel, trace_kernel, tmp,
     for n in TRACE_N:
         y0 = torch.from_numpy(0.3 + 0.4 * np.random.default_rng(3).random(
             (n, 3))).to(device=dev, dtype=torch.float32)
-        trace(y0)  # warm-up
+        # the first call with this table and batch size runs the set-up
+        # eagerly; the second captures it as a CUDA graph, later ones
+        # replay it (trace._graphed_start)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         out, counts = main_path(lambda: trace(y0), counters)
@@ -1984,7 +1990,32 @@ def trace_phase(dev, tiu, grid, counters, walk_kernel, trace_kernel, tmp,
         with recorded_calls(trace_kernel, "trace_loop", rec):
             out2 = trace(y0)
         for a, b in zip(out, out2):
-            check(torch.equal(a, b), f"{n} lines: a second run differs")
+            check(torch.equal(a, b), f"{n} lines: the captured set-up's "
+                  "trace differs from the eager one")
+        # a replay on other starts: the graph computes their start cells
+        # and field, held against an eager set-up (a copy of the grid
+        # that no call has seen) and the plain loop
+        y1 = torch.from_numpy(0.3 + 0.4 * np.random.default_rng(4).random(
+            (n, 3))).to(device=dev, dtype=torch.float32)
+        rec1 = {}
+        with recorded_calls(trace_kernel, "trace_loop", rec1):
+            out3, counts3 = main_path(lambda: trace(y1), counters)
+        check(counts3[trace_kernel.__name__] == 1 and counts3[gc_key] == 0
+              and counts3[ik] == 0, f"{n} lines: a replayed set-up made "
+              f"{counts3[gc_key]} get_cell walk and {counts3[ik]} E1 "
+              "launches from Python, not 0 (its graph makes them)")
+        eager1 = tiu.integrate_along_field(dataclasses.replace(grid), y1,
+                                           i_field, **kw)
+        plain1 = trace_kernel.trace_loop_plain(*rec1["inputs"][0][0],
+                                               **rec1["inputs"][0][1])
+        for name, a, b, c in zip(out3._fields, out3, eager1, plain1):
+            check(torch.equal(a, b), f"{n} lines: the replayed set-up's "
+                  f"{name} differs from an eager set-up's")
+            check(torch.equal(a, c), f"{n} lines: the replayed set-up's "
+                  f"{name} differs from the plain loop")
+        check(not torch.equal(out3.y, out.y), f"{n} lines: the replay on "
+              "other starts returned the first starts' lines")
+        del eager1, plain1
         inputs = rec["inputs"][0]
         # the plain loop (trace_plain stages + step_control, a host loop)
         # on the same CUDA tensors: every field bit for bit

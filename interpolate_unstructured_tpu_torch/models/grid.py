@@ -32,6 +32,7 @@ from ..utils.config import (
     IUConfig,
     huge_distance,
     resolve_config,
+    walk_tolerances,
 )
 
 # Tensor fields of UGrid (the JAX package's data_fields), in its order
@@ -110,6 +111,17 @@ class Grid:
     icell_data_names: tuple = ()
     locate_mode: str = "bruteforce"  # "bruteforce" | "walk"
     config: IUConfig = DEFAULT_CONFIG
+    # (nudge, eps_arrive) of every walk on the grid: walk_tolerances of
+    # its dtype and extent as Python floats, computed once as the grid
+    # is made (dataclasses.replace and to() included), so that no walk
+    # reads rmin / rmax back; None on the meta device, which holds no
+    # extent to read
+    walk_tol: tuple = dataclasses.field(init=False, compare=False)
+
+    def __post_init__(self):
+        object.__setattr__(self, "walk_tol", None if self.rmin.is_meta
+                           else walk_tolerances(self.dtype, self.rmin,
+                                                self.rmax))
 
     @property
     def n_cells(self) -> int:

@@ -24,6 +24,8 @@ from typing import Any
 import numpy as np
 import torch
 
+from ..utils import timing
+
 
 @dataclass(frozen=True)
 class KdTree:
@@ -104,6 +106,9 @@ def nearest(tree: KdTree, r):
     Returns:
       (idx, dist2): (B,) int32 original point index of the nearest
       neighbor and its squared distance.
+
+    Each pass of the loop reads back whether any stack is left: host
+    read ``kdtree_nearest`` (``utils/timing.host_read``).
     """
     b = r.shape[0]
     n = tree.n_nodes
@@ -129,7 +134,10 @@ def nearest(tree: KdTree, r):
         return sp + do.to(sp.dtype)
 
     it = 0
-    while it < max_iters and bool((sp > 0).any()):
+    while it < max_iters:
+        with timing.host_read("kdtree_nearest", sp):
+            if not bool((sp > 0).any()):
+                break
         active = sp > 0
         top = (sp - 1).clamp_min(0)
         node = stack_node[rows, top]

@@ -33,7 +33,7 @@ import torch
 
 from . import cand_kernel, walk_kernel
 from ..utils import timing
-from ..utils.config import huge_distance, tiny_distance, walk_tolerances
+from ..utils.config import huge_distance, tiny_distance
 
 STATUS_ARRIVED = walk_kernel.STATUS_ARRIVED
 STATUS_MASK_CHANGED = walk_kernel.STATUS_MASK_CHANGED
@@ -168,8 +168,9 @@ def walk(grid, r0, r1, ic0, max_steps=None, i_icell_mask=None, table=None):
 def _walk_args(grid, r0, r1, ic0, max_steps=None, table=None):
     """The arguments of ``walk_kernel.walk_rows`` for a walk from r0 to
     r1 over ``table`` (default: the walk rows): starts, targets, start
-    cells and the dtype-scaled tolerances (walks shorter than the
-    dtype's tiny distance stay put)."""
+    cells and the dtype-scaled tolerances, the grid's own
+    (``Grid.walk_tol``; walks shorter than the dtype's tiny distance
+    stay put)."""
     if max_steps is None:
         max_steps = grid.config.max_walk_steps
     if table is None:
@@ -177,7 +178,7 @@ def _walk_args(grid, r0, r1, ic0, max_steps=None, table=None):
     r0 = _queries(grid, r0)
     r1 = _queries(grid, r1)
     dtype = torch.empty((), dtype=r0.dtype).numpy().dtype
-    nudge, eps_arrive = walk_tolerances(dtype, grid.rmin, grid.rmax)
+    nudge, eps_arrive = grid.walk_tol
     return (table, r0, r1, _cells(grid, ic0), nudge, eps_arrive,
             huge_distance(dtype), tiny_distance(dtype), max_steps,
             grid.n_faces_per_cell)

@@ -45,7 +45,7 @@ import torch
 
 from . import _kernels, geometry
 from ..utils import timing
-from ..utils.config import huge_distance, tiny_distance, walk_tolerances
+from ..utils.config import huge_distance, tiny_distance
 
 launches = 0  # launches of the explicit walk (walk_rows)
 get_cell_launches = 0  # launches of get_cell's walk stage (get_cell_walk)
@@ -301,10 +301,11 @@ def walk_direction(r0, r1, tiny):
     return u, total, ~degenerate
 
 
-def _tolerances(grid, dtype):
-    """(nudge, eps_arrive, big, tiny) of the grid's walks in ``dtype``."""
-    np_dtype = torch.empty((), dtype=dtype).numpy().dtype
-    nudge, eps_arrive = walk_tolerances(np_dtype, grid.rmin, grid.rmax)
+def _tolerances(grid):
+    """(nudge, eps_arrive, big, tiny) of the grid's walks, in its dtype:
+    the tolerances it holds (``Grid.walk_tol``), read from no tensor."""
+    np_dtype = torch.empty((), dtype=grid.dtype).numpy().dtype
+    nudge, eps_arrive = grid.walk_tol
     return nudge, eps_arrive, huge_distance(np_dtype), tiny_distance(np_dtype)
 
 
@@ -312,7 +313,7 @@ def _resume_plain(grid, r_p, r1, ic, max_steps):
     """Phase 2 of the plain get_cell walk: the stragglers walk again from
     where they stopped (direction and distance from ``r_p``, no previous
     cell).  Returns (ic, steps, status)."""
-    nudge, eps_arrive, big, tiny = _tolerances(grid, r_p.dtype)
+    nudge, eps_arrive, big, tiny = _tolerances(grid)
     u, total, active = walk_direction(r_p, r1, tiny)
     ic_o, _, steps_o, st_o = walk_plain(grid.walk_table, r_p, u, total,
                                         active, ic, nudge, eps_arrive, big,
@@ -329,7 +330,7 @@ def get_cell_walk_plain(grid, r, start, max_steps, p1, step_count=None):
     table = grid.walk_table
     n_rows = table.shape[0]
     nf = grid.n_faces_per_cell
-    nudge, eps_arrive, big, tiny = _tolerances(grid, r.dtype)
+    nudge, eps_arrive, big, tiny = _tolerances(grid)
     if start is None:
         g = grid.bin_pack[seed_bins(grid, r)]
         start, r0 = g[:, 0].to(torch.int32), g[:, 1:4]
@@ -428,7 +429,7 @@ def get_cell_walk_cuda(grid, r, start, max_steps, p1, step_count=None):
     out_found = torch.empty(b, dtype=torch.bool, device=dev)
     if b == 0:
         return out_ic, out_found
-    nudge, eps_arrive, big, tiny = _tolerances(grid, table.dtype)
+    nudge, eps_arrive, big, tiny = _tolerances(grid)
     nbx, nby, nbz = grid.bin_shape
 
     def ptr(t):

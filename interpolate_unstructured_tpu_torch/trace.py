@@ -42,18 +42,27 @@ walks at their own start, which makes them no-ops, so one pass through
 the body computes what the reference's goto-laden loop does.  Both paths
 end each iteration with ``trace_kernel.step_control``.  Vectors are
 (B, D) inside; the JAX package's (D, B) row layout was a TPU layout.
+On the card a fused trace replays its start cells and start field as
+one CUDA graph from the second call with the same grid, fields and batch
+size on (:func:`_graphed_start`): the host issues one replay where it
+issued some twenty launches and ops.
 
 While tracing (``utils/timing.py``) a call is the entry span
 ``iu.integrate_along_field``, holding ``iu.trace.setup`` (the table when
-built per call, the start cells, the start field, the tolerances and
-the buffers) and ``iu.trace.loop`` (B4's launch, or the generic loop:
-an ``iu.trace.iteration`` span and a host read each iteration), and
-counts ``trace.lines``, ``trace.iterations``, ``trace.steps`` and
-``trace.rounds`` from its result.
+built per call, the start cells and the start field, or their graph's
+input copy and replay) and ``iu.trace.loop`` (B4's buffers and launch,
+or the generic loop: an ``iu.trace.iteration`` span and a host read
+each iteration), and counts ``trace.lines``, ``trace.iterations``,
+``trace.steps`` and ``trace.rounds`` from its result, and on the fused
+path on the card one of ``trace.graph_eager``,
+``trace.graph_captures`` and ``trace.graph_replays``.  A replayed
+set-up holds no ``iu.locate`` or ``iu.icell`` span: the graph was
+captured with the spans off.
 """
 
 from __future__ import annotations
 
+import weakref
 from typing import Any, NamedTuple
 
 import numpy as np
@@ -67,7 +76,11 @@ from .ops.trace_kernel import (  # noqa: F401
     SAFETY_FAC,
 )
 from .utils import timing
-from .utils.config import huge_distance, tiny_distance, walk_tolerances
+from .utils.config import huge_distance, tiny_distance
+
+# Captured set-ups of the fused path kept a grid (_graphed_start), the
+# least recently used dropped first: each holds its graph's memory
+GRAPHS_KEPT = 4
 
 
 def _shrink_eps(dtype):
@@ -274,10 +287,10 @@ def integrate_along_field(
             act & ~ok, ic_fail, cap_fail, boundary_code, ndim=ndim,
             min_radius=MIN_RADIUS, **loop_kw)
 
-    # ---- initialization (:1045-1073) ----
-    with timing.span("iu.trace.setup", dev):
-        if trace_table is None:
-            trace_table = build_trace_table(grid, i_field)
+    def start(y0):
+        """(ic0, field0, done, bm) of the lines from ``y0``: start cells,
+        the field there, the lines that do not start and their codes
+        (:1045-1073)."""
         r0_3 = pad3(y0[:, :ndim])
         ic0, found0 = locate.get_cell(grid, r0_3)
         ic0 = torch.where(found0, ic0, -1).to(i32)
@@ -292,19 +305,29 @@ def integrate_along_field(
         done = ~in_region
         bm = torch.where(done, boundary_code(ic0), BM_NOT_REACHED).to(i32)
         field0 = pad3(torch.where(in_region[:, None], field0, 0.0))
+        return ic0, field0, done, bm
+
+    # ---- initialization (:1045-1073) ----
+    with timing.span("iu.trace.setup", dev):
+        if trace_table is None:
+            trace_table = build_trace_table(grid, i_field)
+        if use_fused and dev.type == "cuda" and y0.shape[0]:
+            key = (y0.shape[0], i_field,
+                   torch.cuda.current_stream(dev).cuda_stream)
+            ic0, field0, done, bm = _graphed_start(grid, key, start, y0)
+        else:
+            ic0, field0, done, bm = start(y0)
         loop_kw = dict(min_dx=min_dx, max_dx=max_dx, max_steps=max_steps,
                        rtol=rtol, atol=atol, shrink_eps=shrink_eps,
                        axisymmetric=axisymmetric)
-        if use_fused:
-            nudge, eps_arrive = walk_tolerances(np_dtype, grid.rmin,
-                                                grid.rmax)
-        else:
+        if not use_fused:
             s = trace_kernel.RKState(y0, field0, ic0, done, bm, max_dx,
                                      max_steps, ndim)
 
     with timing.span("iu.trace.loop", dev):
         if use_fused:
             # Every line's whole RK loop in one launch of B4
+            nudge, eps_arrive = grid.walk_tol
             res = TraceResult(*trace_kernel.trace_loop(
                 trace_table, y0, field0, ic0, done, bm,
                 cell_type=grid.cell_type, ndim=ndim, nudge=nudge,
@@ -324,6 +347,103 @@ def integrate_along_field(
             res = TraceResult(*s.result(max_steps))
     _count_trace(res, max_steps)
     return res
+
+
+class _SetupGraph:
+    """The fused path's set-up for one key of :func:`_graphed_start`: the
+    key's calls so far, and from its second call on a CUDA graph of the
+    set-up with its static input ``y0`` and outputs ``out`` (``graph``
+    stays None where the set-up cannot be captured)."""
+
+    __slots__ = ("calls", "graph", "y0", "out")
+
+    def __init__(self):
+        self.calls, self.graph, self.y0, self.out = 0, None, None, None
+
+    def capture(self, start, y0):
+        """Run ``start`` once on a side stream, which does every launch's
+        first-use set-up outside the capture, then capture it there on a
+        copy of ``y0``, with the port's spans and counters off and in
+        this thread's capture mode, so that other threads' CUDA work
+        does not void it.  Unlike ``torch.cuda.graph`` it neither
+        synchronizes the device nor empties the allocator's cache, which
+        would make the next calls allocate afresh.  Raises
+        ``timing.HostReadInCapture`` where ``start`` reaches a host-read
+        site, and CUDA's error where the capture fails."""
+        dev = y0.device
+        y0 = y0.clone()
+        main = torch.cuda.current_stream(dev)
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(main)
+        graph = torch.cuda.CUDAGraph()
+        with timing.capturing(), torch.cuda.device(dev), \
+                torch.cuda.stream(side):
+            start(y0)
+            graph.capture_begin(capture_error_mode="thread_local")
+            try:
+                out = start(y0)
+            finally:
+                graph.capture_end()
+        main.wait_stream(side)
+        self.graph, self.y0, self.out = graph, y0, out
+
+
+# The captured set-ups of each grid: id(grid) -> {key: _SetupGraph},
+# least recently used first, dropped with the grid
+_GRAPHS = {}
+
+
+def _graphs_of(grid):
+    """The set-ups :func:`_graphed_start` keeps for ``grid``."""
+    graphs = _GRAPHS.get(id(grid))
+    if graphs is None:
+        graphs = _GRAPHS[id(grid)] = {}
+        weakref.finalize(grid, _GRAPHS.pop, id(grid), None)
+    return graphs
+
+
+def _graphed_start(grid, key, start, y0):
+    """``start(y0)`` of a fused trace on the card, as a CUDA graph replay
+    from the key's second call on (key: the batch size, the traced
+    fields and the stream, what ``start`` reads besides the grid; the
+    graphs are kept by grid, ``GRAPHS_KEPT`` keys each).  A key's first
+    call runs eagerly, so a caller who changes the batch every call
+    never pays for a capture; its second captures (and replays); later
+    ones copy ``y0`` into the static input and replay.  A set-up that
+    cannot be captured (one that reads the device back, as a candidate
+    residual or a kd-tree seed does, or a capture CUDA refuses) runs
+    eagerly for good.  The outputs are the graph's own buffers,
+    rewritten by the key's next replay on the same stream: they feed B4
+    and are never returned.  While tracing it counts
+    ``trace.graph_eager``, ``trace.graph_captures`` or
+    ``trace.graph_replays``."""
+    graphs = _graphs_of(grid)
+    ent = graphs.pop(key, None) or _SetupGraph()
+    graphs[key] = ent
+    while len(graphs) > GRAPHS_KEPT:
+        graphs.pop(next(iter(graphs)))
+    ent.calls += 1
+    if ent.graph is None:
+        if ent.calls != 2:
+            _count("trace.graph_eager")
+            return start(y0)
+        try:
+            ent.capture(start, y0)
+        except RuntimeError:  # HostReadInCapture, or CUDA's
+            _count("trace.graph_eager")
+            return start(y0)
+        _count("trace.graph_captures")
+    else:
+        _count("trace.graph_replays")
+    ent.y0.copy_(y0)
+    ent.graph.replay()
+    return ent.out
+
+
+def _count(name):
+    """Count one ``name`` while tracing."""
+    if timing.tracing():
+        timing.metrics.count(name)
 
 
 def _count_trace(res, max_steps):

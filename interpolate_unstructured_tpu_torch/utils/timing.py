@@ -17,7 +17,8 @@ Spans.  The port marks its layer boundaries with :func:`span` (the
 / ``iu.trace.loop``, ...), each device-to-host read on its hot path
 with :func:`host_read`, and counts walk steps and RK iterations.
 Tracing is on exactly while a ``torch.profiler`` session records
-(:func:`tracing`); there is no other switch.
+(:func:`tracing`), except while a CUDA graph is captured
+(:func:`capturing`); there is no other switch.
 To trace calls and read what they recorded::
 
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
@@ -58,9 +59,35 @@ import torch
 
 SPANS_KEPT = 4096  # spans kept a name, and entry calls a name
 _OFF = contextlib.nullcontext()
-# True while a torch.profiler session records: the port's spans and
-# counters are on
-tracing = torch.autograd._profiler_enabled
+_profiler_enabled = torch.autograd._profiler_enabled
+_capture = threading.local()  # .on: this thread captures a CUDA graph
+
+
+class HostReadInCapture(RuntimeError):
+    """A :func:`host_read` site was reached inside :func:`capturing`: the
+    work being captured reads the device back, so a graph of it cannot
+    be replayed."""
+
+
+def tracing() -> bool:
+    """True while a ``torch.profiler`` session records and this thread
+    captures no CUDA graph (:func:`capturing`): the port's spans and
+    counters are on."""
+    return _profiler_enabled() and not getattr(_capture, "on", False)
+
+
+@contextlib.contextmanager
+def capturing():
+    """Around the warm-up and the capture of a CUDA graph on this thread:
+    spans and counters are off (no span event, range or counter tensor
+    lands in the graph), and a :func:`host_read` site raises
+    :class:`HostReadInCapture` before it reads anything."""
+    outer = getattr(_capture, "on", False)
+    _capture.on = True
+    try:
+        yield
+    finally:
+        _capture.on = outer
 
 
 def _devices(obj, out: set) -> set:
@@ -320,7 +347,10 @@ def host_read(site: str, *tensors):
     """A device-to-host read on the hot path, at ``site``: while tracing,
     an ``iu.host_read`` span around the ``with`` block, and counter
     ``host_reads.<site>`` counts each CUDA tensor among ``tensors`` (the
-    values the block reads back)."""
+    values the block reads back).  Inside :func:`capturing` it raises
+    :class:`HostReadInCapture`."""
+    if getattr(_capture, "on", False):
+        raise HostReadInCapture(site)
     if not tracing():
         return _OFF
     n = sum(isinstance(t, torch.Tensor) and t.device.type == "cuda"
