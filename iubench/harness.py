@@ -7,6 +7,9 @@ metric sits in a file of its own that this module finds by name:
   traffic names and the metrics it reports;
 * ``iubench/configs/<config>.json``: the mesh, the grid's dtype and
   build options, the point data;
+* ``iubench/meshes/<generator>.py``: the generator that the
+  configuration's ``mesh.generator`` names, which makes its points and
+  cells (the contract is in ``iubench/mesh.py``);
 * ``iubench/traffic/<traffic>.json``: the parameters of one traffic
   mix; its ``kind`` names the module ``iubench/kinds/<kind>.py`` that
   makes the inputs and calls the system;
@@ -112,8 +115,8 @@ class Cell:
     device: torch.device
     tiu: Any
     points: Any = None  # (P, 3) float64 numpy
-    cells: Any = None  # (C, 4) int64 numpy
-    neighbors: Any = None  # (C, 4) int32 numpy
+    cells: Any = None  # (C, nv) int64 numpy
+    neighbors: Any = None  # (C, nv) int32 numpy
     data: dict = field(default_factory=dict)  # name -> (P,) float64
     grid: Any = None
     build: dict = field(default_factory=dict)
@@ -138,13 +141,27 @@ class Cell:
             torch.cuda.synchronize(self.device)
 
 
+def generator(spec: Spec):
+    """The module ``meshes/<generator>.py`` of the configuration's mesh,
+    checked against the configuration's cell type."""
+    cfg = spec.config
+    name = cfg["mesh"]["generator"]
+    path = spec.base / "meshes" / f"{name}.py"
+    if not path.is_file():
+        raise ValueError(f"unknown mesh generator {name!r}")
+    gen = load_module(path)
+    if gen.CELL_TYPE != cfg["cell_type"]:
+        raise ValueError(f"mesh generator {name!r} makes {gen.CELL_TYPE} "
+                         f"cells, the configuration {cfg['cell_type']}")
+    return gen
+
+
 def make_mesh(cell: Cell) -> None:
     """The configuration's mesh and point data, made from the seed."""
-    m = cell.spec.config["mesh"]
-    if m["generator"] != "tet_box":
-        raise ValueError(f"unknown mesh generator {m['generator']!r}")
-    cell.points, cell.cells = mesh.tet_box(m["cubes_per_side"])
-    cell.neighbors = mesh.face_neighbors(cell.cells, cell.device)
+    cfg = cell.spec.config
+    cell.points, cell.cells = generator(cell.spec).make(cfg["mesh"])
+    cell.neighbors = mesh.face_neighbors(cell.cells, cfg["cell_type"],
+                                         cell.device)
     cell.data = {name: fields.smooth_field(cell.points, cell.seed, name)
                  for name in cell.spec.config["point_data"]}
 

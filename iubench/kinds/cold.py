@@ -3,7 +3,8 @@
 ``benchmark.f90``'s cold pass, ``bench.py``'s ``large_mesh``).
 
 Traffic parameters: ``n_queries`` a call, ``n_batches`` made at set-up
-and cycled, ``low`` / ``high`` the cube they fill, ``variable`` the
+and cycled, ``low`` / ``high`` the cube they fill (on a 2D mesh, the
+square in its plane z = 0), ``variable`` the
 point-data name interpolated, ``warm_calls``, and for the check
 ``check_calls`` (calls sampled) and ``check_queries`` (answers compared
 in each).
@@ -31,6 +32,12 @@ def setup(cell) -> State:
                                            generator=g, dtype=cell.dtype,
                                            device=cell.device)
                for _ in range(int(t["n_batches"]))]
+    if cell.spec.config["cell_type"] in ("triangle", "quad"):
+        # upstream weights a 2D cell by its vertices in 3D (unsigned
+        # areas, inverse-bilinear), which interpolates linearly only in
+        # the mesh's plane: z = 0 (iubench/mesh.py)
+        for b in batches:
+            b[:, 2] = 0
     i_var = list(cell.spec.config["point_data"]).index(t["variable"])
     state = State(batches, i_var)
     for _ in range(int(t["warm_calls"])):

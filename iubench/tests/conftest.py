@@ -14,18 +14,21 @@ torch.set_num_threads(1)
 ROOT = Path(__file__).resolve().parents[2]
 sys.path.insert(0, str(ROOT))
 
-# a cell shrunk to what a test can hold: the mesh's cubes a side and the
-# traffic's sizes
+# a cell shrunk to what a test can hold: the mesh by its generator's
+# SMALL, and the traffic's sizes
 SMALL = {"n_queries": 6000, "n_particles": 6000, "n_lines": 16,
          "check_queries": 6000, "check_lines": 16, "max_steps": 64,
          "trace_calls": 2, "span_calls": 0, "check_calls": 2}
 
 
-def shrink(spec, cubes=8):
-    """``spec`` with a box of ``cubes``^3 cubes and small batches."""
+def shrink(spec):
+    """``spec`` with its mesh shrunk by the generator's ``SMALL`` and small
+    batches."""
+    from iubench import harness
+
     spec.config = copy.deepcopy(spec.config)
     spec.traffic = dict(spec.traffic)
-    spec.config["mesh"]["cubes_per_side"] = cubes
+    spec.config["mesh"].update(harness.generator(spec).SMALL)
     for k, v in SMALL.items():
         if k in spec.traffic:
             spec.traffic[k] = v

@@ -95,10 +95,11 @@ def test_reference_agrees_with_the_port_on_the_cpu():
     """Cells, found flags and values of the port's CPU path against the
     reference, on a 6^3-cube box with nonlinear data, float64."""
     from iubench import fields, mesh
+    from iubench.meshes.tet_box import tet_box
     from iubench.reference.locate import RefMesh
 
-    points, cells = mesh.tet_box(6)
-    nb = mesh.face_neighbors(cells)
+    points, cells = tet_box(6)
+    nb = mesh.face_neighbors(cells, "tetra")
     data = fields.smooth_field(points, 1, "phi")
     grid = real_tiu.build_grid(points, cells, nb, "tetra",
                                point_data={"phi": data},
@@ -119,11 +120,12 @@ def test_reference_tracer_agrees_with_the_port_in_float64():
     """The reference tracer against the port's float64 (generic) trace
     on the CPU: codes and step counts identical, curves within 1e-12."""
     from iubench import fields, mesh, traces
+    from iubench.meshes.tet_box import tet_box
     from iubench.reference import tracer
     from iubench.reference.locate import RefMesh
 
-    points, cells = mesh.tet_box(6)
-    nb = mesh.face_neighbors(cells)
+    points, cells = tet_box(6)
+    nb = mesh.face_neighbors(cells, "tetra")
     h = fields.helix(points)
     grid = real_tiu.build_grid(
         points, cells, nb, "tetra",

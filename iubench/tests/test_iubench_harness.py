@@ -79,6 +79,69 @@ def test_a_cell_added_as_new_files_runs(tmp_path):
     assert out["metrics"]["calls_seen"]["value"] == out["attempted"]
 
 
+TRI_SQUARE = '''"""Mesh generator tri_square: [0, 1]^2 in n x n squares, each cut
+into two triangles along its diagonal, in the plane z = 0."""
+
+import numpy as np
+
+CELL_TYPE = "triangle"
+SMALL = {"squares_per_side": 12}
+
+
+def make(params):
+    n = int(params["squares_per_side"])
+    g = np.linspace(0.0, 1.0, n + 1)
+    gx, gy = np.meshgrid(g, g, indexing="ij")
+    points = np.stack([gx.ravel(), gy.ravel(), np.zeros(gx.size)], axis=1)
+    i, j = np.meshgrid(np.arange(n), np.arange(n), indexing="ij")
+    b = (i.ravel() * (n + 1) + j.ravel()).astype(np.int64)
+    cells = np.concatenate([np.stack([b, b + n + 1, b + n + 2], 1),
+                            np.stack([b, b + n + 2, b + 1], 1)])
+    return points, cells
+'''
+
+
+def test_a_cell_on_a_new_mesh_added_as_new_files_runs(tmp_path):
+    """A copy of the benchmark gains a triangle mesh generator, a
+    configuration that names it, its limits and a cell on the existing
+    ``cold_10m`` traffic: no file of ``iubench/`` is edited, the cell
+    runs correct on the CPU, and the control does not."""
+    root = tmp_path / "checkout"
+    bench_dir = root / "iubench"
+    shutil.copytree(ROOT / "iubench", bench_dir,
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    before = {p: p.read_bytes() for p in bench_dir.rglob("*")
+              if p.is_file()}
+    bench = json.loads((ROOT / "BENCHMARK.json").read_text())
+    (bench_dir / "meshes" / "tri_square.py").write_text(TRI_SQUARE)
+    config = {"name": "tri_square_f32", "cell_type": "triangle",
+              "mesh": {"generator": "tri_square", "squares_per_side": 700},
+              "dtype": "float32", "build": {}, "point_data": ["phi"]}
+    (bench_dir / "configs" / "tri_square_f32.json").write_text(
+        json.dumps(config))
+    (bench_dir / "limits" / "tri_square_f32.cold.json").write_text(
+        (bench_dir / "limits" / "tet998k_f32.cold.json").read_text())
+    bench["configs"].append({"name": "tri_square_f32", "source": "a test",
+                             "file": "iubench/configs/tri_square_f32.json",
+                             "reduced": [], "why": "a test configuration"})
+    bench["workloads"].append({"name": "tri_square_f32.cold",
+                               "config": "tri_square_f32",
+                               "traffic": "cold_10m", "chips": 1,
+                               "why": "a test cell"})
+    (root / "BENCHMARK.json").write_text(json.dumps(bench))
+    for p, data in before.items():
+        assert p.read_bytes() == data
+    spec = shrink(harness.find_spec("tri_square_f32.cold", root=root))
+    assert spec.config["mesh"]["squares_per_side"] == 12
+    import interpolate_unstructured_tpu_torch as tiu
+
+    out = run(spec, tiu, control=True)
+    assert out["correct"], out["checks"]
+    assert any(c["value"] is None or c["value"] > c["limit"]
+               for c in out["control_checks"].values()), \
+        out["control_checks"]
+
+
 def run(spec, tiu, seed=5, trace=False, seconds=0.2, control=None):
     return harness.run_cell(spec, seed, seconds, trace, "cpu",
                             time.perf_counter(), tiu, control=control)

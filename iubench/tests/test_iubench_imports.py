@@ -36,8 +36,12 @@ def test_no_jax(path):
     assert not top_level_imports(path) & FORBIDDEN
 
 
-@pytest.mark.parametrize("path", sorted((BENCH / "reference").rglob("*.py")),
-                         ids=lambda p: p.name)
+# the yardstick's references and the meshes both sides are handed
+YARDSTICK = sorted([*(BENCH / "reference").rglob("*.py"),
+                    *(BENCH / "meshes").glob("*.py"), BENCH / "mesh.py"])
+
+
+@pytest.mark.parametrize("path", YARDSTICK, ids=lambda p: p.name)
 def test_reference_imports_nothing_of_the_port(path):
     assert PORT not in top_level_imports(path)
     assert not top_level_imports(path) & FORBIDDEN
