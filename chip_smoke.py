@@ -107,7 +107,11 @@ a guess, ``prepare_accurate``, ``interpolate_at_acc``,
    the public ``walk()`` (``tools/walk_rows_sweep.py`` times its launch
    shapes against the first design), and E1 torch.equal to
    ``interpolate_at_icell_plain`` on the 10M warm queries, the two timed
-   in turns;
+   in turns; the cold and warm calls take the bin order of a walk
+   grid's large batches (``order_check``: O1, O2 and O3 launched once
+   each, as the engage rule says; the order and the unsort torch.equal
+   to their plain versions and the route to the unordered one, both
+   timed beside their bounds);
 8. trace phase, ``bench.py``'s ``trace_at_scale`` protocol on the walk
    phase's grid: the helical field (-(y-0.5), x-0.5, 0.25) added with
    ``add_point_data(..., fuse=False)``, ``build_trace_table`` once, then
@@ -134,8 +138,9 @@ a guess, ``prepare_accurate``, ``interpolate_at_acc``,
    plain version, E1 timed against it in turns, linear error at most
    1e-12); the box's float64 walk grid (no candidate
    tables) with 10M cold and 10.1M warm queries (1% outside; B3's double
-   get_cell walk, torch.equal to ``get_cell_walk_plain``) and B3's double
-   ``walk_rows``; a generic float64 trace of the helix, 1024 lines (B3's
+   get_cell walk, torch.equal to ``get_cell_walk_plain``; both calls in
+   bin order, held by ``order_check`` as in the walk phase) and B3's
+   double ``walk_rows``; a generic float64 trace of the helix, 1024 lines (B3's
    double walks, no B4), every field torch.equal to the same loop with
    the plain walks, and its first walk launch timed alone; the phase's
    peak device memory;
@@ -1550,18 +1555,127 @@ def e1_phase(label, grid, r, slots, ic, bound_fn):
     return res
 
 
+ORDER_PARTS = ("key", "scatter", "unsort")  # O1, O2, O3's launch counters
+
+
+def _bits(x):
+    """A tensor's bits: floats as integers of their width, so NaNs
+    compare."""
+    ints = {torch.float32: torch.int32, torch.float64: torch.int64}
+    return x.view(ints[x.dtype]) if x.dtype in ints else x
+
+
+def order_check(label, grid, calls, bound_fn):
+    """The bin order of a walk grid's large batches on a phase's main-path
+    calls (``ops/order_kernel.py``): ``calls`` holds (name, queries, start
+    cells or None, the call's launch counts).  Each call made the O1, O2
+    and O3 launches that the engage rule gives it (one each, or none).
+    On each call that the rule takes, the order (O1, the scan, O2) and
+    the unsort (O3) are held to ``order_plain`` and ``unsort_plain``
+    torch.equal (the key sequence, each query and start cell at its
+    slot, the tile positions; the unsort's outputs), and the route's
+    cells, found masks and value to the unordered route's; then each is
+    timed against its plain version (CUDA events) beside its bound, each
+    byte once: the order reads the queries twice and the start cells
+    once, writes and reads back a key, rank and tile position a query,
+    and writes the ordered queries, start cells and slots; the unsort
+    reads a slot, a position, a cell, a flag and the values a query and
+    writes the last three.  Returns {"launches": {name: {part: n}},
+    name: {"order": {...}, "unsort": {...}}} for each ordered call."""
+    from interpolate_unstructured_tpu_torch.ops import (
+        interp,
+        locate,
+        order_kernel,
+    )
+
+    ok = order_kernel.__name__
+    res = {"launches": {}}
+    for name, q, st, counts in calls:
+        b = q.shape[0]
+        takes = interp._takes_bin_order(grid, b)
+        got = {x: counts[f"{ok}:{x}"] for x in ORDER_PARTS}
+        res["launches"][name] = got
+        check(all(n == int(takes) for n in got.values()),
+              f"bin order, {label} {name}: launches {got}, but the rule "
+              f"{'takes' if takes else 'turns down'} {b} queries")
+        if not takes:
+            continue
+        shift = order_kernel.key_shift(grid.bin_shape)
+        seeds = (grid.bin_rmin, grid.bin_inv_h, grid.bin_shape, shift)
+        r_o, st_o, back = order_kernel.order(grid, q, st)
+        p_r, p_st, p_back = order_kernel.order_plain(q, st, *seeds)
+        slot = back.slot.long()
+        check(torch.equal(order_kernel.order_keys_plain(r_o, *seeds),
+                          order_kernel.order_keys_plain(p_r, *seeds)),
+              f"bin order, {label} {name}: the key sequence differs from "
+              "order_plain's")
+        check(torch.equal(torch.sort(slot).values,
+                          torch.arange(b, device=q.device))
+              and torch.equal(r_o[slot], q)
+              and (st is None or torch.equal(st_o[slot], st))
+              and torch.equal(back.pos,
+                              order_kernel.tile_positions(back.slot)),
+              f"bin order, {label} {name}: a query or start cell is not "
+              "at its slot, or a tile position differs")
+        del p_r, p_st, slot
+        ic_o, f_o = locate.get_cell(grid, r_o, st_o)
+        v_o = interp.interpolate_at_icell(grid, r_o, (0,), ic_o)
+        out = order_kernel.unsort(back, ic_o, f_o, v_o)
+        ic_u, f_u = locate.get_cell(grid, q, st)
+        v_u = interp.interpolate_at_icell(grid, q, (0,), ic_u)
+        for what, want in (
+                ("unsort_plain", order_kernel.unsort_plain(back, ic_o, f_o,
+                                                           v_o)),
+                ("the unordered route", (ic_u, f_u, v_u))):
+            check(all(torch.equal(_bits(x), _bits(y))
+                      for x, y in zip(out, want, strict=True)),
+                  f"bin order, {label} {name}: the outputs differ from "
+                  f"{what}'s")
+        del out, want, ic_u, f_u, v_u
+        e, sb = q.element_size(), 0 if st is None else 4
+        v = v_o.shape[1] * v_o.element_size()
+        ms = cuda_ms(lambda: order_kernel.order(grid, q, st), 10)
+        p_ms = cuda_ms(lambda: order_kernel.order_plain(q, st, *seeds), 2)
+        u_ms = cuda_ms(lambda: order_kernel.unsort(back, ic_o, f_o, v_o), 10)
+        up_ms = cuda_ms(lambda: order_kernel.unsort_plain(back, ic_o, f_o,
+                                                          v_o), 2)
+        res[name] = {
+            "order": dict(ms=ms, plain_ms=p_ms,
+                          bound=bound_fn(b * (9 * e + 2 * sb + 28), 0)),
+            "unsort": dict(ms=u_ms, plain_ms=up_ms,
+                           bound=bound_fn(b * (18 + 2 * v), 0))}
+        print(f"bin order, {label} {name}, {b} queries "
+              f"({order_kernel.n_keys(grid.bin_shape, shift)} key bins): "
+              f"O1/O2/O3 launches on the main path {json.dumps(got)}; the "
+              f"order torch.equal to order_plain (key sequence, slots, "
+              f"tile positions), the unsort to unsort_plain, the route to "
+              f"the unordered route; CUDA events: order (O1, scan, O2) "
+              f"{ms:.4f} ms, plain {p_ms:.4f} ms, bound "
+              f"{res[name]['order']['bound'][0]:.4f} ms; unsort (O3) "
+              f"{u_ms:.4f} ms, plain {up_ms:.4f} ms, bound "
+              f"{res[name]['unsort']['bound'][0]:.4f} ms", flush=True)
+        del r_o, st_o, back, ic_o, f_o, v_o
+    return res
+
+
 def walk_phase(dev, tiu, meshgen, interp_kernel, locate, cand_kernel,
                walk_kernel, io_res):
     """bench.py's warm protocol on the 998,250-tet box without candidate
     tables, the grid that the io phase read from its file: every query
     walks (get_cell's walk stage, kernel B3), then interpolates in the
     cell it reached (kernel E1)."""
-    from interpolate_unstructured_tpu_torch.ops import icell_kernel, wkern
+    from interpolate_unstructured_tpu_torch.ops import (
+        icell_kernel,
+        order_kernel,
+        wkern,
+    )
 
-    counters = (interp_kernel, cand_kernel, walk_kernel, icell_kernel)
+    counters = (interp_kernel, cand_kernel, walk_kernel, icell_kernel,
+                order_kernel)
     gc_key = f"{walk_kernel.__name__}:get_cell"
     ik = icell_kernel.__name__
     res = {"gc_launches": {}, "e1_launches": {}}
+    order_calls = []
     grid = io_res.pop("walk_grid")
     check(grid.cand_table is None, "walk grid has candidate tables")
     res["gc_launches"]["refine"] = io_res["refine_launches"]
@@ -1586,6 +1700,7 @@ def walk_phase(dev, tiu, meshgen, interp_kernel, locate, cand_kernel,
         counters)
     res["gc_launches"]["cold"] = counts[gc_key]
     res["e1_launches"]["cold"] = counts[ik]
+    order_calls.append(("cold", r, None, counts))
     check(res["gc_launches"]["cold"] >= 1 and counts[ik] >= 1,
           "get_cell's walk stage or E1 was not launched on the cold call")
     check(bool(found.all()), f"{int((~found).sum())} cold queries not found")
@@ -1599,6 +1714,7 @@ def walk_phase(dev, tiu, meshgen, interp_kernel, locate, cand_kernel,
         counters)
     res["gc_launches"]["warm"] = counts[gc_key]
     res["e1_launches"]["warm"] = counts[ik]
+    order_calls.append(("warm", r_warm, ic, counts))
     check(res["gc_launches"]["warm"] >= 1 and counts[ik] >= 1,
           "get_cell's walk stage or E1 was not launched on the warm call")
     check(bool(found.all()), f"{int((~found).sum())} warm queries not found")
@@ -1663,6 +1779,7 @@ def walk_phase(dev, tiu, meshgen, interp_kernel, locate, cand_kernel,
         counters)
     res["gc_launches"]["off_domain"] = counts[gc_key]
     res["e1_launches"]["off_domain"] = counts[ik]
+    order_calls.append(("off_domain", r_off, g_off, counts))
     check(not bool(f_off.any()), "an off-domain query was found")
     check(bool((ic_off < 0).all() and (v_off == FILL).all()),
           "off-domain queries lack a boundary code or the fill")
@@ -1731,6 +1848,14 @@ def walk_phase(dev, tiu, meshgen, interp_kernel, locate, cand_kernel,
     res["gc"] = dict(ms=sum(t_gc["warm"]["new"]) / 2, turns=t_gc,
                      plain_ms=ms_gc_p, bound=bnd_w, bound_cold=bnd_c,
                      max_abs_err=float(gc_err))
+    # the bin order of the cold and warm calls (the rule turns down the
+    # off-domain call's 100,000 queries)
+    res["order"] = order_check("float32 walk grid", grid, order_calls, bound)
+    check(all(res["order"]["launches"][x]["key"] == 1
+              for x in ("cold", "warm")),
+          "the float32 walk grid's 10M cold and warm calls were not taken "
+          "in bin order")
+    del order_calls
     # E1 against its plain version on the 10M warm queries in the cells
     # the warm call found
     res["e1"] = e1_phase("walk grid, 10M warm, float32", grid, r_warm, (0,),
@@ -3172,8 +3297,12 @@ def f64_warm(dev, tiu, grid, locate, walk_kernel, counters):
     (bin-seeded walks), the same points moved and guessed by the cold
     cells plus 1% pushed out of the box, every walk in get_cell's walk
     stage, then E1; both B3 kernels against their plain versions."""
-    from interpolate_unstructured_tpu_torch.ops import icell_kernel
+    from interpolate_unstructured_tpu_torch.ops import (
+        icell_kernel,
+        order_kernel,
+    )
 
+    counters = counters + (order_kernel,)
     gc_key = f"{walk_kernel.__name__}:get_cell"
     ik = icell_kernel.__name__
     res = {"gc_launches": {}, "e1_launches": {}}
@@ -3185,6 +3314,7 @@ def f64_warm(dev, tiu, grid, locate, walk_kernel, counters):
         counters)
     res["gc_launches"]["cold"] = counts[gc_key]
     res["e1_launches"]["cold"] = counts[ik]
+    order_calls = [("cold", r, None, counts)]
     check(counts[gc_key] >= 1 and counts[ik] >= 1, "float64 cold walks: "
           "get_cell's walk stage or E1 was not launched")
     check(bool(found.all()), f"float64 cold walks: {int((~found).sum())} "
@@ -3201,6 +3331,7 @@ def f64_warm(dev, tiu, grid, locate, walk_kernel, counters):
                                           fill_value=FILL), counters)
     res["gc_launches"]["warm"] = counts[gc_key]
     res["e1_launches"]["warm"] = counts[ik]
+    order_calls.append(("warm", rq, guess, counts))
     check(counts[gc_key] >= 1 and counts[ik] >= 1, "float64 warm: "
           "get_cell's walk stage or E1 was not launched")
     check(bool(found[:N_CAND].all()), "float64 warm: an inside query was "
@@ -3247,6 +3378,13 @@ def f64_warm(dev, tiu, grid, locate, walk_kernel, counters):
           f"({bnd_gc[1]}; {rounds} rounds, {rows} distinct walk rows)")
     res["gc"] = dict(ms=ms_gc, plain_ms=ms_gc_p, bound=bnd_gc,
                      max_abs_err=float(gc_err))
+    res["order"] = order_check("float64 walk grid", grid, order_calls,
+                               bound64)
+    check(all(res["order"]["launches"][x]["key"] == 1
+              for x in ("cold", "warm")),
+          "the float64 walk grid's 10M cold and 10.1M warm calls were not "
+          "taken in bin order")
+    del order_calls
     # the explicit walk (walk_rows) against its plain version on the 10M
     # warm walks from the cold cells' centers, and timed there
     r0 = walk_kernel.walk_origin(grid.walk_table, ic, grid.n_faces_per_cell,
@@ -4528,6 +4666,22 @@ def main() -> int:
         "ms": e1["ms"], "plain_ms": e1["plain_ms"],
         "bound_ms": e1["bound"][0], "bound_by": e1["bound"][1],
         "library_ms": None})
+    orders = {"float32": b3["order"], "float64": f64_warm["order"]}
+    print("bin order launches on the main path (O1 key, O2 scatter, O3 "
+          "unsort; walk grids' calls): "
+          + json.dumps({k: o["launches"] for k, o in orders.items()}))
+    for dt, o in orders.items():
+        for label, part, key in (("O1-O2 bin order (key pass, scan, "
+                                  "scatter)", "order", "key"),
+                                 ("O3 unsort", "unsort", "unsort")):
+            st = o["warm"][part]
+            kernels.append({
+                "name": f"{label} {dt}, 10M warm", "route": "cuda",
+                "source": f"{pkg}/csrc/order.cu", "replaces": None,
+                "launches": sum(n[key] for n in o["launches"].values()),
+                "max_abs_err": 0.0, "ms": st["ms"],
+                "plain_ms": st["plain_ms"], "bound_ms": st["bound"][0],
+                "bound_by": st["bound"][1], "library_ms": None})
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -117,6 +117,21 @@ _SIGNATURES = {
     "iu_interp_icell_f64": (
         _I, [_P, _P, _P, _I, _I, _P, _I, _IP, _I, _P, _P, _I, _P, _I, _P],
     ),
+    "iu_order_key": (
+        _I, [_P, _I, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P],
+    ),
+    "iu_order_key_f64": (
+        _I, [_P, _I, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P],
+    ),
+    "iu_order_scatter": (
+        _I, [_P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P],
+    ),
+    "iu_order_scatter_f64": (
+        _I, [_P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P],
+    ),
+    "iu_order_unsort": (
+        _I, [_P, _P, _I, _P, _P, _P, _I, _P, _P, _P, _P],
+    ),
     "iu_error_string": (ctypes.c_char_p, [_I]),
 }
 

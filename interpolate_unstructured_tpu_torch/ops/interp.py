@@ -12,7 +12,10 @@ one of three routes:
   -> the candidate-row probe, kernel B2 (``ops/locate._candidates_query``);
 * everything else (a warm guess, an unfused variable, a grid without
   candidate tables) -> ``ops/locate.get_cell`` (walks run kernel B3),
-  then ``interpolate_at_icell`` (kernel E1, ``ops/icell_kernel.py``).
+  then ``interpolate_at_icell`` (kernel E1, ``ops/icell_kernel.py``);
+  on the card a large batch on a grid without candidate tables takes
+  both in bin order (``ops/order_kernel.py``) and comes back in query
+  order, bit for bit the same.
 
 Values are (B, V), as at the public API of the JAX package; the (V, B)
 layout its internals used for the TPU is not carried over.  Every
@@ -21,7 +24,10 @@ nothing contains the query.
 
 While tracing (``utils/timing.py``) ``interpolate_at`` is the entry span
 ``iu.interpolate_at``; the location inside it is ``iu.locate``,
-``interpolate_at_icell`` is ``iu.icell`` and the fill ``iu.fill``.
+``interpolate_at_icell`` is ``iu.icell`` and the fill ``iu.fill``; the
+bin order is ``iu.order`` (before the location) and ``iu.unorder``
+(after the interpolation), and counts ``order.calls`` and
+``order.queries``.
 """
 
 from __future__ import annotations
@@ -199,6 +205,41 @@ def _fill(values, found, fill_value):
     return torch.where(found[:, None], values, fill.broadcast_to(values.shape))
 
 
+def _takes_bin_order(grid, n_queries):
+    """Whether ``interpolate_at``'s get_cell and interpolate_at_icell
+    take a batch of ``n_queries`` in bin order: on the card, on a walk
+    grid without candidate tables, for a batch that
+    ``order_kernel.engages``."""
+    from . import order_kernel
+
+    return (grid.device.type == "cuda" and grid.locate_mode == "walk"
+            and grid.cand_table is None and grid.bin_rmin is not None
+            and grid.walk_table is not None
+            and order_kernel.engages(n_queries, grid.n_cells,
+                                     grid.walk_table.nbytes,
+                                     order_kernel.l2_bytes(grid.device),
+                                     grid.cell_type))
+
+
+def _in_bin_order(grid, r, slots, guess):
+    """``get_cell`` then ``interpolate_at_icell`` of the (B, 3) queries
+    ``r`` in bin order (``ops/order_kernel.py``).  Returns
+    (i_cell, found, values) in query order, as the two calls give them
+    on ``r``."""
+    from . import locate, order_kernel
+
+    if timing.tracing():
+        timing.metrics.count("order.calls", 1)
+        timing.metrics.count("order.queries", r.shape[0])
+    with timing.span("iu.order", grid.device):
+        start = None if guess is None else locate._cells(grid, guess)
+        r_o, start_o, back = order_kernel.order(grid, r, start)
+    i_cell, found = locate.get_cell(grid, r_o, start_o)
+    values = interpolate_at_icell(grid, r_o, slots, i_cell)
+    with timing.span("iu.unorder", grid.device):
+        return order_kernel.unsort(back, i_cell, found, values)
+
+
 @timing.spanned("iu.interpolate_at", entry=True)
 def interpolate_at(grid, r, i_vars, guess=None, fill_value=math.nan):
     """Locate + interpolate (iu_interpolate_at, :480-495), batched.
@@ -206,7 +247,8 @@ def interpolate_at(grid, r, i_vars, guess=None, fill_value=math.nan):
     The route is the JAX package's ``_interpolate_at_T``
     (ops/interp.py:254-314): brute force; the candidate rows for a cold
     call whose variables are all fused into them; else ``get_cell``
-    then ``interpolate_at_icell``.
+    then ``interpolate_at_icell``, in bin order where
+    :func:`_takes_bin_order`.
 
     Args:
       r: (B, 3) positions (tensor or array; moved to the grid's device
@@ -245,8 +287,11 @@ def interpolate_at(grid, r, i_vars, guess=None, fill_value=math.nan):
             i_cell, found, values = locate._candidates_query(grid, r, slots)
         return _fill(values, found, fill_value), i_cell, found
 
-    i_cell, found = locate.get_cell(grid, r, guess)
-    values = interpolate_at_icell(grid, r, slots, i_cell)
+    if _takes_bin_order(grid, r.shape[0]):
+        i_cell, found, values = _in_bin_order(grid, r, slots, guess)
+    else:
+        i_cell, found = locate.get_cell(grid, r, guess)
+        values = interpolate_at_icell(grid, r, slots, i_cell)
     return _fill(values, found, fill_value), i_cell, found
 
 
