@@ -516,7 +516,7 @@ def binned_probe_call(grid, r, perm, lay, eps, k, lanes, rec, b=None,
     _kernels.check(code, "iu_cand_rows_binned")
 
 
-def ext_check(label, grid, r, cand_kernel, locate, bound_fn=bound, reps=10):
+def ext_check(label, grid, r, cand_kernel, bound_fn=bound, reps=10):
     """B2's probe in bin order with the extension probe on a grid with
     extension rows, on the main path's queries ``r``: the probe and the
     unsort torch.equal to the plain composition (probe_rows_ext_plain:
@@ -528,17 +528,19 @@ def ext_check(label, grid, r, cand_kernel, locate, bound_fn=bound, reps=10):
     candidate its probe roles of every distinct main and extension row
     read, the value roles of every distinct (row, winner), per query
     its perm entry, coordinates and record."""
+    from interpolate_unstructured_tpu_torch.models import cand_table
+
     slots = (0,) if grid.cand_nv else ()
     k = grid.cand_ids.shape[1]
-    lay = locate._row_layout(grid, k, slots)
-    lay_e = locate._row_layout(grid, grid.cand_ext_ids.shape[1], slots)
+    lay = cand_table.layout(grid, k, slots)
+    lay_e = cand_table.layout(grid, grid.cand_ext_ids.shape[1], slots)
     ext = (grid.cand_ext_table, lay_e)
-    eps = locate._cand_eps(grid)
+    eps = cand_table.probe_eps(grid)
     bins = (grid.cand_rmin, grid.cand_inv_h, grid.cand_shape)
-    chunk = locate._cand_chunk(grid)
+    chunk = cand_table.probe_chunk(grid)
     n = r.shape[0]
     n_bins = int(np.prod(grid.cand_shape))
-    idx, rq = locate._cand_probe_inputs(grid, r)
+    idx, rq = cand_table.probe_inputs(grid, r)
     want = cand_kernel.probe_rows_ext_plain(grid.cand_table, ext[0], idx, rq,
                                             lay, lay_e, eps, k, chunk)
     _, _, perm, slot = cand_kernel.bin_order_cuda(r, *bins)
@@ -600,7 +602,7 @@ def ext_check(label, grid, r, cand_kernel, locate, bound_fn=bound, reps=10):
     return res
 
 
-def b2_front_end(dev, grid, r, k, cand_kernel, locate):
+def b2_front_end(dev, grid, r, k, cand_kernel):
     """B2 on the 10M cold queries of the 998k-tet box: the bin-ordered
     front end against its plain versions, each kernel timed, with bounds
     that count each row once.  The probe in bin order is checked and
@@ -608,14 +610,15 @@ def b2_front_end(dev, grid, r, k, cand_kernel, locate):
     neighbour (2 and 4); tools/b2_sweep.py sweeps lanes and batch sizes,
     and the direct kernel of the first design (one warp a query in query
     order) against the bin-ordered query."""
+    from interpolate_unstructured_tpu_torch.models import cand_table
     from interpolate_unstructured_tpu_torch.ops import _kernels, geometry
 
     res = {}
     n = r.shape[0]
-    idx, rq = locate._cand_probe_inputs(grid, r)
-    lay = locate._row_layout(grid, k, (0,))
-    eps = locate._cand_eps(grid)
-    chunk = locate._cand_chunk(grid)
+    idx, rq = cand_table.probe_inputs(grid, r)
+    lay = cand_table.layout(grid, k, (0,))
+    eps = cand_table.probe_eps(grid)
+    chunk = cand_table.probe_chunk(grid)
     bins = (grid.cand_rmin, grid.cand_inv_h, grid.cand_shape)
     n_bins = int(np.prod(grid.cand_shape))
     lanes = cand_kernel.binned_lanes(n, n_bins)
@@ -1306,7 +1309,7 @@ def candidate_phase(dev, tiu, meshgen, interp_kernel, locate, cand_kernel,
           f"steady {e2e * 1e3:.4f} ms = {N_CAND / e2e:.4e} queries/s; "
           f"all found; linear error {lin:.3e}")
 
-    res.update(b2_front_end(dev, grid, r, k, cand_kernel, locate))
+    res.update(b2_front_end(dev, grid, r, k, cand_kernel))
     del vals, found
 
     # Warm on the candidate grid: the points moved, guessed by the cold
@@ -1390,7 +1393,7 @@ def candidate_phase(dev, tiu, meshgen, interp_kernel, locate, cand_kernel,
     check(lin <= LIN_TOL, f"extension grid linear-exactness error {lin}")
     e2e = steady_s(lambda: tiu.interpolate_scalar_at(grid, r, 0), 5)
     res["ext"] = ext_check(f"B2 extension grid ({grid.n_cells} tets)", grid,
-                           r, cand_kernel, locate)
+                           r, cand_kernel)
     print(f"B2 extension grid ({grid.n_cells} tets): {N_CMP} cold "
           f"interpolate_scalar_at steady {e2e * 1e3:.4f} ms; probe launches "
           f"with the extension rows {n_ext}; linear error {lin:.3e}")
@@ -2368,10 +2371,11 @@ def acc_compare(name, k_out, p_out, n_ids, exact=False):
 
 
 def accurate_phase(dev, tiu, grid, bf_inputs, counters, cand_kernel,
-                   acc_kernel, walk_kernel, locate):
+                   acc_kernel, walk_kernel):
     """Accurate mode on the candidate phase's 998,250-tet grid (bench.py's
     accurate protocol, bench.py:353-402), then B5 on the brute-force
     phase's meshes."""
+    from interpolate_unstructured_tpu_torch.models import cand_table
     from interpolate_unstructured_tpu_torch.ops import _kernels, interp_acc
 
     ck = cand_kernel.__name__
@@ -2495,10 +2499,10 @@ def accurate_phase(dev, tiu, grid, bf_inputs, counters, cand_kernel,
     # B2-df in bin order against its plain version (split, bin index,
     # hi/lo local frame, probe, from the same float64 queries) on the
     # first 1M, then each kernel of the pipeline timed on all 10M
-    lay = locate._df_row_layout(grid, (0,))
-    eps = locate._cand_eps(grid)
+    lay = cand_table.df_layout(grid, (0,))
+    eps = cand_table.probe_eps(grid)
     table = grid.cand_df_table
-    chunk = locate._cand_chunk(grid, table)
+    chunk = cand_table.probe_chunk(grid, table)
     bins = (grid.cand_rmin, grid.cand_inv_h, grid.cand_shape)
     n_bins = int(np.prod(grid.cand_shape))
     cut = slice(0, N_CMP)
@@ -2754,8 +2758,7 @@ def io_phase(dev, tiu, meshgen, cand_grid, cand_res, counters, card, tmp):
     import os
 
     from interpolate_unstructured_tpu_torch.io import convert, vtk
-    from interpolate_unstructured_tpu_torch.models import grid as tgrid
-    from interpolate_unstructured_tpu_torch.ops import locate
+    from interpolate_unstructured_tpu_torch.models import cand_table
 
     interp_kernel, cand_kernel, walk_kernel, acc_kernel, _ = counters
     gc_key = f"{walk_kernel.__name__}:get_cell"
@@ -2800,13 +2803,13 @@ def io_phase(dev, tiu, meshgen, cand_grid, cand_res, counters, card, tmp):
     save_s = time.perf_counter() - t0
     size = os.path.getsize(path)
     rebuilds = []
-    real_builder = tgrid.build_candidate_bins_dispatch
+    real_builder = cand_table.build_candidate_bins_dispatch
 
     def counting_builder(*a, **k):
         rebuilds.append(1)
         return real_builder(*a, **k)
 
-    tgrid.build_candidate_bins_dispatch = counting_builder
+    cand_table.build_candidate_bins_dispatch = counting_builder
     try:
         timings = {}
         t0 = time.perf_counter()
@@ -2814,7 +2817,7 @@ def io_phase(dev, tiu, meshgen, cand_grid, cand_res, counters, card, tmp):
         torch.cuda.synchronize()
         load_s = time.perf_counter() - t0
     finally:
-        tgrid.build_candidate_bins_dispatch = real_builder
+        cand_table.build_candidate_bins_dispatch = real_builder
     check(not rebuilds, "load_grid rebuilt the candidate lists")
     n_leaves = check_same_grid("load_grid of the 998k-tet box", cand_grid,
                                loaded)
@@ -2940,7 +2943,7 @@ def io_phase(dev, tiu, meshgen, cand_grid, cand_res, counters, card, tmp):
     check(lin <= LIN_TOL, f"io rebuild: linear-exactness error {lin}")
     e2e = steady_s(lambda: tiu.interpolate_scalar_at(rebuilt, r, 0), 3)
     res["ext"] = ext_check("B2 io rebuild, 10M cold", rebuilt, r,
-                           cand_kernel, locate)
+                           cand_kernel)
     res["ext"]["e2e_ms"] = e2e * 1e3
     print(f"io rebuild, load_grid with cand_cover_row_bytes=0: "
           f"{rebuild_load_s:.3f} s split "
@@ -3114,11 +3117,11 @@ def f64_bruteforce(dev, tiu, meshgen, interp_kernel, counters):
     return rows
 
 
-def f64_cold(dev, tiu, grid, r, locate, cand_kernel, walk_kernel, counters):
+def f64_cold(dev, tiu, grid, r, cand_kernel, walk_kernel, counters):
     """The 998k box's cold float64 queries: the main path, then each B2
     stage against its plain version on the same inputs, timed, with
     bounds that count each byte once at the FP64 rate."""
-    from interpolate_unstructured_tpu_torch.models.grid import cand_fused_nv
+    from interpolate_unstructured_tpu_torch.models import cand_table
     from interpolate_unstructured_tpu_torch.ops import (
         _kernels,
         geometry,
@@ -3169,13 +3172,13 @@ def f64_cold(dev, tiu, grid, r, locate, cand_kernel, walk_kernel, counters):
           f"{res['gc_launches']}, E1 {res['e1_launches']}")
 
     k = grid.cand_ids.shape[1]
-    var = (0,) if cand_fused_nv(grid) > 0 else ()
-    lay = locate._row_layout(grid, k, var)
-    eps = locate._cand_eps(grid)
-    chunk = locate._cand_chunk(grid)
+    var = (0,) if cand_table.fused_nv(grid) > 0 else ()
+    lay = cand_table.layout(grid, k, var)
+    eps = cand_table.probe_eps(grid)
+    chunk = cand_table.probe_chunk(grid)
     bins = (grid.cand_rmin, grid.cand_inv_h, grid.cand_shape)
     n_bins = int(np.prod(grid.cand_shape))
-    idx, rq = locate._cand_probe_inputs(grid, r)
+    idx, rq = cand_table.probe_inputs(grid, r)
     pout = cand_kernel.probe_rows_plain(grid.cand_table, idx, rq, lay, eps,
                                         k, chunk)
     b_idx, ends, perm, slot = cand_kernel.bin_order_cuda(r, *bins)
@@ -3204,7 +3207,7 @@ def f64_cold(dev, tiu, grid, r, locate, cand_kernel, walk_kernel, counters):
           f"in bin order ({lanes} lanes a query) with the unsort torch.equal "
           f"to probe_rows_plain")
     res["ext"] = ext_check(f"B2 float64, the 998k box's {n} cold queries",
-                           grid, r, cand_kernel, locate, bound64)
+                           grid, r, cand_kernel, bound64)
     res.update(n_ext=res["ext"]["n_ext"], n_walk=res["ext"]["n_walk"])
 
     lib = _kernels.lib()
@@ -3248,7 +3251,7 @@ def f64_cold(dev, tiu, grid, r, locate, cand_kernel, walk_kernel, counters):
         return back[:, 0], back[:, 1], back[:, 2:].view(torch.float64)
 
     binned_probe_call(grid, r, perm, lay, eps, k, lanes, rec,
-                      ext=(grid.cand_ext_table, locate._row_layout(
+                      ext=(grid.cand_ext_table, cand_table.layout(
                           grid, grid.cand_ext_ids.shape[1], var)))
     unsort()
     res["unsort_err"] = float(equal_or_fail("B2 float64 unsort", outs,
@@ -3555,8 +3558,8 @@ def float64_phase(dev, tiu, meshgen, interp_kernel, locate, cand_kernel,
           "the float64 box has no float64 candidate rows with extension rows")
     builder_grid_match("float64 box", grid, pts, cells, nbrs, dev)
     r = torch.from_numpy(np.random.default_rng(2).random((N_CAND, 3))).to(dev)
-    res["cold"] = f64_cold(dev, tiu, grid, r, locate, cand_kernel,
-                           walk_kernel, counters)
+    res["cold"] = f64_cold(dev, tiu, grid, r, cand_kernel, walk_kernel,
+                           counters)
     res["cold"].update(build_s=build_s, timings=timings,
                        d_launches=d_launches)
     del grid, r
@@ -4149,7 +4152,7 @@ def oracle_mesh(grid, points=None, data=None):
 def oracle_band(grid, pts64):
     """The tie band of a grid's answers against the oracle's.  The card
     takes a cell whose face margins, in the grid's own geometry, are at
-    least -(eps_inside + cand_qeps) (the probe, ``locate._cand_eps``),
+    least -(eps_inside + cand_qeps) (the probe, ``cand_table.probe_eps``),
     or where a walk ends: its target lies within eps_arrive past the exit
     face, from a position a hop's nudge may have carried past a crossed
     face (``utils.config.walk_tolerances``: 64 and 16 eps(dtype) extent,
@@ -4460,7 +4463,7 @@ def main() -> int:
                     io["walk_grid"], acc_counters + (trace_kernel,), card, tmp)
         b5 = timed_phase("accurate", accurate_phase, dev, tiu, b2.pop("grid"),
                          b1.pop("acc_inputs"), acc_counters, cand_kernel,
-                         acc_kernel, walk_kernel, locate)
+                         acc_kernel, walk_kernel)
         b3 = timed_phase("walk", walk_phase, *args, io)
         b4 = timed_phase("trace", trace_phase, dev, tiu, b3.pop("grid"),
                          (interp_kernel, cand_kernel, walk_kernel,

@@ -27,6 +27,7 @@ import time
 import numpy as np
 import torch
 
+from ..models import cand_table
 from .binda import BindaWriter, read_binda
 
 # v4 adds overflow-extension candidate lists; v5 sheds the two
@@ -59,7 +60,7 @@ _ARRAY_FIELDS = [
 # Optional leaves: stored when present, reconstructed/None otherwise.
 # The packed derived tables (walk_table, cand_table, cand_ext_table) are
 # NOT stored: they are assembled on the device from the leaves above at
-# load time (models.grid._build_walk_table / _build_cand_tables).
+# load time (models.grid._build_walk_table / models.cand_table.pack).
 _OPTIONAL_FIELDS = [
     "kd_node_points",
     "kd_node_ids",
@@ -172,8 +173,9 @@ def load_grid(filename, config=None, dtype=None, resave_on_rebuild=False,
     When the stored candidate lists no longer match this session's
     config (capacity or bin-shape drift, a dtype change, a pre-v4 file),
     they are rebuilt on load from the stored geometry by the builder
-    that ``config.cand_build`` picks (``build_candidate_bins_dispatch``,
-    in the load dtype, on ``device``), as the JAX package rebuilds.
+    that ``config.cand_build`` picks (``cand_table.stale`` decides,
+    ``cand_table.build_lists`` rebuilds, in the load dtype, on
+    ``device``), as the JAX package rebuilds.
     ``resave_on_rebuild`` writes the refreshed grid back to ``filename``
     so the cost is paid once, never across a dtype change.
     """
@@ -288,106 +290,36 @@ def load_grid(filename, config=None, dtype=None, resave_on_rebuild=False,
         locate_mode=locate_mode,
         config=config,
     )
+    rebuilt = False
     if grid.cand_ids is not None:
-        from ..models.grid import _make_cover_ok, candidate_row_capacity
-        from ..ops.geometry import NDIM_OF_CELL_TYPE, _bin_grid_shape
-
-        # Capacity is evaluated at the BUILD-time fused-variable count
-        # (the cand_nv pin), not the current n_point_data: variables
-        # appended after the build (fuse=False) shrink the capacity K
-        # for a hypothetical repack but say nothing about the stored
-        # lists, and comparing against the inflated count would rebuild
-        # the lists on every load and discard the pin.  Pre-v4
-        # checkpoints (pin -1) keep the n_point_data-based derivation.
-        cap_n = (
-            min(cand_nv, grid.n_point_data)
-            if cand_nv >= 0
-            else grid.n_point_data
+        size = cand_table.sizing(grid)
+        # host_arrays still holds the counts and bounds: reading them
+        # back off the device would add a blocking round-trip to every
+        # load
+        rebuilt = cand_table.stale(
+            grid, size, dtype_changed=target != saved_dtype,
+            max_count=int(host_arrays["cand_count"].max(initial=0)),
+            rmin=host_arrays["rmin"].astype(np.float64),
+            rmax=host_arrays["rmax"].astype(np.float64),
         )
-        k_max, cap_nv = candidate_row_capacity(
-            cell_type, t_dtype, config, n_point_data=cap_n
-        )
-        # The stored K is legitimate either as this session's capacity
-        # K or as a cover-widened K (= the worst bin's exact count,
-        # IUConfig.cand_cover_row_bytes): recompute what this config
-        # would choose so a cover checkpoint doesn't rebuild on every
-        # load.
-        cover_ok = _make_cover_ok(cell_type, t_dtype, config, cap_nv, k_max)
-        # host_arrays still holds the counts — reading them back off
-        # the device would add a blocking round-trip to every load
-        max_count = int(host_arrays["cand_count"].max(initial=0))
-        want_k = max_count if cover_ok(max_count) else k_max
-        # Bin shape this session's config would choose (deterministic
-        # in (bbox, ndim, target count)) — a mismatch means the save
-        # used a different cand_bins_per_cell / cand_max_bins
-        want_shape, _, _, _ = _bin_grid_shape(
-            host_arrays["rmin"].astype(np.float64),
-            host_arrays["rmax"].astype(np.float64),
-            NDIM_OF_CELL_TYPE[cell_type],
-            min(
-                max(int(config.cand_bins_per_cell * n_cells), 1),
-                config.cand_max_bins,
-            ),
-        )
-        # The save-time shape came from exact f64 point bounds while
-        # rmin/rmax were stored in the grid dtype, so the rounding
-        # inside _bin_grid_shape can flip a dim by one on an f32 grid —
-        # tolerate that; real config changes move dims by >= 2.
-        shape_changed = any(
-            abs(int(w) - int(s)) > 1
-            for w, s in zip(want_shape, grid.cand_shape)
-        )
-    rebuilt = grid.cand_ids is not None and (
-        target != saved_dtype
-        or grid.cand_ids.shape[1] != want_k
-        or shape_changed
-        or (grid.cand_ext_slot is None and config.cand_ext_max_k > 0)
-    )
     if rebuilt:
-        # Rebuild when the stored lists no longer match this session:
-        # (a) a coarser load dtype widens the query-side inside
-        # tolerance past the save-time inflation, which could admit
-        # points into cells filtered out of their bin, (b) a K
-        # mismatch (row layout/capacity changed since the save) would
-        # silently overflow or underfill the packed rows, (c) a pre-v4
-        # checkpoint lacks the overflow-extension lists.
-        from ..models.grid import _cand_fields, build_candidate_bins_dispatch
-        from ..ops.geometry import NDIM_OF_CELL_TYPE
-
         if "cell_points" not in host_arrays:  # v5 container
             host_arrays["cell_points"] = host_arrays["points"][
                 host_arrays["cells"]
             ]
-        (
-            cand_ids, cand_count, cand_shape, cand_rmin, cand_inv_h,
-            ext_ids, ext_slot,
-        ) = build_candidate_bins_dispatch(
-            host_arrays["cell_points"].astype(np.float64),
-            host_arrays["face_normals"].astype(np.float64),
-            host_arrays["face_offsets"].astype(np.float64),
-            host_arrays["rmin"].astype(np.float64),
-            host_arrays["rmax"].astype(np.float64),
-            NDIM_OF_CELL_TYPE[cell_type],
-            k_max,
-            t_dtype,
-            config,
-            cover_ok=cover_ok,
-            device=device,
-        )
-        grid = dataclasses.replace(
+        grid = cand_table.build_lists(
             grid,
-            **_cand_fields(cand_ids, cand_count, cand_shape, cand_rmin,
-                           cand_inv_h, ext_ids, ext_slot, t_dtype, device),
-            # The candidate lists changed, so the checkpointed fused-
-            # variable pin no longer describes them: clear it BEFORE the
-            # resave below, or the rebuilt file would permanently pin
-            # the pre-rebuild count.
-            cand_nv=-1,
+            *(host_arrays[f].astype(np.float64) for f in (
+                "cell_points", "face_normals", "face_offsets", "rmin",
+                "rmax")),
+            size,
         )
         if resave_on_rebuild and target == saved_dtype:
             # Never resave across a dtype change: overwriting a float64
             # master checkpoint with a downcast grid would destroy the
-            # higher-precision original.
+            # higher-precision original.  The lists changed, so the
+            # file's fused-variable pin is cleared (build_lists clears
+            # it): the next load packs at this session's capacity.
             save_grid(grid, filename)
     mark("rebuild_s")
     if grid.walk_table is None:  # build_grid always carries one
@@ -395,17 +327,10 @@ def load_grid(filename, config=None, dtype=None, resave_on_rebuild=False,
 
         grid = dataclasses.replace(grid, walk_table=_build_walk_table(grid))
     if grid.cand_ids is not None:
-        from ..models.grid import _build_cand_tables
-
         # Honor the checkpointed fused-variable pin (variables added
         # with fuse=False stay unfused across the round-trip); after a
-        # candidate-list rebuild the row layout changed, so the pin is
-        # stale and the pack re-derives capacity nv.
-        grid = dataclasses.replace(
-            grid,
-            **_build_cand_tables(
-                grid, nv=None if rebuilt else grid.cand_nv
-            ),
-        )
+        # candidate-list rebuild the pin is cleared and the pack
+        # re-derives capacity nv.
+        grid = dataclasses.replace(grid, **cand_table.pack(grid, grid.cand_nv))
     mark("tables_s")
     return grid

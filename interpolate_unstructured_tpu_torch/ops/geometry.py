@@ -170,7 +170,7 @@ def cand_bin_center_cols(rmin, inv_h, i, j, k):
     """Candidate-bin center components from integer bin coordinates.
 
     THE single definition of the bin-local frame origin: the quantized
-    candidate packer (models/grid._pack_qcand_rows) and the query side
+    candidate packer (models/cand_table._pack_qcand_rows) and the query side
     (ops/locate) must produce bitwise-identical centers or the stored
     local offsets drift against the query's local coordinates.  The
     arithmetic is the JAX package's, step for step, so both packages

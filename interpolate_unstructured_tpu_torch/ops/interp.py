@@ -38,6 +38,7 @@ import numpy as np
 import torch
 
 from . import wkern
+from ..models import cand_table
 from ..utils import timing
 
 
@@ -263,7 +264,6 @@ def interpolate_at(grid, r, i_vars, guess=None, fill_value=math.nan):
       found: (B,) bool
     """
     from . import interp_kernel, locate
-    from ..models.grid import cand_fused_nv
 
     r = torch.as_tensor(r, dtype=grid.dtype, device=grid.device)
     if r.ndim != 2 or r.shape[1] != 3:
@@ -280,8 +280,7 @@ def interpolate_at(grid, r, i_vars, guess=None, fill_value=math.nan):
     if (
         guess is None
         and grid.cand_table is not None
-        and slots
-        and all(0 <= s < cand_fused_nv(grid) for s in slots)
+        and cand_table.fuses(grid, slots)
     ):
         with timing.span("iu.locate", grid.device, timed=True):
             i_cell, found, values = locate._candidates_query(grid, r, slots)

@@ -39,6 +39,7 @@ import torch
 from . import acc_kernel, locate
 from .df32 import split_queries
 from .interp import _static_slots
+from ..models import cand_table
 
 ACC_ROW_ALIGN = 128  # floats; 512-byte rows, the JAX package's layout
 
@@ -138,7 +139,7 @@ def prepare_accurate(grid, build_df: bool = True, timings: dict | None = None):
     ``timings``, when given, gets ``acc_table_s``, ``plane_solve_s`` and
     ``df_pack_s`` for the tables this call builds.
     """
-    from ..models.grid import _sync, build_cand_df_table, cand_df_supported
+    from ..models.grid import _sync
 
     updates = {}
     if grid.acc_table is None:
@@ -147,8 +148,9 @@ def prepare_accurate(grid, build_df: bool = True, timings: dict | None = None):
         if timings is not None:
             _sync(grid.device)
             timings["acc_table_s"] = time.perf_counter() - t0
-    if build_df and grid.cand_df_table is None and cand_df_supported(grid):
-        updates["cand_df_table"] = build_cand_df_table(grid, timings)
+    if (build_df and grid.cand_df_table is None
+            and cand_table.df_supported(grid)):
+        updates["cand_df_table"] = cand_table.build_df_table(grid, timings)
     if not updates:
         return grid
     return dataclasses.replace(grid, **updates)
@@ -209,14 +211,11 @@ def interpolate_at_acc(grid, r, i_vars, guess=None, r_lo=None):
 
     # Fused cold path: df-plane candidate rows answer locate AND df32
     # interpolation from one row per query
-    from ..models.grid import cand_fused_nv
-
     slots = _static_slots(i_vars)
     if (
         guess is None
         and grid.cand_df_table is not None
-        and slots
-        and all(0 <= s < cand_fused_nv(grid) for s in slots)
+        and cand_table.fuses(grid, slots)
     ):
         ic, found, vh, vl = locate._candidates_query_df(
             grid, r, slots, r_lo=r_lo

@@ -32,6 +32,7 @@ from __future__ import annotations
 import torch
 
 from . import cand_kernel, walk_kernel
+from ..models import cand_table
 from ..utils import timing
 from ..utils.config import huge_distance, tiny_distance
 
@@ -184,65 +185,6 @@ def _walk_args(grid, r0, r1, ic0, max_steps=None, table=None):
             grid.n_faces_per_cell)
 
 
-def _cand_chunk(grid, table=None) -> int:
-    """Queries per chunk of the plain probe: the gathered rows
-    (chunk x row bytes) stay near ``config.cand_chunk_bytes``; rounded
-    to a multiple of 8192; ``config.cand_chunk_queries`` overrides."""
-    cfg = grid.config
-    if cfg.cand_chunk_queries is not None:
-        return cfg.cand_chunk_queries
-    tab = grid.cand_table if table is None else table
-    row_b = tab.shape[1] * tab.element_size()
-    return max(1 << 13, (cfg.cand_chunk_bytes // row_b) >> 13 << 13)
-
-
-def _row_layout(grid, k, var_slots) -> cand_kernel.RowLayout:
-    """The :class:`cand_kernel.RowLayout` of this grid's rows with ``k``
-    candidates per row (main table: K; extension table: k_ext)."""
-    from ..models.grid import (
-        _qcand_floats_per,
-        cand_fused_nv,
-        cand_is_quantized,
-    )
-
-    nf = npc = grid.n_faces_per_cell
-    nv = cand_fused_nv(grid)
-    if any(not 0 <= s < nv for s in var_slots):
-        raise ValueError("var_slots outside the fused variable range")
-    if cand_is_quantized(grid.cell_type, grid.dtype, grid.config):
-        base = -(-3 * nf // 2) + -(-nf // 2)
-        return cand_kernel.RowLayout(
-            kind="quantized", nf=nf, k=k, id_role=base + 4 * nv,
-            count_col=k * _qcand_floats_per(grid.cell_type, nv),
-            var_roles=tuple(base + 4 * s for s in var_slots),
-        )
-    is_quad = grid.cell_type == "quad"
-    id_role = 4 * nf + (3 * npc if is_quad else 0)
-    return cand_kernel.RowLayout(
-        kind="quad" if is_quad else "simplex", nf=nf, k=k, id_role=id_role,
-        count_col=k * (id_role + 1 + npc * nv),
-        var_roles=tuple(id_role + 1 + s * npc for s in var_slots),
-    )
-
-
-def _cand_eps(grid) -> float:
-    """Inside tolerance of the probe: int16 rounding makes quantized
-    planes fuzzy within grid.cand_qeps of the true faces, so the
-    tolerance widens by it and interior points are never lost."""
-    return grid.config.eps_inside + grid.cand_qeps
-
-
-def _cand_probe_inputs(grid, r):
-    """(idx (B,) int32, rq (B, 3)) of the plain probe in query order:
-    each query's bin, and the query in that bin's local frame when the
-    rows are quantized (the extension rows share the frame)."""
-    from ..models.grid import cand_is_quantized
-
-    return cand_kernel.probe_inputs_plain(
-        r, grid.cand_rmin, grid.cand_inv_h, grid.cand_shape,
-        cand_is_quantized(grid.cell_type, grid.dtype, grid.config))
-
-
 def _candidates_query(grid, r, var_slots, max_steps=None):
     """Cold containment and fused interpolation via per-bin candidate
     rows (the JAX package's ``_candidates_query``, ops/locate.py:769).
@@ -268,12 +210,12 @@ def _candidates_query(grid, r, var_slots, max_steps=None):
     k_max = grid.cand_ids.shape[1]
     ext = None
     if grid.cand_ext_table is not None:
-        ext = (grid.cand_ext_table,
-               _row_layout(grid, grid.cand_ext_ids.shape[1], var_slots))
+        ext = (grid.cand_ext_table, cand_table.layout(
+            grid, grid.cand_ext_ids.shape[1], var_slots))
     id_best, aux, values = cand_kernel.cand_rows_binned_query(
         grid.cand_table, r, grid.cand_rmin, grid.cand_inv_h, grid.cand_shape,
-        _row_layout(grid, k_max, var_slots), _cand_eps(grid), k_max,
-        _cand_chunk(grid), ext,
+        cand_table.layout(grid, k_max, var_slots),
+        cand_table.probe_eps(grid), k_max, cand_table.probe_chunk(grid), ext,
     )
     found = aux == -2
     ic = torch.where(found, id_best, -1)
@@ -300,24 +242,6 @@ def _candidates_query(grid, r, var_slots, max_steps=None):
     return ic, ic >= 0, values
 
 
-def _df_row_layout(grid, var_slots) -> cand_kernel.RowLayout:
-    """The :class:`cand_kernel.RowLayout` of the df-plane rows
-    (``grid.cand_df_table``, models/grid._pack_qdf_rows)."""
-    from ..models.grid import _qdf_floats_per, cand_fused_nv
-
-    nf = grid.n_faces_per_cell
-    nv = cand_fused_nv(grid)
-    if any(not 0 <= s < nv for s in var_slots):
-        raise ValueError("var_slots outside the fused variable range")
-    k = grid.cand_ids.shape[1]
-    base = -(-3 * nf // 2) + -(-nf // 2)
-    return cand_kernel.RowLayout(
-        kind="qdf", nf=nf, k=k, id_role=base + 8 * nv,
-        count_col=k * _qdf_floats_per(grid.cell_type, nv),
-        var_roles=tuple(base + 8 * s for s in var_slots),
-    )
-
-
 def _candidates_query_df(grid, r, var_slots, r_lo=None):
     """Accurate-mode fused cold query: one row of the df-plane candidate
     table (``grid.cand_df_table``) per query answers containment AND the
@@ -328,17 +252,17 @@ def _candidates_query_df(grid, r, var_slots, r_lo=None):
     split them and form the hi/lo local frame themselves.
 
     Only built for simplex grids whose rows cover every bin
-    (``models.grid.cand_df_supported``), so a probe miss is exact.
+    (``models.cand_table.df_supported``), so a probe miss is exact.
 
     Returns (ic (B,) int32, found (B,), vals_hi (B, V), vals_lo (B, V));
     missed queries carry their best candidate's plane values with found
     False.
     """
-    lay = _df_row_layout(grid, tuple(var_slots))
+    lay = cand_table.df_layout(grid, tuple(var_slots))
     id_best, aux, vh, vl = cand_kernel.cand_rows_df_query(
         grid.cand_df_table, r, r_lo, grid.cand_rmin, grid.cand_inv_h,
-        grid.cand_shape, lay, _cand_eps(grid), lay.k,
-        _cand_chunk(grid, grid.cand_df_table),
+        grid.cand_shape, lay, cand_table.probe_eps(grid), lay.k,
+        cand_table.probe_chunk(grid, grid.cand_df_table),
     )
     found = aux == -2
     return torch.where(found, id_best, -1), found, vh, vl

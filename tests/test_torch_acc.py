@@ -42,6 +42,7 @@ import interpolate_unstructured_tpu as jiu  # noqa: E402
 import interpolate_unstructured_tpu_torch as tiu  # noqa: E402
 from interpolate_unstructured_tpu.ops import df32 as jdf  # noqa: E402
 from interpolate_unstructured_tpu.ops import interp_acc as jacc  # noqa: E402
+from interpolate_unstructured_tpu_torch.models import cand_table  # noqa: E402
 from interpolate_unstructured_tpu_torch.ops import df32 as tdf  # noqa: E402
 from interpolate_unstructured_tpu_torch.ops import (  # noqa: E402
     interp_acc as tacc,
@@ -102,10 +103,6 @@ def test_residual_registries_and_acc_table_match_jax(case):
 
 @pytest.mark.parametrize("case", ["triangle", "tetra"])
 def test_cand_df_table_matches_jax(case):
-    from interpolate_unstructured_tpu_torch.models.grid import (
-        _qcand_floats_per,
-    )
-
     ug, tg = _build_both(case)
     assert tg.cand_df_table is not None and ug.cand_df_table is not None
     jt = np.asarray(ug.cand_df_table)[: tg.cand_df_table.shape[0]]
@@ -132,7 +129,7 @@ def test_cand_df_table_matches_jax(case):
     np.testing.assert_array_equal(ti[:, head + 8 * nv * k: ccol + 1],
                                   ji[:, head + 8 * nv * k: ccol + 1])  # ids, count
     np.testing.assert_array_equal(ti[:, ccol + 2:], ji[:, ccol + 2:])  # padding
-    cq = _qcand_floats_per(tg.cell_type, nv) * k + 1
+    cq = cand_table.quantized(tg.cell_type, nv).per * k + 1
     np.testing.assert_array_equal(tt[:, ccol + 1], tg.cand_table.numpy()[:, cq])
     np.testing.assert_allclose(tt[:, ccol + 1], jt[:, ccol + 1], rtol=2e-6)
 

@@ -48,6 +48,7 @@ import pytest
 import torch
 
 import interpolate_unstructured_tpu_torch as tiu
+from interpolate_unstructured_tpu_torch.models import cand_table
 from interpolate_unstructured_tpu_torch.models.grid import (
     DATA_FIELDS,
     META_FIELDS,
@@ -248,8 +249,8 @@ def test_b2df_plain_matches_pallas_interpret(case):
     tg = carry(ug)
     r64 = queries64(case, 3000, 13, outside=0.1)
     idx, rq6, (jid, jaux, jvals) = _jax_df_probe(ug, r64)
-    lay = locate._df_row_layout(tg, (0,))
-    eps = locate._cand_eps(tg)
+    lay = cand_table.df_layout(tg, (0,))
+    eps = cand_table.probe_eps(tg)
     tid, taux, th, tl = cand_kernel.probe_rows_df_plain(
         tg.cand_df_table, torch.from_numpy(idx),
         torch.from_numpy(rq6[:, :3].copy()), torch.from_numpy(rq6[:, 3:].copy()),
@@ -373,9 +374,9 @@ def test_cuda_b2df_matches_plain(cuda, case):
     r64 = torch.from_numpy(queries64(case, 200_000, 15, outside=0.05)).to(cuda)
     r_hi, r_lo = (torch.from_numpy(a).to(cuda)
                   for a in _split(r64.cpu().numpy()))
-    lay = locate._df_row_layout(g, (0,))
+    lay = cand_table.df_layout(g, (0,))
     bins = (g.cand_rmin, g.cand_inv_h, g.cand_shape)
-    eps = locate._cand_eps(g)
+    eps = cand_table.probe_eps(g)
     want = cand_kernel.cand_rows_df_plain(g.cand_df_table, r64, None, *bins,
                                           lay, eps, lay.k, 8192)
     for r, lo in ((r64, None), (r_hi, r_lo)):

@@ -39,7 +39,7 @@ import pytest
 import torch
 
 import interpolate_unstructured_tpu_torch as tiu
-from interpolate_unstructured_tpu_torch.models import grid as tgrid
+from interpolate_unstructured_tpu_torch.models import cand_table
 from interpolate_unstructured_tpu_torch.ops import (
     cand_build,
     cand_build_kernel,
@@ -428,7 +428,7 @@ def test_device_built_grid_matches_jax(case):
     assert n <= n_differ
     same = (tg.cand_ids.numpy() == np.asarray(ug.cand_ids)).all(1)
     jt = np.asarray(ug.cand_table)[: len(same)]
-    quantized = tgrid.cand_is_quantized(case, torch.float32, tg.config)
+    quantized = cand_table.is_quantized(case, torch.float32, tg.config)
     _compare_rows(jt[same], tg.cand_table.numpy()[same], ug,
                   tg.cand_ids.shape[1], quantized, tg.cand_nv)
 

@@ -34,6 +34,7 @@ import pytest
 import torch
 
 import interpolate_unstructured_tpu_torch as tiu
+from interpolate_unstructured_tpu_torch.models import cand_table
 from interpolate_unstructured_tpu_torch.models.grid import (
     DATA_FIELDS,
     META_FIELDS,
@@ -107,9 +108,9 @@ def _ext_args(g):
     grid's probe with its extension rows, every fused variable."""
     slots = tuple(range(g.cand_nv))
     k = g.cand_ids.shape[1]
-    lay = locate._row_layout(g, k, slots)
-    lay_e = locate._row_layout(g, g.cand_ext_ids.shape[1], slots)
-    return g.cand_table, g.cand_ext_table, lay, lay_e, locate._cand_eps(g), k
+    lay = cand_table.layout(g, k, slots)
+    lay_e = cand_table.layout(g, g.cand_ext_ids.shape[1], slots)
+    return g.cand_table, g.cand_ext_table, lay, lay_e, cand_table.probe_eps(g), k
 
 
 @pytest.mark.parametrize("covers", list(COVERS))
@@ -143,7 +144,7 @@ def test_ext_plain_matches_jax(case, covers):
 
     # the plain composition reaches the extension rows, and leaves
     # residual walks exactly where the extension rows do not cover
-    idx, rq = locate._cand_probe_inputs(tg, rt)
+    idx, rq = cand_table.probe_inputs(tg, rt)
     main = cand_kernel.probe_rows_plain(table, idx, rq, lay, eps, k, 1024)
     ext = cand_kernel.probe_rows_ext_plain(table, ext_t, idx, rq, lay, lay_e,
                                            eps, k, 1024)
@@ -192,7 +193,7 @@ def test_ext_merge_rules(case):
                         device="cpu")
     table, ext_t, lay, lay_e, eps, k = _ext_args(tg)
     rt = torch.from_numpy(_queries(pts, cell_type, 3000, dtype, seed=8))
-    idx, rq = locate._cand_probe_inputs(tg, rt)
+    idx, rq = cand_table.probe_inputs(tg, rt)
     mid, maux, mval = cand_kernel.probe_rows_plain(table, idx, rq, lay, eps,
                                                    k, 1024)
     gid, gaux, gval = cand_kernel.probe_rows_ext_plain(
@@ -228,7 +229,7 @@ def test_cuda_ext_probe_matches_plain(cuda, case, covers):
     g = grids[0]
     table, ext_t, lay, lay_e, eps, k = _ext_args(g)
     rt = torch.from_numpy(_queries(pts, cell_type, 100_000, dtype)).to(cuda)
-    idx, rq = locate._cand_probe_inputs(g, rt)
+    idx, rq = cand_table.probe_inputs(g, rt)
     want = cand_kernel.probe_rows_ext_plain(table, ext_t, idx, rq, lay, lay_e,
                                             eps, k, 8192)
     assert bool((want[1] >= 0).any()) == (covers == "residual")

@@ -29,6 +29,7 @@ import pytest
 import torch
 
 import interpolate_unstructured_tpu_torch as tiu
+from interpolate_unstructured_tpu_torch.models import cand_table
 from interpolate_unstructured_tpu_torch.models.grid import (
     DATA_FIELDS,
     META_FIELDS,
@@ -170,9 +171,9 @@ def test_plain_matches_pallas_interpret(case):
     tg = carry(ug)
     k = ug.cand_ids.shape[1]
     slots = tuple(range(tg.cand_nv))
-    lay = locate._row_layout(tg, k, slots)
+    lay = cand_table.layout(tg, k, slots)
     assert lay.kind == CASES[case][0]
-    eps = locate._cand_eps(tg)
+    eps = cand_table.probe_eps(tg)
     tout = cand_kernel.probe_rows_plain(
         tg.cand_table, torch.from_numpy(idx), torch.from_numpy(rq), lay,
         eps, k, chunk=1024,
@@ -189,7 +190,7 @@ def test_plain_matches_pallas_interpret(case):
     sel = np.flatnonzero(aux >= 0)
     assert len(sel)
     k_ext = ug.cand_ext_ids.shape[1]
-    lay_e = locate._row_layout(tg, k_ext, slots)
+    lay_e = cand_table.layout(tg, k_ext, slots)
     tout_e = cand_kernel.probe_rows_plain(
         tg.cand_ext_table, torch.from_numpy(aux[sel]),
         torch.from_numpy(rq[sel]), lay_e, eps, k + k_ext, chunk=1024,
@@ -209,7 +210,7 @@ def test_port_probe_inputs_match_jax():
     r_t = torch.from_numpy(rq)  # any (B, 3) queries will do
     jr_t = jnp.asarray(rq).T
     jijk = jlocate._cand_bin_ijk_t(ug, jr_t)
-    tidx, trq = locate._cand_probe_inputs(tg, r_t)
+    tidx, trq = cand_table.probe_inputs(tg, r_t)
     nby, nbz = ug.cand_shape[1], ug.cand_shape[2]
     np.testing.assert_array_equal(
         tidx.numpy(), np.asarray((jijk[0] * nby + jijk[1]) * nbz + jijk[2])
@@ -225,7 +226,7 @@ def _ext(tg, var_slots):
     if tg.cand_ext_table is None:
         return None
     return (tg.cand_ext_table,
-            locate._row_layout(tg, tg.cand_ext_ids.shape[1], var_slots))
+            cand_table.layout(tg, tg.cand_ext_ids.shape[1], var_slots))
 
 
 @pytest.mark.cuda
@@ -241,12 +242,12 @@ def test_cuda_kernel_matches_plain(cuda, case):
                         locate_mode="walk", config=cfg,
                         point_data=_point_data(pts), device=cuda)
     r = torch.from_numpy(_queries(pts, cell_type, 100_000)).to(cuda)
-    idx, rq = locate._cand_probe_inputs(tg, r)
+    idx, rq = cand_table.probe_inputs(tg, r)
     k = tg.cand_ids.shape[1]
     slots = tuple(range(tg.cand_nv))
-    lay = locate._row_layout(tg, k, slots)
+    lay = cand_table.layout(tg, k, slots)
     assert lay.kind == kind
-    eps = locate._cand_eps(tg)
+    eps = cand_table.probe_eps(tg)
     ext = _ext(tg, slots)
     before = cand_kernel.binned_launches + cand_kernel.ext_launches
     got = cand_kernel.cand_rows_binned_query(
@@ -315,12 +316,12 @@ def test_probe_in_bin_order_matches_direct(case):
     the mesh, with a batch that falls in one bin."""
     pts, tg = _cpu_grid(case)
     k = tg.cand_ids.shape[1]
-    lay = locate._row_layout(tg, k, tuple(range(tg.cand_nv)))
-    eps = locate._cand_eps(tg)
+    lay = cand_table.layout(tg, k, tuple(range(tg.cand_nv)))
+    eps = cand_table.probe_eps(tg)
     r = torch.from_numpy(_queries(pts, CASES[case][1], 4000))
     one = r[:1].repeat(300, 1) + 1e-6 * torch.arange(300)[:, None]
     for q in (r, one):
-        idx, rq = locate._cand_probe_inputs(tg, q)
+        idx, rq = cand_table.probe_inputs(tg, q)
         want = cand_kernel.probe_rows_plain(tg.cand_table, idx, rq, lay, eps,
                                             k, chunk=1024)
         perm = cand_kernel.bin_order_plain(idx)
@@ -345,8 +346,8 @@ def test_binned_query_matches_pallas_interpret(case):
     ug, idx, rq = _setup(case)
     tg = carry(ug)
     k = ug.cand_ids.shape[1]
-    lay = locate._row_layout(tg, k, tuple(range(tg.cand_nv)))
-    eps = locate._cand_eps(tg)
+    lay = cand_table.layout(tg, k, tuple(range(tg.cand_nv)))
+    eps = cand_table.probe_eps(tg)
     pts = CASES[case][2]()[0]
     r = torch.from_numpy(_queries(pts, CASES[case][1], 3000))  # _setup's
     tout = cand_kernel.cand_rows_binned_query(
@@ -362,8 +363,8 @@ def test_cand_wrapper_checks():
     reach a kernel."""
     pts, tg = _cpu_grid("quantized-tetra")
     k = tg.cand_ids.shape[1]
-    lay = locate._row_layout(tg, k, (0,))
-    eps = locate._cand_eps(tg)
+    lay = cand_table.layout(tg, k, (0,))
+    eps = cand_table.probe_eps(tg)
     grid_args = (tg.cand_rmin, tg.cand_inv_h, tg.cand_shape)
     r = torch.full((5, 3), 0.5)
     perm = torch.arange(5, dtype=torch.int32)
@@ -395,7 +396,7 @@ def test_cand_wrapper_checks():
                                           *grid_args, lay, eps, k, lanes=3)
     # extension rows: the main rows' layout with their own k, a
     # contiguous table of the main table's dtype that the layout fits
-    lay_e = locate._row_layout(tg, 5, (0,))
+    lay_e = cand_table.layout(tg, 5, (0,))
     ext_t = torch.zeros((3, lay_e.count_col + 2))
     for bad in ((ext_t, dataclasses.replace(lay_e, kind="simplex")),
                 (ext_t, dataclasses.replace(lay_e, id_role=lay.id_role + 1)),
@@ -450,12 +451,12 @@ def test_cuda_binned_matches_plain(cuda, case):
                         locate_mode="walk", config=cfg,
                         point_data=_point_data(pts), device=cuda)
     k = tg.cand_ids.shape[1]
-    lay = locate._row_layout(tg, k, tuple(range(tg.cand_nv)))
-    eps = locate._cand_eps(tg)
+    lay = cand_table.layout(tg, k, tuple(range(tg.cand_nv)))
+    eps = cand_table.probe_eps(tg)
     grid_args = (tg.cand_rmin, tg.cand_inv_h, tg.cand_shape)
     n_bins = int(np.prod(tg.cand_shape))
     for name, r in _skewed(pts, cell_type, tg, cuda).items():
-        idx_p, rq = locate._cand_probe_inputs(tg, r)
+        idx_p, rq = cand_table.probe_inputs(tg, r)
         idx, ends, perm, slot = cand_kernel.bin_order_cuda(r, *grid_args)
         torch.cuda.synchronize()
         assert torch.equal(idx, idx_p), name

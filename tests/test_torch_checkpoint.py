@@ -34,6 +34,7 @@ import torch
 
 import interpolate_unstructured_tpu_torch as tiu
 from interpolate_unstructured_tpu_torch.io import checkpoint as tck
+from interpolate_unstructured_tpu_torch.models import cand_table
 from interpolate_unstructured_tpu_torch.models import grid as tgrid
 from interpolate_unstructured_tpu_torch.utils import meshgen
 
@@ -241,7 +242,7 @@ def test_jax_save_port_load(tmp_path, kind):
     carried = _carry(ug)
     if carried.cand_ids is not None:
         carried = dataclasses.replace(
-            carried, **tgrid._build_cand_tables(carried, nv=carried.cand_nv))
+            carried, **cand_table.pack(carried, nv=carried.cand_nv))
     _assert_torch_equal(carried, tg)
     r = _queries(pts)
     out = _port_query(tg, r)
@@ -278,7 +279,7 @@ def test_port_save_port_load(tmp_path, kind, monkeypatch):
     def no_rebuild(*a, **k):
         raise AssertionError("the candidate lists were rebuilt")
 
-    monkeypatch.setattr(tgrid, "build_candidate_bins_dispatch", no_rebuild)
+    monkeypatch.setattr(cand_table, "build_candidate_bins_dispatch", no_rebuild)
     lg = tiu.load_grid(fn, config=KINDS[kind][2], device="cpu")
     _assert_torch_equal(tg, lg)
     r = _queries(pts)
@@ -393,7 +394,7 @@ def test_config_change_rebuilds_like_jax(tmp_path, resave):
     _assert_rebuilt_like_jax(lg, ug, _queries(pts))
     # the rows are the port's packing of the rebuilt lists
     _assert_torch_equal(
-        lg, dataclasses.replace(lg, **tgrid._build_cand_tables(lg)))
+        lg, dataclasses.replace(lg, **cand_table.pack(lg)))
     if resave:
         assert fn["port"].read_bytes() != before
         assert filecmp.cmp(fn["jax"], fn["port"], shallow=False)

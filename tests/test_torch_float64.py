@@ -36,7 +36,7 @@ import pytest
 import torch
 
 import interpolate_unstructured_tpu_torch as tiu
-from interpolate_unstructured_tpu_torch.models.grid import cand_fused_nv
+from interpolate_unstructured_tpu_torch.models import cand_table
 from interpolate_unstructured_tpu_torch.ops import (
     cand_kernel,
     geometry,
@@ -156,7 +156,7 @@ def test_float64_bin_coordinates_match_jax():
     assert tg.cand_rmin.dtype == tg.bin_rmin.dtype == torch.float64
     for name, rmin, inv_h, shape, port, jax_bins in (
         ("candidate", tg.cand_rmin, tg.cand_inv_h, tg.cand_shape,
-         lambda r: locate._cand_probe_inputs(tg, r)[0].long(),
+         lambda r: cand_table.probe_inputs(tg, r)[0].long(),
          lambda r: jlocate._cand_bin_flat(
              ug, jlocate._cand_bin_ijk_t(ug, r.T))),
         ("seed", tg.bin_rmin, tg.bin_inv_h, tg.bin_shape,
@@ -183,7 +183,7 @@ def test_float64_extension_rows_match_jax():
     interpolate_at_icell), linear exactness 1e-14."""
     jnp, jiu = _jax()
     pts, ug, tg = _build_both(*EXT_BOX)
-    assert tg.cand_ids.shape[1] == 7 and cand_fused_nv(tg) == 0
+    assert tg.cand_ids.shape[1] == 7 and cand_table.fused_nv(tg) == 0
     assert tg.cand_ext_table is not None
     n_ext = int((tg.cand_count > tg.cand_ids.shape[1]).sum())
     assert n_ext > tg.cand_count.numel() // 2
@@ -210,8 +210,8 @@ def test_float64_fused_values_match_jax(mesh):
     cell_type, gen = FUSED[mesh]
     pts, ug, tg = _build_both(cell_type, gen, FUSED_CFG, "walk")
     assert tg.cand_table.dtype == torch.float64
-    assert cand_fused_nv(tg) >= 2
-    assert locate._row_layout(tg, 1, ()).kind == (
+    assert cand_table.fused_nv(tg) >= 2
+    assert cand_table.layout(tg, 1, ()).kind == (
         "quad" if cell_type == "quad" else "simplex")
     r = _queries(pts, plane=True)
     tv, tic, tf = tiu.interpolate_at(tg, torch.from_numpy(r), [0, 1])
@@ -312,11 +312,11 @@ def _b2_compare(g, r, var_slots):
     the grid has extension rows, the probe with them against
     probe_rows_ext_plain.  Returns the queries that reach them."""
     k = g.cand_ids.shape[1]
-    lay = locate._row_layout(g, k, var_slots)
-    eps = locate._cand_eps(g)
+    lay = cand_table.layout(g, k, var_slots)
+    eps = cand_table.probe_eps(g)
     bins = (g.cand_rmin, g.cand_inv_h, g.cand_shape)
-    idx, rq = locate._cand_probe_inputs(g, r)
-    chunk = locate._cand_chunk(g)
+    idx, rq = cand_table.probe_inputs(g, r)
+    chunk = cand_table.probe_chunk(g)
     plain = cand_kernel.probe_rows_plain(g.cand_table, idx, rq, lay, eps, k,
                                          chunk)
     k_idx, ends, perm, slot = cand_kernel.bin_order_cuda(r, *bins)
@@ -335,7 +335,7 @@ def _b2_compare(g, r, var_slots):
     if g.cand_ext_table is None:
         return 0
     sel = torch.nonzero(plain[1] >= 0).squeeze(1)
-    lay_e = locate._row_layout(g, g.cand_ext_ids.shape[1], var_slots)
+    lay_e = cand_table.layout(g, g.cand_ext_ids.shape[1], var_slots)
     ext = (g.cand_ext_table, lay_e)
     want = cand_kernel.probe_rows_ext_plain(g.cand_table, g.cand_ext_table,
                                             idx, rq, lay, lay_e, eps, k, chunk)

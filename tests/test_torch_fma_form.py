@@ -26,12 +26,12 @@ import pytest
 import torch
 
 import interpolate_unstructured_tpu_torch as tiu
+from interpolate_unstructured_tpu_torch.models import cand_table
 from interpolate_unstructured_tpu_torch.ops import (
     acc_kernel,
     cand_kernel,
     df32,
     interp_acc,
-    locate,
 )
 from interpolate_unstructured_tpu_torch.utils import meshgen
 
@@ -193,9 +193,9 @@ def test_cand_rows_df_plain_equals_fma_form(monkeypatch):
     rng = np.random.default_rng(6)
     r64 = torch.from_numpy(0.02 + 0.96 * rng.random((20_000, 3)))
     r64[-1000:, 0] += 1.1  # misses outside the box
-    lay = locate._df_row_layout(g, (0,))
+    lay = cand_table.df_layout(g, (0,))
     bins = (g.cand_rmin, g.cand_inv_h, g.cand_shape)
-    eps = locate._cand_eps(g)
+    eps = cand_table.probe_eps(g)
     args = (g.cand_df_table, r64, None, *bins, lay, eps, lay.k, 8192)
     want = cand_kernel.cand_rows_df_plain(*args)
     calls = _with_fma(monkeypatch)

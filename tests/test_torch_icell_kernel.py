@@ -37,7 +37,7 @@ import pytest
 import torch
 
 import interpolate_unstructured_tpu_torch as tiu
-from interpolate_unstructured_tpu_torch.models.grid import cand_fused_nv
+from interpolate_unstructured_tpu_torch.models import cand_table
 from interpolate_unstructured_tpu_torch.ops import _kernels, icell_kernel
 from interpolate_unstructured_tpu_torch.ops.interp import (
     interpolate_at_icell_plain,
@@ -347,7 +347,7 @@ def test_cuda_float64_cold_reaches_e1(cuda):
     grid = tiu.build_grid(pts, cells, nbrs, "tetra", dtype=torch.float64,
                           point_data=_point_data(pts), locate_mode="walk",
                           config=HOST, device=cuda)
-    assert grid.cand_ids.shape[1] == 7 and cand_fused_nv(grid) == 0
+    assert grid.cand_ids.shape[1] == 7 and cand_table.fused_nv(grid) == 0
     r = torch.from_numpy(np.random.default_rng(9).random((20000, 3))).to(
         cuda)
     icell_kernel.launches = 0

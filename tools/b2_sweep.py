@@ -56,7 +56,8 @@ def main() -> int:
         return 1
     import chip_smoke
     import interpolate_unstructured_tpu_torch as tiu
-    from interpolate_unstructured_tpu_torch.ops import cand_kernel, locate
+    from interpolate_unstructured_tpu_torch.models import cand_table
+    from interpolate_unstructured_tpu_torch.ops import cand_kernel
     from interpolate_unstructured_tpu_torch.utils import meshgen
 
     import cand_ext_sweep
@@ -76,16 +77,16 @@ def main() -> int:
           f"{time.perf_counter() - t0:.3f} s: K={k}, {n_bins} bins")
     r = torch.from_numpy(np.random.default_rng(2).random(
         (max(DENSITY), 3)).astype(np.float32)).to(dev)
-    lay = locate._row_layout(grid, k, (0,))
-    eps = locate._cand_eps(grid)
-    chunk = locate._cand_chunk(grid)
+    lay = cand_table.layout(grid, k, (0,))
+    eps = cand_table.probe_eps(grid)
+    chunk = cand_table.probe_chunk(grid)
     bins = (grid.cand_rmin, grid.cand_inv_h, grid.cand_shape)
 
     for b in SIZES:
         rb = r[:b]
         t = chip_smoke.turns({
             "old": lambda: cand_ext_sweep.direct(
-                lib, grid.cand_table, *locate._cand_probe_inputs(grid, rb),
+                lib, grid.cand_table, *cand_table.probe_inputs(grid, rb),
                 lay, eps, k),
             "new": lambda: cand_kernel.cand_rows_binned_query(
                 grid.cand_table, rb, *bins, lay, eps, k, chunk),
@@ -98,7 +99,7 @@ def main() -> int:
         rb = r[:b]
         _, _, perm, slot = cand_kernel.bin_order_cuda(rb, *bins)
         want = cand_kernel.probe_rows_plain(
-            grid.cand_table, *locate._cand_probe_inputs(grid, rb), lay, eps,
+            grid.cand_table, *cand_table.probe_inputs(grid, rb), lay, eps,
             k, chunk)
 
         def probe(g):
@@ -125,10 +126,10 @@ def main() -> int:
     grid = tiu.prepare_accurate(grid)
     print(f"prepare_accurate in {time.perf_counter() - t0:.3f} s: "
           f"cand_df_table {tuple(grid.cand_df_table.shape)}")
-    lay = locate._df_row_layout(grid, (0,))
-    eps = locate._cand_eps(grid)
+    lay = cand_table.df_layout(grid, (0,))
+    eps = cand_table.probe_eps(grid)
     table = grid.cand_df_table
-    chunk = locate._cand_chunk(grid, table)
+    chunk = cand_table.probe_chunk(grid, table)
     n = len(lay.var_roles)
     r64 = torch.from_numpy(np.random.default_rng(2).random(
         (max(DF_DENSITY), 3))).to(dev)

@@ -127,18 +127,19 @@ def merged(main, sel, ext_out):
 def sweep(label, grid, r, lib):
     """Check and time the designs on one grid's queries."""
     import chip_smoke
-    from interpolate_unstructured_tpu_torch.ops import cand_kernel, locate
+    from interpolate_unstructured_tpu_torch.models import cand_table
+    from interpolate_unstructured_tpu_torch.ops import cand_kernel
 
     slots = (0,) if grid.cand_nv else ()
     k = grid.cand_ids.shape[1]
-    lay = locate._row_layout(grid, k, slots)
-    lay_e = locate._row_layout(grid, grid.cand_ext_ids.shape[1], slots)
+    lay = cand_table.layout(grid, k, slots)
+    lay_e = cand_table.layout(grid, grid.cand_ext_ids.shape[1], slots)
     ext_t = grid.cand_ext_table
-    eps = locate._cand_eps(grid)
+    eps = cand_table.probe_eps(grid)
     bins = (grid.cand_rmin, grid.cand_inv_h, grid.cand_shape)
-    chunk = locate._cand_chunk(grid)
+    chunk = cand_table.probe_chunk(grid)
     ovf_e = k + lay_e.k
-    idx, rq = locate._cand_probe_inputs(grid, r)
+    idx, rq = cand_table.probe_inputs(grid, r)
     want = cand_kernel.probe_rows_ext_plain(grid.cand_table, ext_t, idx, rq,
                                             lay, lay_e, eps, k, chunk)
     _, _, perm, slot = cand_kernel.bin_order_cuda(r, *bins)
@@ -150,7 +151,7 @@ def sweep(label, grid, r, lib):
     def old():
         main = main_probe()
         sel = torch.nonzero(main[1] >= 0).squeeze(1)
-        _, q = locate._cand_probe_inputs(grid, r[sel])
+        _, q = cand_table.probe_inputs(grid, r[sel])
         return merged(main, sel, direct(lib, ext_t, main[1][sel].contiguous(),
                                         q, lay_e, eps, ovf_e))
 
@@ -158,7 +159,7 @@ def sweep(label, grid, r, lib):
         main = main_probe()
         p = perm.long()
         sel = p[main[1][p] >= 0]
-        _, q = locate._cand_probe_inputs(grid, r[sel])
+        _, q = cand_table.probe_inputs(grid, r[sel])
         return merged(main, sel, direct(lib, ext_t, main[1][sel].contiguous(),
                                         q, lay_e, eps, ovf_e))
 
@@ -186,7 +187,7 @@ def sweep(label, grid, r, lib):
           f"{t['new'][1]:.4f}; slot order {t2['slot order'][0]:.4f} / "
           f"{t2['slot order'][1]:.4f} against new {t2['new'][0]:.4f} / "
           f"{t2['new'][1]:.4f}")
-    _, q = locate._cand_probe_inputs(grid, r[sel])
+    _, q = cand_table.probe_inputs(grid, r[sel])
     a_idx = main[1][sel].contiguous()
     p = perm.long()
     in_bins = p[main[1][p] >= 0]
