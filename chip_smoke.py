@@ -488,32 +488,203 @@ def bruteforce_phase(dev, tiu, meshgen, interp_kernel, locate, cand_kernel,
     return res
 
 
-def binned_probe_call(grid, r, perm, lay, eps, k, lanes, rec, b=None,
-                      ext=None):
-    """One launch of B2's probe kernel in bin order alone (records by
-    slot in ``rec``, no unsort) on a float32 or float64 grid's rows, with
-    the extension rows ``ext`` = (table, RowLayout) or without."""
-    from interpolate_unstructured_tpu_torch.ops import _kernels, cand_kernel
+class B2Chain:
+    """B2's chain on one batch, each stage callable alone through the
+    kernels' entry points: the order of ``cand_kernel.bin_order_cuda``,
+    then ``key_pass`` (with the counts' memset), ``scan``, ``scatter``,
+    ``probe`` (with the extension rows ``ext``: (table, RowLayout), by
+    default the chain's own ``ext``, None for none) and ``unsort`` on
+    buffers of their own (``key``, ``rank``, ``res``, ``outs``).  ``df``,
+    ``r_lo``: the df-plane rows' queries."""
 
-    b = r.shape[0] if b is None else b
-    vroles = cand_kernel._var_roles(lay.var_roles, r.device)
-    ext_args = (None, 0, 0, 0) if ext is None else (
-        ext[0].data_ptr(), ext[0].shape[1], ext[1].k, ext[1].count_col)
-    head = (grid.cand_table.data_ptr(), grid.cand_table.shape[1],
-            r.data_ptr())
-    bins = (grid.cand_rmin.data_ptr(), grid.cand_inv_h.data_ptr(),
-            *grid.cand_shape, k, lay.nf, cand_kernel._KIND_CODE[lay.kind],
-            lay.id_role, lay.count_col, float(eps), k)
-    tail = (len(lay.var_roles), vroles.data_ptr(), *ext_args, rec.data_ptr(),
-            torch.cuda.current_stream().cuda_stream)
-    lib = _kernels.lib()
-    if grid.cand_table.dtype == torch.float64:
-        code = lib.iu_cand_rows_binned_f64(*head, perm.data_ptr(), b, lanes,
-                                           *bins, *tail)
-    else:
-        code = lib.iu_cand_rows_binned(*head, None, 0, perm.data_ptr(), b,
-                                       lanes, *bins, cand_kernel.QINV, *tail)
-    _kernels.check(code, "iu_cand_rows_binned")
+    ext = None
+
+    def __init__(self, table, r, bins, lay, eps, ovf_base, df=False,
+                 r_lo=None, lanes=None):
+        from interpolate_unstructured_tpu_torch.ops import cand_kernel
+
+        self.ck = cand_kernel
+        self.table, self.r, self.r_lo, self.bins = table, r, r_lo, bins
+        self.lay, self.eps, self.ovf_base = lay, eps, ovf_base
+        self.grid64 = table.dtype == torch.float64
+        n_out = cand_kernel.out_words(lay, table)
+        self.order = cand_kernel.bin_order_cuda(r, *bins, n_out, df=df,
+                                                r_lo=r_lo)
+        self.sz = sz = self.order.sizing
+        self.mode = 3 if self.grid64 else (
+            1 if r.dtype == torch.float64 else 2) if df else 0
+        b = r.shape[0]
+        dev = r.device
+        self.key, self.rank = (torch.empty(b, dtype=torch.int32, device=dev)
+                               for _ in range(2))
+        self.res = torch.empty((b, n_out), dtype=torch.int32, device=dev)
+        self.outs = (torch.empty(b, dtype=torch.int32, device=dev),
+                     torch.empty(b, dtype=torch.int32, device=dev),
+                     torch.empty((b, n_out - 2), dtype=torch.int32,
+                                 device=dev))
+        self.lanes = lanes or cand_kernel.binned_lanes(b, table.shape[0])
+        self.vroles = cand_kernel._var_roles(lay.var_roles, dev)
+        self.stream = torch.cuda.current_stream().cuda_stream
+        self.key_pass()  # fills key and rank for the stages alone
+        self.scan()
+        self.scatter()
+
+    def _lib(self):
+        from interpolate_unstructured_tpu_torch.ops import _kernels
+
+        return _kernels
+
+    def key_pass(self):
+        k = self._lib()
+        o, sz, (rmin, inv_h, shape) = self.order, self.sz, self.bins
+        o.counts.zero_()
+        tail = (sz.span_shift, sz.n_keys, sz.tile, o.counts.data_ptr(),
+                self.key.data_ptr(), self.rank.data_ptr(), o.pos.data_ptr(),
+                self.stream)
+        if self.grid64:
+            code = k.lib().iu_cand_key_f64(self.r.data_ptr(), self.r.shape[0],
+                                           rmin.data_ptr(), inv_h.data_ptr(),
+                                           *shape, *tail)
+        else:
+            code = k.lib().iu_cand_key(
+                self.r.data_ptr(), int(self.r.dtype == torch.float64),
+                self.r.shape[0], rmin.data_ptr(), inv_h.data_ptr(), *shape,
+                *tail)
+        k.check(code, "iu_cand_key")
+
+    def scan(self):
+        k = self._lib()
+        o, sz = self.order, self.sz
+        k.check(k.lib().iu_cand_key_scan(
+            o.counts.data_ptr(), sz.n_keys, sz.chunk, o.starts.data_ptr(),
+            o.chunk_end.data_ptr(), None, self.stream), "iu_cand_key_scan")
+
+    def scatter(self):
+        k = self._lib()
+        o, sz = self.order, self.sz
+        k.check(k.lib().iu_cand_key_scatter(
+            self.r.data_ptr(),
+            None if self.r_lo is None else self.r_lo.data_ptr(), self.mode,
+            self.r.shape[0], sz.tile, self.key.data_ptr(),
+            self.rank.data_ptr(), o.pos.data_ptr(), o.starts.data_ptr(),
+            o.rec.data_ptr(), o.slot.data_ptr(), self.stream),
+            "iu_cand_key_scatter")
+
+    def probe(self, lanes=None, ext=False):
+        k = self._lib()
+        o, sz, lay = self.order, self.sz, self.lay
+        ext = self.ext if ext is False else ext
+        rmin, inv_h, shape = self.bins
+        ext_args = (None, 0, 0, 0) if ext is None else (
+            ext[0].data_ptr(), ext[0].shape[1], ext[1].k, ext[1].count_col)
+        head = (self.table.data_ptr(), self.table.shape[1],
+                o.rec.data_ptr(), o.starts.data_ptr(), o.counts.data_ptr(),
+                o.chunk_end.data_ptr(), sz.n_keys, sz.span_shift, sz.chunk,
+                sz.max_chunks, lanes or self.lanes, rmin.data_ptr(),
+                inv_h.data_ptr(), *shape, lay.k, lay.nf,
+                self.ck._KIND_CODE[lay.kind], lay.id_role, lay.count_col,
+                float(self.eps), int(self.ovf_base))
+        tail = (len(lay.var_roles), self.vroles.data_ptr(), *ext_args,
+                self.res.data_ptr(), self.stream)
+        if self.grid64:
+            code = k.lib().iu_cand_rows_chunked_f64(*head, *tail)
+        else:
+            code = k.lib().iu_cand_rows_chunked(*head, self.ck.QINV, *tail)
+        k.check(code, "iu_cand_rows_chunked")
+
+    def unsort(self):
+        k = self._lib()
+        o, sz = self.order, self.sz
+        k.check(k.lib().iu_cand_key_unsort(
+            self.res.data_ptr(), o.slot.data_ptr(), o.pos.data_ptr(),
+            self.r.shape[0], sz.tile, sz.out_words,
+            *(t.data_ptr() for t in self.outs), None, 0, 0, 0, 1,
+            self.stream), "iu_cand_key_unsort")
+
+    def unsort_plain(self):
+        """The probe's results put back in query order by indexing with the
+        slots (the plain version of the unsort)."""
+        return tuple(self.res[self.order.slot.long()].split(
+            [1, 1, self.res.shape[1] - 2], 1))
+
+    def unsort_err(self):
+        """Entries of the unsort's outputs unlike its plain version's."""
+        want = self.unsort_plain()
+        return sum(int((a.reshape(w.shape) != w).sum())
+                   for a, w in zip(self.outs, want))
+
+    def values(self):
+        """The unsort's outputs as (id, aux, values in the table's dtype)."""
+        return (self.outs[0], self.outs[1],
+                self.outs[2].view(self.table.dtype))
+
+
+def b2_stage_times(chain, idx, plain_probe, probe_bound, bound_fn=bound,
+                   reps=10, lanes=()):
+    """Each stage of ``chain`` alone, CUDA-event ms beside its plain
+    version, the library call of the first design's where there is one
+    and its bound (bytes, each once: the key pass reads the queries and
+    writes key, rank and position; the scan the counts; the scatter reads
+    the queries, keys, ranks, positions and starts and writes records
+    and slots; the probe ``probe_bound``; the unsort reads slots,
+    positions and results and writes the outputs).  ``idx``: the flat
+    bins; ``plain_probe``: the plain probe, a callable; ``lanes``: more
+    lane counts to time the probe at, in turns.  Checks the key pass,
+    scan and scatter (``order_mismatches``) and the unsort against their
+    plain versions.  Returns {"pass_err", "scatter_err", "unsort_err",
+    "stages": {name: {ms, plain_ms, library_ms, bound}}, "lanes"}."""
+    ck = chain.ck
+    o, sz = chain.order, chain.sz
+    b = chain.r.shape[0]
+    words = ck.order_records_plain(chain.r, chain.mode in (1, 2), chain.r_lo)
+    pass_err = sum(int((a != w).sum()) for a, w in zip(
+        (o.counts, o.starts, o.chunk_end), ck.order_scan_plain(idx, sz)))
+    scatter_err = ck.order_mismatches(o, idx, words) - pass_err
+    check(pass_err == 0, f"B2 key pass and scan: {pass_err} counts, starts "
+          "or chunk ends differ from the plain versions")
+    check(scatter_err == 0, f"B2 scatter: {scatter_err} slots, records or "
+          "positions break the order")
+    chain.probe()
+    chain.unsort()
+    unsort_err = chain.unsort_err()
+    check(unsort_err == 0, f"B2 unsort: {unsort_err} words differ from the "
+          "results indexed by slot")
+    qb = chain.r.element_size() * 3 + (12 if chain.r_lo is not None else 0)
+    rw, ow = 4 * sz.rec_words, 4 * sz.out_words
+    t = {"bin_pass": cuda_ms(chain.key_pass, reps),
+         "scan": cuda_ms(chain.scan, reps),
+         "bin_scatter": cuda_ms(chain.scatter, reps)}
+    t_lanes = turns({g: (lambda g=g: chain.probe(g))
+                     for g in (chain.lanes, *lanes)}, reps)
+    t["probe"] = sum(t_lanes[chain.lanes]) / 2
+    t["bin_unsort"] = cuda_ms(chain.unsort, reps)
+    plain = {
+        "bin_pass": cuda_ms(lambda: ck.order_scan_plain(idx, sz), 3),
+        "scan": None,
+        "bin_scatter": cuda_ms(lambda: ck.cand_order_plain(idx, sz), 3),
+        "probe": cuda_ms(plain_probe, 1),
+        "bin_unsort": cuda_ms(chain.unsort_plain, 3)}
+    library = {"bin_scatter": cuda_ms(lambda: torch.argsort(idx, stable=True),
+                                      3),
+               "bin_unsort": cuda_ms(
+                   lambda: chain.res[o.slot.long()], 3)}
+    bounds = {"bin_pass": bound_fn(b * (qb + 12), b * 9),
+              "scan": bound_fn(sz.n_keys * 12, 0),
+              "bin_scatter": bound_fn(b * (qb + 16 + rw + 4), 0),
+              "probe": probe_bound,
+              "bin_unsort": bound_fn(b * (8 + 2 * ow), 0)}
+    stages = {n: dict(ms=t[n], plain_ms=plain[n], library_ms=library.get(n),
+                      bound=bounds[n]) for n in t}
+    return dict(pass_err=float(pass_err), scatter_err=float(scatter_err),
+                unsort_err=float(unsort_err), stages=stages, lanes=t_lanes)
+
+
+def print_stages(label, st, sz):
+    print(f"{label}, each stage alone (CUDA events; bound, bytes each once; "
+          f"sizing {tuple(sz)}): " + ", ".join(
+              f"{n} {v['ms']:.4f} ms (bound {v['bound'][0]:.4f}, plain "
+              + ("-" if v["plain_ms"] is None else f"{v['plain_ms']:.4f}")
+              + ")" for n, v in st.items()))
 
 
 def ext_check(label, grid, r, cand_kernel, bound_fn=bound, reps=10):
@@ -522,12 +693,12 @@ def ext_check(label, grid, r, cand_kernel, bound_fn=bound, reps=10):
     unsort torch.equal to the plain composition (probe_rows_ext_plain:
     the main probe, the extension probe of the overflow misses, the
     merge); how many queries reached the extension rows and how many a
-    walk takes; the probe kernel alone (records by slot) with the
-    extension rows and without them timed in turns; the plain
-    composition with its inputs from r; the bound, each byte once: per
-    candidate its probe roles of every distinct main and extension row
-    read, the value roles of every distinct (row, winner), per query
-    its perm entry, coordinates and record."""
+    walk takes; the probe kernel alone with the extension rows and
+    without them timed in turns; the plain composition with its inputs
+    from r; the bound, each byte once: per candidate its probe roles of
+    every distinct main and extension row read, the value roles of every
+    distinct (row, winner), per query its record in and its result
+    out."""
     from interpolate_unstructured_tpu_torch.models import cand_table
 
     slots = (0,) if grid.cand_nv else ()
@@ -539,37 +710,31 @@ def ext_check(label, grid, r, cand_kernel, bound_fn=bound, reps=10):
     bins = (grid.cand_rmin, grid.cand_inv_h, grid.cand_shape)
     chunk = cand_table.probe_chunk(grid)
     n = r.shape[0]
-    n_bins = int(np.prod(grid.cand_shape))
     idx, rq = cand_table.probe_inputs(grid, r)
     want = cand_kernel.probe_rows_ext_plain(grid.cand_table, ext[0], idx, rq,
                                             lay, lay_e, eps, k, chunk)
-    _, _, perm, slot = cand_kernel.bin_order_cuda(r, *bins)
-    got = cand_kernel.cand_rows_binned_cuda(grid.cand_table, r, perm, slot,
+    chain = B2Chain(grid.cand_table, r, bins, lay, eps, k)
+    got = cand_kernel.cand_rows_binned_cuda(grid.cand_table, chain.order,
                                             *bins, lay, eps, k, ext=ext)
     for name, a, b in zip(("id", "aux", "values"), got, want):
         n_bad = int((a != b).reshape(n, -1).any(1).sum())
         check(torch.equal(a, b), f"{label}: the probe with the extension "
               f"rows, {name} differs from probe_rows_ext_plain on {n_bad} "
               "queries")
-    main = cand_kernel.cand_rows_binned_cuda(grid.cand_table, r, perm, slot,
+    main = cand_kernel.cand_rows_binned_cuda(grid.cand_table, chain.order,
                                              *bins, lay, eps, k)
     reach = main[1] >= 0
     n_ext, n_walk = int(reach.sum()), int((want[1] >= 0).sum())
     check(n_ext > 0, f"{label}: no query reached the extension rows")
-    lanes = cand_kernel.binned_lanes(n, n_bins)
-    n_vars = len(lay.var_roles)
-    e = grid.cand_table.element_size()
-    rec = torch.empty((n, 2 + n_vars * e // 4), dtype=torch.int32,
-                      device=r.device)
-    t = turns({"main": lambda: binned_probe_call(grid, r, perm, lay, eps, k,
-                                                 lanes, rec),
-               "fused": lambda: binned_probe_call(grid, r, perm, lay, eps, k,
-                                                  lanes, rec, ext=ext)}, reps)
+    t = turns({"main": chain.probe,
+               "fused": lambda: chain.probe(ext=ext)}, reps)
     plain_ms = cuda_ms(lambda: cand_kernel.probe_rows_ext_plain(
         grid.cand_table, ext[0], *cand_kernel.probe_inputs_plain(
             r, *bins, lay.kind == "quantized"), lay, lay_e, eps, k, chunk), 2)
     quant = lay.kind == "quantized"
     nf = lay.nf
+    e = grid.cand_table.element_size()
+    n_vars = len(lay.var_roles)
     # probe roles a candidate (int16 pair words and the id, or planes and
     # the id), the row's count (and dscale), value roles of a winner
     roles = (-(-3 * nf // 2) + -(-nf // 2) + 1) if quant else 4 * nf + 1
@@ -584,36 +749,35 @@ def ext_check(label, grid, r, cand_kernel, bound_fn=bound, reps=10):
     n_bytes = ((n_rows * (roles * k + tail) + n_erows * (roles * lay_e.k
                                                           + tail)) * e
                + (int(plane.numel()) + int(eplane.numel())) * vals * e
-               + n * (4 + 3 * e + 4 * rec.shape[1]))
+               + n * 4 * (chain.sz.rec_words + chain.sz.out_words))
     ops = (n * k + n_ext * lay_e.k) * nf * 9
     res = dict(n_ext=n_ext, n_walk=n_walk, max_abs_err=0.0,
                ms=sum(t["fused"]) / 2, turns=t, plain_ms=plain_ms,
-               bound=bound_fn(n_bytes, ops), lanes=lanes)
-    print(f"{label}: the probe in bin order with the extension rows "
-          f"({lanes} lanes a query) and the unsort torch.equal to "
-          f"probe_rows_ext_plain on {n} queries; {n_ext} ({n_ext / n:.4%}) "
-          f"reached the extension rows ({n_erows} distinct of "
-          f"{ext[0].shape[0]}, K={k}, k_ext={lay_e.k}), {n_walk} "
-          f"({n_walk / n:.4%}) walk; probe kernel alone, CUDA events in "
-          f"turns: main rows only {t['main'][0]:.4f} / {t['main'][1]:.4f} "
-          f"ms, with the extension probe {t['fused'][0]:.4f} / "
-          f"{t['fused'][1]:.4f} ms; plain composition {plain_ms:.4f} ms; "
-          f"bound {res['bound'][0]:.4f} ms ({res['bound'][1]})")
+               bound=bound_fn(n_bytes, ops), lanes=chain.lanes)
+    print(f"{label}: the probe with the extension rows ({chain.lanes} lanes "
+          f"a query) and the unsort torch.equal to probe_rows_ext_plain on "
+          f"{n} queries; {n_ext} ({n_ext / n:.4%}) reached the extension "
+          f"rows ({n_erows} distinct of {ext[0].shape[0]}, K={k}, "
+          f"k_ext={lay_e.k}), {n_walk} ({n_walk / n:.4%}) walk; probe kernel "
+          f"alone, CUDA events in turns: main rows only {t['main'][0]:.4f} / "
+          f"{t['main'][1]:.4f} ms, with the extension probe "
+          f"{t['fused'][0]:.4f} / {t['fused'][1]:.4f} ms; plain composition "
+          f"{plain_ms:.4f} ms; bound {res['bound'][0]:.4f} ms "
+          f"({res['bound'][1]})")
     return res
 
 
 def b2_front_end(dev, grid, r, k, cand_kernel):
-    """B2 on the 10M cold queries of the 998k-tet box: the bin-ordered
-    front end against its plain versions, each kernel timed, with bounds
-    that count each row once.  The probe in bin order is checked and
-    timed at the lanes a query that ``binned_lanes`` picks and at its
-    neighbour (2 and 4); tools/b2_sweep.py sweeps lanes and batch sizes,
-    and the direct kernel of the first design (one warp a query in query
-    order) against the bin-ordered query."""
+    """B2 on the 10M cold queries of the 998k-tet box: the chain's stages
+    against their plain versions, each timed beside its bound, the
+    bounds counting each row once.  The probe is checked and timed at
+    the lanes a query that ``binned_lanes`` picks and at its neighbour (2
+    and 4); the finished outputs of the unsort (cells, found, values
+    filled) against the plain probe's through torch.where.
+    tools/b2_sweep.py sweeps lanes, batch sizes and the sizing, and times
+    the first design's kernels against the chain."""
     from interpolate_unstructured_tpu_torch.models import cand_table
-    from interpolate_unstructured_tpu_torch.ops import _kernels, geometry
 
-    res = {}
     n = r.shape[0]
     idx, rq = cand_table.probe_inputs(grid, r)
     lay = cand_table.layout(grid, k, (0,))
@@ -623,169 +787,66 @@ def b2_front_end(dev, grid, r, k, cand_kernel):
     n_bins = int(np.prod(grid.cand_shape))
     lanes = cand_kernel.binned_lanes(n, n_bins)
     lanes_guard = 4 if lanes == 2 else 2
+    check(lay.kind == "quantized", "the 998k box's rows are not quantized")
 
-    # the bin-ordered front end against its plain versions, bit for bit;
-    # max_abs_err of an integer output is its count of differing entries
-    b_idx, ends, perm, slot = cand_kernel.bin_order_cuda(r, *bins)
-    arange = torch.arange(n, device=dev, dtype=torch.int32)
-    res["pass_err"] = float(int((b_idx != idx).sum()) + int(
-        (ends.long() != torch.cumsum(torch.bincount(
-            idx.long(), minlength=n_bins), 0)).sum()))
-    check(res["pass_err"] == 0, f"B2 bin pass: {res['pass_err']:.0f} bins "
-          "or scanned counts differ from the plain bin index and bincount")
-    res["scatter_err"] = float(
-        int((torch.sort(perm).values != arange).sum())
-        + int((idx[perm.long()] != idx[cand_kernel.bin_order_plain(idx)])
-              .sum())
-        + int((perm[slot.long()] != arange).sum()))
-    check(res["scatter_err"] == 0, f"B2 scatter: {res['scatter_err']:.0f} "
-          "entries of perm or slot are not the plain grouping and its inverse")
+    chain = B2Chain(grid.cand_table, r, bins, lay, eps, k)
     pout = cand_kernel.probe_rows_plain(grid.cand_table, idx, rq, lay, eps, k,
                                         chunk)
     for g in (lanes, lanes_guard):
         kout = cand_kernel.cand_rows_binned_cuda(
-            grid.cand_table, r, perm, slot, *bins, lay, eps, k, lanes=g)
+            grid.cand_table, chain.order, *bins, lay, eps, k, lanes=g)
         for name, a, b in zip(("id", "aux", "values"), kout, pout):
             n_bad = int((a != b).reshape(n, -1).any(1).sum())
             check(torch.equal(a, b), f"B2 in bin order, {g} lanes a query: "
                   f"{name} differs from probe_rows_plain on {n_bad} queries")
-    res["binned_err"] = float((kout[2] - pout[2]).abs().max())
-    print(f"B2 in bin order, all {n} cold queries: bins equal the plain bin "
-          f"index, ends the scan of its bincount, perm groups the queries as "
-          f"the stable argsort does and slot is its inverse; id, aux and "
-          f"values torch.equal to probe_rows_plain with {lanes} and "
-          f"{lanes_guard} lanes a query")
+    found = pout[1] == -2
+    fin = cand_kernel.cand_rows_binned_cuda(grid.cand_table, chain.order,
+                                            *bins, lay, eps, k, fill=-7.0)
+    for name, a, b in zip(("i_cell", "found", "values"), fin, (
+            torch.where(found, pout[0], -1), found,
+            torch.where(found[:, None], pout[2], -7.0))):
+        check(torch.equal(a, b), f"B2's finished outputs: {name} differs "
+              "from the plain probe's through torch.where")
+    res = {"binned_err": 0.0}
+    print(f"B2 in bin order, all {n} cold queries: id, aux and values "
+          f"torch.equal to probe_rows_plain with {lanes} and {lanes_guard} "
+          f"lanes a query; the finished outputs (fill -7) equal to its "
+          f"outputs through torch.where")
     n_rows = int(torch.unique(idx).numel())
     n_planes = int(torch.unique(
         idx.long() * (grid.n_cells + 1) + pout[0].long() + 1).numel())
-    del kout, pout
-
-    # timing: the bin-ordered query, then each kernel alone
-    ms_q = cuda_ms(lambda: cand_kernel.cand_rows_binned_query(
-        grid.cand_table, r, *bins, lay, eps, k, chunk), 10)
-    ms_pu = cuda_ms(lambda: cand_kernel.cand_rows_binned_cuda(
-        grid.cand_table, r, perm, slot, *bins, lay, eps, k), 10)
-    lib = _kernels.lib()
-    stream = torch.cuda.current_stream().cuda_stream
-    rmin, inv_h = (t.contiguous() for t in bins[:2])
-    counts = torch.zeros(n_bins, dtype=torch.int32, device=dev)
-    bin_buf, rank_buf, perm_buf, slot_buf = (
-        torch.empty(n, dtype=torch.int32, device=dev) for _ in range(4))
-
-    def bin_pass():  # with the 8 MB memset of the counts
-        counts.zero_()
-        _kernels.check(lib.iu_cand_bin_pass(
-            r.data_ptr(), 0, n, rmin.data_ptr(), inv_h.data_ptr(),
-            *grid.cand_shape, counts.data_ptr(), bin_buf.data_ptr(),
-            rank_buf.data_ptr(), stream), "iu_cand_bin_pass")
-
-    bin_pass()
-    scan = torch.cumsum(counts, 0, dtype=torch.int32)
-
-    def scatter():
-        _kernels.check(lib.iu_cand_bin_scatter(
-            bin_buf.data_ptr(), rank_buf.data_ptr(), scan.data_ptr(), n,
-            perm_buf.data_ptr(), slot_buf.data_ptr(), stream),
-            "iu_cand_bin_scatter")
-
-    n_vars = len(lay.var_roles)
-    rec = torch.empty((n, 2 + n_vars), dtype=torch.int32, device=dev)
-    vroles = torch.tensor(lay.var_roles, dtype=torch.int32, device=dev)
-    outs = (torch.empty(n, dtype=torch.int32, device=dev),
-            torch.empty(n, dtype=torch.int32, device=dev),
-            torch.empty((n, n_vars), dtype=torch.float32, device=dev))
-
-    def probe(lanes, b=n):  # the probe kernel alone, records by slot
-        binned_probe_call(grid, r, perm, lay, eps, k, lanes, rec, b=b)
-
-    def unsort():
-        _kernels.check(lib.iu_cand_bin_unsort(
-            rec.data_ptr(), slot.data_ptr(), n, n_vars, outs[0].data_ptr(),
-            outs[1].data_ptr(), outs[2].data_ptr(), stream),
-            "iu_cand_bin_unsort")
-
-    def unsort_plain():  # the records put back in query order, split
-        back = rec[slot.long()]
-        return back[:, 0], back[:, 1], back[:, 2:].view(torch.float32)
-
-    ms_pass = cuda_ms(bin_pass, 10)
-    ms_scan = cuda_ms(lambda: torch.cumsum(counts, 0, dtype=torch.int32), 10)
-    ms_scatter = cuda_ms(scatter, 10)
-    check(lay.kind == "quantized", "the 998k box's rows are not quantized")
-    t_lanes = turns({g: (lambda g=g: probe(g)) for g in (lanes, lanes_guard)},
-                    10)
-    probe(lanes)
-    unsort()
-    u_plain = unsort_plain()
-    res["unsort_err"] = max(
-        float(int((outs[0] != u_plain[0]).sum())
-              + int((outs[1] != u_plain[1]).sum())),
-        float((outs[2] - u_plain[2]).abs().max()))
-    check(res["unsort_err"] == 0 and torch.equal(outs[2], u_plain[2]),
-          f"B2 unsort differs from the records indexed by slot "
-          f"({res['unsort_err']})")
-    del u_plain
-    ms_unsort = cuda_ms(unsort, 10)
-    ms_p_unsort = cuda_ms(unsort_plain, 3)
-    ms_lib_unsort = cuda_ms(lambda: rec[slot.long()], 3)
-    ms_memset = cuda_ms(counts.zero_, 10)
-    ms_p_binned = cuda_ms(lambda: cand_kernel.probe_rows_plain(
-        grid.cand_table, *cand_kernel.probe_inputs_plain(r, *bins, True), lay,
-        eps, k, chunk), 2)
-    ms_p_pass = cuda_ms(lambda: torch.bincount(geometry.bin_flat(
-        geometry.bin_ijk(r, *bins, torch.int32), grid.cand_shape).long(),
-        minlength=n_bins), 3)
-    ms_p_order = cuda_ms(lambda: cand_kernel.bin_order_plain(idx), 3)
-    ms_lib_order = cuda_ms(lambda: torch.argsort(idx, stable=True), 3)
-    print(f"B2 998k-tet, {n} cold queries, CUDA events: bin-ordered query "
-          f"{ms_q:.4f} ms; kernels alone: probe and unsort in bin order "
-          f"{ms_pu:.4f} ms; "
-          f"bin pass {ms_pass:.4f} ms (with the count memset, {ms_memset:.4f} "
-          f"ms alone), scan {ms_scan:.4f} ms, scatter {ms_scatter:.4f} ms, "
-          f"unsort {ms_unsort:.4f} ms; row "
-          f"{grid.cand_table.shape[1] * 4} B, {n_rows} distinct rows, "
-          f"{n_bins} bins")
-    print(f"B2 probe kernel alone, records by slot, lanes a query "
-          f"(in turns): " + ", ".join(
-              f"{g}: {t_lanes[g][0]:.4f} / {t_lanes[g][1]:.4f} ms"
-              for g in (lanes, lanes_guard))
-          + f"; binned_lanes picks {lanes}")
-    print(f"B2 plain versions at {n}: probe_rows_plain with its inputs "
-          f"from r {ms_p_binned:.4f} ms, bin index + bincount "
-          f"{ms_p_pass:.4f} ms, stable argsort {ms_p_order:.4f} ms, unsort "
-          f"(index by slot, split) {ms_p_unsort:.4f} ms; library calls: "
-          f"torch.argsort(idx, stable=True) {ms_lib_order:.4f} ms, "
-          f"rec[slot.long()] {ms_lib_unsort:.4f} ms")
+    del kout, pout, fin, found
 
     # Bounds, each byte once: the probe roles (int16 normal and offset
     # words, ids), count and dscale of every distinct row; the value
     # plane (4 floats) of every distinct (row, winner); per query its
-    # inputs and outputs (a record of 2 + n_vars words between the probe
-    # and the unsort)
+    # record in and its result out (the probe), its query in and its
+    # outputs out (the query)
     n_roles = -(-3 * lay.nf // 2) + -(-lay.nf // 2) + 1
     rows_b = n_rows * (n_roles * k * 4 + 8) + n_planes * 16
     ops = n * k * lay.nf * 9
-    rec_b = 4 * (2 + n_vars)
-    res["probe"] = dict(
-        ms=sum(t_lanes[lanes]) / 2, ms_turns=t_lanes[lanes],
-        plain_ms=ms_p_binned,
-        bound=bound(rows_b + n * (4 + 12 + rec_b), ops))
-    res["bin_pass"] = dict(ms=ms_pass, plain_ms=ms_p_pass, library_ms=None,
-                           bound=bound(n * (12 + 8) + n_bins * 4, n * 9))
-    res["bin_scatter"] = dict(ms=ms_scatter, plain_ms=ms_p_order,
-                              library_ms=ms_lib_order,
-                              bound=bound(n * 16 + n_rows * 4, 0))
-    res["bin_unsort"] = dict(ms=ms_unsort, plain_ms=ms_p_unsort,
-                             library_ms=ms_lib_unsort,
-                             bound=bound(n * (4 + 2 * rec_b), 0))
-    res["query"] = dict(ms=ms_q, bound=bound(rows_b + n * (12 + rec_b), ops))
-    for name in ("probe", "bin_pass", "bin_scatter", "bin_unsort"):
-        b = res[name]["bound"]
-        print(f"B2 {name} bound at {n} queries: {b[0]:.4f} ms ({b[1]})")
-    b = res["query"]["bound"]
-    print(f"B2 bin-ordered query bound (r in, outputs out, each distinct "
-          f"row and winner plane once): {b[0]:.4f} ms ({b[1]}); {n_rows} "
-          f"rows, {n_planes} (row, winner) planes")
+    sz = chain.sz
+    st = b2_stage_times(
+        chain, idx, lambda: cand_kernel.probe_rows_plain(
+            grid.cand_table, *cand_kernel.probe_inputs_plain(r, *bins, True),
+            lay, eps, k, chunk),
+        bound(rows_b + n * 4 * (sz.rec_words + sz.out_words), ops),
+        lanes=(lanes_guard,))
+    res.update(pass_err=st["pass_err"], scatter_err=st["scatter_err"],
+               unsort_err=st["unsort_err"])
+    for name, v in st["stages"].items():
+        res[name] = v
+    ms_q = cuda_ms(lambda: cand_kernel.cand_rows_binned_query(
+        grid.cand_table, r, *bins, lay, eps, k, chunk), 10)
+    res["query"] = dict(ms=ms_q, bound=bound(
+        rows_b + n * (12 + 4 * sz.out_words), ops))
+    print_stages(f"B2 998k-tet, {n} cold queries", st["stages"], sz)
+    print(f"B2 probe alone, lanes a query (in turns): " + ", ".join(
+        f"{g}: {v[0]:.4f} / {v[1]:.4f} ms" for g, v in st["lanes"].items())
+        + f"; binned_lanes picks {lanes}; the whole query {ms_q:.4f} ms, "
+        f"bound {res['query']['bound'][0]:.4f} ms; row "
+        f"{grid.cand_table.shape[1] * 4} B, {n_rows} distinct rows, "
+        f"{n_planes} (row, winner) planes, {n_bins} bins")
     return res
 
 
@@ -2522,10 +2583,9 @@ def accurate_phase(dev, tiu, grid, bf_inputs, counters, cand_kernel,
     lanes_guard = 4 if lanes == 2 else 2
     full = cand_kernel.cand_rows_df_query(table, r64, None, *bins, lay, eps,
                                           lay.k, chunk)
-    _, _, perm, slot = cand_kernel.bin_order_cuda(r64, *bins)
-    guard = cand_kernel.cand_rows_binned_cuda(table, r64, perm, slot, *bins,
-                                              lay, eps, lay.k,
-                                              lanes=lanes_guard)
+    chain = B2Chain(table, r64, bins, lay, eps, lay.k, df=True)
+    guard = cand_kernel.cand_rows_binned_cuda(table, chain.order, *bins, lay,
+                                              eps, lay.k, lanes=lanes_guard)
     nv = len(lay.var_roles)
     for name, a, b in zip(("id", "aux", "vals_hi", "vals_lo"), full,
                           (guard[0], guard[1], guard[2][:, :nv],
@@ -2537,115 +2597,57 @@ def accurate_phase(dev, tiu, grid, bf_inputs, counters, cand_kernel,
     n_rows = int(torch.unique(idx).numel())
     n_planes = int(torch.unique(
         idx.long() * (grid.n_cells + 1) + full[0].long() + 1).numel())
-    del full, guard, perm, slot
+    del full, guard
 
-    lib = _kernels.lib()
-    stream = torch.cuda.current_stream().cuda_stream
-    rmin, inv_h = (t.contiguous() for t in bins[:2])
-    counts_b = torch.zeros(n_bins, dtype=torch.int32, device=dev)
-    bin_buf, rank_buf, perm_buf, slot_buf = (
-        torch.empty(N_CAND, dtype=torch.int32, device=dev) for _ in range(4))
-
-    def bin_pass64():  # with the 8 MB memset of the counts
-        counts_b.zero_()
-        _kernels.check(lib.iu_cand_bin_pass(
-            r64.data_ptr(), 1, N_CAND, rmin.data_ptr(), inv_h.data_ptr(),
-            *grid.cand_shape, counts_b.data_ptr(), bin_buf.data_ptr(),
-            rank_buf.data_ptr(), stream), "iu_cand_bin_pass")
-
-    bin_pass64()
-    res["pass_err"] = float(int((bin_buf != idx).sum()))
-    check(res["pass_err"] == 0, f"B2-df bin pass: {res['pass_err']:.0f} bins "
-          "differ from the plain split and bin index")
-    scan = torch.cumsum(counts_b, 0, dtype=torch.int32)
-
-    def scatter():
-        _kernels.check(lib.iu_cand_bin_scatter(
-            bin_buf.data_ptr(), rank_buf.data_ptr(), scan.data_ptr(), N_CAND,
-            perm_buf.data_ptr(), slot_buf.data_ptr(), stream),
-            "iu_cand_bin_scatter")
-
-    scatter()
-    rec = torch.empty((N_CAND, 2 + 2 * nv), dtype=torch.int32, device=dev)
-    vroles = torch.tensor(lay.var_roles, dtype=torch.int32, device=dev)
-
-    def probe(g):  # the df probe alone, float64 queries, records by slot
-        _kernels.check(lib.iu_cand_rows_binned(
-            table.data_ptr(), table.shape[1], r64.data_ptr(), None, 1,
-            perm_buf.data_ptr(), N_CAND, g, rmin.data_ptr(), inv_h.data_ptr(),
-            *grid.cand_shape, lay.k, lay.nf, 3, lay.id_role, lay.count_col,
-            float(eps), lay.k, cand_kernel.QINV, nv, vroles.data_ptr(),
-            None, 0, 0, 0, rec.data_ptr(), stream), "iu_cand_rows_binned")
-
-    outs = (torch.empty(N_CAND, dtype=torch.int32, device=dev),
-            torch.empty(N_CAND, dtype=torch.int32, device=dev),
-            torch.empty((N_CAND, 2 * nv), dtype=torch.float32, device=dev))
-
-    def unsort():
-        _kernels.check(lib.iu_cand_bin_unsort(
-            rec.data_ptr(), slot_buf.data_ptr(), N_CAND, 2 * nv,
-            outs[0].data_ptr(), outs[1].data_ptr(), outs[2].data_ptr(),
-            stream), "iu_cand_bin_unsort")
-
-    ms_pass = cuda_ms(bin_pass64, 10)
-    ms_scan = cuda_ms(lambda: torch.cumsum(counts_b, 0, dtype=torch.int32), 10)
-    ms_scatter = cuda_ms(scatter, 10)
-    t_lanes = turns({g: (lambda g=g: probe(g)) for g in (lanes, lanes_guard)},
-                    10)
-    probe(lanes)
-    ms_unsort = cuda_ms(unsort, 10)
+    # Bounds, each byte once: the probe roles of K candidates (int16
+    # normal and offset words, ids), count and dscale of every distinct
+    # row, the df plane (8 floats) of every distinct (row, winner); per
+    # query its record (float32 hi and lo, 24 B) in and its result (id,
+    # aux, hi/lo value) out; the whole query reads the float64 input (24
+    # B, in place of the 24 B hi/lo local frame of the direct design)
+    n_roles = -(-3 * lay.nf // 2) + -(-lay.nf // 2) + 1
+    rows_b = n_rows * (n_roles * lay.k * 4 + 8) + n_planes * 32
+    ops = N_CAND * (lay.k * lay.nf * 9 + 3 * (DF_MUL + DF_ADD))
+    rec_b = 4 * (2 + 2 * nv)
+    ms_p = cuda_ms(lambda: cand_kernel.cand_rows_df_plain(
+        table, r64, None, *bins, lay, eps, lay.k, chunk), 1)
+    st = b2_stage_times(chain, idx, lambda: None,
+                        bound(rows_b + N_CAND * (24 + rec_b), ops),
+                        lanes=(lanes_guard,))
     t_whole = turns({
         "float64": lambda: cand_kernel.cand_rows_df_query(
             table, r64, None, *bins, lay, eps, lay.k, chunk),
         "hi/lo pair": lambda: cand_kernel.cand_rows_df_query(
             table, r_hi, r_lo, *bins, lay, eps, lay.k, chunk),
     }, 10)
-    ms_p = cuda_ms(lambda: cand_kernel.cand_rows_df_plain(
-        table, r64, None, *bins, lay, eps, lay.k, chunk), 1)
     ms_p_inputs = cuda_ms(lambda: cand_kernel.probe_inputs_df_plain(
         r64, None, *bins), 5)
-    ms_p_pass = cuda_ms(lambda: torch.bincount(
-        cand_kernel.probe_inputs_df_plain(r64, None, *bins)[0].long(),
-        minlength=n_bins), 3)
-    # Bounds, each byte once: the probe roles of K candidates (int16
-    # normal and offset words, ids), count and dscale of every distinct
-    # row, the df plane (8 floats) of every distinct (row, winner); per
-    # query its float64 input (24 B, in place of the 24 B hi/lo local
-    # frame of the direct design) and its permutation entry in, a record
-    # (id, aux, hi/lo value) out: the direct design's bytes
-    n_roles = -(-3 * lay.nf // 2) + -(-lay.nf // 2) + 1
-    rows_b = n_rows * (n_roles * lay.k * 4 + 8) + n_planes * 32
-    ops = N_CAND * (lay.k * lay.nf * 9 + 3 * (DF_MUL + DF_ADD))
-    rec_b = 4 * (2 + 2 * nv)
-    res["df"] = dict(ms=sum(t_lanes[lanes]) / 2, plain_ms=ms_p,
-                     bound=bound(rows_b + N_CAND * (24 + 4 + rec_b), ops),
-                     max_abs_err=err_df)
-    res["df_pass"] = dict(ms=ms_pass, plain_ms=ms_p_pass,
-                          bound=bound(N_CAND * (24 + 8) + n_bins * 4,
-                                      N_CAND * 9))
+    sg = st["stages"]
+    res["pass_err"] = st["pass_err"]
+    res["df"] = dict(ms=sg["probe"]["ms"], plain_ms=ms_p,
+                     bound=sg["probe"]["bound"], max_abs_err=err_df)
+    res["df_pass"] = dict(ms=sg["bin_pass"]["ms"],
+                          plain_ms=sg["bin_pass"]["plain_ms"],
+                          bound=sg["bin_pass"]["bound"])
     res["df_whole"] = dict(turns=t_whole,
                            bound=bound(rows_b + N_CAND * (24 + rec_b), ops))
-    print(f"B2-df in bin order, 998k-tet, {N_CAND} cold float64 queries, "
-          f"CUDA events: bin pass (float64) {ms_pass:.4f} ms (with the count "
-          f"memset), scan {ms_scan:.4f} ms, scatter {ms_scatter:.4f} ms, df "
-          f"probe " + ", ".join(f"{g} lanes {t_lanes[g][0]:.4f} / "
-                                f"{t_lanes[g][1]:.4f} ms"
-                                for g in (lanes, lanes_guard))
-          + f" (binned_lanes picks {lanes}), unsort of the 2 + 2V records "
-          f"{ms_unsort:.4f} ms; the whole query in turns: float64 "
-          f"{t_whole['float64'][0]:.4f} / {t_whole['float64'][1]:.4f} ms, "
-          f"hi/lo pair {t_whole['hi/lo pair'][0]:.4f} / "
-          f"{t_whole['hi/lo pair'][1]:.4f} ms; row "
-          f"{table.shape[1] * 4} B, {n_rows} distinct rows, {n_planes} (row, "
-          f"winner) planes")
+    sg["probe"]["plain_ms"] = None
+    print_stages(f"B2-df in bin order, 998k-tet, {N_CAND} cold float64 "
+                 f"queries", sg, chain.sz)
+    print(f"B2-df probe alone, lanes a query (in turns): " + ", ".join(
+        f"{g}: {v[0]:.4f} / {v[1]:.4f} ms" for g, v in st["lanes"].items())
+        + f" (binned_lanes picks {lanes}); the whole query in turns: float64 "
+        f"{t_whole['float64'][0]:.4f} / {t_whole['float64'][1]:.4f} ms, "
+        f"hi/lo pair {t_whole['hi/lo pair'][0]:.4f} / "
+        f"{t_whole['hi/lo pair'][1]:.4f} ms; row {table.shape[1] * 4} B, "
+        f"{n_rows} distinct rows, {n_planes} (row, winner) planes")
     print(f"B2-df plain versions at {N_CAND}: the whole query "
           f"(cand_rows_df_plain) {ms_p:.4f} ms, its torch split, bin index "
-          f"and hi/lo frame {ms_p_inputs:.4f} ms, bin index + bincount "
-          f"{ms_p_pass:.4f} ms")
+          f"and hi/lo frame {ms_p_inputs:.4f} ms")
     for name in ("df", "df_pass", "df_whole"):
         b = res[name]["bound"]
         print(f"B2-df {name} bound at {N_CAND} queries: {b[0]:.4f} ms ({b[1]})")
-    del idx, rec, outs, bin_buf, rank_buf, perm_buf, slot_buf, counts_b
+    del idx, chain
 
     # B5 against its plain version on the warm call's first 1M queries,
     # both timed on all 10M
@@ -3181,114 +3183,32 @@ def f64_cold(dev, tiu, grid, r, cand_kernel, walk_kernel, counters):
     idx, rq = cand_table.probe_inputs(grid, r)
     pout = cand_kernel.probe_rows_plain(grid.cand_table, idx, rq, lay, eps,
                                         k, chunk)
-    b_idx, ends, perm, slot = cand_kernel.bin_order_cuda(r, *bins)
-    arange = torch.arange(n, device=dev, dtype=torch.int32)
-    res["pass_err"] = float(int((b_idx != idx).sum()) + int(
-        (ends.long() != torch.cumsum(torch.bincount(
-            idx.long(), minlength=n_bins), 0)).sum()))
-    check(res["pass_err"] == 0, f"B2 float64 bin pass: {res['pass_err']:.0f} "
-          "bins or counts differ from the plain bin index and bincount")
-    res["scatter_err"] = float(
-        int((torch.sort(perm).values != arange).sum())
-        + int((idx[perm.long()] != idx[cand_kernel.bin_order_plain(idx)])
-              .sum())
-        + int((perm[slot.long()] != arange).sum()))
-    check(res["scatter_err"] == 0, "B2 float64 scatter: perm or slot is not "
-          "the plain grouping and its inverse")
     lanes = cand_kernel.binned_lanes(n, n_bins)
+    chain = B2Chain(grid.cand_table, r, bins, lay, eps, k)
     # the main rows' probe alone, and the unsort after it
     res["binned_err"] = float(equal_or_fail(
         "B2 float64 probe in bin order (main rows only) + unsort",
-        cand_kernel.cand_rows_binned_cuda(grid.cand_table, r, perm, slot,
+        cand_kernel.cand_rows_binned_cuda(grid.cand_table, chain.order,
                                           *bins, lay, eps, k, lanes), pout))
-    print(f"B2 float64 stages on the {n} cold queries: the bin pass's bins "
-          f"equal the plain bin index and its counts the bincount, the "
-          f"scatter groups as the stable argsort does, the main rows' probe "
-          f"in bin order ({lanes} lanes a query) with the unsort torch.equal "
-          f"to probe_rows_plain")
+    print(f"B2 float64 on the {n} cold queries: the main rows' probe in bin "
+          f"order ({lanes} lanes a query) with the unsort torch.equal to "
+          f"probe_rows_plain")
     res["ext"] = ext_check(f"B2 float64, the 998k box's {n} cold queries",
                            grid, r, cand_kernel, bound64)
     res.update(n_ext=res["ext"]["n_ext"], n_walk=res["ext"]["n_walk"])
-
-    lib = _kernels.lib()
-    stream = torch.cuda.current_stream().cuda_stream
-    rmin, inv_h = (t.contiguous() for t in bins[:2])
-    counts_b = torch.zeros(n_bins, dtype=torch.int32, device=dev)
-    bin_buf, rank_buf, perm_buf, slot_buf = (
-        torch.empty(n, dtype=torch.int32, device=dev) for _ in range(4))
-
-    def bin_pass():  # with the memset of the counts
-        counts_b.zero_()
-        _kernels.check(lib.iu_cand_bin_pass_f64(
-            r.data_ptr(), n, rmin.data_ptr(), inv_h.data_ptr(),
-            *grid.cand_shape, counts_b.data_ptr(), bin_buf.data_ptr(),
-            rank_buf.data_ptr(), stream), "iu_cand_bin_pass_f64")
-
-    bin_pass()
-    scan = torch.cumsum(counts_b, 0, dtype=torch.int32)
-
-    def scatter():
-        _kernels.check(lib.iu_cand_bin_scatter(
-            bin_buf.data_ptr(), rank_buf.data_ptr(), scan.data_ptr(), n,
-            perm_buf.data_ptr(), slot_buf.data_ptr(), stream),
-            "iu_cand_bin_scatter")
-
-    n_vars = len(lay.var_roles)
-    n_words = 2 * n_vars
-    rec = torch.empty((n, 2 + n_words), dtype=torch.int32, device=dev)
-    outs = (torch.empty(n, dtype=torch.int32, device=dev),
-            torch.empty(n, dtype=torch.int32, device=dev),
-            torch.empty((n, n_vars), dtype=torch.float64, device=dev))
-
-    def unsort():
-        _kernels.check(lib.iu_cand_bin_unsort(
-            rec.data_ptr(), slot.data_ptr(), n, n_words, outs[0].data_ptr(),
-            outs[1].data_ptr(), outs[2].data_ptr(), stream),
-            "iu_cand_bin_unsort")
-
-    def unsort_plain():
-        back = rec[slot.long()]
-        return back[:, 0], back[:, 1], back[:, 2:].view(torch.float64)
-
-    binned_probe_call(grid, r, perm, lay, eps, k, lanes, rec,
-                      ext=(grid.cand_ext_table, cand_table.layout(
-                          grid, grid.cand_ext_ids.shape[1], var)))
-    unsort()
-    res["unsort_err"] = float(equal_or_fail("B2 float64 unsort", outs,
-                                            unsort_plain()))
-    t = {
-        "bin_pass": cuda_ms(bin_pass, 10),
-        "bin_scatter": cuda_ms(scatter, 10),
-        "bin_unsort": cuda_ms(unsort, 10),
-    }
-    tp = {
-        "bin_pass": cuda_ms(lambda: torch.bincount(geometry.bin_flat(
-            geometry.bin_ijk(r, *bins, torch.int32), grid.cand_shape).long(),
-            minlength=n_bins), 3),
-        "bin_scatter": cuda_ms(lambda: cand_kernel.bin_order_plain(idx), 3),
-        "bin_unsort": cuda_ms(unsort_plain, 3),
-    }
-    lib_ms = {"bin_scatter": cuda_ms(lambda: torch.argsort(idx, stable=True),
-                                     3),
-              "bin_unsort": cuda_ms(lambda: rec[slot.long()], 3)}
-    # bounds, each byte once, FP64; per query its inputs and outputs (a
-    # record of 2 + 2 n_vars words between the probe and the unsort)
-    n_rows = int(torch.unique(idx).numel())
-    rec_b = 4 * (2 + n_words)
-    bnd = {
-        "bin_pass": bound64(n * (24 + 8) + n_bins * 4, n * 9),
-        "bin_scatter": bound64(n * 16 + n_rows * 4, 0),
-        "bin_unsort": bound64(n * (4 + 2 * rec_b), 0),
-    }
-    for name in t:
-        print(f"B2 float64 {name}: kernel {t[name]:.4f} ms, plain "
-              f"{tp[name]:.4f} ms"
-              + (f", library call {lib_ms[name]:.4f} ms" if name in lib_ms
-                 else "")
-              + f"; bound {bnd[name][0]:.4f} ms ({bnd[name][1]})")
-    res["stages"] = {name: dict(ms=t[name], plain_ms=tp[name],
-                                library_ms=lib_ms.get(name),
-                                bound=bnd[name]) for name in t}
+    # each stage alone, the probe with the extension rows (its bound and
+    # plain version: ext_check's)
+    ext = (grid.cand_ext_table, cand_table.layout(
+        grid, grid.cand_ext_ids.shape[1], var))
+    chain.ext = ext
+    st = b2_stage_times(chain, idx, lambda: None, res["ext"]["bound"],
+                        bound64)
+    res.update(pass_err=st["pass_err"], scatter_err=st["scatter_err"],
+               unsort_err=st["unsort_err"])
+    print_stages(f"B2 float64, the 998k box's {n} cold queries",
+                 st["stages"], chain.sz)
+    res["stages"] = st["stages"]
+    del chain
     ex = res["ext"]
     res["stages"]["probe"] = dict(ms=ex["ms"], plain_ms=ex["plain_ms"],
                                   library_ms=None, bound=ex["bound"])

@@ -32,24 +32,49 @@
 //
 // On the main table, 10M uniform queries touch 1.9M distinct rows of
 // 1.5 KB, and in query order each row comes from DRAM about five times
-// (the L2 holds 50 MB of the 2.9 GB table).  So the queries are
-// counting-sorted by bin (cand_bin_pass_kernel, a scan,
-// cand_bin_scatter_kernel), then probed in that order, a group of lanes
-// per query (cand_rows_binned_kernel), so the queries of one bin probe
-// its row one after the other and it comes from DRAM about once; the
-// probe writes each query's record at its sorted slot, and
-// cand_bin_unsort_kernel puts the records back in query order.  On the
-// H100, writing the outputs straight to each query's own position cost
-// more than the probe (random 4-byte writes).  One thread per query
-// took 3x as long as a group of 4 lanes at 1M queries (half a query a
-// bin), 4 lanes 1.2x as long as 2 at 10M (5 a bin), so the wrapper picks
-// the group size by queries per bin (ops/cand_kernel.py:binned_lanes;
-// PERF.md §6).  The front end also computes the bin index and local
-// frame.  Its bound: the distinct rows once, the queries and outputs
-// once (permutation and records are its own scratch).  The probe with
-// 16-byte loads takes 54-64 registers (64 for quantized tets: 4 blocks
-// of 256 threads an SM), no spills.
+// (the L2 holds 50 MB of the 2.9 GB table).  So the queries are probed in
+// bin order, a group of lanes per query, so the queries of one bin probe
+// its row one after the other and it comes from DRAM about once.  One
+// thread per query took 3x as long as a group of 4 lanes at 1M queries
+// (half a query a bin), 4 lanes 1.2x as long as 2 at 10M (5 a bin), so
+// the wrapper picks the group size by queries per bin
+// (ops/cand_kernel.py:binned_lanes; PERF.md §6).
 //
+// Moving a query to a random place costs an L2 transaction, more than
+// its bytes.  The first bin order (tools/cand_order_alternatives.cu)
+// counted the queries into the 1.9M bins with an atomic a query,
+// scattered a permutation a query at a time, read each query through it
+// in the probe and put each record back a query at a time: four random
+// accesses a query, three times the probe's bound between them.  Here
+// every pass moves runs or streams, and only the probe's row reads go
+// to random places.  The bins are grouped into coarse keys, 2^span_shift
+// consecutive flat bins each (a few hundred at 5 queries a bin), and the
+// batch is cut into tiles, the same tiles in the key pass, scatter and
+// unsort:
+//   1. cand_key_kernel: each query's key; the tile counts its queries a
+//      key in shared memory and takes each key's ranks with one global
+//      atomic, so a tile's queries of a key get consecutive ranks (a
+//      run), and each query's position among the tile's slots;
+//   2. cand_key_scan_kernel: where each key's bucket starts in coarse
+//      order, and its chunks of at most `chunk` queries;
+//   3. cand_key_scatter_kernel: the tile stages its queries in shared
+//      memory in slot order and stores each run with consecutive threads,
+//      a record a query (the query as the probe reads it);
+//   4. cand_rows_chunk_kernel: a block a chunk: it loads the chunk's
+//      records coalesced, counting-sorts them by flat bin in shared
+//      memory, probes them in that order and stores the chunk's records
+//      (id, aux, values) back at their coarse-order positions, coalesced;
+//   5. cand_key_unsort_kernel: the scatter's mirror, the records read run
+//      by run and written in query order.
+// A bucket larger than a chunk is cut into consecutive chunks, which can
+// split a bin's queries between two blocks: each query's result reads
+// nothing of the others, so the order changes speed only, never bits.
+// Its bound: the distinct rows once, the queries and outputs once (keys,
+// ranks, records and slots are its own scratch).  ops/cand_kernel.py:
+// order_sizing picks the span, the tile and the chunk.  The probe takes
+// at most 64 registers (2 blocks of 512 threads an SM), with extension
+// rows at most 128.
+
 // Extension rows (a grid whose overflow bins keep candidates K..K+k_ext
 // in a second table, layouts 0-2): a query whose main verdict is an
 // overflow miss (aux >= 0, the bin's extension slot) probes that row in
@@ -69,14 +94,15 @@
 //
 // The df-plane rows (layout 3) take the same bin order, and their front
 // end also does what torch did before the direct layout-3 kernel: the
-// bin pass and the probe read the queries as given, float64 (B, 3) or a
-// float32 hi/lo pair, and split them themselves, hi = f32(r) rounded to
-// nearest and lo = f32(r - f64(hi)) (ops/df32.py:split_queries); the
-// probe forms the hi/lo local frame two_sum(hi - center) + lo of
-// ops/cand_kernel.py:local_frame_df.  A query's record is then id, aux,
-// V hi and V lo values, and the unsort moves 2 + 2V words.  The 24 bytes
-// of float64 input a query replace the 24 of the hi/lo frame the direct
-// layout-3 kernel read, so the bound counts the same bytes.
+// key pass and the scatter read the queries as given, float64 (B, 3) or
+// a float32 hi/lo pair, and the scatter splits them, hi = f32(r) rounded
+// to nearest and lo = f32(r - f64(hi)) (ops/df32.py:split_queries), into
+// a record of hi and lo; the probe forms the hi/lo local frame
+// two_sum(hi - center) + lo of ops/cand_kernel.py:local_frame_df.  A
+// query's result is then id, aux, V hi and V lo values, and the unsort
+// moves 2 + 2V words.  The 24 bytes of float64 input a query replace the
+// 24 of the hi/lo frame the direct layout-3 kernel read, so the bound
+// counts the same bytes.
 //
 // Packed int16 words are often NaN bit patterns as floats, so the
 // qn/qd roles are read through an int pointer and unpacked with integer
@@ -85,13 +111,13 @@
 //
 // A float64 grid's rows are never quantized: they take layouts 1 and 2 in
 // double (the JAX package's float64 route, its XLA _probe_rows_xla,
-// ops/locate.py:562).  The bin pass and the probe in bin order are
-// templates on the rows' type T, instantiated for float and
-// for double (the *_f64 entry points, scalars in double); the bin pass of
-// a float64 grid bins each query in double against the grid's float64
-// origin and inverse sizes, where accurate mode's bin pass on a float32
-// grid bins float64 queries by their float32 rounding.  The scatter and
-// the unsort move 4-byte words, whatever they hold: a double value is two
+// ops/locate.py:562).  The key pass and the probe are templates on the
+// rows' type T, instantiated for float and for double (the *_f64 entry
+// points, scalars in double); the key pass of a float64 grid bins each
+// query in double against the grid's float64 origin and inverse sizes,
+// where accurate mode's key pass on a float32 grid bins float64 queries
+// by their float32 rounding.  The scatter, the probe's chunk copies and
+// the unsort move 4-byte words, whatever they hold: a double is two
 // words of a record.  The double probe reads each candidate's roles one
 // element at a time (no 16-byte path); with the default row budget a
 // float64 tet grid has K = 7 and no fused variable, so its records are id
@@ -269,11 +295,6 @@ __device__ __forceinline__ void write_winner(
   }
 }
 
-// Bin-ordered front end (the main table's layouts 0-2 and the df-plane
-// rows), four launches: the bin pass, the scatter, the probe in bin
-// order, the unsort.
-constexpr int kOrderThreads = 256;
-
 // A grid's extension rows: row s holds candidates K..K+k of the bin
 // whose overflow miss carries slot s, in the main rows' layout with k
 // candidates (count column count_col, width W), probed in the bin's
@@ -295,98 +316,283 @@ __device__ __forceinline__ T bin_arg(R x) {
   }
 }
 
-// Bin pass: each query's flat candidate bin (ops/geometry.py:bin_ijk and
-// bin_flat) and its rank among its bin's queries, from an
-// atomic count per bin.  The 1.9M+ bin counts of the main path do not
-// fit in shared memory (8 MB), so they are counted in device memory,
-// where they stay L2-resident.  R: the queries' type; T: the bins',
-// float for a float32 grid, which bins float64 queries by their float32
-// rounding hi = f32(r) (a hi/lo pair is binned by its hi, as float
-// queries), or double for a float64 grid, which bins them in double.
-template <typename R, typename T>
-__global__ void cand_bin_pass_kernel(const R* __restrict__ r, int n,
-                                     iu::BinGrid<T> bins,
-                                     int* __restrict__ counts,
-                                     int* __restrict__ bin_out,
-                                     int* __restrict__ rank_out) {
-  const int q = blockIdx.x * blockDim.x + threadIdx.x;
-  if (q >= n) return;
+// The bin order of the batch, moved as runs (see the header): the key
+// pass, the scan and the scatter over tiles of the batch; the probe a
+// chunk of a coarse bucket at a time; the unsort over the same tiles.
+constexpr int kKeyThreads = 512;     // key pass, scatter, unsort
+constexpr int kMaxKeys = 8192;       // coarse keys: the key pass's counts
+constexpr int kScanThreads = 1024;   // the scan, one block
+constexpr int kProbeThreads = 512;   // the chunk probe
+constexpr int kProbeThreadsExt = 256;  // the double probe with extension rows
+constexpr int kMaxChunk = 4096;      // queries of a chunk
+constexpr int kMaxSpan = 4096;       // flat bins of a coarse key
+constexpr int kSmemCap = 200 * 1024;  // dynamic shared memory of a block
+
+// Lets `kernel` take up to kSmemCap bytes of dynamic shared memory on the
+// current device, once a device (bit d of *allowed: device d; devices
+// past 31 set it every launch).
+template <typename Kern>
+cudaError_t allow_smem(Kern kernel, unsigned* allowed) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  const unsigned bit = dev < 32 ? 1u << dev : 0u;
+  if (*allowed & bit) return cudaSuccess;
+  err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemCap);
+  if (err == cudaSuccess) *allowed |= bit;
+  return err;
+}
+
+// Exclusive scan across a block of THREADS threads of the PER values
+// each thread holds (thread t the values PER t .. PER t + PER - 1), in
+// place; returns the total.  Every thread of the block calls it.
+template <int THREADS, int PER>
+__device__ int block_scan(int (&v)[PER]) {
+  __shared__ int wsum[THREADS / 32 + 1];
+  const int t = threadIdx.x, lane = t & 31, w = t >> 5;
+  int sum = 0;
+#pragma unroll
+  for (int i = 0; i < PER; ++i) sum += v[i];
+  int incl = sum;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int y = __shfl_up_sync(0xffffffffu, incl, o);
+    if (lane >= o) incl += y;
+  }
+  if (lane == 31) wsum[w] = incl;
+  __syncthreads();
+  if (w == 0) {
+    const int ws = lane < THREADS / 32 ? wsum[lane] : 0;
+    int wi = ws;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int y = __shfl_up_sync(0xffffffffu, wi, o);
+      if (lane >= o) wi += y;
+    }
+    if (lane < THREADS / 32) wsum[lane] = wi - ws;
+    if (lane == 31) wsum[THREADS / 32] = wi;
+  }
+  __syncthreads();
+  int run = wsum[w] + incl - sum;
+#pragma unroll
+  for (int i = 0; i < PER; ++i) {
+    const int x = v[i];
+    v[i] = run;
+    run += x;
+  }
+  const int total = wsum[THREADS / 32];
+  __syncthreads();
+  return total;
+}
+
+// Exclusive scan of a[0, n) in shared memory, n <= THREADS * PER, by
+// every thread of the block; the caller has synchronized after its
+// writes to a, and the scan synchronizes before it returns.
+template <int THREADS, int PER>
+__device__ void block_scan_smem(int* a, int n) {
+  int v[PER];
+#pragma unroll
+  for (int i = 0; i < PER; ++i) {
+    const int k = PER * threadIdx.x + i;
+    v[i] = k < n ? a[k] : 0;
+  }
+  block_scan<THREADS, PER>(v);
+#pragma unroll
+  for (int i = 0; i < PER; ++i) {
+    const int k = PER * threadIdx.x + i;
+    if (k < n) a[k] = v[i];
+  }
+  __syncthreads();
+}
+
+// A query's flat candidate bin (ops/geometry.py:bin_ijk and bin_flat): R
+// the query's type, T the bins'; a float32 grid bins float64 queries by
+// their float32 rounding (the hi of their hi/lo split).
+template <typename T, typename R>
+__device__ __forceinline__ int flat_bin(const iu::BinGrid<T>& bins, R x, R y,
+                                        R z) {
   int i, j, k;
-  iu::bin_ijk(bins, bin_arg<T>(r[3 * q + 0]), bin_arg<T>(r[3 * q + 1]),
-              bin_arg<T>(r[3 * q + 2]), i, j, k);
-  const int b = iu::bin_flat(bins, i, j, k);
-  bin_out[q] = b;
-  rank_out[q] = atomicAdd(counts + b, 1);
+  iu::bin_ijk(bins, bin_arg<T>(x), bin_arg<T>(y), bin_arg<T>(z), i, j, k);
+  return iu::bin_flat(bins, i, j, k);
 }
 
-// Scatter: query q goes to slot ends[b] - 1 - rank of its bin b, where
-// ends is the inclusive scan of the counts, so perm groups the queries
-// by bin in ascending bin order (in each bin, in the order of the
-// atomics: each query's result is independent of the others); slot[q]
-// keeps the way back.
-__global__ void cand_bin_scatter_kernel(const int* __restrict__ bin,
-                                        const int* __restrict__ rank,
-                                        const int* __restrict__ ends, int n,
-                                        int* __restrict__ perm,
-                                        int* __restrict__ slot) {
-  const int q = blockIdx.x * blockDim.x + threadIdx.x;
-  if (q >= n) return;
-  const int s = ends[bin[q]] - 1 - rank[q];
-  perm[s] = q;
-  slot[q] = s;
+// 1. Key pass: each query's coarse key, its flat bin >> span_shift (so a
+// key is a range of 2^span_shift flat bins, and bin order inside a key is
+// ascending flat order), counted a tile of kKeyThreads x ITEMS queries at
+// a time in shared memory; a tile takes each key's ranks with one global
+// atomic, so its queries of a key get consecutive ranks (a run), and the
+// scan of its counts gives each query its position among the tile's
+// slots (the runs of the tile in ascending key order).
+template <typename R, typename T, int ITEMS>
+__global__ void __launch_bounds__(kKeyThreads)
+cand_key_kernel(const R* __restrict__ r, int n, iu::BinGrid<T> bins,
+                int span_shift, int n_keys, int* __restrict__ counts,
+                int* __restrict__ key_out, int* __restrict__ rank_out,
+                int* __restrict__ pos_out) {
+  constexpr int kTile = kKeyThreads * ITEMS;
+  extern __shared__ int key_hist[];  // n_keys counts, then n_keys ranks
+  int* first = key_hist + n_keys;
+  for (int k = threadIdx.x; k < n_keys; k += kKeyThreads) key_hist[k] = 0;
+  __syncthreads();
+  const int base = blockIdx.x * kTile + threadIdx.x;
+  int key[ITEMS], local[ITEMS];
+#pragma unroll
+  for (int i = 0; i < ITEMS; ++i) {
+    const int q = base + i * kKeyThreads;
+    if (q < n) {
+      key[i] = flat_bin(bins, r[3 * q + 0], r[3 * q + 1], r[3 * q + 2]) >>
+               span_shift;
+      local[i] = atomicAdd(key_hist + key[i], 1);
+    }
+  }
+  __syncthreads();
+  for (int k = threadIdx.x; k < n_keys; k += kKeyThreads) {
+    const int c = key_hist[k];
+    first[k] = c != 0 ? atomicAdd(counts + k, c) : 0;
+  }
+  block_scan_smem<kKeyThreads, kMaxKeys / kKeyThreads>(key_hist, n_keys);
+#pragma unroll
+  for (int i = 0; i < ITEMS; ++i) {
+    const int q = base + i * kKeyThreads;
+    if (q < n) {
+      key_out[q] = key[i];
+      rank_out[q] = first[key[i]] + local[i];
+      pos_out[q] = key_hist[key[i]] + local[i];
+    }
+  }
 }
 
-// Probe in bin order: a group of G lanes per query (G a power of two, at
-// most 32), the queries taken in the order of perm, so the groups of a
-// warp and of its neighbours probe the few rows of adjacent bins and
-// their loads hit L1.  Lane l of a group takes the candidates l, l + G,
-// ... (VEC: the 4-candidate chunks l, l + G, ..., each role read with
-// one 16-byte load), keeping the first of equal margins; the group's
-// butterfly argmax keeps the lower k on ties, the warp probe's rule.
-// For the quantized rows the group probes in the local frame r - center
-// of its bin (ops/geometry.py:cand_bin_center_cols); for the df-plane
-// rows (LAYOUT 3) it splits the query as given and forms the hi/lo local
-// frame (F64: r is float64 (B, 3); else r is the float32 hi and r_lo the
-// lo, or null for zeros).  The winner's lane writes the query's record
-// (id, aux, values: 2 + n_vars words; layout 3: 2 + 2 n_vars, hi values
-// then lo; double values: 2 + 2 n_vars) at its slot, next to its
-// neighbours' records; cand_bin_unsort_kernel puts the records back in
-// query order.  T: the rows' type, float or double (a float64 grid's
-// rows, layouts 1 and 2, queries in double, VEC and F64 false).
-template <int NF, int LAYOUT, bool VEC, bool F64, bool EXT, typename T>
-__global__ void __launch_bounds__(kOrderThreads)
-cand_rows_binned_kernel(
-    const T* __restrict__ table, int W, const void* __restrict__ r,
-    const float* __restrict__ r_lo, const int* __restrict__ perm,
-    int n_queries, int log2_g, iu::BinGrid<T> bins, int K, int id_role,
+// 2. Scan, one block: starts (exclusive scan of the counts: where each
+// key's bucket begins in coarse order) and chunk_end (inclusive scan of
+// each bucket's chunks of `chunk` queries: block c of the probe takes the
+// chunk c); split, where not null, adds the buckets of more than one
+// chunk.
+__global__ void __launch_bounds__(kScanThreads)
+cand_key_scan_kernel(const int* __restrict__ counts, int n_keys, int chunk,
+                     int* __restrict__ starts, int* __restrict__ chunk_end,
+                     int* __restrict__ split) {
+  constexpr int PER = kMaxKeys / kScanThreads;
+  int c[PER], ch[PER], n_split = 0;
+#pragma unroll
+  for (int i = 0; i < PER; ++i) {
+    const int k = PER * threadIdx.x + i;
+    c[i] = k < n_keys ? counts[k] : 0;
+    ch[i] = (c[i] + chunk - 1) / chunk;
+    n_split += ch[i] > 1;
+  }
+  block_scan<kScanThreads, PER>(c);
+  int ch_incl[PER];
+#pragma unroll
+  for (int i = 0; i < PER; ++i) ch_incl[i] = ch[i];
+  block_scan<kScanThreads, PER>(ch);
+#pragma unroll
+  for (int i = 0; i < PER; ++i) {
+    const int k = PER * threadIdx.x + i;
+    if (k < n_keys) {
+      starts[k] = c[i];
+      chunk_end[k] = ch[i] + ch_incl[i];
+    }
+  }
+  if (split != nullptr && n_split != 0) atomicAdd(split, n_split);
+}
+
+// 3. Scatter: a tile's queries to their slots in coarse order, starts[key]
+// + rank, staged in shared memory in slot order and stored run by run
+// with consecutive threads; slot[q] keeps the way back.  A record holds
+// the query as the probe reads it (MODE 0: float32 x, y, z, 3 words; 1:
+// float64 queries split into float32 hi and lo, 6 words; 2: float32 hi
+// and its lo from r_lo, zeros where r_lo is null, 6 words; 3: float64 x,
+// y, z, 6 words).
+template <int MODE>
+__device__ __forceinline__ void query_words(const void* __restrict__ r,
+                                            const float* __restrict__ r_lo,
+                                            int q, int (&w)[MODE == 0 ? 3 : 6]) {
+#pragma unroll
+  for (int d = 0; d < 3; ++d) {
+    if constexpr (MODE == 0) {
+      w[d] = static_cast<const int*>(r)[3 * q + d];
+    } else if constexpr (MODE == 1) {
+      const double x = static_cast<const double*>(r)[3 * q + d];
+      const float hi = __double2float_rn(x);
+      w[d] = __float_as_int(hi);
+      w[3 + d] = __float_as_int(__double2float_rn(x - (double)hi));
+    } else if constexpr (MODE == 2) {
+      w[d] = static_cast<const int*>(r)[3 * q + d];
+      w[3 + d] = r_lo != nullptr ? __float_as_int(r_lo[3 * q + d]) : 0;
+    } else {
+      const long long b =
+          __double_as_longlong(static_cast<const double*>(r)[3 * q + d]);
+      w[2 * d] = (int)b;
+      w[2 * d + 1] = (int)(b >> 32);
+    }
+  }
+}
+
+template <int MODE, int ITEMS>
+__global__ void __launch_bounds__(kKeyThreads)
+cand_key_scatter_kernel(const void* __restrict__ r,
+                        const float* __restrict__ r_lo, int n,
+                        const int* __restrict__ key,
+                        const int* __restrict__ rank,
+                        const int* __restrict__ pos,
+                        const int* __restrict__ starts, int* __restrict__ rec,
+                        int* __restrict__ slot) {
+  constexpr int RW = MODE == 0 ? 3 : 6;
+  constexpr int kTile = kKeyThreads * ITEMS;
+  extern __shared__ int staged[];  // kTile records, then kTile slots
+  int* sdst = staged + kTile * RW;
+  const int base = blockIdx.x * kTile;
+  const int tile_n = min(kTile, n - base);
+#pragma unroll
+  for (int i = 0; i < ITEMS; ++i) {
+    const int idx = threadIdx.x + i * kKeyThreads;
+    if (idx < tile_n) {
+      const int q = base + idx, p = pos[q];
+      const int d = starts[key[q]] + rank[q];
+      int w[RW];
+      query_words<MODE>(r, r_lo, q, w);
+      slot[q] = d;
+      sdst[p] = d;
+#pragma unroll
+      for (int e = 0; e < RW; ++e) staged[p * RW + e] = w[e];
+    }
+  }
+  __syncthreads();
+  for (int x = threadIdx.x; x < tile_n * RW; x += kKeyThreads) {
+    const int j = x / RW;
+    rec[(size_t)sdst[j] * RW + (x - j * RW)] = staged[x];
+  }
+}
+
+// The probe of one query by a group of G = 1 << log2_g lanes (G a power of
+// two, at most 32; `lane` this thread's lane in it): lane l takes the
+// candidates l, l + G, ... (VEC: the 4-candidate chunks l, l + G, ..., each
+// role read with one 16-byte load), keeping the first of equal margins;
+// the group's butterfly argmax keeps the lower k on ties, the warp
+// probe's rule.  For the quantized rows the group probes in the local
+// frame r - center of its bin (ops/geometry.py:cand_bin_center_cols); for
+// the df-plane rows (LAYOUT 3) in the hi/lo local frame of the query's hi
+// and lo.  The winner's lane writes the query's record (id, aux, values:
+// 2 + n_vars words; layout 3: 2 + 2 n_vars, hi values then lo; double
+// values: 2 + 2 n_vars) at rec + slot * stride (stride in 4-byte words,
+// even for doubles).  Every lane of the warp calls it (the butterflies);
+// a group that is not `live` writes nothing.  T: the rows' type, float
+// or double (a float64 grid's rows, layouts 1 and 2, VEC false).
+template <int NF, int LAYOUT, bool VEC, bool EXT, typename T>
+__device__ __forceinline__ void probe_group(
+    const T* __restrict__ table, int W, bool live, const T (&qhi)[3],
+    const float (&qlo)[3], const iu::BinGrid<T>& bins, int K, int id_role,
     int count_col, T eps, int ovf_base, float qinv, int n_vars,
-    const int* __restrict__ vroles, int* __restrict__ rec, ExtRows<T> ext) {
+    const int* __restrict__ vroles, const ExtRows<T>& ext, int log2_g,
+    int lane, int* rec, int slot, int stride) {
   constexpr bool kQuant = LAYOUT == 0 || LAYOUT == 3;
   constexpr int NW = kQuant ? QuantWords<NF>::SN + QuantWords<NF>::DN : 4 * NF;
   const int G = 1 << log2_g;
-  const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  const int slot = (int)(t >> log2_g);
-  const int lane = threadIdx.x & (G - 1);
-  // every lane of the warp reaches the butterfly: the lanes past the
-  // last query probe query perm[0] and write nothing
-  const bool live = slot < n_queries;
-  const int q = perm[live ? slot : 0];
-  T hi[3], lo[3] = {T(0), T(0), T(0)};
-#pragma unroll
-  for (int d = 0; d < 3; ++d) {
-    if constexpr (F64) {
-      const double x = static_cast<const double*>(r)[3 * q + d];
-      hi[d] = __double2float_rn(x);
-      lo[d] = __double2float_rn(x - (double)hi[d]);
-    } else {
-      hi[d] = static_cast<const T*>(r)[3 * q + d];
-      if (LAYOUT == 3 && r_lo != nullptr) lo[d] = r_lo[3 * q + d];
-    }
-  }
   int i, j, k;
-  iu::bin_ijk(bins, hi[0], hi[1], hi[2], i, j, k);
+  iu::bin_ijk(bins, qhi[0], qhi[1], qhi[2], i, j, k);
   const T* row = table + (size_t)iu::bin_flat(bins, i, j, k) * W;
-  T rx = hi[0], ry = hi[1], rz = hi[2];
+  T rx = qhi[0], ry = qhi[1], rz = qhi[2];
   float rq_lo[3] = {0.0f, 0.0f, 0.0f};
   if constexpr (LAYOUT == 0) {
     rx = rx - iu::bin_center(bins, 0, i);
@@ -398,9 +604,9 @@ cand_rows_binned_kernel(
     float rl[3];
 #pragma unroll
     for (int d = 0; d < 3; ++d) {
-      const iu::df s = iu::two_sum(hi[d], -iu::bin_center(bins, d, ijk[d]));
+      const iu::df s = iu::two_sum(qhi[d], -iu::bin_center(bins, d, ijk[d]));
       rl[d] = s.hi;
-      rq_lo[d] = s.lo + lo[d];
+      rq_lo[d] = s.lo + qlo[d];
     }
     rx = rl[0];
     ry = rl[1];
@@ -477,9 +683,8 @@ cand_rows_binned_kernel(
     }
   }
   constexpr int kWords = (int)sizeof(T) / 4;  // record words a value
-  const int stride = 2 + (LAYOUT == 3 ? 2 : kWords) * n_vars;
   T* vals = reinterpret_cast<T*>(rec + 2);
-  const int vstride = kWords == 1 ? stride : stride / kWords;
+  const int vstride = stride / kWords;
   // an overflow miss that the extension row did not resolve, and that
   // row's verdict
   bool ext_miss = false;
@@ -558,73 +763,352 @@ cand_rows_binned_kernel(
   }
 }
 
-// Unsort: query q's record, read back from its slot, into the outputs
-// at q.  The record reads are random and the writes coalesced: on the
-// H100, the probe's three random 4-byte writes per query, at the
-// query's own position, took longer than the probe itself (PERF.md §6).
-__global__ void cand_bin_unsort_kernel(const int* __restrict__ rec,
-                                       const int* __restrict__ slot, int n,
-                                       int n_vars, int* __restrict__ out_id,
-                                       int* __restrict__ out_aux,
-                                       float* __restrict__ out_vals) {
-  const int q = blockIdx.x * blockDim.x + threadIdx.x;
-  if (q >= n) return;
-  const int* src = rec + (size_t)slot[q] * (2 + n_vars);
-  out_id[q] = src[0];
-  out_aux[q] = src[1];
-  for (int v = 0; v < n_vars; ++v) {
-    out_vals[(size_t)q * n_vars + v] = __int_as_float(src[2 + v]);
+// A record's query, from shared memory: hi (the query as the rows' type)
+// and, for the df-plane rows, its lo.
+template <int LAYOUT, typename T>
+__device__ __forceinline__ void record_query(const int* w, T (&hi)[3],
+                                             float (&lo)[3]) {
+#pragma unroll
+  for (int d = 0; d < 3; ++d) {
+    if constexpr (sizeof(T) == 8) {
+      hi[d] = reinterpret_cast<const double*>(w)[d];
+      lo[d] = 0.0f;
+    } else {
+      hi[d] = __int_as_float(w[d]);
+      lo[d] = LAYOUT == 3 ? __int_as_float(w[3 + d]) : 0.0f;
+    }
   }
 }
 
-template <typename T>
-int cand_rows_binned(const T* table, int W, const void* r, const float* r_lo,
-                     int f64, const int* perm, int n_queries, int lanes,
-                     const T* bin_rmin, const T* bin_inv_h, int nbx, int nby,
-                     int nbz, int K, int nf, int layout, int id_role,
-                     int count_col, T eps, int ovf_base, float qinv,
-                     int n_vars, const int* vroles, ExtRows<T> ext, int* rec,
-                     void* stream) {
-  if (n_queries <= 0) return (int)cudaSuccess;
-  if (K <= 0 || n_vars < 0 || lanes < 1 || lanes > 32 ||
-      (lanes & (lanes - 1)) != 0) {
+// 4. The probe, a chunk of a coarse bucket a block: block c finds its
+// bucket (the first key whose chunk_end passes c) and its chunk there,
+// loads the chunk's records coalesced into shared memory, counting-sorts
+// them by flat bin there (at most 2^span_shift bins), and its groups
+// probe the queries in that order, so the queries of a bin probe its row
+// one after the other and the row comes from device memory about once.
+// Each query's record replaces its query in shared memory (sw words a
+// query, the larger of the two), and the block stores the chunk's
+// records at their coarse-order positions with consecutive threads.
+// Blocks past the last chunk return at once.  THREADS threads a block,
+// chunks of at most MAX_CHUNK queries (the port's: kProbeThreads,
+// kMaxChunk; tools/cand_order_alternatives.cu times others).  Without
+// extension rows, two blocks of 512 threads an SM: at most 64 registers.
+// The extension probe keeps a second winner: at 64 registers it spilled
+// (the float64 box's probe 1.5x as long), so it may take 128: one block
+// of 512 threads an SM, and the double one two blocks of
+// kProbeThreadsExt, which took 0.85x the time of one block of 512 (the
+// float32 one 1.26x; tools/cand_ext_sweep.py, PERF.md §6).
+template <int NF, int LAYOUT, bool VEC, bool EXT, typename T,
+          int THREADS = kProbeThreads, int MAX_CHUNK = kMaxChunk>
+__global__ void __launch_bounds__(THREADS, (EXT ? 512 : 1024) / THREADS)
+cand_rows_chunk_kernel(
+    const T* __restrict__ table, int W, const int* __restrict__ rec_in,
+    const int* __restrict__ starts, const int* __restrict__ counts,
+    const int* __restrict__ chunk_end, int n_keys, int span_shift, int chunk,
+    int log2_g, iu::BinGrid<T> bins, int K, int id_role, int count_col, T eps,
+    int ovf_base, float qinv, int n_vars, const int* __restrict__ vroles,
+    int* __restrict__ rec_out, ExtRows<T> ext) {
+  // record words: float32 x, y, z, or six: a float64 grid's doubles, or
+  // the df-plane rows' hi and lo
+  constexpr int RW = (sizeof(T) == 8 || LAYOUT == 3) ? 6 : 3;
+  constexpr int kItems = MAX_CHUNK / THREADS;
+  const int os = 2 + (LAYOUT == 3 ? 2 : (int)sizeof(T) / 4) * n_vars;
+  const int sw = os > RW ? os : RW;
+  const int span = 1 << span_shift;
+  extern __shared__ __align__(16) int probe_smem[];
+  int* srec = probe_smem;             // chunk x sw words
+  int* shist = srec + chunk * sw;     // span counts
+  unsigned short* sorder = reinterpret_cast<unsigned short*>(shist + span);
+
+  const int c = blockIdx.x;
+  if (c >= chunk_end[n_keys - 1]) return;
+  int lo = 0, hi = n_keys - 1;
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (chunk_end[mid] > c) {
+      hi = mid;
+    } else {
+      lo = mid + 1;
+    }
+  }
+  const int key = lo;
+  const int in_bucket = (c - (key > 0 ? chunk_end[key - 1] : 0)) * chunk;
+  const int base = starts[key] + in_bucket;
+  const int n = min(chunk, counts[key] - in_bucket);
+
+  for (int b = threadIdx.x; b < span; b += THREADS) shist[b] = 0;
+  for (int x = threadIdx.x; x < n * RW; x += THREADS) {
+    const int jq = x / RW;
+    srec[jq * sw + (x - jq * RW)] = rec_in[(size_t)base * RW + x];
+  }
+  __syncthreads();
+  const int key_bin = key << span_shift;
+  int fine[kItems], local[kItems];
+#pragma unroll
+  for (int it = 0; it < kItems; ++it) {
+    const int iq = threadIdx.x + it * THREADS;
+    if (iq < n) {
+      T qh[3];
+      float ql[3];
+      record_query<LAYOUT>(srec + iq * sw, qh, ql);
+      fine[it] = flat_bin(bins, qh[0], qh[1], qh[2]) - key_bin;
+      local[it] = atomicAdd(shist + fine[it], 1);
+    }
+  }
+  __syncthreads();
+  block_scan_smem<THREADS, kMaxSpan / THREADS>(shist, span);
+  __shared__ int next_f;  // the next position in bin order a warp takes
+  if (threadIdx.x == 0) next_f = 0;
+#pragma unroll
+  for (int it = 0; it < kItems; ++it) {
+    const int iq = threadIdx.x + it * THREADS;
+    if (iq < n) sorder[shist[fine[it]] + local[it]] = (unsigned short)iq;
+  }
+  __syncthreads();
+
+  // Each warp takes the next 32 / G positions in bin order until none are
+  // left, so that warps slowed by their queries (an extension row, a
+  // longer row) take fewer and the block's last warp finishes soon after
+  // the others; the groups of a warp probe consecutive positions.
+  const int per_warp = 32 >> log2_g;
+  const int g = (threadIdx.x & 31) >> log2_g;
+  const int lane = threadIdx.x & ((1 << log2_g) - 1);
+  for (;;) {
+    int f0 = 0;
+    if ((threadIdx.x & 31) == 0) f0 = atomicAdd(&next_f, per_warp);
+    f0 = __shfl_sync(0xffffffffu, f0, 0);
+    if (f0 >= n) break;
+    const int f = f0 + g;
+    const bool live = f < n;
+    const int iq = sorder[live ? f : 0];
+    T qh[3];
+    float ql[3];
+    record_query<LAYOUT>(srec + iq * sw, qh, ql);
+    probe_group<NF, LAYOUT, VEC, EXT, T>(
+        table, W, live, qh, ql, bins, K, id_role, count_col, eps, ovf_base,
+        qinv, n_vars, vroles, ext, log2_g, lane, srec, iq, sw);
+  }
+  __syncthreads();
+  for (int x = threadIdx.x; x < n * os; x += THREADS) {
+    const int jq = x / os;
+    rec_out[(size_t)base * os + x] = srec[jq * sw + (x - jq * os)];
+  }
+}
+
+// 5. Unsort, the scatter's mirror: a thread a slot of the tile, in slot
+// order, loads kUnsortWords words of its record at a time (the tile's
+// runs, with consecutive threads), stages them in shared memory, and a
+// thread a query writes them in query order: word 0 to out_id, 1 to
+// out_aux (where not null), the rest to out_vals (os - 2 words a query).
+// FINISH: the call's finished outputs instead: out_id the cell (-1 where
+// aux is not -2), found_out the found mask, and the values of a query
+// not found the fill value's words (fill_words.x, and .y for the second
+// word of a double: wpv words a value).
+constexpr int kUnsortWords = 4;
+
+template <int ITEMS, bool FINISH>
+__global__ void __launch_bounds__(kKeyThreads)
+cand_key_unsort_kernel(const int* __restrict__ rec,
+                       const int* __restrict__ slot,
+                       const int* __restrict__ pos, int n, int os,
+                       int* __restrict__ out_id, int* __restrict__ out_aux,
+                       int* __restrict__ out_vals,
+                       unsigned char* __restrict__ found_out, int2 fill_words,
+                       int wpv) {
+  constexpr int kTile = kKeyThreads * ITEMS;
+  constexpr int kRow = kUnsortWords + 1;  // padded against bank conflicts
+  extern __shared__ int unsort_smem[];
+  int* swords = unsort_smem;              // kTile rows of kRow words
+  int* src = unsort_smem + kTile * kRow;  // kTile slots
+  const int base = blockIdx.x * kTile;
+  const int tile_n = min(kTile, n - base);
+  const int n_words = os - 2;
+  int at[ITEMS];
+  bool found[ITEMS];
+#pragma unroll
+  for (int i = 0; i < ITEMS; ++i) {
+    const int idx = threadIdx.x + i * kKeyThreads;
+    found[i] = false;
+    if (idx < tile_n) {
+      at[i] = pos[base + idx];
+      src[at[i]] = slot[base + idx];
+    }
+  }
+  __syncthreads();
+  for (int w0 = 0; w0 < os; w0 += kUnsortWords) {
+    const int nw = min(kUnsortWords, os - w0);
+#pragma unroll
+    for (int i = 0; i < ITEMS; ++i) {
+      const int p = threadIdx.x + i * kKeyThreads;
+      if (p < tile_n) {
+        const int* row = rec + (size_t)src[p] * os + w0;
+#pragma unroll
+        for (int j = 0; j < kUnsortWords; ++j) {
+          if (j < nw) swords[p * kRow + j] = row[j];
+        }
+      }
+    }
+    __syncthreads();
+#pragma unroll
+    for (int i = 0; i < ITEMS; ++i) {
+      const int idx = threadIdx.x + i * kKeyThreads;
+      if (idx < tile_n) {
+        const int q = base + idx;
+        const int* st = swords + at[i] * kRow;
+#pragma unroll
+        for (int j = 0; j < kUnsortWords; ++j) {
+          if (j >= nw) continue;
+          const int word = w0 + j, v = st[j];
+          if (word == 0) {
+            if (!FINISH) out_id[q] = v;
+          } else if (word == 1) {
+            if (out_aux != nullptr) out_aux[q] = v;
+            if (FINISH) {
+              found[i] = v == -2;
+              out_id[q] = found[i] ? st[j - 1] : -1;
+              found_out[q] = found[i];
+            }
+          } else {
+            const int e = word - 2;
+            out_vals[(size_t)q * n_words + e] =
+                !FINISH || found[i] ? v
+                                    : (e % wpv ? fill_words.y : fill_words.x);
+          }
+        }
+      }
+    }
+    __syncthreads();
+  }
+}
+
+// Launch helpers: kKeyThreads x ITEMS queries a tile, ITEMS 1 to 16.
+#define IU_TILE_ITEMS(TILE_, CALL_)   \
+  switch ((TILE_) / kKeyThreads) {    \
+    case 1: CALL_(1); break;          \
+    case 2: CALL_(2); break;          \
+    case 4: CALL_(4); break;          \
+    case 8: CALL_(8); break;          \
+    case 16: CALL_(16); break;        \
+    default: return (int)cudaErrorInvalidValue; \
+  }
+
+bool bad_tile(int tile) {
+  return tile < kKeyThreads || tile > 16 * kKeyThreads ||
+         tile % kKeyThreads != 0;
+}
+
+template <typename R, typename T>
+int cand_key(const R* r, int n, const T* rmin, const T* inv_h, int nbx,
+             int nby, int nbz, int span_shift, int n_keys, int tile,
+             int* counts, int* key, int* rank, int* pos, void* stream) {
+  if (n <= 0) return (int)cudaSuccess;
+  if (bad_tile(tile) || n_keys < 1 || n_keys > kMaxKeys || span_shift < 0 ||
+      span_shift > 30 ||
+      (((long long)nbx * nby * nbz - 1) >> span_shift) + 1 != n_keys) {
     return (int)cudaErrorInvalidValue;
   }
-  if (layout != 3 && (f64 || r_lo != nullptr)) {
+  const iu::BinGrid<T> bins{rmin, inv_h, nbx, nby, nbz};
+  const size_t smem = 2 * sizeof(int) * (size_t)n_keys;
+  const int blocks = (int)(((long long)n + tile - 1) / tile);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err = cudaSuccess;
+#define IU_KEY_CALL(I_)                                                    \
+  do {                                                                     \
+    static unsigned allowed = 0;                                           \
+    err = allow_smem(cand_key_kernel<R, T, I_>, &allowed);                 \
+    if (err != cudaSuccess) return (int)err;                               \
+    cand_key_kernel<R, T, I_><<<blocks, kKeyThreads, smem, s>>>(           \
+        r, n, bins, span_shift, n_keys, counts, key, rank, pos);           \
+  } while (0)
+  IU_TILE_ITEMS(tile, IU_KEY_CALL)
+#undef IU_KEY_CALL
+  return (int)cudaGetLastError();
+}
+
+template <int MODE>
+int cand_key_scatter(const void* r, const float* r_lo, int n, int tile,
+                     const int* key, const int* rank, const int* pos,
+                     const int* starts, int* rec, int* slot, void* stream) {
+  constexpr int RW = MODE == 0 ? 3 : 6;
+  const size_t smem = sizeof(int) * (size_t)tile * (RW + 1);
+  if (smem > (size_t)kSmemCap) return (int)cudaErrorInvalidValue;
+  const int blocks = (int)(((long long)n + tile - 1) / tile);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err = cudaSuccess;
+#define IU_SCATTER_CALL(I_)                                                \
+  do {                                                                     \
+    static unsigned allowed = 0;                                           \
+    err = allow_smem(cand_key_scatter_kernel<MODE, I_>, &allowed);         \
+    if (err != cudaSuccess) return (int)err;                               \
+    cand_key_scatter_kernel<MODE, I_><<<blocks, kKeyThreads, smem, s>>>(   \
+        r, r_lo, n, key, rank, pos, starts, rec, slot);                    \
+  } while (0)
+  IU_TILE_ITEMS(tile, IU_SCATTER_CALL)
+#undef IU_SCATTER_CALL
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int cand_rows_chunked(const T* table, int W, const int* rec_in,
+                      const int* starts, const int* counts,
+                      const int* chunk_end, int n_keys, int span_shift,
+                      int chunk, int max_chunks, int lanes, const T* bin_rmin,
+                      const T* bin_inv_h, int nbx, int nby, int nbz, int K,
+                      int nf, int layout, int id_role, int count_col, T eps,
+                      int ovf_base, float qinv, int n_vars, const int* vroles,
+                      ExtRows<T> ext, int* rec_out, void* stream) {
+  if (max_chunks <= 0) return (int)cudaSuccess;
+  if (K <= 0 || n_vars < 0 || lanes < 1 || lanes > 32 ||
+      (lanes & (lanes - 1)) != 0 || n_keys < 1 || n_keys > kMaxKeys ||
+      chunk < 1 || chunk > kMaxChunk || span_shift < 0 ||
+      (1 << span_shift) > kMaxSpan) {
     return (int)cudaErrorInvalidValue;
   }
   const bool has_ext = ext.table != nullptr;
   if (has_ext && (layout == 3 || ext.k <= 0 || ext.count_col + 1 > ext.W)) {
     return (int)cudaErrorInvalidValue;
   }
+  const int rw = (sizeof(T) == 8 || layout == 3) ? 6 : 3;
+  const int os = 2 + (layout == 3 ? 2 : (int)sizeof(T) / 4) * n_vars;
+  const size_t smem = sizeof(int) * ((size_t)chunk * (os > rw ? os : rw) +
+                                     (1 << span_shift)) +
+                      sizeof(unsigned short) * (size_t)chunk;
+  if (smem > (size_t)kSmemCap) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const iu::BinGrid<T> bins{bin_rmin, bin_inv_h, nbx, nby, nbz};
   const int log2_g = __builtin_ctz(lanes);
-  const long long threads = (long long)n_queries * lanes;
-  const int blocks = (int)((threads + kOrderThreads - 1) / kOrderThreads);
-#define IU_BINNED_ONE(NF_, L_, V_, D_, E_)                                   \
-  cand_rows_binned_kernel<NF_, L_, V_, D_, E_, T>                            \
-      <<<blocks, kOrderThreads, 0, s>>>(table, W, r, r_lo, perm, n_queries,  \
-                                        log2_g, bins, K, id_role, count_col, \
-                                        eps, ovf_base, qinv, n_vars, vroles, \
-                                        rec, ext)
+  cudaError_t err = cudaSuccess;
+#define IU_CHUNK_ONE(NF_, L_, V_, E_)                                        \
+  do {                                                                       \
+    constexpr int kThreads =                                                 \
+        E_ && sizeof(T) == 8 ? kProbeThreadsExt : kProbeThreads;             \
+    static unsigned allowed = 0;                                             \
+    err = allow_smem(cand_rows_chunk_kernel<NF_, L_, V_, E_, T, kThreads>,   \
+                     &allowed);                                              \
+    if (err != cudaSuccess) return (int)err;                                 \
+    cand_rows_chunk_kernel<NF_, L_, V_, E_, T, kThreads>                     \
+        <<<max_chunks, kThreads, smem, s>>>(                                 \
+            table, W, rec_in, starts, counts, chunk_end, n_keys, span_shift, \
+            chunk, log2_g, bins, K, id_role, count_col, eps, ovf_base, qinv, \
+            n_vars, vroles, rec_out, ext);                                   \
+  } while (0)
   // with the extension probe on a grid that has extension rows
-#define IU_BINNED_KERNEL(NF_, L_, V_, D_)     \
-  do {                                        \
-    if (has_ext) {                            \
-      IU_BINNED_ONE(NF_, L_, V_, D_, true);   \
-    } else {                                  \
-      IU_BINNED_ONE(NF_, L_, V_, D_, false);  \
-    }                                         \
+#define IU_CHUNK_KERNEL(NF_, L_, V_)     \
+  do {                                   \
+    if (has_ext) {                       \
+      IU_CHUNK_ONE(NF_, L_, V_, true);   \
+    } else {                             \
+      IU_CHUNK_ONE(NF_, L_, V_, false);  \
+    }                                    \
   } while (0)
   if constexpr (sizeof(T) == 8) {
     // a float64 grid's rows: layouts 1 and 2, one element at a time
     if (layout == 1 && nf == 3) {
-      IU_BINNED_KERNEL(3, 1, false, false);
+      IU_CHUNK_KERNEL(3, 1, false);
     } else if (layout == 1 && nf == 4) {
-      IU_BINNED_KERNEL(4, 1, false, false);
+      IU_CHUNK_KERNEL(4, 1, false);
     } else if (layout == 2 && nf == 4) {
-      IU_BINNED_KERNEL(4, 2, false, false);
+      IU_CHUNK_KERNEL(4, 2, false);
     } else {
       return (int)cudaErrorInvalidValue;
     }
@@ -632,170 +1116,233 @@ int cand_rows_binned(const T* table, int W, const void* r, const float* r_lo,
     // 16-byte loads along the candidates when every role starts aligned
     const bool vec = K % 4 == 0 && W % 4 == 0 &&
                      reinterpret_cast<uintptr_t>(table) % 16 == 0;
-#define IU_BINNED_LAUNCH(NF_, L_, D_)        \
-  do {                                       \
-    if (vec) {                               \
-      IU_BINNED_KERNEL(NF_, L_, true, D_);   \
-    } else {                                 \
-      IU_BINNED_KERNEL(NF_, L_, false, D_);  \
-    }                                        \
+#define IU_CHUNK_LAUNCH(NF_, L_)        \
+  do {                                  \
+    if (vec) {                          \
+      IU_CHUNK_KERNEL(NF_, L_, true);   \
+    } else {                            \
+      IU_CHUNK_KERNEL(NF_, L_, false);  \
+    }                                   \
   } while (0)
     // the df-plane rows (layout 3) have no extension rows
-#define IU_DF_LAUNCH(NF_, D_)                       \
-  do {                                              \
-    if (vec) {                                      \
-      IU_BINNED_ONE(NF_, 3, true, D_, false);       \
-    } else {                                        \
-      IU_BINNED_ONE(NF_, 3, false, D_, false);      \
-    }                                               \
+#define IU_DF_LAUNCH(NF_)                  \
+  do {                                     \
+    if (vec) {                             \
+      IU_CHUNK_ONE(NF_, 3, true, false);   \
+    } else {                               \
+      IU_CHUNK_ONE(NF_, 3, false, false);  \
+    }                                      \
   } while (0)
     if (layout == 0 && nf == 3) {
-      IU_BINNED_LAUNCH(3, 0, false);
+      IU_CHUNK_LAUNCH(3, 0);
     } else if (layout == 0 && nf == 4) {
-      IU_BINNED_LAUNCH(4, 0, false);
+      IU_CHUNK_LAUNCH(4, 0);
     } else if (layout == 1 && nf == 3) {
-      IU_BINNED_LAUNCH(3, 1, false);
+      IU_CHUNK_LAUNCH(3, 1);
     } else if (layout == 1 && nf == 4) {
-      IU_BINNED_LAUNCH(4, 1, false);
+      IU_CHUNK_LAUNCH(4, 1);
     } else if (layout == 2 && nf == 4) {
-      IU_BINNED_LAUNCH(4, 2, false);
-    } else if (layout == 3 && nf == 3 && f64) {
-      IU_DF_LAUNCH(3, true);
+      IU_CHUNK_LAUNCH(4, 2);
     } else if (layout == 3 && nf == 3) {
-      IU_DF_LAUNCH(3, false);
-    } else if (layout == 3 && nf == 4 && f64) {
-      IU_DF_LAUNCH(4, true);
+      IU_DF_LAUNCH(3);
     } else if (layout == 3 && nf == 4) {
-      IU_DF_LAUNCH(4, false);
+      IU_DF_LAUNCH(4);
     } else {
       return (int)cudaErrorInvalidValue;
     }
 #undef IU_DF_LAUNCH
-#undef IU_BINNED_LAUNCH
+#undef IU_CHUNK_LAUNCH
   }
-#undef IU_BINNED_KERNEL
-#undef IU_BINNED_ONE
+#undef IU_CHUNK_KERNEL
+#undef IU_CHUNK_ONE
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // Plain C entry points of the bin-ordered probe (bound with ctypes).  r:
-// (B, 3) queries, float32, or float64 where f64 is nonzero (the df-plane
-// rows only); bin_rmin, bin_inv_h: (3,) float32 on the device; nbx, nby,
-// nbz: the candidate bins per axis.  The *_f64 entry points take a
-// float64 grid's queries, bin grid ((3,) float64) and rows.
+// (B, 3) queries, float32, or float64 where f64 is nonzero (binned by
+// their float32 rounding); bin_rmin, bin_inv_h: (3,) float32 on the
+// device; nbx, nby, nbz: the candidate bins per axis.  The *_f64 entry
+// points take a float64 grid's queries, bin grid ((3,) float64) and rows.
+// tile: queries a tile of the key pass, scatter and unsort (512 x 1, 2,
+// 4, 8 or 16), the same in the three; span_shift: 2^span_shift flat bins
+// a coarse key, n_keys = ((n_bins - 1) >> span_shift) + 1 keys, at most
+// 8192.  ops/cand_kernel.py:order_sizing picks them.
 //
-// iu_cand_bin_pass: counts ((n_bins,) int32, zeroed by the caller) gets
-// the queries per bin, bin_out and rank_out ((B,) int32) each query's
-// flat bin and its rank in the bin.
-extern "C" int iu_cand_bin_pass(const void* r, int f64, int n_queries,
-                                const float* bin_rmin, const float* bin_inv_h,
-                                int nbx, int nby, int nbz, int* counts,
-                                int* bin_out, int* rank_out, void* stream) {
-  if (n_queries <= 0) return (int)cudaSuccess;
-  const iu::BinGrid<float> bins{bin_rmin, bin_inv_h, nbx, nby, nbz};
-  const int blocks = (n_queries + kOrderThreads - 1) / kOrderThreads;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
+// iu_cand_key: counts ((n_keys,) int32, zeroed by the caller) gets the
+// queries a key; key_out, rank_out and pos_out ((B,) int32) each query's
+// key, rank there and position among its tile's slots.
+extern "C" int iu_cand_key(const void* r, int f64, int n_queries,
+                           const float* bin_rmin, const float* bin_inv_h,
+                           int nbx, int nby, int nbz, int span_shift,
+                           int n_keys, int tile, int* counts, int* key_out,
+                           int* rank_out, int* pos_out, void* stream) {
   if (f64) {
-    cand_bin_pass_kernel<double, float><<<blocks, kOrderThreads, 0, s>>>(
-        static_cast<const double*>(r), n_queries, bins, counts, bin_out,
-        rank_out);
-  } else {
-    cand_bin_pass_kernel<float, float><<<blocks, kOrderThreads, 0, s>>>(
-        static_cast<const float*>(r), n_queries, bins, counts, bin_out,
-        rank_out);
+    return cand_key<double, float>(
+        static_cast<const double*>(r), n_queries, bin_rmin, bin_inv_h, nbx,
+        nby, nbz, span_shift, n_keys, tile, counts, key_out, rank_out,
+        pos_out, stream);
   }
+  return cand_key<float, float>(static_cast<const float*>(r), n_queries,
+                                bin_rmin, bin_inv_h, nbx, nby, nbz,
+                                span_shift, n_keys, tile, counts, key_out,
+                                rank_out, pos_out, stream);
+}
+
+extern "C" int iu_cand_key_f64(const double* r, int n_queries,
+                               const double* bin_rmin,
+                               const double* bin_inv_h, int nbx, int nby,
+                               int nbz, int span_shift, int n_keys, int tile,
+                               int* counts, int* key_out, int* rank_out,
+                               int* pos_out, void* stream) {
+  return cand_key<double, double>(r, n_queries, bin_rmin, bin_inv_h, nbx,
+                                  nby, nbz, span_shift, n_keys, tile, counts,
+                                  key_out, rank_out, pos_out, stream);
+}
+
+// iu_cand_key_scan: from the key pass's counts, starts ((n_keys,) int32,
+// where each key's queries begin in coarse order) and chunk_end
+// ((n_keys,) int32, the inclusive scan of each key's chunks of `chunk`
+// queries); split (a device int32, or null) adds the keys of more than
+// one chunk.
+extern "C" int iu_cand_key_scan(const int* counts, int n_keys, int chunk,
+                                int* starts, int* chunk_end, int* split,
+                                void* stream) {
+  if (n_keys < 1 || n_keys > kMaxKeys || chunk < 1) {
+    return (int)cudaErrorInvalidValue;
+  }
+  cand_key_scan_kernel<<<1, kScanThreads, 0,
+                         static_cast<cudaStream_t>(stream)>>>(
+      counts, n_keys, chunk, starts, chunk_end, split);
   return (int)cudaGetLastError();
 }
 
-extern "C" int iu_cand_bin_pass_f64(const double* r, int n_queries,
-                                    const double* bin_rmin,
-                                    const double* bin_inv_h, int nbx,
-                                    int nby, int nbz, int* counts,
-                                    int* bin_out, int* rank_out,
-                                    void* stream) {
+// iu_cand_key_scatter: each query's record to its slot in coarse order,
+// rec ((B, 3) int32 words for mode 0, (B, 6) else; see the scatter's
+// modes: 0 float32 queries, 1 float64 queries split into hi and lo for
+// the df-plane rows, 2 float32 queries and their lo parts r_lo (null:
+// zeros), 3 a float64 grid's queries), and slot ((B,) int32, each
+// query's position in coarse order), from the key pass's key, rank and
+// pos and the scan's starts.
+extern "C" int iu_cand_key_scatter(const void* r, const float* r_lo, int mode,
+                                   int n_queries, int tile, const int* key,
+                                   const int* rank, const int* pos,
+                                   const int* starts, int* rec, int* slot,
+                                   void* stream) {
   if (n_queries <= 0) return (int)cudaSuccess;
-  const iu::BinGrid<double> bins{bin_rmin, bin_inv_h, nbx, nby, nbz};
-  const int blocks = (n_queries + kOrderThreads - 1) / kOrderThreads;
-  cand_bin_pass_kernel<double, double>
-      <<<blocks, kOrderThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-          r, n_queries, bins, counts, bin_out, rank_out);
-  return (int)cudaGetLastError();
+  if (bad_tile(tile)) return (int)cudaErrorInvalidValue;
+  switch (mode) {
+    case 0:
+      return cand_key_scatter<0>(r, r_lo, n_queries, tile, key, rank, pos,
+                                 starts, rec, slot, stream);
+    case 1:
+      return cand_key_scatter<1>(r, r_lo, n_queries, tile, key, rank, pos,
+                                 starts, rec, slot, stream);
+    case 2:
+      return cand_key_scatter<2>(r, r_lo, n_queries, tile, key, rank, pos,
+                                 starts, rec, slot, stream);
+    case 3:
+      return cand_key_scatter<3>(r, r_lo, n_queries, tile, key, rank, pos,
+                                 starts, rec, slot, stream);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
-// iu_cand_bin_scatter: perm ((B,) int32, the queries grouped by bin) and
-// slot ((B,) int32, its inverse) from the bin pass's bin and rank and
-// ends, the inclusive scan of its counts.
-extern "C" int iu_cand_bin_scatter(const int* bin, const int* rank,
-                                   const int* ends, int n_queries, int* perm,
-                                   int* slot, void* stream) {
-  if (n_queries <= 0) return (int)cudaSuccess;
-  const int blocks = (n_queries + kOrderThreads - 1) / kOrderThreads;
-  cand_bin_scatter_kernel<<<blocks, kOrderThreads, 0,
-                            static_cast<cudaStream_t>(stream)>>>(
-      bin, rank, ends, n_queries, perm, slot);
-  return (int)cudaGetLastError();
-}
-
-// iu_cand_rows_binned: the probe of a table ((n_bins, W), one row per
-// bin) in the order of perm (the B queries grouped by bin), `lanes`
-// lanes per query (1, 2, 4, 8, 16 or 32); layout 0 quantized simplex
-// (the kernel computes r_local), 1 f32 simplex, 2 quad, 3 df planes
-// (the kernel splits the queries and computes the hi/lo r_local).  r:
-// float32 (B, 3), or float64 where f64 is nonzero (layout 3 only); r_lo:
-// the float32 lo parts of float32 queries, layout 3 only (null: zeros).
+// iu_cand_rows_chunked: the probe of a table ((n_bins, W), one row per
+// bin), a chunk of at most `chunk` queries of a coarse key a block
+// (max_chunks blocks, at least the chunks chunk_end counts), `lanes` lanes
+// a query (1, 2, 4, 8, 16 or 32); layout 0 quantized simplex (the kernel
+// computes r_local), 1 f32 simplex, 2 quad, 3 df planes (the hi/lo
+// r_local from the records' hi and lo).  rec_in: the scatter's records;
 // ext_table: the extension rows ((n_ext, ext_W), ext_k candidates, count
-// at column ext_count_col), layouts 0-2, or null: an overflow miss of
-// the main row then probes the extension row of its slot in the same
-// launch, and its record holds the extension winner where that row
-// contains the query, else the main winner's id and values with the
-// extension row's verdict (-1, or >= 0 where even K + ext_k candidates
-// do not hold the bin).  rec: (B, 2 + n_vars) int32 (layout 3: 2 + 2
-// n_vars), one record per slot: id, aux, then the values' float bits
-// (layout 3: hi, then lo).  iu_cand_rows_binned_f64: a float64 grid's
-// rows (layouts 1 and 2), queries, bin grid and extension rows; rec (B,
-// 2 + 2 n_vars), the values as doubles.
-extern "C" int iu_cand_rows_binned(
-    const float* table, int W, const void* r, const float* r_lo, int f64,
-    const int* perm, int n_queries, int lanes, const float* bin_rmin,
+// at column ext_count_col), layouts 0-2, or null: an overflow miss of the
+// main row then probes the extension row of its slot in the same launch,
+// and its record holds the extension winner where that row contains the
+// query, else the main winner's id and values with the extension row's
+// verdict (-1, or >= 0 where even K + ext_k candidates do not hold the
+// bin).  rec_out: (B, 2 + n_vars) int32 (layout 3: 2 + 2 n_vars), one
+// record a query in coarse order: id, aux, then the values' float bits
+// (layout 3: hi, then lo).  iu_cand_rows_chunked_f64: a float64 grid's
+// rows (layouts 1 and 2), records, bin grid and extension rows; rec_out
+// (B, 2 + 2 n_vars), the values as doubles.
+extern "C" int iu_cand_rows_chunked(
+    const float* table, int W, const int* rec_in, const int* starts,
+    const int* counts, const int* chunk_end, int n_keys, int span_shift,
+    int chunk, int max_chunks, int lanes, const float* bin_rmin,
     const float* bin_inv_h, int nbx, int nby, int nbz, int K, int nf,
     int layout, int id_role, int count_col, float eps, int ovf_base,
     float qinv, int n_vars, const int* vroles, const float* ext_table,
-    int ext_W, int ext_k, int ext_count_col, int* rec, void* stream) {
-  return cand_rows_binned<float>(
-      table, W, r, r_lo, f64, perm, n_queries, lanes, bin_rmin, bin_inv_h,
-      nbx, nby, nbz, K, nf, layout, id_role, count_col, eps, ovf_base, qinv,
-      n_vars, vroles, {ext_table, ext_W, ext_k, ext_count_col}, rec, stream);
+    int ext_W, int ext_k, int ext_count_col, int* rec_out, void* stream) {
+  return cand_rows_chunked<float>(
+      table, W, rec_in, starts, counts, chunk_end, n_keys, span_shift, chunk,
+      max_chunks, lanes, bin_rmin, bin_inv_h, nbx, nby, nbz, K, nf, layout,
+      id_role, count_col, eps, ovf_base, qinv, n_vars, vroles,
+      {ext_table, ext_W, ext_k, ext_count_col}, rec_out, stream);
 }
 
-extern "C" int iu_cand_rows_binned_f64(
-    const double* table, int W, const double* r, const int* perm,
-    int n_queries, int lanes, const double* bin_rmin,
+extern "C" int iu_cand_rows_chunked_f64(
+    const double* table, int W, const int* rec_in, const int* starts,
+    const int* counts, const int* chunk_end, int n_keys, int span_shift,
+    int chunk, int max_chunks, int lanes, const double* bin_rmin,
     const double* bin_inv_h, int nbx, int nby, int nbz, int K, int nf,
     int layout, int id_role, int count_col, double eps, int ovf_base,
     int n_vars, const int* vroles, const double* ext_table, int ext_W,
-    int ext_k, int ext_count_col, int* rec, void* stream) {
-  return cand_rows_binned<double>(
-      table, W, r, nullptr, 0, perm, n_queries, lanes, bin_rmin, bin_inv_h,
-      nbx, nby, nbz, K, nf, layout, id_role, count_col, eps, ovf_base, 0.0f,
-      n_vars, vroles, {ext_table, ext_W, ext_k, ext_count_col}, rec, stream);
+    int ext_k, int ext_count_col, int* rec_out, void* stream) {
+  if (layout == 3) return (int)cudaErrorInvalidValue;
+  return cand_rows_chunked<double>(
+      table, W, rec_in, starts, counts, chunk_end, n_keys, span_shift, chunk,
+      max_chunks, lanes, bin_rmin, bin_inv_h, nbx, nby, nbz, K, nf, layout,
+      id_role, count_col, eps, ovf_base, 0.0f, n_vars, vroles,
+      {ext_table, ext_W, ext_k, ext_count_col}, rec_out, stream);
 }
 
-// iu_cand_bin_unsort: the probe's records ((B, 2 + n_vars) int32 by
-// slot) back in query order through slot: out_id, out_aux (B,) int32,
-// out_vals (B, n_vars) 4-byte words (the df-plane records: n_vars = 2V,
-// hi columns then lo; a float64 grid's: n_vars = 2V, the words of V
-// doubles).
-extern "C" int iu_cand_bin_unsort(const int* rec, const int* slot,
-                                  int n_queries, int n_vars, int* out_id,
-                                  int* out_aux, float* out_vals,
-                                  void* stream) {
+// iu_cand_key_unsort: the probe's records ((B, os) int32 words in coarse
+// order) back in query order through slot and pos: out_id, out_aux (B,)
+// int32 (out_aux may be null), out_vals (B, os - 2) 4-byte words (the
+// df-plane records: hi columns then lo; a float64 grid's: the words of
+// the doubles).  finish: out_id the cell where found (aux -2), else -1,
+// found_out ((B,) bool) the found mask, and the values of the queries
+// not found the fill value (fill_lo, and fill_hi for the high word of a
+// double; wpv words a value).
+extern "C" int iu_cand_key_unsort(const int* rec, const int* slot,
+                                  const int* pos, int n_queries, int tile,
+                                  int os, int* out_id, int* out_aux,
+                                  int* out_vals, unsigned char* found_out,
+                                  int finish, int fill_lo, int fill_hi,
+                                  int wpv, void* stream) {
   if (n_queries <= 0) return (int)cudaSuccess;
-  if (n_vars < 0) return (int)cudaErrorInvalidValue;
-  const int blocks = (n_queries + kOrderThreads - 1) / kOrderThreads;
-  cand_bin_unsort_kernel<<<blocks, kOrderThreads, 0,
-                           static_cast<cudaStream_t>(stream)>>>(
-      rec, slot, n_queries, n_vars, out_id, out_aux, out_vals);
+  if (bad_tile(tile) || os < 2 || wpv < 1 ||
+      (finish && found_out == nullptr)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const size_t smem = sizeof(int) * (size_t)tile * (kUnsortWords + 2);
+  if (smem > (size_t)kSmemCap) return (int)cudaErrorInvalidValue;
+  const int blocks = (int)(((long long)n_queries + tile - 1) / tile);
+  const int2 fill = make_int2(fill_lo, fill_hi);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err = cudaSuccess;
+#define IU_UNSORT_ONE(I_, F_)                                              \
+  do {                                                                     \
+    static unsigned allowed = 0;                                           \
+    err = allow_smem(cand_key_unsort_kernel<I_, F_>, &allowed);            \
+    if (err != cudaSuccess) return (int)err;                               \
+    cand_key_unsort_kernel<I_, F_><<<blocks, kKeyThreads, smem, s>>>(      \
+        rec, slot, pos, n_queries, os, out_id, out_aux, out_vals,          \
+        found_out, fill, wpv);                                             \
+  } while (0)
+#define IU_UNSORT_CALL(I_)        \
+  do {                            \
+    if (finish) {                 \
+      IU_UNSORT_ONE(I_, true);    \
+    } else {                      \
+      IU_UNSORT_ONE(I_, false);   \
+    }                             \
+  } while (0)
+  IU_TILE_ITEMS(tile, IU_UNSORT_CALL)
+#undef IU_UNSORT_CALL
+#undef IU_UNSORT_ONE
   return (int)cudaGetLastError();
 }
+#undef IU_TILE_ITEMS

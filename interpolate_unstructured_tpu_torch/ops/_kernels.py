@@ -80,24 +80,29 @@ _SIGNATURES = {
         [_P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _D, _D, _D,
          _D, _I, _I, _P, _P, _P, _P],
     ),
-    "iu_cand_bin_pass": (
-        _I, [_P, _I, _I, _P, _P, _I, _I, _I, _P, _P, _P, _P],
+    "iu_cand_key": (
+        _I, [_P, _I, _I, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P],
     ),
-    "iu_cand_bin_pass_f64": (
-        _I, [_P, _I, _P, _P, _I, _I, _I, _P, _P, _P, _P],
+    "iu_cand_key_f64": (
+        _I, [_P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P],
     ),
-    "iu_cand_bin_scatter": (_I, [_P, _P, _P, _I, _P, _P, _P]),
-    "iu_cand_rows_binned": (
+    "iu_cand_key_scan": (_I, [_P, _I, _I, _P, _P, _P, _P]),
+    "iu_cand_key_scatter": (
+        _I, [_P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P],
+    ),
+    "iu_cand_rows_chunked": (
         _I,
-        [_P, _I, _P, _P, _I, _P, _I, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-         _I, _F, _I, _F, _I, _P, _P, _I, _I, _I, _P, _P],
+        [_P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _I, _I, _I, _I,
+         _I, _I, _I, _I, _F, _I, _F, _I, _P, _P, _I, _I, _I, _P, _P],
     ),
-    "iu_cand_rows_binned_f64": (
+    "iu_cand_rows_chunked_f64": (
         _I,
-        [_P, _I, _P, _P, _I, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _D,
-         _I, _I, _P, _P, _I, _I, _I, _P, _P],
+        [_P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _I, _I, _I, _I,
+         _I, _I, _I, _I, _D, _I, _I, _P, _P, _I, _I, _I, _P, _P],
     ),
-    "iu_cand_bin_unsort": (_I, [_P, _P, _I, _I, _P, _P, _P, _P]),
+    "iu_cand_key_unsort": (
+        _I, [_P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    ),
     "iu_trace_loop": (
         _I,
         [_P, _I, _I, _I, _P, _P, _P, _P, _P, _I, _F, _F, _F, _F, _I, _I, _I,

@@ -282,8 +282,13 @@ def interpolate_at(grid, r, i_vars, guess=None, fill_value=math.nan):
         and grid.cand_table is not None
         and cand_table.fuses(grid, slots)
     ):
+        # a scalar fill the probe writes itself
+        scalar = isinstance(fill_value, (int, float))
         with timing.span("iu.locate", grid.device, timed=True):
-            i_cell, found, values = locate._candidates_query(grid, r, slots)
+            i_cell, found, values = locate._candidates_query(
+                grid, r, slots, fill=fill_value if scalar else None)
+        if scalar:
+            return values, i_cell, found
         return _fill(values, found, fill_value), i_cell, found
 
     if _takes_bin_order(grid, r.shape[0]):

@@ -29,6 +29,8 @@ package's top-k compaction was a TPU workaround.
 
 from __future__ import annotations
 
+import math
+
 import torch
 
 from . import cand_kernel, walk_kernel
@@ -185,7 +187,7 @@ def _walk_args(grid, r0, r1, ic0, max_steps=None, table=None):
             grid.n_faces_per_cell)
 
 
-def _candidates_query(grid, r, var_slots, max_steps=None):
+def _candidates_query(grid, r, var_slots, max_steps=None, fill=None):
     """Cold containment and fused interpolation via per-bin candidate
     rows (the JAX package's ``_candidates_query``, ops/locate.py:769).
 
@@ -202,6 +204,9 @@ def _candidates_query(grid, r, var_slots, max_steps=None):
     rows cover every bin nothing between the probe and the values reads
     back to the host.
 
+    ``fill``: a scalar that the values take where not found, or None:
+    there they are the best candidate's (or the walk's cell's).
+
     Returns (i_cell (B,) int32, found (B,) bool, values (B, V)).
     """
     if max_steps is None:
@@ -212,16 +217,18 @@ def _candidates_query(grid, r, var_slots, max_steps=None):
     if grid.cand_ext_table is not None:
         ext = (grid.cand_ext_table, cand_table.layout(
             grid, grid.cand_ext_ids.shape[1], var_slots))
-    id_best, aux, values = cand_kernel.cand_rows_binned_query(
-        grid.cand_table, r, grid.cand_rmin, grid.cand_inv_h, grid.cand_shape,
-        cand_table.layout(grid, k_max, var_slots),
-        cand_table.probe_eps(grid), k_max, cand_table.probe_chunk(grid), ext,
-    )
+    args = (grid.cand_table, r, grid.cand_rmin, grid.cand_inv_h,
+            grid.cand_shape, cand_table.layout(grid, k_max, var_slots),
+            cand_table.probe_eps(grid), k_max, cand_table.probe_chunk(grid),
+            ext)
+    if grid.cand_ext_covers and fill is not None:
+        # every bin's complete list fits its row or its extension row: a
+        # miss is exact, and the probe's unsort writes the outputs
+        return cand_kernel.cand_rows_found_query(*args, fill)
+    id_best, aux, values = cand_kernel.cand_rows_binned_query(*args)
     found = aux == -2
     ic = torch.where(found, id_best, -1)
     if grid.cand_ext_covers:
-        # every bin's complete list fits its row or its extension row: a
-        # miss is exact
         return ic, found, values
     with timing.span("iu.locate.miss_walk", grid.device):
         # aux >= 0: a bin beyond K (no extension rows) or K + k_ext
@@ -239,7 +246,10 @@ def _candidates_query(grid, r, var_slots, max_steps=None):
             vals_w = interpolate_at_icell(grid, r[sel], var_slots,
                                           ic_w.clamp_min(0))
             values[sel] = torch.where(found_w[:, None], vals_w, values[sel])
-    return ic, ic >= 0, values
+    found = ic >= 0
+    if fill is not None:
+        values = torch.where(found[:, None], values, float(fill))
+    return ic, found, values
 
 
 def _candidates_query_df(grid, r, var_slots, r_lo=None):
@@ -272,7 +282,8 @@ def locate_candidates(grid, r, max_steps=None):
     """Cold containment via per-bin candidate rows (see
     _candidates_query).  Returns (i_cell, found) with get_cell's
     contract."""
-    ic, found, _ = _candidates_query(grid, _queries(grid, r), (), max_steps)
+    ic, found, _ = _candidates_query(grid, _queries(grid, r), (), max_steps,
+                                     math.nan)
     return ic, found
 
 
@@ -289,7 +300,7 @@ def _get_cell_warm(grid, r, guess, max_steps):
     # Out-of-range guesses fall back to a cold start (the reference
     # error-stops on guess > n_cells, :490)
     guess = torch.where(guess >= grid.n_cells, -1, guess)
-    ic, found, _ = _candidates_query(grid, r, (), max_steps)
+    ic, found, _ = _candidates_query(grid, r, (), max_steps, math.nan)
     with timing.span("iu.locate.miss_walk", grid.device):
         with timing.host_read("warm_miss", found):
             sel = torch.nonzero(~found & (guess >= 0)).squeeze(1)

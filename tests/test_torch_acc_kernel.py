@@ -389,11 +389,15 @@ def test_cuda_b2df_matches_plain(cuda, case):
         assert cand_kernel.bin_unsort_launches == 1
         for a, b in zip(got, want):
             assert torch.equal(a, b)
+        order = cand_kernel.bin_order_cuda(
+            r, *bins, cand_kernel.out_words(lay, g.cand_df_table), df=True,
+            r_lo=lo)
+        idx = cand_kernel.probe_inputs_df_plain(r, lo, *bins)[0]
+        assert cand_kernel.order_mismatches(
+            order, idx, cand_kernel.order_records_plain(r, True, lo)) == 0
         for lanes in (1, 2, 4, 32):
-            _, _, perm, slot = cand_kernel.bin_order_cuda(r, *bins)
             k = cand_kernel.cand_rows_binned_cuda(
-                g.cand_df_table, r, perm, slot, *bins, lay, eps, lay.k,
-                lanes=lanes, r_lo=lo)
+                g.cand_df_table, order, *bins, lay, eps, lay.k, lanes=lanes)
             n = len(lay.var_roles)
             for a, b in zip((k[0], k[1], k[2][:, :n], k[2][:, n:]), want):
                 assert torch.equal(a, b)

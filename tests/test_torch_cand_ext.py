@@ -234,12 +234,14 @@ def test_cuda_ext_probe_matches_plain(cuda, case, covers):
                                             eps, k, 8192)
     assert bool((want[1] >= 0).any()) == (covers == "residual")
     bins = (g.cand_rmin, g.cand_inv_h, g.cand_shape)
-    _, _, perm, slot = cand_kernel.bin_order_cuda(rt, *bins)
+    order = cand_kernel.bin_order_cuda(rt, *bins,
+                                       cand_kernel.out_words(lay, table))
+    assert cand_kernel.order_mismatches(
+        order, idx, cand_kernel.order_records_plain(rt)) == 0
     for lanes in (1, 2, 4, 8, 32):
         before = cand_kernel.ext_launches
-        got = cand_kernel.cand_rows_binned_cuda(table, rt, perm, slot, *bins,
-                                                lay, eps, k, lanes,
-                                                ext=(ext_t, lay_e))
+        got = cand_kernel.cand_rows_binned_cuda(table, order, *bins, lay, eps,
+                                                k, lanes, ext=(ext_t, lay_e))
         torch.cuda.synchronize()
         assert cand_kernel.ext_launches == before + 1
         for a, b in zip(got, want):

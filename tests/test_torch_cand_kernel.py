@@ -366,34 +366,55 @@ def test_cand_wrapper_checks():
     lay = cand_table.layout(tg, k, (0,))
     eps = cand_table.probe_eps(tg)
     grid_args = (tg.cand_rmin, tg.cand_inv_h, tg.cand_shape)
+    n_out = cand_kernel.out_words(lay, tg.cand_table)
     r = torch.full((5, 3), 0.5)
-    perm = torch.arange(5, dtype=torch.int32)
     meta = torch.empty((5, 3), device="meta")
+    n_bins = int(np.prod(tg.cand_shape))
+
+    def order(b=5, rec_words=3, out_words=n_out, bins=n_bins):
+        sz = cand_kernel.order_sizing(b, bins, rec_words, out_words)
+
+        def ints(*shape):
+            return torch.zeros(shape, dtype=torch.int32)
+
+        return cand_kernel.BinOrder(ints(b, rec_words), ints(b), ints(b),
+                                    ints(sz.n_keys), ints(sz.n_keys),
+                                    ints(sz.n_keys), sz)
+
     with pytest.raises(TypeError):  # float32 or float64 queries only
-        cand_kernel.bin_order_cuda(r.half(), *grid_args)
+        cand_kernel.bin_order_cuda(r.half(), *grid_args, n_out)
     with pytest.raises(ValueError):
-        cand_kernel.bin_order_cuda(meta, *grid_args)
+        cand_kernel.bin_order_cuda(meta, *grid_args, n_out)
     with pytest.raises(ValueError):
         cand_kernel.bin_order_cuda(r, tg.cand_rmin.double(), tg.cand_inv_h,
-                                   tg.cand_shape)
+                                   tg.cand_shape, n_out)
+    with pytest.raises(TypeError):  # float64 queries: df-plane rows only
+        cand_kernel.bin_order_cuda(r.double(), *grid_args, n_out)
+    with pytest.raises(ValueError):  # r_lo: df-plane rows only
+        cand_kernel.bin_order_cuda(r, *grid_args, n_out, r_lo=r)
     with pytest.raises(TypeError):
-        cand_kernel.cand_rows_binned_cuda(tg.cand_table, r.double(), perm,
-                                          perm, *grid_args, lay, eps, k)
-    with pytest.raises(ValueError):
-        cand_kernel.cand_rows_binned_cuda(tg.cand_table, r, perm.long(), perm,
+        cand_kernel.cand_rows_binned_cuda(tg.cand_table, (r, r), *grid_args,
+                                          lay, eps, k)
+    with pytest.raises(ValueError):  # the df-plane rows' records
+        cand_kernel.cand_rows_binned_cuda(tg.cand_table, order(rec_words=6),
+                                          *grid_args, lay, eps, k)
+    with pytest.raises(ValueError):  # sized for other results
+        cand_kernel.cand_rows_binned_cuda(tg.cand_table,
+                                          order(out_words=n_out + 1),
+                                          *grid_args, lay, eps, k)
+    with pytest.raises(ValueError):  # made for another bin grid
+        cand_kernel.cand_rows_binned_cuda(tg.cand_table,
+                                          order(bins=10 * n_bins),
                                           *grid_args, lay, eps, k)
     with pytest.raises(ValueError):
-        cand_kernel.cand_rows_binned_cuda(tg.cand_table, r, perm, perm[1:],
+        cand_kernel.cand_rows_binned_cuda(tg.cand_table[:, ::2], order(),
                                           *grid_args, lay, eps, k)
     with pytest.raises(ValueError):
-        cand_kernel.cand_rows_binned_cuda(tg.cand_table[:, ::2], r, perm,
-                                          perm, *grid_args, lay, eps, k)
-    with pytest.raises(ValueError):
-        cand_kernel.cand_rows_binned_cuda(tg.cand_table, meta, perm, perm,
+        cand_kernel.cand_rows_binned_cuda(tg.cand_table.to("meta"), order(),
                                           *grid_args, lay, eps, k)
     with pytest.raises(ValueError):
-        cand_kernel.cand_rows_binned_cuda(tg.cand_table, r, perm, perm,
-                                          *grid_args, lay, eps, k, lanes=3)
+        cand_kernel.cand_rows_binned_cuda(tg.cand_table, order(), *grid_args,
+                                          lay, eps, k, lanes=3)
     # extension rows: the main rows' layout with their own k, a
     # contiguous table of the main table's dtype that the layout fits
     lay_e = cand_table.layout(tg, 5, (0,))
@@ -403,14 +424,15 @@ def test_cand_wrapper_checks():
                 (ext_t.double(), lay_e), (ext_t[:, ::2], lay_e),
                 (ext_t[:, :-2], lay_e)):
         with pytest.raises(ValueError):
-            cand_kernel.cand_rows_binned_cuda(tg.cand_table, r, perm, perm,
+            cand_kernel.cand_rows_binned_cuda(tg.cand_table, order(),
                                               *grid_args, lay, eps, k,
                                               ext=bad)
     df_lay = dataclasses.replace(lay, kind="qdf")
     with pytest.raises(ValueError):
-        cand_kernel.cand_rows_binned_cuda(tg.cand_table, r, perm, perm,
-                                          *grid_args, df_lay, eps, k,
-                                          ext=(ext_t, lay_e))
+        cand_kernel.cand_rows_binned_cuda(
+            tg.cand_table, order(6, cand_kernel.out_words(df_lay,
+                                                          tg.cand_table)),
+            *grid_args, df_lay, eps, k, ext=(ext_t, lay_e))
 
 
 def _skewed(pts, cell_type, tg, dev):
@@ -440,8 +462,8 @@ def _skewed(pts, cell_type, tg, dev):
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", list(CASES))
 def test_cuda_binned_matches_plain(cuda, case):
-    """The bin pass and the scatter give the plain bins, the scan of the
-    counts, the plain grouping and its inverse; the probe in bin order,
+    """The key pass, scan and scatter give the plain counts, scans,
+    records and slots (``order_mismatches``); the probe in bin order,
     with any number of lanes per query, is torch.equal to
     probe_rows_plain on every skewed batch (the extension case
     included)."""
@@ -455,28 +477,22 @@ def test_cuda_binned_matches_plain(cuda, case):
     eps = cand_table.probe_eps(tg)
     grid_args = (tg.cand_rmin, tg.cand_inv_h, tg.cand_shape)
     n_bins = int(np.prod(tg.cand_shape))
+    n_out = cand_kernel.out_words(lay, tg.cand_table)
     for name, r in _skewed(pts, cell_type, tg, cuda).items():
         idx_p, rq = cand_table.probe_inputs(tg, r)
-        idx, ends, perm, slot = cand_kernel.bin_order_cuda(r, *grid_args)
+        order = cand_kernel.bin_order_cuda(r, *grid_args, n_out)
         torch.cuda.synchronize()
-        assert torch.equal(idx, idx_p), name
-        assert torch.equal(ends.long(), torch.cumsum(torch.bincount(
-            idx_p.long(), minlength=n_bins), 0)), name
-        assert torch.equal(torch.sort(perm.long()).values,
-                           torch.arange(len(r), device=cuda)), name
-        assert torch.equal(idx[perm.long()],
-                           idx[cand_kernel.bin_order_plain(idx)]), name
-        assert torch.equal(perm[slot.long()],
-                           torch.arange(len(r), device=cuda,
-                                        dtype=torch.int32)), name
+        assert order.sizing == cand_kernel.order_sizing(
+            len(r), n_bins, 3, n_out), name
+        assert cand_kernel.order_mismatches(
+            order, idx_p, cand_kernel.order_records_plain(r)) == 0, name
         want = cand_kernel.probe_rows_plain(tg.cand_table, idx_p, rq, lay,
                                             eps, k, chunk=8192)
         for lanes in (1, 2, 4, 8, 16, 32):
             before = (cand_kernel.binned_launches,
                       cand_kernel.bin_unsort_launches)
             got = cand_kernel.cand_rows_binned_cuda(
-                tg.cand_table, r, perm, slot, *grid_args, lay, eps, k,
-                lanes=lanes)
+                tg.cand_table, order, *grid_args, lay, eps, k, lanes=lanes)
             torch.cuda.synchronize()
             one = 1 if len(r) else 0
             assert (cand_kernel.binned_launches,
@@ -493,7 +509,7 @@ def test_cuda_binned_matches_plain(cuda, case):
 @pytest.mark.cuda
 def test_cuda_binned_on_the_main_path(cuda):
     """Cold interpolate_scalar_at and get_cell on a candidate grid launch
-    the four bin-ordered kernels, the probe with the extension rows on
+    the bin order's kernels, the probe with the extension rows on
     the extension grid, and read nothing back to the host between the
     probe and the values where the rows cover every bin."""
     for case in ("quantized-tetra", "extension-tetra"):

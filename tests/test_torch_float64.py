@@ -308,7 +308,7 @@ def test_cuda_float64_bruteforce_equals_plain(cuda, mesh):
 
 def _b2_compare(g, r, var_slots):
     """B2's double kernels against their plain versions on the card: the
-    bin pass, probe in bin order and unsort on the main table and, where
+    key pass, scan and scatter, probe and unsort on the main table and, where
     the grid has extension rows, the probe with them against
     probe_rows_ext_plain.  Returns the queries that reach them."""
     k = g.cand_ids.shape[1]
@@ -319,18 +319,15 @@ def _b2_compare(g, r, var_slots):
     chunk = cand_table.probe_chunk(g)
     plain = cand_kernel.probe_rows_plain(g.cand_table, idx, rq, lay, eps, k,
                                          chunk)
-    k_idx, ends, perm, slot = cand_kernel.bin_order_cuda(r, *bins)
-    assert torch.equal(k_idx, idx)
-    assert torch.equal(ends[-1:].long(), torch.tensor([r.shape[0]],
-                                                      device=r.device))
-    assert torch.equal(torch.sort(perm.long()).values,
-                       torch.arange(r.shape[0], device=r.device))
-    assert torch.equal(perm.long()[slot.long()],
-                       torch.arange(r.shape[0], device=r.device))
+    order = cand_kernel.bin_order_cuda(
+        r, *bins, cand_kernel.out_words(lay, g.cand_table))
+    assert order.rec.shape == (r.shape[0], 6)
+    assert cand_kernel.order_mismatches(
+        order, idx, cand_kernel.order_records_plain(r)) == 0
     for lanes in (1, 2, 4, 32):
         _equal(f"B2 in bin order, {lanes} lanes",
-               cand_kernel.cand_rows_binned_cuda(g.cand_table, r, perm, slot,
-                                                 *bins, lay, eps, k, lanes),
+               cand_kernel.cand_rows_binned_cuda(g.cand_table, order, *bins,
+                                                 lay, eps, k, lanes),
                plain)
     if g.cand_ext_table is None:
         return 0
@@ -341,9 +338,8 @@ def _b2_compare(g, r, var_slots):
                                             idx, rq, lay, lay_e, eps, k, chunk)
     for lanes in (1, 2, 4, 32):
         _equal(f"B2 in bin order with the extension rows, {lanes} lanes",
-               cand_kernel.cand_rows_binned_cuda(g.cand_table, r, perm, slot,
-                                                 *bins, lay, eps, k, lanes,
-                                                 ext=ext),
+               cand_kernel.cand_rows_binned_cuda(g.cand_table, order, *bins,
+                                                 lay, eps, k, lanes, ext=ext),
                want)
     return int(sel.numel())
 

@@ -19,7 +19,9 @@ started together).  Grids with extension rows: the 10,368-tet box of
 Designs of the whole probe (main rows, extension rows, merge), each
 first held torch.equal to ``cand_kernel.probe_rows_ext_plain``, then
 timed by CUDA events in turns (old, new, new, old), each from the bin
-order (bin pass, scan and scatter, shared and outside the timing):
+order (key pass, scan and scatter, shared and outside the timing; the
+grouping by bin that the slot-order design takes its misses in is the
+plain stable sort):
 
 - old: the parent's composition: the probe in bin order of the main
   rows and the unsort, a host read of the overflow misses
@@ -142,11 +144,14 @@ def sweep(label, grid, r, lib):
     idx, rq = cand_table.probe_inputs(grid, r)
     want = cand_kernel.probe_rows_ext_plain(grid.cand_table, ext_t, idx, rq,
                                             lay, lay_e, eps, k, chunk)
-    _, _, perm, slot = cand_kernel.bin_order_cuda(r, *bins)
+    order = cand_kernel.bin_order_cuda(
+        r, *bins, cand_kernel.out_words(lay, grid.cand_table))
+    # the queries grouped by bin, for the misses taken in slot order
+    perm = cand_kernel.bin_order_plain(idx)
 
     def main_probe():
-        return cand_kernel.cand_rows_binned_cuda(grid.cand_table, r, perm,
-                                                 slot, *bins, lay, eps, k)
+        return cand_kernel.cand_rows_binned_cuda(grid.cand_table, order,
+                                                 *bins, lay, eps, k)
 
     def old():
         main = main_probe()
@@ -165,8 +170,7 @@ def sweep(label, grid, r, lib):
 
     def new():
         return cand_kernel.cand_rows_binned_cuda(
-            grid.cand_table, r, perm, slot, *bins, lay, eps, k,
-            ext=(ext_t, lay_e))
+            grid.cand_table, order, *bins, lay, eps, k, ext=(ext_t, lay_e))
 
     for name, fn in (("old", old), ("slot order", in_slots), ("new", new)):
         for part, a, b in zip(("id", "aux", "values"), fn(), want):
@@ -193,16 +197,16 @@ def sweep(label, grid, r, lib):
     in_bins = p[main[1][p] >= 0]
     pos = torch.empty(r.shape[0], dtype=torch.int64, device=r.device)
     pos[sel] = torch.arange(n_ext, device=r.device)
-    order = pos[in_bins].to(torch.int32)
+    miss_order = pos[in_bins].to(torch.int32)
     k_t = chip_smoke.turns({
         "main": lambda: cand_kernel.cand_rows_binned_cuda(
-            grid.cand_table, r, perm, slot, *bins, lay, eps, k),
+            grid.cand_table, order, *bins, lay, eps, k),
         "fused": new}, REPS)
     d_t = chip_smoke.turns({
         "query order": lambda: direct(lib, ext_t, a_idx, q, lay_e, eps,
                                       ovf_e),
         "slot order": lambda: direct(lib, ext_t, a_idx, q, lay_e, eps,
-                                     ovf_e, order)}, REPS)
+                                     ovf_e, miss_order)}, REPS)
     print(f"  probe and unsort in turns: main rows only {k_t['main'][0]:.4f} "
           f"/ {k_t['main'][1]:.4f}, with the extension probe "
           f"{k_t['fused'][0]:.4f} / {k_t['fused'][1]:.4f} ms; the direct "
